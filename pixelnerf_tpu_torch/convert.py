@@ -12,7 +12,13 @@ written as `.`, so each leaf maps by its kind:
   `weight`/`bias`/`running_mean`/`running_var`.
 
 bf16 leaves are cast up to float32. Any leaf left unused, and any
-parameter of the model that received no leaf, raises.
+parameter of the model that received no leaf, raises. The BatchNorm
+buffers take the batch statistics, the running averages that a train
+step updates.
+
+`params_from_jax` maps a tree shaped like `params` alone, a gradient tree
+of `jax.grad` for instance, onto the port's parameter names, so that two
+trees compare by name.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "params_from_jax"]
 
 
 def _f32(a) -> torch.Tensor:
@@ -37,6 +43,42 @@ def _flatten(tree, prefix=()) -> Dict[tuple, object]:
             out.update(_flatten(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v
+    return out
+
+
+def _param_leaf(path, leaf):
+    """(port name, float32 tensor) of one `params` leaf."""
+    scope, name = path[:-1], path[-1]
+    key = ".".join(scope)
+    arr = np.asarray(leaf)
+    if name == "kernel" and arr.ndim == 4:
+        return f"{key}.weight", _f32(arr).permute(3, 2, 0, 1).contiguous()
+    if name == "kernel" and arr.ndim == 2:
+        return f"{key}.weight", _f32(arr).t().contiguous()
+    if name == "scale":
+        return f"{key}.weight", _f32(arr)
+    if name == "bias":
+        return f"{key}.bias", _f32(arr)
+    raise ValueError(f"unrecognized leaf {'/'.join(path)} of shape {arr.shape}")
+
+
+def params_from_jax(
+    params: dict, model: Optional[torch.nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """{port parameter name: float32 tensor} for a JAX `params`-shaped tree
+    (parameters or their gradients), in the port's orientation. With
+    `model`, also checks that the names are exactly the model's parameters,
+    with matching shapes."""
+    out = dict(_param_leaf(path, leaf) for path, leaf in _flatten(params).items())
+    if model is not None:
+        want = dict(model.named_parameters())
+        if set(out) != set(want):
+            raise ValueError(
+                f"missing {sorted(set(want) - set(out))}; unused {sorted(set(out) - set(want))}"
+            )
+        for k, v in out.items():
+            if tuple(v.shape) != tuple(want[k].shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} != {tuple(want[k].shape)}")
     return out
 
 
@@ -56,25 +98,16 @@ def state_dict_from_jax(
     used = set()
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in params.items():
-        scope, name = path[:-1], path[-1]
-        key = ".".join(scope)
-        arr = np.asarray(leaf)
-        if name == "kernel" and arr.ndim == 4:
-            sd[f"{key}.weight"] = _f32(arr).permute(3, 2, 0, 1).contiguous()
-        elif name == "kernel" and arr.ndim == 2:
-            sd[f"{key}.weight"] = _f32(arr).t().contiguous()
-        elif name == "scale":
-            sd[f"{key}.weight"] = _f32(arr)
+        name, tensor = _param_leaf(path, leaf)
+        sd[name] = tensor
+        if path[-1] == "scale":
+            key, scope = ".".join(path[:-1]), path[:-1]
             for jax_name, torch_name in (("mean", "running_mean"), ("var", "running_var")):
                 stat = scope + (jax_name,)
                 if stat not in stats:
                     raise ValueError(f"batch_stats missing for {'/'.join(scope)}")
                 sd[f"{key}.{torch_name}"] = _f32(stats[stat])
                 used.add(("batch_stats",) + stat)
-        elif name == "bias":
-            sd[f"{key}.bias"] = _f32(arr)
-        else:
-            raise ValueError(f"unrecognized leaf {'/'.join(path)} of shape {arr.shape}")
         used.add(("params",) + path)
     unused = [
         "batch_stats/" + "/".join(p) for p in stats if ("batch_stats",) + p not in used

@@ -36,19 +36,7 @@
 // Injections are computed per block rather than packed into one product.
 // A later change moves the products to wgmma with TMA-fed rings.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define MAX_LEVELS 4
-#define WARPS 8
-#define THREADS (WARPS * 32)
-#define TILE_ROWS 32  // NS * TB rows of one CTA before the view pooling
-#define NFW 4    // 16-wide column strips per warp per pass
+#include "tile_common.cuh"
 
 struct FieldParams {
   const bf16* feats[MAX_LEVELS];
@@ -70,101 +58,6 @@ struct FieldParams {
   int ns, b, tb, rows_pad, d_in, d_in_pad, hidden, d_latent, d_out,
       n_blocks, combine_layer;
 };
-
-enum { EPI_STORE_X = 0, EPI_ADD_X = 1, EPI_RELU_BF16 = 2 };
-
-// Composed taps on one native axis of size wn for a fine coordinate cf in
-// [0, wf-1]: weights of native indices base, base+1, base+2. Coincident
-// taps add (pyramid_pallas.py:_axis_pairs).
-__device__ __forceinline__ void axis_taps(float cf, int wn, int wf, int* base,
-                                          float w[3]) {
-  w[0] = w[1] = w[2] = 0.f;
-  if (wn == wf) {
-    float j = floorf(cf);
-    float t = cf - j;
-    *base = (int)j;
-    w[0] = 1.f - t;
-    w[1] = t;
-    return;
-  }
-  float r = (wn - 1.0f) / (wf - 1.0f);
-  float j = fminf(floorf(cf), wf - 2.0f);
-  float t = cf - j;
-  float xl = j * r;
-  float xr = (j + 1.0f) * r;
-  float ilf = floorf(xl);
-  float irf = fminf(floorf(xr), wn - 1.0f);
-  float fl = xl - ilf;
-  float fr = xr - irf;
-  int il = (int)ilf;
-  int d = (int)irf - il;  // 0 or 1: r <= 1
-  *base = il;
-  w[0] += (1.f - t) * (1.f - fl);
-  w[1] += (1.f - t) * fl;
-  w[d] += t * (1.f - fr);
-  w[d + 1] += t * fr;
-}
-
-// C (16*mtiles x ncols) from A (16*mtiles x K, bf16, smem) @ W (K x ncols,
-// bf16, global, row-major), two 16-row tiles at a time, with the epilogue
-// applied through a per-warp 16x16 staging tile:
-//   EPI_STORE_X:   X = acc + bias
-//   EPI_ADD_X:     X += acc + bias
-//   EPI_RELU_BF16: Hb = bf16(relu(acc + bias))
-__device__ void tile_gemm(const bf16* A, int lda, int K, int mtiles,
-                          const bf16* W, int ldw, int ncols,
-                          const float* bias, int epi, float* X, int ldx,
-                          bf16* Hb, int ldh, float* stage) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nfrag = ncols / 16;
-  for (int nf0 = warp * NFW; nf0 < nfrag; nf0 += WARPS * NFW)
-  for (int m0 = 0; m0 < mtiles; m0 += 2) {
-    const int mt = mtiles - m0 < 2 ? mtiles - m0 : 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NFW];
-#pragma unroll
-    for (int m = 0; m < 2; m++)
-#pragma unroll
-      for (int j = 0; j < NFW; j++) wmma::fill_fragment(acc[m][j], 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int m = 0; m < 2; m++)
-        if (m < mt) wmma::load_matrix_sync(a[m], A + (m0 + m) * 16 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < NFW; j++) {
-        if (nf0 + j < nfrag) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, W + (size_t)k * ldw + (nf0 + j) * 16, ldw);
-#pragma unroll
-          for (int m = 0; m < 2; m++)
-            if (m < mt) wmma::mma_sync(acc[m][j], a[m], bf, acc[m][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NFW; j++) {
-      if (nf0 + j >= nfrag) continue;
-#pragma unroll
-      for (int m = 0; m < 2; m++) {
-        if (m >= mt) continue;
-        wmma::store_matrix_sync(stage, acc[m][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = (m0 + m) * 16 + e / 16, c = (nf0 + j) * 16 + e % 16;
-          const float v = stage[e] + bias[c];
-          if (epi == EPI_STORE_X) {
-            X[r * ldx + c] = v;
-          } else if (epi == EPI_ADD_X) {
-            X[r * ldx + c] += v;
-          } else {
-            Hb[r * ldh + c] = __float2bfloat16(fmaxf(v, 0.f));
-          }
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1) field_fwd_kernel(FieldParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -237,8 +130,8 @@ __global__ void __launch_bounds__(THREADS, 1) field_fwd_kernel(FieldParams p) {
   __syncthreads();
 
   // 2. x = xin @ W_in + b_in
-  tile_gemm(A, KA, p.d_in_pad, RP / 16, p.w_in, H, H, p.b_in, EPI_STORE_X,
-            X, H, Hb, H, stage);
+  tile_mm<false>(A, KA, p.d_in_pad, RP / 16, p.w_in, H, H, stage,
+                 [&](int r, int c, float v) { X[r * H + c] = v + p.b_in[c]; });
   __syncthreads();
 
   // 3. residual blocks; after the pooling the first tb rows (padded to a
@@ -257,8 +150,9 @@ __global__ void __launch_bounds__(THREADS, 1) field_fwd_kernel(FieldParams p) {
       __syncthreads();
     }
     if (blk < n_inj) {
-      tile_gemm(Z, DL, DL, cur / 16, p.wz + (size_t)blk * DL * H, H, H,
-                p.bz + (size_t)blk * H, EPI_ADD_X, X, H, Hb, H, stage);
+      const float* bz = p.bz + (size_t)blk * H;
+      tile_mm<false>(Z, DL, DL, cur / 16, p.wz + (size_t)blk * DL * H, H, H, stage,
+                     [&](int r, int c, float v) { X[r * H + c] += v + bz[c]; });
       __syncthreads();
     }
     for (int e = threadIdx.x; e < cur * H; e += THREADS) {
@@ -266,11 +160,15 @@ __global__ void __launch_bounds__(THREADS, 1) field_fwd_kernel(FieldParams p) {
       A[r * KA + c] = __float2bfloat16(fmaxf(X[r * H + c], 0.f));
     }
     __syncthreads();
-    tile_gemm(A, KA, H, cur / 16, p.w0 + (size_t)blk * H * H, H, H,
-              p.b0 + (size_t)blk * H, EPI_RELU_BF16, X, H, Hb, H, stage);
+    const float* b0 = p.b0 + (size_t)blk * H;
+    tile_mm<false>(A, KA, H, cur / 16, p.w0 + (size_t)blk * H * H, H, H, stage,
+                   [&](int r, int c, float v) {
+                     Hb[r * H + c] = __float2bfloat16(fmaxf(v + b0[c], 0.f));
+                   });
     __syncthreads();
-    tile_gemm(Hb, H, H, cur / 16, p.w1 + (size_t)blk * H * H, H, H,
-              p.b1 + (size_t)blk * H, EPI_ADD_X, X, H, Hb, H, stage);
+    const float* b1 = p.b1 + (size_t)blk * H;
+    tile_mm<false>(Hb, H, H, cur / 16, p.w1 + (size_t)blk * H * H, H, H, stage,
+                   [&](int r, int c, float v) { X[r * H + c] += v + b1[c]; });
     __syncthreads();
   }
 
@@ -292,10 +190,6 @@ __global__ void __launch_bounds__(THREADS, 1) field_fwd_kernel(FieldParams p) {
   }
 }
 
-static int tile_points(int ns) { return ns < TILE_ROWS ? TILE_ROWS / ns : 1; }
-
-static int tile_rows_padded(int ns) { return (ns * tile_points(ns) + 15) / 16 * 16; }
-
 extern "C" {
 
 size_t pnt_field_fwd_smem_bytes(int hidden, int d_latent, int d_in_pad, int ns) {
@@ -303,10 +197,6 @@ size_t pnt_field_fwd_smem_bytes(int hidden, int d_latent, int d_in_pad, int ns) 
   const size_t rp = tile_rows_padded(ns);
   return rp * hidden * 4 + rp * d_latent * 2 + rp * ka * 2 + rp * hidden * 2 +
          (size_t)WARPS * 256 * 4;
-}
-
-const char* pnt_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError().

@@ -1,8 +1,10 @@
 """Pixel-aligned spatial encoder and the feature lookup.
 
 Counterpart of `pixelnerf_tpu/models/encoder.py`: `SpatialEncoder`,
-`latent_scaling_for`, `pack_pyramid_levels`, `compose_pyramid` and the
-plain branch of `index_features`. Layout is NHWC.
+`latent_scaling_for`, `pack_pyramid_levels`, `compose_pyramid` and
+`index_features`, which looks native levels up with the pyramid kernels
+(ops/pyramid.py) under the JAX package's predicate and composes the
+upsampled map for every other lookup. Layout is NHWC.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from torch import nn
 from pixelnerf_tpu_torch.models.resnet import ResNetTrunk
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
 from pixelnerf_tpu_torch.ops.interpolate import resize_bilinear
+from pixelnerf_tpu_torch.ops.pyramid import (
+    pyramid_index_train, pyramid_index_train_dual, pyramid_supported,
+)
 
 __all__ = [
     "SpatialEncoder",
@@ -40,14 +45,16 @@ def latent_scaling_for(latent_hw: Tuple[int, int], device=None) -> torch.Tensor:
 def pyramid_fused_ok(
     levels, index_interp: str, index_padding: str, upsample_interp: str = "bilinear"
 ) -> bool:
-    """True when the native levels can feed the fused field kernel
-    (ops/field.py): bilinear upsample and lookup with border padding, bf16
-    levels. Otherwise `encode` composes the upsampled pyramid once."""
+    """True when the native levels feed the pyramid kernels (ops/pyramid.py)
+    and the fused field kernel (ops/field.py): bilinear upsample and lookup
+    with border padding, bf16 levels, a fine grid of at most 8192 pixels.
+    Otherwise `encode` composes the upsampled pyramid once."""
     return (
         index_interp == "bilinear"
         and index_padding == "border"
         and upsample_interp == "bilinear"
         and all(l.dtype == torch.bfloat16 for l in levels)
+        and pyramid_supported(tuple(levels[0].shape[1:3]))
     )
 
 
@@ -111,17 +118,33 @@ def index_features(
     index_interp: str = "bilinear",
     index_padding: str = "border",
     upsample_interp: str = "bilinear",
-) -> torch.Tensor:
+    dual: bool = False,
+):
     """Pixel-aligned lookup of (B, N, 2) image points (x, y) in input-pixel
-    coordinates in a (B, Hl, Wl, C) map, or in a tuple of native levels
-    (composed first). Returns (B, N, C)."""
+    coordinates in a (B, Hl, Wl, C) map, or in a tuple of native levels.
+
+    Native levels that `pyramid_fused_ok` accepts go through the pyramid
+    kernels (gradient for the levels, none for uv); other levels are
+    composed first and sampled with `grid_sample_2d`.
+
+    :param dual return the latent twice, for two consumers (the coarse MLP
+        and the fine pass's query cache); on the pyramid path the two
+        cotangents are summed inside the scatter kernel
+    :return (B, N, C); with dual, a pair of (B, N, C)
+    """
     grid = uv * (latent_scaling / image_size) - 1.0
     if isinstance(latent, (tuple, list)):
-        latent = compose_pyramid(latent, upsample_interp, index_interp)
-    return grid_sample_2d(
+        levels = tuple(latent)
+        if pyramid_fused_ok(levels, index_interp, index_padding, upsample_interp):
+            if dual:
+                return pyramid_index_train_dual(levels, grid)
+            return pyramid_index_train(levels, grid)
+        latent = compose_pyramid(levels, upsample_interp, index_interp)
+    out = grid_sample_2d(
         latent, grid, padding_mode=index_padding, align_corners=True,
         mode=index_interp,
     )
+    return (out, out) if dual else out
 
 
 class SpatialEncoder(nn.Module):

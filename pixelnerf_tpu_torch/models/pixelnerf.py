@@ -4,9 +4,13 @@ Counterpart of `pixelnerf_tpu/models/pixelnerf.py`: `encode` returns an
 explicit `SceneEncoding` (latents, world-to-camera poses, intrinsics with
 fy negated), `query` predicts (r, g, b, sigma) at world points, and
 `make_model` builds the model from a `model` config subtree. The fused
-field path (`use_field_fusion`, turned on by eval/render_utils.py) hands
-the native pyramid to the field kernel (ops/field.py); bf16 models build
-the MLP input with the posenc kernel (ops/posenc.py).
+field path (`use_field_fusion`, turned on by eval/render_utils.py, never
+in train mode) hands the native pyramid to the field kernel
+(ops/field.py); otherwise the latent is gathered by `index_features` and
+the MLP runs on the (z, x) pair. bf16 models build the MLP input with the
+posenc kernel (ops/posenc.py). `QueryCache` carries the coarse pass's MLP
+inputs to the fine pass, so each sample is projected, gathered and
+encoded once a step.
 """
 
 from __future__ import annotations
@@ -27,7 +31,19 @@ from pixelnerf_tpu_torch.models.resnetfc import FieldInput, ResnetFC
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_supported
 from pixelnerf_tpu_torch.utils.rays import repeat_interleave
 
-__all__ = ["PixelNeRFNet", "SceneEncoding", "make_model"]
+__all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model"]
+
+
+@dataclasses.dataclass
+class QueryCache:
+    """The coarse pass's per-sample MLP inputs, per ray, for the fine pass.
+
+    z: (SB*NS, R, Kc, d_latent) gathered latent (after stop_encoder_grad);
+    x: (SB*NS, R, Kc, d_in) positional code.
+    """
+
+    z: torch.Tensor
+    x: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -85,6 +101,7 @@ class PixelNeRFNet(nn.Module):
         use_code: bool = False,
         use_code_viewdirs: bool = True,
         use_viewdirs: bool = False,
+        stop_encoder_grad: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -100,6 +117,7 @@ class PixelNeRFNet(nn.Module):
         self.use_code = use_code
         self.use_code_viewdirs = use_code_viewdirs
         self.use_viewdirs = use_viewdirs
+        self.stop_encoder_grad = stop_encoder_grad
         self.dtype = dtype
         # run the fused gather+field kernel in query(); eval renders turn
         # it on (eval/render_utils.py:make_chunk_renderer)
@@ -168,9 +186,18 @@ class PixelNeRFNet(nn.Module):
             and self.code.d_out + 3 == self.d_in
         )
 
+    @property
+    def supports_query_cache(self) -> bool:
+        """The coarse-to-fine dedup path needs a gathered latent to cache,
+        which the fused field path never forms."""
+        return not self.use_field_fusion
+
     def _field_fused_ok(self, enc: SceneEncoding, mlp, ns: int) -> bool:
+        # the field kernel has no backward: never in a train step
         return (
             self.use_field_fusion
+            and not self.training
+            and not self.stop_encoder_grad
             and isinstance(enc.latent, tuple)
             and self.d_in > 0
             and mlp.field_path_ok(ns)
@@ -179,10 +206,18 @@ class PixelNeRFNet(nn.Module):
     def query(
         self, enc: SceneEncoding, xyz: torch.Tensor,
         viewdirs: Optional[torch.Tensor] = None, coarse: bool = True,
-    ) -> torch.Tensor:
+        want_cache: int = 0, cache: Optional[QueryCache] = None,
+    ):
         """:param xyz (SB, B, 3) world points
         :param viewdirs (SB, B, 3) world ray directions
-        :return (SB, B, 4) [sigmoid(rgb), relu(sigma)], float32
+        :param want_cache when > 0 (the samples per ray), also return a
+            QueryCache of the MLP inputs (requires supports_query_cache)
+        :param cache a coarse pass's QueryCache: `xyz` then holds only the
+            new fine samples (R * Kf, ray-major), and the MLP evaluates the
+            cached and the new samples in two calls, ordered [cached (Kc) |
+            new (Kf)] along each ray's sample axis
+        :return (SB, B, 4) [sigmoid(rgb), relu(sigma)], float32; with
+            want_cache, (out, QueryCache)
         """
         SB, B, _ = xyz.shape
         NS = enc.num_views
@@ -229,6 +264,8 @@ class PixelNeRFNet(nn.Module):
         uv = uv * focal[:, None, :] + cc[:, None, :]
 
         if self._field_fused_ok(enc, mlp, NS):
+            if want_cache or cache is not None:
+                raise ValueError("the fused field path forms no latent to cache")
             grid = uv * (enc.latent_scaling / enc.image_size) - 1.0
             fi = FieldInput(
                 feats=tuple(enc.latent), grid=grid,
@@ -236,15 +273,41 @@ class PixelNeRFNet(nn.Module):
             )
             return self._head(mlp(fi, combine_inner_dims=(NS, B)), SB, B)
 
+        # the coarse pass's latent has two consumers, the coarse MLP and the
+        # fine pass's cache: a dual lookup hands the scatter both cotangents
         latent = index_features(
             enc.latent, enc.latent_scaling, uv, enc.image_size,
             index_interp=self.encoder.index_interp,
             index_padding=self.encoder.index_padding,
             upsample_interp=self.encoder.upsample_interp,
+            dual=bool(want_cache),
         )
-        latent = latent.reshape(-1, latent.shape[-1])
-        mlp_output = mlp((latent, mlp_input.to(latent.dtype)), combine_inner_dims=(NS, B))
-        return self._head(mlp_output, SB, B)
+        latent, latent_cache = latent if want_cache else (latent, None)
+        if self.stop_encoder_grad:
+            latent = latent.detach()
+            latent_cache = None if latent_cache is None else latent_cache.detach()
+        C = latent.shape[-1]
+        latent = latent.reshape(-1, C)
+        x = mlp_input.to(latent.dtype)
+        if cache is not None:
+            # two MLP calls over the disjoint [cached | new] rows, then a
+            # per-ray concat of the (R, K, 4) outputs
+            r_rays, kc = cache.z.shape[1], cache.z.shape[2]
+            kf = B // r_rays
+            out_c = mlp(
+                (cache.z.reshape(-1, C), cache.x.reshape(-1, cache.x.shape[-1])),
+                combine_inner_dims=(NS, r_rays * kc),
+            )
+            out_n = mlp((latent, x), combine_inner_dims=(NS, B))
+            mlp_output = torch.cat(
+                [out_c.reshape(SB, r_rays, kc, -1), out_n.reshape(SB, r_rays, kf, -1)], dim=2
+            )
+            return self._head(mlp_output, SB, r_rays * (kc + kf))
+        out = self._head(mlp((latent, x), combine_inner_dims=(NS, B)), SB, B)
+        if not want_cache:
+            return out
+        per_ray = lambda a: a.reshape(SB * NS, -1, want_cache, a.shape[-1])
+        return out, QueryCache(z=per_ray(latent_cache.reshape(-1, C)), x=per_ray(x))
 
     def _head(self, mlp_output: torch.Tensor, SB: int, B: int) -> torch.Tensor:
         """rgb sigmoid and sigma relu heads in float32."""
@@ -263,9 +326,13 @@ def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=Fal
     raise NotImplementedError(f"MLP type {mlp_type} is not ported yet")
 
 
-def make_model(conf, dtype=None, device=None, seed: int = 0) -> PixelNeRFNet:
-    """Build a PixelNeRFNet from a 'model' config subtree, in eval mode, on
-    `device` (CUDA unless the caller passes one; see device.resolve_device).
+def make_model(
+    conf, dtype=None, device=None, seed: int = 0, train: bool = False,
+    stop_encoder_grad: bool = False,
+) -> PixelNeRFNet:
+    """Build a PixelNeRFNet from a 'model' config subtree, in eval mode (or
+    train mode with `train`), on `device` (CUDA unless the caller passes
+    one; see device.resolve_device).
 
     `dtype` is the compute dtype (parameters stay float32): conf key
     `dtype` ('float32' | 'bfloat16'), overridable by the argument. `seed`
@@ -305,7 +372,7 @@ def make_model(conf, dtype=None, device=None, seed: int = 0) -> PixelNeRFNet:
         d_in=d_in, d_latent=d_latent, use_xyz=use_xyz,
         normalize_z=conf.get_bool("normalize_z", True), use_code=use_code,
         use_code_viewdirs=use_code_viewdirs, use_viewdirs=use_viewdirs,
-        dtype=dtype,
+        stop_encoder_grad=stop_encoder_grad, dtype=dtype,
     )
-    return model.to(device).eval()
+    return model.to(device).train(train)
 

@@ -8,8 +8,9 @@ of BasicBlocks. Module names follow the Flax tree (`conv1`, `bn1`,
 `convert.state_dict_from_jax` maps a JAX checkpoint one to one.
 
 Parameters stay float32; convolutions run in the model's compute dtype.
-BatchNorm runs in eval mode on running statistics (eps 1e-5) in float32
-and casts back; training-mode statistics belong to the training path.
+BatchNorm normalizes in float32 and casts back: in eval mode with its
+running statistics, in train mode with the batch's, as Flax
+`nn.BatchNorm(momentum=0.9, epsilon=1e-5)` does (see `BatchNorm`).
 """
 
 from __future__ import annotations
@@ -27,21 +28,43 @@ STAGE_CHANNELS = (64, 128, 256, 512)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the channel axis of an NCHW tensor."""
+    """Batch norm over the channel axis of an NCHW tensor.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Train mode matches Flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`:
+    the statistics are taken in float32 over the batch and both spatial
+    axes, the variance as E[x^2] - E[x]^2 clipped at 0 (biased, as Flax's
+    fast variance), and the running averages move by
+    `running = momentum * running + (1 - momentum) * batch` with the biased
+    variance. (`F.batch_norm(training=True)` would store the unbiased
+    variance, and its `momentum` weights the new value.)
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, training=False, eps=self.eps,
-        )
+        if not self.training:
+            y = F.batch_norm(
+                x.float(), self.running_mean, self.running_var, self.weight,
+                self.bias, training=False, eps=self.eps,
+            )
+            return y.to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(x.dtype)
 
 

@@ -1,9 +1,12 @@
 """Latent-conditioned ResNet-style NeRF MLP.
 
 Counterpart of `pixelnerf_tpu/models/resnetfc.py:ResnetFC`: the per-layer
-path (latent injection below `combine_layer`, view pooling at it) and
-the `FieldInput` path, which hands the native pyramid and the sample
-coordinates to the fused field kernel (ops/field.py). Parameter names
+path (latent injection below `combine_layer`, view pooling at it), the
+fused (z, x) path of bf16 models (`_call_pallas`'s counterpart: the
+ResnetFC kernels of ops/resnetfc.py, with their backward), and the
+`FieldInput` path, which hands the native pyramid and the sample
+coordinates to the fused field kernel (ops/field.py, forward only: it
+raises when autograd would need its gradient). Parameter names
 follow the Flax tree: `lin_in`, `lin_z_{i}`, `block_{i}.fc_{0,1}`,
 `lin_out`, each an `nn.Linear`. Parameters stay float32; the per-layer
 path computes in the model dtype, as Flax's `nn.Dense(dtype=...)` does.
@@ -21,6 +24,7 @@ from torch import nn
 from pixelnerf_tpu_torch.ops.field import (
     FieldWeights, field_supported, pack_field_weights, pyramid_field_fused,
 )
+from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_fused, supported_config
 from pixelnerf_tpu_torch.utils.rays import combine_interleaved
 
 __all__ = ["ResnetFC", "ResnetBlockFC", "FieldInput"]
@@ -117,28 +121,46 @@ class ResnetFC(nn.Module):
             and field_supported(ns, self.n_blocks, self.combine_layer)
         )
 
+    def fused_ok(self, combine_inner_dims) -> bool:
+        """Does a (z, x) call take the fused ResnetFC kernels? The TPU
+        kernel's predicate (`_pallas_ok`), for bf16 models: float32 models
+        keep the exact per-layer chain."""
+        return (
+            self.dtype == torch.bfloat16
+            and len(combine_inner_dims) == 2
+            and supported_config(
+                0.0, False, self.combine_type, self.d_latent, self.d_in,
+                self.combine_layer, self.n_blocks, combine_inner_dims[0],
+            )
+        )
+
+    def weights(self) -> FieldWeights:
+        """The float32 parameters in (in, out) orientation, as views and
+        stacks that autograd follows back to the parameters."""
+        t = lambda lin: lin.weight.t()
+        blocks = [getattr(self, f"block_{i}") for i in range(self.n_blocks)]
+        lin_z = [getattr(self, f"lin_z_{i}") for i in range(self.n_inj)]
+        return FieldWeights(
+            w_in=t(self.lin_in),
+            b_in=self.lin_in.bias,
+            wz=torch.stack([t(l) for l in lin_z]),
+            bz=torch.stack([l.bias for l in lin_z]),
+            w0=torch.stack([t(b.fc_0) for b in blocks]),
+            b0=torch.stack([b.fc_0.bias for b in blocks]),
+            w1=torch.stack([t(b.fc_1) for b in blocks]),
+            b1=torch.stack([b.fc_1.bias for b in blocks]),
+            w_out=t(self.lin_out),
+            b_out=self.lin_out.bias,
+        )
+
     def field_weights(self) -> FieldWeights:
         """The parameters in the fused kernel's packed (in, out) form
         (ops/field.py:pack_field_weights), packed on first use and again
         only after a parameter is replaced or changed in place."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._field_cache is None or self._field_cache[0] != key:
-            t = lambda lin: lin.weight.t()
-            blocks = [getattr(self, f"block_{i}") for i in range(self.n_blocks)]
-            lin_z = [getattr(self, f"lin_z_{i}") for i in range(self.n_inj)]
             with torch.no_grad(), torch.inference_mode(False):
-                packed = pack_field_weights(FieldWeights(
-                    w_in=t(self.lin_in),
-                    b_in=self.lin_in.bias,
-                    wz=torch.stack([t(l) for l in lin_z]),
-                    bz=torch.stack([l.bias for l in lin_z]),
-                    w0=torch.stack([t(b.fc_0) for b in blocks]),
-                    b0=torch.stack([b.fc_0.bias for b in blocks]),
-                    w1=torch.stack([t(b.fc_1) for b in blocks]),
-                    b1=torch.stack([b.fc_1.bias for b in blocks]),
-                    w_out=t(self.lin_out),
-                    b_out=self.lin_out.bias,
-                ))
+                packed = pack_field_weights(self.weights())
             self._field_cache = (key, packed)
         return self._field_cache[1]
 
@@ -151,6 +173,8 @@ class ResnetFC(nn.Module):
         if isinstance(zx, FieldInput):
             return self._call_field(zx, combine_inner_dims)
         z, x = zx
+        if self.fused_ok(combine_inner_dims):
+            return self._call_fused(z, x, combine_inner_dims)
         x = _dense(self.lin_in, x, self.dtype)
         for blk in range(self.n_blocks):
             if blk == self.combine_layer:
@@ -160,10 +184,26 @@ class ResnetFC(nn.Module):
             x = getattr(self, f"block_{blk}")(x, self.dtype)
         return _dense(self.lin_out, torch.relu(x), self.dtype)
 
+    def _call_fused(self, z, x, combine_inner_dims) -> torch.Tensor:
+        ns, b = combine_inner_dims
+        sb = x.shape[0] // (ns * b)
+        out = resnetfc_fused(
+            z.to(torch.bfloat16).reshape(sb, ns, b, -1),
+            x.to(torch.bfloat16).reshape(sb, ns, b, -1),
+            self.weights(), self.n_blocks, self.combine_layer, ns,
+        )
+        return out.reshape(sb * b, self.d_out)
+
     def _call_field(self, fi: FieldInput, combine_inner_dims) -> torch.Tensor:
         ns, b = combine_inner_dims
         if not self.field_path_ok(ns):
             raise ValueError("FieldInput passed but the fused field path does not apply")
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            raise RuntimeError(
+                "the fused field kernel has no backward: call the FieldInput path "
+                "under torch.no_grad() or torch.inference_mode(), or query without "
+                "use_field_fusion to train"
+            )
         m = fi.x.shape[0]
         sb = m // (ns * b)
         out = pyramid_field_fused(

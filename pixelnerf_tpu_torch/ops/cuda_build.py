@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into a shared library under `build/pixelnerf_tpu_torch/` at
-the repository root, named by a hash of its source, at first use; the
-library is loaded with `ctypes`. Nothing is built when a module is
-imported.
+the repository root, named by a hash of its source and of the shared
+headers (`csrc/*.cuh`), at first use; the library is loaded with `ctypes`.
+`build_libraries` starts one `nvcc` per source, all at once. Nothing is
+built when a module is imported.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build_library", "load_library"]
+__all__ = ["build_libraries", "load_library", "SOURCES", "SMEM_LIMIT"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "pixelnerf_tpu_torch"
+SOURCES = ("field_fwd", "pyramid", "resnetfc_fwd", "resnetfc_bwd")
+SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use
 
 
 def _nvcc() -> str:
@@ -38,8 +41,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
+    h = hashlib.sha256((_SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -51,26 +56,36 @@ def _command(name: str, out: Path) -> list:
     ]
 
 
-def build_library(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless its library is current. Returns the
-    compiler's output (register and shared-memory use from `-Xptxas -v`),
-    empty when nothing was built."""
-    out = _lib_path(name)
-    if out.exists():
-        return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+def build_libraries(names) -> dict:
+    """Compile each `csrc/<name>.cu` whose library is not current, one
+    `nvcc` per source, all started together. Returns each name's compiler
+    output (register and shared-memory use from `-Xptxas -v`), empty when
+    nothing was built; raises if any build failed."""
+    started = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        started[name] = (proc, tmp, out)
+    logs, failed = {name: "" for name in names}, []
+    for name, (proc, tmp, out) in started.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    build_library(name)
+    build_libraries([name])
     return ctypes.CDLL(str(_lib_path(name)))

@@ -15,7 +15,10 @@ launch in `pyramid_field_fused.launches`; CPU tensors take
 chain, with the kernel's cast points (z cast to bf16 after a float32
 gather, bf16 matmul operands, float32 accumulation and residual stream).
 Both take the weights as `pack_field_weights` leaves them; packing
-packed weights copies nothing.
+packed weights copies nothing. The kernel has no backward (the TPU
+kernel's VJP is still to be ported), so `pyramid_field_fused` raises when
+autograd is recording and an input needs a gradient, rather than return
+a result that silently drops it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from pixelnerf_tpu_torch.models.encoder import compose_pyramid
+from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
 
 __all__ = [
@@ -39,7 +43,6 @@ __all__ = [
 ]
 
 _MAX_LEVELS = 4
-_SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use
 
 
 class FieldWeights(NamedTuple):
@@ -156,8 +159,6 @@ def _check(feats, grid, xin, w, n_blocks, combine_layer, ns):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built `csrc/field_fwd.cu`, its C signatures bound once."""
-    from pixelnerf_tpu_torch.ops.cuda_build import load_library
-
     lib = load_library("field_fwd")
     lib.pnt_field_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.pnt_field_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -193,9 +194,9 @@ def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns):
         raise ValueError("weights must be on the grid's device")
     lib = _library()
     smem = lib.pnt_field_fwd_smem_bytes(hidden, d_latent, d_in_pad, ns)
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"a field tile of {ns} views needs {smem} B of shared memory (> {_SMEM_LIMIT})"
+            f"a field tile of {ns} views needs {smem} B of shared memory (> {SMEM_LIMIT})"
         )
     grid = grid.contiguous()
     xin = xin.contiguous()
@@ -238,6 +239,13 @@ def pyramid_field_fused(
     """
     feats = tuple(feats)
     _check(feats, grid, xin, weights, n_blocks, combine_layer, ns)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*feats, grid, xin, *weights)
+    ):
+        raise RuntimeError(
+            "pyramid_field_fused has no backward: an input requires grad while "
+            "autograd is recording; run it under torch.no_grad()"
+        )
     if grid.device.type == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns)
     if grid.device.type != "cuda":

@@ -1,0 +1,402 @@
+"""Fused ResnetFC on a (z, x) pair, with its backward.
+
+Replaces the TPU kernels of `pixelnerf_tpu/ops/resnetfc_pallas.py`:
+`_fwd_kernel` (the primal), `_fwd_stash_kernel` (the primal that also
+writes the bf16 relu'd activations for the backward) and `_bwd_kernel`
+(dz, dxin and every weight gradient from that stash, with no forward
+recomputation). The CUDA C++ kernels are `csrc/resnetfc_fwd.cu` (one
+kernel; null stash pointers make it the primal) and `csrc/resnetfc_bwd.cu`;
+their header notes give the bound on the H100 (operations) and the design.
+
+The cast points are the TPU kernel's (`_dot`, `_dot_t`, `_dot_g`): every
+matmul operand is bf16, both operands of the weight-gradient products
+included, and every product and sum is float32; the residual stream is
+float32; the relu masks of the backward come from the bf16 stash (> 0).
+The port's stash layout is its own: `stash_pre` (2k, SB, NS, B, H) holds
+[relu(block_in) | relu(h1)] of the k blocks before the view pooling (NS >
+1), `stash_post` (2m+1, SB, B, H) those of the m others and relu(x_final).
+
+`resnetfc_fused` is the entry point: with autograd recording and an input
+that needs a gradient it runs the stash forward and, on backward, the
+backward kernel (a `torch.autograd.Function` whose saved tensors are the
+stash); otherwise it runs the stash-free forward. Each of
+`resnetfc_fwd`, `resnetfc_fwd_stash` and `resnetfc_bwd` launches its
+kernel on CUDA tensors and counts the launch (`.launches`); on CPU tensors
+it takes its plain version (`*_plain`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
+from pixelnerf_tpu_torch.ops.field import FieldWeights, pack_field_weights
+
+__all__ = [
+    "resnetfc_fused",
+    "resnetfc_fwd",
+    "resnetfc_fwd_stash",
+    "resnetfc_bwd",
+    "resnetfc_fwd_plain",
+    "resnetfc_bwd_plain",
+    "supported_config",
+    "stash_layout",
+]
+
+_GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/resnetfc_bwd.cu)
+
+_BF = torch.bfloat16
+
+
+def supported_config(
+    beta: float, use_spade: bool, combine_type: str, d_latent: int, d_in: int,
+    combine_layer: Optional[int] = None, n_blocks: Optional[int] = None,
+    ns: Optional[int] = None,
+) -> bool:
+    """Configurations the fused kernels take (the TPU kernel's
+    `supported_config`): ReLU, no SPADE, average pooling, a latent and a
+    positional code; with combine_layer/n_blocks known, at least one latent
+    injection and, unless ns == 1 is known, the pooling inside the chain."""
+    if not (beta == 0.0 and not use_spade and combine_type == "average"
+            and d_latent > 0 and d_in > 0):
+        return False
+    if combine_layer is not None and n_blocks is not None:
+        if min(combine_layer, n_blocks) == 0:
+            return False
+        if (ns is None or ns > 1) and combine_layer >= n_blocks:
+            return False
+    return True
+
+
+def stash_layout(n_blocks: int, combine_layer: int, ns: int) -> Tuple[int, int]:
+    """(k, m): blocks before the view pooling (NS > 1) and after it."""
+    k = min(combine_layer, n_blocks) if ns > 1 else 0
+    return k, n_blocks - k
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with bf16 operands, float32 products and sums."""
+    return a.to(_BF).float() @ w.to(_BF).float()
+
+
+def _dot_t(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T with bf16 operands: (..., N) x (K, N) -> (..., K)."""
+    return a.to(_BF).float() @ w.to(_BF).float().t()
+
+
+def _dot_g(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """a^T @ g over all rows, both bf16: (..., K) x (..., N) -> (K, N)."""
+    return a.reshape(-1, a.shape[-1]).to(_BF).float().t() @ g.reshape(-1, g.shape[-1]).to(_BF).float()
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the last."""
+    return t.reshape(-1, t.shape[-1]).sum(dim=0)
+
+
+def resnetfc_fwd_plain(
+    z: torch.Tensor, xin: torch.Tensor, w: FieldWeights, n_blocks: int,
+    combine_layer: int, ns: int, stash: bool = False,
+):
+    """The plain version of the forward kernel: (SB, B, d_out) float32, and
+    with `stash` also (stash_pre or None, stash_post)."""
+    sb, _, b, _ = z.shape
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    n_inj = min(combine_layer, n_blocks)
+    d_in = xin.shape[-1]
+    if ns == 1:
+        z, xin = z[:, 0], xin[:, 0]
+    x = _dot(xin, w.w_in[:d_in]) + w.b_in
+    bins, h1s = [], []
+    for blk in range(n_blocks):
+        if blk == combine_layer and ns > 1:
+            x = x.mean(dim=1)
+        if blk < n_inj:
+            x = x + (_dot(z, w.wz[blk]) + w.bz[blk])
+        rx = torch.relu(x).to(_BF)
+        rh = torch.relu(_dot(rx, w.w0[blk]) + w.b0[blk]).to(_BF)
+        x = x + (_dot(rh, w.w1[blk]) + w.b1[blk])
+        bins.append(rx)
+        h1s.append(rh)
+    rxf = torch.relu(x).to(_BF)
+    out = _dot(rxf, w.w_out) + w.b_out
+    if not stash:
+        return out
+    spre = torch.stack(bins[:k] + h1s[:k]) if k else None
+    spost = torch.stack(bins[k:] + h1s[k:] + [rxf])
+    return out, spre, spost
+
+
+def resnetfc_bwd_plain(
+    z: torch.Tensor, xin: torch.Tensor, g: torch.Tensor,
+    stash_pre: Optional[torch.Tensor], stash_post: torch.Tensor,
+    w: FieldWeights, n_blocks: int, combine_layer: int, ns: int,
+):
+    """The plain version of the backward kernel: (dz in z's dtype, dxin in
+    xin's dtype, FieldWeights of float32 weight gradients with w_in
+    (d_in, H))."""
+    sb, _, b, dl = z.shape
+    d_in = xin.shape[-1]
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    n_inj = min(combine_layer, n_blocks)
+    zz, xx = (z[:, 0], xin[:, 0]) if ns == 1 else (z, xin)
+
+    def act(blk, h1):
+        if blk < k:
+            return stash_pre[k * h1 + blk]
+        return stash_post[m * h1 + blk - k]
+
+    g = g.float()
+    rxf = stash_post[2 * m]
+    db_out, dw_out = _rows(g), _dot_g(rxf, g)
+    gx = _dot_t(g, w.w_out) * (rxf > 0)
+    dw0, db0, dw1, db1 = [None] * n_blocks, [None] * n_blocks, [None] * n_blocks, [None] * n_blocks
+    g_inj = [None] * n_inj
+    for blk in reversed(range(n_blocks)):
+        rx, rh = act(blk, 0), act(blk, 1)
+        db1[blk], dw1[blk] = _rows(gx), _dot_g(rh, gx)
+        gh1 = _dot_t(gx, w.w1[blk]) * (rh > 0)
+        db0[blk], dw0[blk] = _rows(gh1), _dot_g(rx, gh1)
+        gx = gx + _dot_t(gh1, w.w0[blk]) * (rx > 0)
+        if blk < n_inj:
+            g_inj[blk] = gx
+        if blk == combine_layer and ns > 1:
+            gx = (gx / float(ns))[:, None].expand(sb, ns, b, gx.shape[-1])
+    gz = sum(_dot_t(g_inj[i], w.wz[i]) for i in range(n_inj))
+    dxin = _dot_t(gx, w.w_in[:d_in])
+    if ns == 1:
+        gz, dxin = gz[:, None], dxin[:, None]
+    dw = FieldWeights(
+        w_in=_dot_g(xx, gx), b_in=_rows(gx),
+        wz=torch.stack([_dot_g(zz, gi) for gi in g_inj]),
+        bz=torch.stack([_rows(gi) for gi in g_inj]),
+        w0=torch.stack(dw0), b0=torch.stack(db0), w1=torch.stack(dw1), b1=torch.stack(db1),
+        w_out=dw_out, b_out=db_out,
+    )
+    return gz.to(z.dtype), dxin.to(xin.dtype), dw
+
+
+def _check(z, xin, w, n_blocks, combine_layer, ns):
+    if z.ndim != 4 or z.shape[1] != ns:
+        raise ValueError(f"z must be (SB, {ns}, B, d_latent), got {tuple(z.shape)}")
+    if xin.ndim != 4 or xin.shape[:3] != z.shape[:3]:
+        raise ValueError(f"xin must be (SB, NS, B, d_in) like z, got {tuple(xin.shape)}")
+    if w.wz.shape[1] != z.shape[3] or w.w_in.shape[0] < xin.shape[3]:
+        raise ValueError("weights do not match d_latent / d_in")
+    if w.wz.shape[0] != min(combine_layer, n_blocks) or w.w0.shape[0] != n_blocks:
+        raise ValueError("weight stacks do not match n_blocks / combine_layer")
+    if not supported_config(0.0, False, "average", z.shape[3], xin.shape[3],
+                            combine_layer, n_blocks, ns):
+        raise ValueError(
+            f"unsupported config ns={ns} n_blocks={n_blocks} combine_layer={combine_layer}"
+        )
+
+
+def _device_of(z: torch.Tensor, what: str) -> str:
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {z.device}")
+    return z.device.type
+
+
+def _cuda_inputs(z, xin, w):
+    device = z.device
+    for t in (z, xin):
+        if t.dtype != _BF or t.device != device:
+            raise TypeError("z and xin must be bf16 tensors on one device")
+    w = pack_field_weights(w)
+    if any(t.device != device for t in w):
+        raise ValueError("weights must be on z's device")
+    hidden = w.w_in.shape[1]
+    if hidden % 16 or z.shape[3] % 16:
+        raise ValueError("d_hidden and d_latent must be multiples of 16")
+    return z.contiguous(), xin.contiguous(), w
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    """A built `csrc/<name>.cu`, its C signatures bound once."""
+    lib = load_library(name)
+    lib.pnt_error_string.restype = ctypes.c_char_p
+    lib.pnt_error_string.argtypes = [ctypes.c_int]
+    if name == "resnetfc_fwd":
+        lib.pnt_resnetfc_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.pnt_resnetfc_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.pnt_resnetfc_fwd.restype = ctypes.c_int
+        lib.pnt_resnetfc_fwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p
+        ]
+    else:
+        lib.pnt_resnetfc_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.pnt_resnetfc_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.pnt_resnetfc_bwd.restype = ctypes.c_int
+        lib.pnt_resnetfc_bwd.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ]
+    return lib
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.pnt_error_string(err).decode()}")
+
+
+def _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
+    z, xin, w = _cuda_inputs(z, xin, w)
+    sb, _, b, dl = z.shape
+    d_in = xin.shape[3]
+    d_in_pad, hidden = w.w_in.shape
+    d_out = w.w_out.shape[1]
+    lib = _library("resnetfc_fwd")
+    smem = lib.pnt_resnetfc_fwd_smem_bytes(hidden, dl, d_in_pad, ns)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a ResnetFC tile of {ns} views needs {smem} B of shared memory")
+    out = torch.empty((sb, b, d_out), dtype=torch.float32, device=z.device)
+    spre = spost = None
+    if stash:
+        k, m = stash_layout(n_blocks, combine_layer, ns)
+        if k:
+            spre = torch.empty((2 * k, sb, ns, b, hidden), dtype=_BF, device=z.device)
+        spost = torch.empty((2 * m + 1, sb, b, hidden), dtype=_BF, device=z.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = lib.pnt_resnetfc_fwd(
+        z.data_ptr(), xin.data_ptr(), *[t.data_ptr() for t in w], out.data_ptr(),
+        ptr(spre), ptr(spost), sb, ns, b, dl, d_in, d_in_pad, hidden, d_out,
+        n_blocks, combine_layer, torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _raise_on(err, lib, "resnetfc_fwd")
+    return out, spre, spost
+
+
+def resnetfc_fwd(z, xin, w: FieldWeights, n_blocks: int, combine_layer: int, ns: int):
+    """The stash-free forward: (SB, B, d_out) float32.
+
+    :param z (SB, NS, B, d_latent), xin (SB, NS, B, d_in), bf16 on CUDA
+    :param w FieldWeights in (in, out) orientation, float32 or packed
+    """
+    _check(z, xin, w, n_blocks, combine_layer, ns)
+    if _device_of(z, "resnetfc_fwd") == "cpu":
+        return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns)
+    out = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=False)[0]
+    resnetfc_fwd.launches += 1
+    return out
+
+
+resnetfc_fwd.launches = 0
+
+
+def resnetfc_fwd_stash(z, xin, w: FieldWeights, n_blocks: int, combine_layer: int, ns: int):
+    """The forward that also writes the bf16 stash: (out, stash_pre or
+    None, stash_post)."""
+    _check(z, xin, w, n_blocks, combine_layer, ns)
+    if _device_of(z, "resnetfc_fwd_stash") == "cpu":
+        return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns, stash=True)
+    res = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=True)
+    resnetfc_fwd_stash.launches += 1
+    return res
+
+
+resnetfc_fwd_stash.launches = 0
+
+
+def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,
+                 combine_layer: int, ns: int):
+    """dz, dxin and the float32 weight gradients (FieldWeights, w_in
+    (d_in, H)) from the stash of `resnetfc_fwd_stash` and the output
+    cotangent g (SB, B, d_out)."""
+    _check(z, xin, w, n_blocks, combine_layer, ns)
+    if _device_of(z, "resnetfc_bwd") == "cpu":
+        return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+    z, xin, wp = _cuda_inputs(z, xin, w)
+    sb, _, b, dl = z.shape
+    d_in = xin.shape[3]
+    d_in_pad, hidden = wp.w_in.shape
+    d_out = wp.w_out.shape[1]
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    n_inj = min(combine_layer, n_blocks)
+    if d_out > _GOUT_LD:
+        raise ValueError(f"d_out must be at most {_GOUT_LD}")
+    lib = _library("resnetfc_bwd")
+    smem = lib.pnt_resnetfc_bwd_smem_bytes(hidden, dl, ns)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a ResnetFC backward tile of {ns} views needs {smem} B of shared memory")
+    dev = z.device
+    g = g.to(device=dev, dtype=torch.float32).contiguous()
+    if g.shape != (sb, b, d_out):
+        raise ValueError(f"g must be {(sb, b, d_out)}, got {tuple(g.shape)}")
+    empty = lambda *s: torch.empty(s, dtype=_BF, device=dev)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    gpre = empty(2 * k, sb, ns, b, hidden) if k else None
+    gpost = empty(2 * m, sb, b, hidden)
+    gin = empty(sb, ns, b, hidden)
+    gout = empty(sb, b, _GOUT_LD)
+    dz, dxin = torch.empty_like(z), torch.empty_like(xin)
+    dw = FieldWeights(
+        w_in=zeros(d_in, hidden), b_in=zeros(hidden), wz=zeros(n_inj, dl, hidden),
+        bz=zeros(n_inj, hidden), w0=zeros(n_blocks, hidden, hidden), b0=zeros(n_blocks, hidden),
+        w1=zeros(n_blocks, hidden, hidden), b1=zeros(n_blocks, hidden),
+        w_out=zeros(hidden, d_out), b_out=zeros(d_out),
+    )
+    if (stash_pre is None) != (k == 0) or stash_post.shape != (2 * m + 1, sb, b, hidden):
+        raise ValueError("the stash does not match this configuration")
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    tensors = [
+        z, xin, g, stash_pre, stash_post, wp.w_in, wp.wz, wp.w0, wp.w1, wp.w_out,
+        gpre, gpost, gin, gout, dz, dxin, dw.w_in, dw.b_in, dw.wz, dw.bz, dw.w0,
+        dw.b0, dw.w1, dw.b1, dw.w_out, dw.b_out,
+    ]
+    tensors = [None if t is None else t.contiguous() for t in tensors]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
+    dims = (ctypes.c_int * 10)(sb, ns, b, dl, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer)
+    err = lib.pnt_resnetfc_bwd(ptrs, dims, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "resnetfc_bwd")
+    resnetfc_bwd.launches += 1
+    return dz, dxin, dw
+
+
+resnetfc_bwd.launches = 0
+
+
+class _ResnetFCFn(torch.autograd.Function):
+    """Forward with stash, backward from it: the stash is the saved
+    tensors (no recomputation)."""
+
+    @staticmethod
+    def forward(ctx, z, xin, n_blocks, combine_layer, ns, *weights):
+        w = FieldWeights(*weights)
+        out, spre, spost = resnetfc_fwd_stash(z, xin, w, n_blocks, combine_layer, ns)
+        ctx.cfg = (n_blocks, combine_layer, ns)
+        ctx.has_pre = spre is not None
+        ctx.save_for_backward(z, xin, spost, *([spre] if spre is not None else []), *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, xin, spost, *rest = ctx.saved_tensors
+        spre = rest.pop(0) if ctx.has_pre else None
+        w = FieldWeights(*rest)
+        dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *ctx.cfg)
+        return (dz, dxin, None, None, None) + tuple(dw)
+
+
+def resnetfc_fused(
+    z: torch.Tensor, xin: torch.Tensor, weights: FieldWeights, n_blocks: int,
+    combine_layer: int, ns: int,
+) -> torch.Tensor:
+    """Run the fused ResnetFC on a flattened point batch.
+
+    :param z (SB, NS, B, d_latent) conditioning latents
+    :param xin (SB, NS, B, d_in) positional-code features
+    :param weights FieldWeights of the float32 parameters in (in, out)
+        orientation; their gradients come back in the same shapes
+    :return (SB, B, d_out) float32
+    """
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (z, xin, *weights)
+    )
+    if not needs_grad:
+        return resnetfc_fwd(z, xin, weights, n_blocks, combine_layer, ns)
+    return _ResnetFCFn.apply(z, xin, n_blocks, combine_layer, ns, *weights)

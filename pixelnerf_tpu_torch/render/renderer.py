@@ -1,9 +1,13 @@
 """NeRF volume renderer, coarse then fine.
 
 Counterpart of `pixelnerf_tpu/render/renderer.py` (`RendererConfig` and
-the plain branch of `render_rays`): the fine pass merges the importance
-and depth samples with the coarse z, sorts them, and queries the fine
-field at the sorted samples. Random draws come from a `torch.Generator`.
+`render_rays`): the fine pass merges the importance and depth samples with
+the coarse z, sorts them, and queries the fine field at the sorted
+samples; with `query_cache` it queries the fine field at the cached coarse
+samples and the new ones unsorted, then sorts z and gathers the four output
+channels into composite order (the JAX package's one-hot permute exists
+only because a TPU has no fast gather). Random draws come from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from pixelnerf_tpu_torch.ops.sampling import (
 __all__ = ["RendererConfig", "render_rays"]
 
 # query_fn(xyz (SB, B, 3), viewdirs (SB, B, 3) | None, coarse: bool) -> (SB, B, 4)
+# With query_cache=True the renderer calls the extended contract
+# query_fn(xyz, viewdirs, coarse, want_cache: int, cache) (see
+# models.pixelnerf.QueryCache)
 QueryFn = Callable[[torch.Tensor, Optional[torch.Tensor], bool], torch.Tensor]
 
 
@@ -75,17 +82,24 @@ def _sample_points(rays_flat, z_samp, superbatch, use_viewdirs):
 
 
 def _composite(query_fn, rays_flat, z_samp, cfg, superbatch, coarse,
-               use_viewdirs, generator, train):
-    """Evaluate the field at the samples and alpha-composite."""
+               use_viewdirs, generator, train, want_cache: int = 0):
+    """Evaluate the field at the samples and alpha-composite; with
+    want_cache, also return the query's cache."""
     B, K = z_samp.shape
     points, viewdirs = _sample_points(rays_flat, z_samp, superbatch, use_viewdirs)
-    out = query_fn(points, viewdirs, coarse).reshape(B, K, -1)
-    return alpha_composite(
+    cache = None
+    if want_cache:
+        out, cache = query_fn(points, viewdirs, coarse, want_cache, None)
+    else:
+        out = query_fn(points, viewdirs, coarse)
+    out = out.reshape(B, K, -1)
+    res = alpha_composite(
         out[..., :3], out[..., 3], z_samp, rays_flat,
         white_bkgd=cfg.white_bkgd,
         noise_std=cfg.noise_std if train else 0.0,
         generator=generator,
     )
+    return res + (cache,) if want_cache else res
 
 
 def render_rays(
@@ -96,12 +110,17 @@ def render_rays(
     want_weights: bool = False,
     use_viewdirs: bool = True,
     train: bool = False,
+    query_cache: bool = False,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Render a ray batch coarse (+fine).
 
     :param rays (SB, B, 8) [origin, dir, near, far]
     :param generator source of every random draw (none when perturb=0
         and noise_std=0)
+    :param query_cache dedup the fine pass's coarse samples: their
+        projection, gather and positional code come from the coarse pass
+        (query_fn must take the extended contract); the field is pointwise,
+        so the per-sample outputs, and the sorted z, equal the plain path's
     :return {'coarse': {'rgb' (SB,B,3), 'depth' (SB,B), 'weights'?},
         'fine': ...}
     """
@@ -110,14 +129,16 @@ def render_rays(
     superbatch = rays.shape[0]
     rays_flat = rays.reshape(-1, 8)
 
+    want_cache = cfg.n_coarse if (query_cache and cfg.using_fine) else 0
     z_coarse = sample_coarse(
         rays_flat, cfg.n_coarse, cfg.lindisp, perturb=cfg.perturb,
         generator=generator,
     )
-    weights_c, rgb_c, depth_c = _composite(
+    res = _composite(
         query_fn, rays_flat, z_coarse, cfg, superbatch, True, use_viewdirs,
-        generator, train,
+        generator, train, want_cache=want_cache,
     )
+    weights_c, rgb_c, depth_c = res[:3]
 
     def fmt(weights, rgb, depth, K):
         out = {
@@ -146,10 +167,26 @@ def render_rays(
                 )
             )
         z_combine = torch.cat([z_coarse] + new_samps, dim=-1)
-        z_sorted = torch.sort(z_combine, dim=-1).values
-        weights_f, rgb_f, depth_f = _composite(
-            query_fn, rays_flat, z_sorted, cfg, superbatch, False,
-            use_viewdirs, generator, train,
-        )
+        if want_cache and new_samps:
+            z_new = torch.cat(new_samps, dim=-1)
+            points_new, viewdirs_new = _sample_points(
+                rays_flat, z_new, superbatch, use_viewdirs
+            )
+            out = query_fn(points_new, viewdirs_new, False, 0, res[3])
+            out = out.reshape(z_combine.shape[0], z_combine.shape[1], -1)
+            z_sorted, idx = torch.sort(z_combine, dim=-1, stable=True)
+            out = torch.gather(out, 1, idx[..., None].expand(-1, -1, out.shape[-1]))
+            weights_f, rgb_f, depth_f = alpha_composite(
+                out[..., :3], out[..., 3], z_sorted, rays_flat,
+                white_bkgd=cfg.white_bkgd,
+                noise_std=cfg.noise_std if train else 0.0,
+                generator=generator,
+            )
+        else:
+            z_sorted = torch.sort(z_combine, dim=-1).values
+            weights_f, rgb_f, depth_f = _composite(
+                query_fn, rays_flat, z_sorted, cfg, superbatch, False,
+                use_viewdirs, generator, train,
+            )
         outputs["fine"] = fmt(weights_f, rgb_f, depth_f, z_combine.shape[-1])
     return outputs

@@ -1,0 +1,231 @@
+"""Training and eval steps: ray sampling on the device, render, loss, Adam.
+
+Counterpart of `pixelnerf_tpu/train/step.py`. A step samples target
+pixels and builds their rays on the device (`sample_rays`), encodes the
+source views in train mode (batch-statistics BatchNorm), renders coarse
+and fine with the query cache, takes lambda_coarse * rgb_loss(coarse) +
+lambda_fine * rgb_loss(fine) (+ an optional opacity loss), runs backward
+and `torch.optim.Adam` (the `optax.adam` update: b1 0.9, b2 0.999, eps
+1e-8, eps_root 0, the same bias correction). Nothing is recomputed in the
+backward: the fused MLP keeps its bf16 stash as saved tensors, the JAX
+package's `remat="auto"` choice when its fused MLP runs.
+
+Batch (tensors on the model's device):
+    images (SB, NV, H, W, 3) in [-1, 1], poses (SB, NV, 4, 4) camera-to-world
+    focal (SB, 2), c (SB, 2); bbox (SB, NV, 4) [x0, y0, x1, y1] optional;
+    z_bounds (SB, 2) optional per-object [near, far]
+    src_images (SB, NS, H, W, 3), src_poses (SB, NS, 4, 4); src_c optional
+    or images_u8 (uint8) + image_ord (SB, NS) in place of images and the
+    source views; or rays (SB, R, 8) + rgb_gt (SB, R, 3), which bypass the
+    sampler. Random draws come from a `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from pixelnerf_tpu_torch.models.losses import mse_loss
+from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
+
+__all__ = ["make_optimizer", "make_train_step", "make_eval_step", "sample_rays"]
+
+
+def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """Adam with optax.adam's constants."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Expand a compact batch: uint8 images to [-1, 1] float32, and the
+    source views gathered by index."""
+    if "images_u8" not in batch:
+        return batch
+    out = dict(batch)
+    u8 = out.pop("images_u8")
+    ordv = out.pop("image_ord").long()
+    images = u8.float() / 127.5 - 1.0
+    sb, ns = ordv.shape
+    out["images"] = images
+    out["src_images"] = torch.gather(
+        images, 1, ordv[:, :, None, None, None].expand(sb, ns, *images.shape[2:])
+    )
+    out["src_poses"] = torch.gather(out["poses"], 1, ordv[:, :, None, None].expand(sb, ns, 4, 4))
+    return out
+
+
+def sample_rays(
+    images: torch.Tensor,
+    poses: torch.Tensor,
+    focal: torch.Tensor,
+    c: torch.Tensor,
+    z_near: float,
+    z_far: float,
+    num_rays: int,
+    bbox: Optional[torch.Tensor] = None,
+    lindisp_bounds: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """Sample target pixels across all views and build their rays.
+
+    :param images (SB, NV, H, W, 3) in [-1, 1]
+    :param bbox (SB, NV, 4) [x0, y0, x1, y1]; None samples all pixels
+    :param draws the random draws, given instead of drawn: `pix` (SB, R)
+        in [0, NV*H*W) without bbox; `vid` (SB, R) in [0, NV) and `ux`,
+        `uy` (SB, R) in [0, 1) with it
+    :return (rays (SB, R, 8), rgb_gt (SB, R, 3) in [0, 1])
+    """
+    sb, nv, h, w, _ = images.shape
+    dev = images.device
+    draws = draws or {}
+    shape = (sb, num_rays)
+    if bbox is not None:
+        vid = draws.get("vid")
+        if vid is None:
+            vid = torch.randint(0, nv, shape, generator=generator, device=dev)
+        ux, uy = draws.get("ux"), draws.get("uy")
+        if ux is None:
+            ux = torch.rand(shape, generator=generator, device=dev)
+        if uy is None:
+            uy = torch.rand(shape, generator=generator, device=dev)
+        boxes = torch.gather(bbox.float(), 1, vid.long()[..., None].expand(sb, num_rays, 4))
+        x = (ux * (boxes[..., 2] + 1 - boxes[..., 0]) + boxes[..., 0]).long().clamp(0, w - 1)
+        y = (uy * (boxes[..., 3] + 1 - boxes[..., 1]) + boxes[..., 1]).long().clamp(0, h - 1)
+        vid = vid.long()
+    else:
+        pix = draws.get("pix")
+        if pix is None:
+            pix = torch.randint(0, nv * h * w, shape, generator=generator, device=dev)
+        pix = pix.long()
+        vid = pix // (h * w)
+        rem = pix % (h * w)
+        y, x = rem // w, rem % w
+
+    flat = images.reshape(sb, nv * h * w, 3)
+    idx = vid * (h * w) + y * w + x
+    rgb_gt = torch.gather(flat, 1, idx[..., None].expand(sb, num_rays, 3)) * 0.5 + 0.5
+
+    fx, fy = focal[:, None, 0], focal[:, None, 1]
+    cx, cy = c[:, None, 0], c[:, None, 1]
+    dx = (x.float() - cx) / fx
+    dy = -(y.float() - cy) / fy
+    d_cam = torch.stack([dx, dy, -torch.ones_like(dx)], dim=-1)
+    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    pose_sel = torch.gather(poses, 1, vid[..., None, None].expand(sb, num_rays, 4, 4))
+    origins = pose_sel[..., :3, 3]
+    dirs = torch.einsum("brij,brj->bri", pose_sel[..., :3, :3], d_cam)
+    if lindisp_bounds is not None:
+        near = lindisp_bounds[:, None, 0:1].expand(sb, num_rays, 1)
+        far = lindisp_bounds[:, None, 1:2].expand(sb, num_rays, 1)
+    else:
+        near = torch.full((sb, num_rays, 1), z_near, device=dev)
+        far = torch.full((sb, num_rays, 1), z_far, device=dev)
+    return torch.cat([origins, dirs, near, far], dim=-1), rgb_gt
+
+
+def _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox):
+    if "rays" in batch:
+        return batch["rays"], batch["rgb_gt"]
+    return sample_rays(
+        batch["images"], batch["poses"], batch["focal"], batch["c"], z_near, z_far,
+        num_rays, bbox=batch.get("bbox") if use_bbox else None,
+        lindisp_bounds=batch.get("z_bounds"), generator=generator,
+    )
+
+
+def _render(model, batch, rays, rcfg, generator, train, want_weights=False):
+    enc = model.encode(
+        batch["src_images"], batch["src_poses"], batch["focal"], batch.get("src_c", batch["c"])
+    )
+
+    def query_fn(xyz, viewdirs, coarse, want_cache=0, cache=None):
+        return model.query(enc, xyz, viewdirs, coarse, want_cache, cache)
+
+    return render_rays(
+        query_fn, rays, rcfg, generator=generator, want_weights=want_weights,
+        use_viewdirs=model.use_viewdirs, train=train,
+        query_cache=model.supports_query_cache,
+    )
+
+
+def make_train_step(
+    model,
+    rcfg: RendererConfig,
+    optimizer: torch.optim.Optimizer,
+    num_rays: int,
+    z_near: float,
+    z_far: float,
+    lambda_coarse: float = 1.0,
+    lambda_fine: float = 1.0,
+    rgb_loss_fn: Optional[Callable] = None,
+    rgb_fine_loss_fn: Optional[Callable] = None,
+    use_bbox: bool = False,
+    alpha_loss_fn: Optional[Callable] = None,
+) -> Callable:
+    """train_step(batch, generator=None) -> aux {'rc', 'rf', ['ra'], 't'}:
+    one step that updates `model` (parameters and BatchNorm running
+    statistics) and `optimizer` in place. The parameters' `.grad` hold the
+    step's gradients afterwards.
+
+    :param alpha_loss_fn fn(alpha (SB, R)) -> scalar opacity loss on the
+        finest head's composited alpha, already epoch-gated by the caller
+    """
+    rgb_loss_fn = rgb_loss_fn or mse_loss
+    rgb_fine_loss_fn = rgb_fine_loss_fn or rgb_loss_fn
+
+    def train_step(batch, generator: Optional[torch.Generator] = None):
+        batch = _prepare_batch(batch)
+        model.train()
+        rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox)
+        out = _render(model, batch, rays, rcfg, generator, True, alpha_loss_fn is not None)
+        loss_c = rgb_loss_fn(out["coarse"]["rgb"], rgb_gt)
+        loss = lambda_coarse * loss_c
+        aux = {"rc": lambda_coarse * loss_c}
+        if "fine" in out:
+            loss_f = rgb_fine_loss_fn(out["fine"]["rgb"], rgb_gt)
+            loss = loss + lambda_fine * loss_f
+            aux["rf"] = lambda_fine * loss_f
+        if alpha_loss_fn is not None:
+            head = out.get("fine", out["coarse"])
+            loss_a = alpha_loss_fn(head["weights"].sum(dim=-1))
+            loss = loss + loss_a
+            aux["ra"] = loss_a
+        aux["t"] = loss
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in aux.items()}
+
+    return train_step
+
+
+def make_eval_step(
+    model,
+    rcfg: RendererConfig,
+    num_rays: int,
+    z_near: float,
+    z_far: float,
+    lambda_coarse: float = 1.0,
+    lambda_fine: float = 1.0,
+) -> Callable:
+    """eval_step(batch, generator=None) -> aux {'rc', 'rf', 't'}: the
+    losses on held-out data, with eval-mode BatchNorm and no gradient (the
+    fused MLP then runs its stash-free forward)."""
+
+    @torch.no_grad()
+    def eval_step(batch, generator: Optional[torch.Generator] = None):
+        batch = _prepare_batch(batch)
+        model.eval()
+        rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, False)
+        out = _render(model, batch, rays, rcfg, generator, False)
+        aux = {"rc": lambda_coarse * mse_loss(out["coarse"]["rgb"], rgb_gt)}
+        total = aux["rc"]
+        if "fine" in out:
+            aux["rf"] = lambda_fine * mse_loss(out["fine"]["rgb"], rgb_gt)
+            total = total + aux["rf"]
+        aux["t"] = total
+        return aux
+
+    return eval_step

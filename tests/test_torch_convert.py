@@ -21,7 +21,7 @@ import torch
 
 from pixelnerf_tpu.models.pixelnerf import make_model as j_make_model
 from pixelnerf_tpu.utils.hocon import load as j_load
-from pixelnerf_tpu_torch.convert import state_dict_from_jax
+from pixelnerf_tpu_torch.convert import params_from_jax, state_dict_from_jax
 from pixelnerf_tpu_torch.models.pixelnerf import make_model
 from pixelnerf_tpu_torch.utils.hocon import load
 
@@ -105,3 +105,23 @@ def test_encode_query_match_jax_on_trained_weights(trained):
             got = model.query(enc, torch.from_numpy(xyz), torch.from_numpy(vd), coarse)
             np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
             assert want[..., 3].max() > 0  # some density
+
+
+def test_params_from_jax_names_the_flagship_tree(trained):
+    """A params-shaped tree (here the flagship's parameters standing in
+    for a gradient tree of the same shapes) maps onto exactly the port's
+    parameter names, in the port's orientation; a wrong tree raises."""
+    variables, model, sd = trained
+    named = params_from_jax(variables["params"], model)
+    assert set(named) == {n for n, _ in model.named_parameters()}
+    for n, t in named.items():
+        assert torch.equal(t, sd[n]), n
+    assert named["mlp_coarse.lin_in.weight"].shape == (512, 42)  # (out, in)
+    assert named["encoder.model.conv1.weight"].shape == (64, 3, 7, 7)  # OIHW
+    bad = copy.deepcopy(variables["params"])
+    bad["mlp_fine"]["lin_out"]["kernel"] = np.zeros((4, 512), np.float32)
+    with pytest.raises(ValueError):
+        params_from_jax(bad, model)
+    del bad["mlp_fine"]["lin_out"]
+    with pytest.raises(ValueError):
+        params_from_jax(bad, model)

@@ -6,16 +6,28 @@ Run on a machine with an NVIDIA Hopper GPU:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances: posenc, one bf16 ulp at the largest |value| (< 4): 2^-6; the
-field, 2e-2 absolute plus 2e-2 relative on outputs of O(1) — both sides
-use bf16 operands and float32 sums, in different orders, so an activation
-may round to a neighbouring bf16 value and carry that through the blocks.
+field and the ResnetFC forward, 2e-2 absolute plus 2e-2 relative on
+outputs of O(1) — both sides use bf16 operands and float32 sums, in
+different orders, so an activation may round to a neighbouring bf16 value
+and carry that through the blocks; every ResnetFC gradient, 2e-2 of its
+largest magnitude at worst and 1e-2 relative in Frobenius norm (bf16 dz
+and dxin one bf16 ulp more). The pyramid gather: one bf16 ulp plus 1e-6
+(the same exact products summed in another order); the scatter: 1e-4
+relative plus 1e-5 (float32 atomics add in any order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pixelnerf_tpu_torch.ops import resnetfc as ops_resnetfc
 from pixelnerf_tpu_torch.ops.field import FieldWeights, field_plain, pyramid_field_fused
+from pixelnerf_tpu_torch.ops.pyramid import (
+    pyramid_gather, pyramid_gather_plain, pyramid_scatter_add, pyramid_scatter_add_plain,
+)
+from pixelnerf_tpu_torch.ops.resnetfc import (
+    resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+)
 from pixelnerf_tpu_torch.utils.hocon import loads
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
 
@@ -165,3 +177,97 @@ def test_query_three_views_launches_the_field_kernel(cuda):
         want = model_cpu.query(enc.to("cpu"), xyz, vd, coarse=False)
     assert got.shape == want.shape == (1, 50, 4)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-2)
+
+
+PYR_SHAPES = [(16, 16, 64), (4, 4, 64), (2, 2, 128)]
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 5])
+def test_pyramid_kernels_match_plain(cuda, ns):
+    rng = np.random.default_rng(ns)
+    b, n = 2 * ns, 1000 + ns
+    csizes = [c for (_, _, c) in PYR_SHAPES]
+    hws = [(h, w) for (h, w, _) in PYR_SHAPES]
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(b, h, w, c)), torch.bfloat16) for (h, w, c) in PYR_SHAPES]
+    uv = t(rng.uniform(-1.2, 1.2, size=(b, n, 2)))
+    before = pyramid_gather.launches
+    got = pyramid_gather(feats, uv)
+    torch.cuda.synchronize()
+    assert pyramid_gather.launches == before + 1
+    want = pyramid_gather_plain(feats, uv)
+    assert got.shape == want.shape == (b, n, sum(csizes)) and got.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= 2.0 ** -7 * want.float().abs() + 1e-6).all()
+    dz, dz2 = (t(rng.normal(size=(b, n, sum(csizes))), torch.bfloat16) for _ in range(2))
+    for second in (None, dz2):
+        before = pyramid_scatter_add.launches
+        got = pyramid_scatter_add(uv, dz, csizes, hws, hws[0], dz2=second)
+        torch.cuda.synchronize()
+        assert pyramid_scatter_add.launches == before + 1
+        want = pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=second)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def _mlp_case(rng, cuda, ns, sb, b, hidden=64, d_latent=64, n_blocks=5, combine=3):
+    d_in = 42
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    m = lambda *shape: t(rng.normal(size=shape, scale=1.0 / np.sqrt(shape[-2] if len(shape) > 1 else 10)))
+    n_inj = min(combine, n_blocks)
+    w = FieldWeights(
+        w_in=m(d_in, hidden), b_in=m(hidden), wz=m(n_inj, d_latent, hidden), bz=m(n_inj, hidden),
+        w0=m(n_blocks, hidden, hidden), b0=m(n_blocks, hidden),
+        w1=m(n_blocks, hidden, hidden), b1=m(n_blocks, hidden), w_out=m(hidden, 4), b_out=m(4),
+    )
+    z = t(rng.normal(size=(sb, ns, b, d_latent)), torch.bfloat16)
+    xin = t(rng.normal(size=(sb, ns, b, d_in)), torch.bfloat16)
+    g = t(rng.normal(size=(sb, b, 4)))
+    return z, xin, w, g
+
+
+def _grad_close(got, want, extra_ulp=False):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape
+    tol = 2e-2 * want.abs().max() + (2.0 ** -7 * want.abs() if extra_ulp else 0.0)
+    assert ((got - want).abs() <= tol).all()
+    assert (got - want).norm() <= 1e-2 * want.norm() + 1e-12
+
+
+@pytest.mark.parametrize("ns,sb,b", [(1, 2, 50), (2, 2, 37), (3, 1, 45), (5, 2, 13)])
+def test_resnetfc_kernels_match_plain(cuda, ns, sb, b):
+    rng = np.random.default_rng(ns * 100 + b)
+    combine = 3 if ns > 1 else 1000
+    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, combine=combine)
+    n_blocks = 5
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches)
+    out = resnetfc_fwd(z, xin, w, n_blocks, combine, ns)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, n_blocks, combine, ns)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, n_blocks, combine, ns)
+    torch.cuda.synchronize()
+    assert (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches) == tuple(
+        x + 1 for x in before
+    )
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, n_blocks, combine, ns, stash=True)
+    assert torch.equal(out, out_s) and out.shape == (sb, b, 4)
+    torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2)
+    assert (spre is None) == (wpre is None) and spost.shape == wpost.shape
+    # the plain backward from the kernel's stash (the backwards then differ
+    # only in their own rounding)
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, n_blocks, combine, ns)
+    _grad_close(dz, wdz, extra_ulp=True)
+    _grad_close(dxin, wdxin, extra_ulp=True)
+    for name in FieldWeights._fields:
+        _grad_close(getattr(dw, name), getattr(wdw, name))
+
+
+def test_failed_resnetfc_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (here: more shared memory than a block
+    may have, past the wrapper's own check) raises; nothing is counted."""
+    rng = np.random.default_rng(0)
+    z, xin, w, _ = _mlp_case(rng, cuda, 33, 1, 4, hidden=512, d_latent=512)
+    monkeypatch.setattr(ops_resnetfc, "SMEM_LIMIT", 1 << 30)
+    before = resnetfc_fwd.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        resnetfc_fwd(z, xin, w, 5, 3, 33)
+    assert resnetfc_fwd.launches == before

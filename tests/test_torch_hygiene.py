@@ -34,7 +34,10 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"field.py", "posenc.py", "pixelnerf.py", "chip_smoke.py"} <= names
+    assert {
+        "field.py", "posenc.py", "pyramid.py", "resnetfc.py", "pixelnerf.py", "losses.py",
+        "step.py", "convert.py", "chip_smoke.py",
+    } <= names
 
 
 def test_entry_point_without_device_raises_when_no_gpu(monkeypatch):
@@ -50,6 +53,7 @@ def test_entry_point_without_device_raises_when_no_gpu(monkeypatch):
 def test_kernel_wrappers_refuse_other_devices():
     from pixelnerf_tpu_torch.ops.field import FieldWeights, pyramid_field_fused
     from pixelnerf_tpu_torch.ops.posenc import posenc_concat
+    from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_bwd, resnetfc_fwd, resnetfc_fwd_stash
 
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError):
@@ -66,3 +70,12 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         pyramid_field_fused([t(2, 8, 8, 32)], t(1, 2, 5, 2), t(1, 2, 5, 42), w, 2, 1, 2)
     assert pyramid_field_fused.launches == before
+    mlp = (resnetfc_fwd, resnetfc_fwd_stash, resnetfc_bwd)
+    before = [f.launches for f in mlp]
+    z, xin = t(1, 2, 5, 32), t(1, 2, 5, 42)
+    for fn in mlp[:2]:
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            fn(z, xin, w, 2, 1, 2)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        resnetfc_bwd(z, xin, t(1, 5, 4), t(2, 1, 2, 5, 16), t(3, 1, 5, 16), w, 2, 1, 2)
+    assert [f.launches for f in mlp] == before
