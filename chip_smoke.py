@@ -7,13 +7,17 @@ Phases, each failing loudly (an exception and a non-zero exit):
 
 1. require CUDA, print the card's name and power limit, turn TF32 off;
 2. build the package's CUDA sources (`csrc/*.cu`), one nvcc each, at once;
-3. hold each hand-written kernel against its plain PyTorch version on the
-   card at the shapes its path gives it, and time both with CUDA events:
-   posenc and the field at the render's two chunk shapes (coarse, fine);
-   the pyramid gather and scatter and the ResnetFC forward, forward with
-   stash and backward at the train step's shapes (bench.py's: 4 objects x
-   1024 rays, 2 source views, 64 coarse + 32 fine samples), every
-   gradient of the backward and of the scatter included;
+3. hold each of the eleven hand-written kernels against its plain PyTorch
+   version on the card at the shapes its path gives it, and time both with
+   CUDA events: posenc and the field at the render's two chunk shapes
+   (coarse, fine); the pyramid gather and scatter and the ResnetFC
+   forward, forward with stash and backward at the train step's shapes
+   (bench.py's: 4 objects x 1024 rays, 2 source views, 64 coarse + 32
+   fine samples); the field's stash forward and backward at the fused
+   train step's (64 coarse and all 96 fine samples a ray through the
+   field); the bilerp gather and scatter at the nearest-upsampling step's
+   (8 composed 64x64x512 maps, 65,536 and 32,768 points a map); every
+   gradient of the backwards and of the scatters included;
 4. the serving slice: the flagship srn.conf model in bf16 with seeded
    random weights (non-zero fc_1) encodes two synthetic 128x128 views and
    renders one full 128x128 target view through `render_full`; launch
@@ -23,12 +27,23 @@ Phases, each failing loudly (an exception and a non-zero exit):
 5. the training path at bench.py's shapes: one train step and one eval
    step, each with the launch counters zeroed just before and read just
    after (every kernel of the path must launch as often as the step
-   needs it), then warm-up and 10 timed steps (train rays/s, peak memory),
+   needs it), then warm-up and timed steps (train rays/s, peak memory),
    one step under torch.profiler, and one step of the card held against
-   the CPU plain step on the same parameters and injected rays;
-6. a `kernels` JSON line, the card line, and the result line. A kernel's
+   the CPU plain step on the same parameters and injected rays (bf16 and
+   float32);
+6. path A, training through the fused field: phase 5 for
+   `model.with_field_fusion()` (the field's stash forward and backward in
+   the train step, its primal in the eval step, no pyramid or ResnetFC
+   kernel), its card step held against the CPU plain step in bf16;
+7. path B, srn.conf with `encoder.upsample_interp = nearest` (set in
+   code): phase 4's view (the bilerp gather and the ResnetFC forward) and
+   phase 5's train step (the bilerp gather and scatter and the ResnetFC
+   stash forward and backward), its card step held against the CPU plain
+   step in bf16;
+8. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
-   one view (posenc, field) or of one train step (the others).
+   one view (posenc, field) or of one train step (the others); its
+   launches are the most that one counted run of phases 4-7 made.
 """
 
 from __future__ import annotations
@@ -65,28 +80,50 @@ CPU_RAYS = 256
 
 # the train step (bench.py:30-38): SB objects x RAYS rays, NV views of
 # which NS are sources, 64 coarse + 16 importance + 16 depth samples; the
-# fine pass queries the 64 cached coarse samples and the 32 new ones
+# fine pass queries the 64 cached coarse samples and the 32 new ones, or,
+# through the fused field (no query cache), all 96
 SB, NV, TRAIN_NS, TRAIN_SIZE, TRAIN_RAYS = 4, 3, 2, 128, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 N_COARSE, N_NEW = 64, 32
 MLP_CALLS = {"coarse": N_COARSE, "fine cached": N_COARSE, "fine new": N_NEW}
 LOOKUPS = {"coarse": N_COARSE, "fine new": N_NEW}
+FIELD_CALLS = {"coarse": N_COARSE, "fine": N_COARSE + N_NEW}
 LEVELS = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]  # srn.conf at 128x128
+COMPOSED = (64, 64, 512)  # the nearest-upsampled pyramid, one map a view
 D_IN, HIDDEN, D_OUT, N_BLOCKS, COMBINE = 42, 512, 4, 5, 3
-# launches a train step and an eval step make (the table in PERF.md)
-TRAIN_LAUNCHES = {
-    "posenc_concat": 2, "pyramid_field_fused": 0, "pyramid_gather": 2,
-    "pyramid_scatter_add": 2, "resnetfc_fwd": 0, "resnetfc_fwd_stash": 3, "resnetfc_bwd": 3,
-}
-EVAL_LAUNCHES = {
-    "posenc_concat": 2, "pyramid_field_fused": 0, "pyramid_gather": 2,
-    "pyramid_scatter_add": 0, "resnetfc_fwd": 3, "resnetfc_fwd_stash": 0, "resnetfc_bwd": 0,
-}
-# kernels against plain versions: the gather, one bf16 ulp (the same exact
-# products summed in another order); the scatter, float32 atomics in any
-# order; the ResnetFC forward as the field; its gradients, bf16 operands
-# and float32 sums in other orders through 5 blocks: max error <= 5e-2 of
-# the largest magnitude, Frobenius error <= 2e-2 relative
+KERNELS = (
+    "posenc_concat", "pyramid_field_fused", "pyramid_field_fused_fwd_stash",
+    "pyramid_field_fused_bwd", "pyramid_gather", "pyramid_scatter_add", "resnetfc_fwd",
+    "resnetfc_fwd_stash", "resnetfc_bwd", "bilerp_gather", "bilerp_scatter_add",
+)
+
+
+def _launch_table(**counts):
+    table = dict.fromkeys(KERNELS, 0)
+    table.update(counts)
+    return table
+
+
+# launches each counted run makes (the table in PERF.md)
+VIEW_LAUNCHES = _launch_table(posenc_concat=2, pyramid_field_fused=2)
+TRAIN_LAUNCHES = _launch_table(
+    posenc_concat=2, pyramid_gather=2, pyramid_scatter_add=2, resnetfc_fwd_stash=3, resnetfc_bwd=3,
+)
+EVAL_LAUNCHES = _launch_table(posenc_concat=2, pyramid_gather=2, resnetfc_fwd=3)
+FUSED_TRAIN_LAUNCHES = _launch_table(
+    posenc_concat=2, pyramid_field_fused_fwd_stash=2, pyramid_field_fused_bwd=2,
+)
+FUSED_EVAL_LAUNCHES = _launch_table(posenc_concat=2, pyramid_field_fused=2)
+NEAREST_VIEW_LAUNCHES = _launch_table(posenc_concat=2, bilerp_gather=2, resnetfc_fwd=2)
+NEAREST_TRAIN_LAUNCHES = _launch_table(
+    posenc_concat=2, bilerp_gather=2, bilerp_scatter_add=2, resnetfc_fwd_stash=3, resnetfc_bwd=3,
+)
+NEAREST_EVAL_LAUNCHES = _launch_table(posenc_concat=2, bilerp_gather=2, resnetfc_fwd=3)
+# kernels against plain versions: the gathers, one bf16 ulp (the same exact
+# products summed in another order); the scatters, float32 atomics in any
+# order; the ResnetFC and field forwards as the field; their gradients,
+# bf16 operands and float32 sums in other orders through 5 blocks: max
+# error <= 5e-2 of the largest magnitude, Frobenius error <= 2e-2 relative
 SCATTER_RTOL, SCATTER_ATOL = 1e-4, 1e-4
 GRAD_MAX, GRAD_FRO = 5e-2, 2e-2
 # card step vs CPU plain step (perturb=0, injected rays, full width): the
@@ -144,6 +181,65 @@ def _look_at(np, eye):
     return pose.astype(np.float32)
 
 
+def _record(name, route, source, replaces, res, bound_by, library_ms):
+    return dict(
+        name=name, route=route, source=source, replaces=replaces, **res,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def _ulp_check(torch, name, got, want):
+    """The gathers: within one bf16 ulp of the plain version (plus 1e-6)."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff - 2.0 ** -7 * want.float().abs() - 1e-6
+    if not (torch.isfinite(got.float()).all() and bad.max().item() <= 0):
+        i = int(bad.argmax())
+        raise AssertionError(
+            f"{name} disagrees with its plain version: {int((bad > 0).sum())} elements, "
+            f"worst at flat index {i}: kernel {got.flatten()[i].item()} plain "
+            f"{want.flatten()[i].item()}; finite {bool(torch.isfinite(got.float()).all())}"
+        )
+    return diff.max().item()
+
+
+def _grad_err(got, want):
+    """(max abs error, max abs error / max |want|, relative Frobenius error)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    scale = want.abs().max().item() + 1e-30
+    return d.max().item(), d.max().item() / scale, ((got - want).norm() / (want.norm() + 1e-30)).item()
+
+
+def _check_grads(torch, label, pairs, verbose):
+    """Every (name, kernel, plain) gradient within GRAD_MAX of its scale and
+    GRAD_FRO Frobenius; returns the largest absolute error."""
+    worst = 0.0
+    for name, a, b in pairs:
+        mx, mrel, fro = _grad_err(a, b)
+        worst = max(worst, mx)
+        if not (torch.isfinite(a.float()).all() and mrel <= GRAD_MAX and fro <= GRAD_FRO):
+            raise AssertionError(f"{label} {name}: max/scale {mrel:.3e}, frobenius {fro:.3e}")
+        if verbose:
+            print(f"{label} {name}: max_abs_err={mx:.3e} max/scale={mrel:.3e} frobenius={fro:.3e}")
+    print(f"{label}: every gradient within {GRAD_MAX} of its scale and {GRAD_FRO} Frobenius")
+    return worst
+
+
+def _random_weights(torch, g, dev, d_latent):
+    """Random (in, out) ResnetFC weights of the flagship head; fc_1 non-zero
+    (a zero-initialized fc_1 would hide the block chain)."""
+    from pixelnerf_tpu_torch.ops.field import FieldWeights
+
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+    return FieldWeights(
+        w_in=rnd(D_IN, HIDDEN, scale=D_IN ** -0.5), b_in=rnd(HIDDEN, scale=0.1),
+        wz=rnd(3, d_latent, HIDDEN, scale=d_latent ** -0.5), bz=rnd(3, HIDDEN, scale=0.1),
+        w0=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=HIDDEN ** -0.5), b0=rnd(N_BLOCKS, HIDDEN, scale=0.1),
+        w1=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=0.5 * HIDDEN ** -0.5), b1=rnd(N_BLOCKS, HIDDEN, scale=0.1),
+        w_out=rnd(HIDDEN, D_OUT, scale=HIDDEN ** -0.5), b_out=rnd(D_OUT, scale=0.1),
+    )
+
+
 def check_posenc(torch, dev):
     from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
 
@@ -181,35 +277,22 @@ def check_posenc(torch, dev):
 
 def check_field(torch, np, dev):
     from pixelnerf_tpu_torch.ops.field import (
-        FieldWeights, field_flops, field_plain, pack_field_weights, pyramid_field_fused,
+        field_flops, field_plain, pack_field_weights, pyramid_field_fused,
     )
 
     ns, sb = NS, 1
-    d_in, hidden, d_out, n_blocks, combine = 42, 512, 4, 5, 3
-    shapes = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
-    d_latent = sum(c for _, _, c in shapes)
+    d_latent = sum(c for _, _, c in LEVELS)
     g = torch.Generator(device=dev).manual_seed(2)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
-
-    feats = [rnd(sb * ns, h, w, c).to(torch.bfloat16) for h, w, c in shapes]
+    feats = [(torch.randn((sb * ns, h, w, c), generator=g, device=dev)).to(torch.bfloat16) for h, w, c in LEVELS]
     # packed once, as ResnetFC.field_weights packs a head's weights
-    w = pack_field_weights(FieldWeights(
-        w_in=rnd(d_in, hidden, scale=d_in ** -0.5), b_in=rnd(hidden, scale=0.1),
-        wz=rnd(3, d_latent, hidden, scale=d_latent ** -0.5), bz=rnd(3, hidden, scale=0.1),
-        w0=rnd(n_blocks, hidden, hidden, scale=hidden ** -0.5), b0=rnd(n_blocks, hidden, scale=0.1),
-        # non-zero fc_1: a zero-initialized fc_1 would hide the block chain
-        w1=rnd(n_blocks, hidden, hidden, scale=0.5 * hidden ** -0.5), b1=rnd(n_blocks, hidden, scale=0.1),
-        w_out=rnd(hidden, d_out, scale=hidden ** -0.5), b_out=rnd(d_out, scale=0.1),
-    ))
+    w = pack_field_weights(_random_weights(torch, g, dev, d_latent))
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for chunk, k in CHUNK_SAMPLES.items():
         b = CHUNK_RAYS * k
         grid = torch.rand((sb, ns, b, 2), generator=g, device=dev) * 2.2 - 1.1
-        xin = rnd(sb, ns, b, d_in).to(torch.bfloat16)
-        run = lambda: pyramid_field_fused(feats, grid, xin, w, n_blocks, combine, ns)
-        plain = lambda: field_plain(feats, grid, xin, w, n_blocks, combine, ns)
+        xin = (torch.randn((sb, ns, b, D_IN), generator=g, device=dev)).to(torch.bfloat16)
+        run = lambda: pyramid_field_fused(feats, grid, xin, w, N_BLOCKS, COMBINE, ns)
+        plain = lambda: field_plain(feats, grid, xin, w, N_BLOCKS, COMBINE, ns)
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -217,7 +300,7 @@ def check_field(torch, np, dev):
         err = diff.max().item()
         excess = (diff - (FIELD_ATOL + FIELD_RTOL * want.abs())).max().item()
         print(
-            f"field {chunk}: NS={ns} B={b} hidden={hidden} max_abs_err={err:.3e} "
+            f"field {chunk}: NS={ns} B={b} hidden={HIDDEN} max_abs_err={err:.3e} "
             f"mean_abs_err={diff.mean().item():.3e} |out| mean={want.abs().mean().item():.3f} "
             f"(tolerance {FIELD_ATOL} + {FIELD_RTOL}*|plain|)"
         )
@@ -226,10 +309,10 @@ def check_field(torch, np, dev):
         del got, want, diff
         ms = _time_ms(torch, run, 1, 5)
         plain_ms = _time_ms(torch, plain, 1, 2)
-        flops = field_flops(ns, d_in, d_latent, hidden, d_out, n_blocks, combine) * b * sb
+        flops = field_flops(ns, D_IN, d_latent, HIDDEN, D_OUT, N_BLOCKS, COMBINE) * b * sb
         nbytes = (
             sum(f.numel() * 2 for f in feats) + grid.numel() * 4 + xin.numel() * 2
-            + sum(t.numel() * t.element_size() for t in w) + sb * b * d_out * 4
+            + sum(t.numel() * t.element_size() for t in w) + sb * b * D_OUT * 4
         )
         bound_ms, bound_by = _bound(flops, PEAK_BF16_FLOPS, nbytes)
         print(
@@ -247,11 +330,91 @@ def check_field(torch, np, dev):
     )
 
 
-def _record(name, route, source, replaces, res, bound_by, library_ms):
-    return dict(
-        name=name, route=route, source=source, replaces=replaces, **res,
-        bound_by=bound_by, library_ms=library_ms,
+def check_field_vjp(torch, np, dev):
+    """The field's stash forward and backward at the fused train step's two
+    field calls (the coarse pass, and the fine pass's 96 samples a ray),
+    against their plain versions: the output, the z-stash, and every
+    gradient from the kernel's own stash."""
+    from pixelnerf_tpu_torch.ops.field import (
+        FieldWeights, field_bwd_plain, field_flops, field_plain, pyramid_field_fused_bwd,
+        pyramid_field_fused_fwd_stash,
     )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    ns, dl = TRAIN_NS, sum(c for _, _, c in LEVELS)
+    w = _random_weights(torch, g, dev, dl)
+    feats = [torch.randn((SB * ns, h, ww, c), generator=g, device=dev).to(torch.bfloat16) for h, ww, c in LEVELS]
+    feat_bytes = sum(f.numel() * 2 for f in feats)
+    wbytes = sum(t.numel() * 2 for t in w)  # bf16 operands
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    fwd, bwd = ({k: 0.0 for k in keys} for _ in range(2))
+    args = (N_BLOCKS, COMBINE, ns)
+    for call, k in FIELD_CALLS.items():
+        b = TRAIN_RAYS * k
+        grid = torch.rand((SB, ns, b, 2), generator=g, device=dev) * 2.2 - 1.1
+        xin = torch.randn((SB, ns, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+        gout = torch.randn((SB, b, D_OUT), generator=g, device=dev) * 1e-3
+        flops = field_flops(ns, D_IN, dl, HIDDEN, D_OUT, N_BLOCKS, COMBINE) * SB * b
+        in_bytes = feat_bytes + grid.numel() * 4 + xin.numel() * 2 + wbytes
+        out_bytes = SB * b * D_OUT * 4
+
+        out, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+        torch.cuda.synchronize()
+        want, wz, wpre, wpost = field_plain(feats, grid, xin, w, *args, stash=True)
+        diff = (out - want).abs()
+        excess = (diff - (FIELD_ATOL + FIELD_RTOL * want.abs())).max().item()
+        print(
+            f"pyramid_field_fused_fwd_stash {call}: SB={SB} NS={ns} B={b} "
+            f"max_abs_err={diff.max().item():.3e} |out| mean={want.abs().mean().item():.3f} "
+            f"(tolerance {FIELD_ATOL} + {FIELD_RTOL}*|plain|)"
+        )
+        if not (torch.isfinite(out).all() and excess <= 0):
+            raise AssertionError("the field's stash forward disagrees with its plain version")
+        z_err = _ulp_check(torch, f"the field's z-stash ({call})", zs, wz)
+        print(f"pyramid_field_fused_fwd_stash {call}: z-stash max_abs_err={z_err:.3e} (tolerance one bf16 ulp)")
+        stash_bytes = sum(t.numel() * 2 for t in (zs, spre, spost) if t is not None)
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], diff.max().item())
+        del out, want, wz, wpre, wpost, diff
+
+        d_feats, dxin, dw = pyramid_field_fused_bwd(grid, xin, gout, zs, spre, spost, w, *args, LEVELS)
+        torch.cuda.synchronize()
+        wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, gout, zs, spre, spost, w, *args, LEVELS)
+        pairs = [(f"d_feat {i}", a, b_) for i, (a, b_) in enumerate(zip(d_feats, wd_feats))]
+        pairs += [("dxin", dxin, wdxin)] + [(f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields]
+        worst = _check_grads(torch, f"pyramid_field_fused_bwd {call}", pairs, call == "coarse")
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], worst)
+        del d_feats, dxin, dw, wd_feats, wdxin, wdw, pairs
+
+        fwd["ms"] += _time_ms(torch, lambda: pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args), 1, 3)
+        fwd["plain_ms"] += _time_ms(torch, lambda: field_plain(feats, grid, xin, w, *args, stash=True), 1, 2)
+        fwd["bound_ms"] += _bound(flops, PEAK_BF16_FLOPS, in_bytes + out_bytes + stash_bytes)[0]
+        bwd["ms"] += _time_ms(
+            torch, lambda: pyramid_field_fused_bwd(grid, xin, gout, zs, spre, spost, w, *args, LEVELS), 1, 3,
+        )
+        bwd["plain_ms"] += _time_ms(
+            torch, lambda: field_bwd_plain(grid, xin, gout, zs, spre, spost, w, *args, LEVELS), 1, 2,
+        )
+        # read: grid, xin, g, the stash, the weights; written: dxin, the f32
+        # level gradients, the f32 weight gradients
+        grad_bytes = xin.numel() * 2 + feat_bytes * 2 + sum(t.numel() * 4 for t in w)
+        bwd["bound_ms"] += _bound(
+            2 * flops, PEAK_BF16_FLOPS,
+            grid.numel() * 4 + xin.numel() * 2 + out_bytes + stash_bytes + wbytes + grad_bytes,
+        )[0]
+        del grid, xin, gout, zs, spre, spost
+        torch.cuda.empty_cache()
+    for name, r in (("pyramid_field_fused_fwd_stash", fwd), ("pyramid_field_fused_bwd", bwd)):
+        print(
+            f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms (operations), per fused train step"
+        )
+    rep = "pixelnerf_tpu/ops/field_pallas.py"
+    return [
+        _record("pyramid_field_fused_fwd_stash", "cuda", "pixelnerf_tpu_torch/csrc/field_fwd.cu",
+                f"{rep}:447", fwd, "operations", None),
+        _record("pyramid_field_fused_bwd", "cuda", "pixelnerf_tpu_torch/csrc/resnetfc_bwd.cu",
+                f"{rep}:464", bwd, "operations", None),
+    ]
 
 
 def check_pyramid(torch, np, dev):
@@ -287,19 +450,10 @@ def check_pyramid(torch, np, dev):
         got = pyramid_gather(feats, uv)
         torch.cuda.synchronize()
         want = pyramid_gather_plain(feats, uv)
-        diff = (got.float() - want.float()).abs()
-        excess = (diff - 2.0 ** -7 * want.float().abs() - 1e-6).max().item()
-        print(f"pyramid_gather {pass_}: maps={maps} N={n} max_abs_err={diff.max().item():.3e} (tolerance one bf16 ulp)")
-        if not (torch.isfinite(got.float()).all() and excess <= 0):
-            bad = diff - 2.0 ** -7 * want.float().abs() - 1e-6
-            i = int(bad.argmax())
-            raise AssertionError(
-                f"pyramid_gather disagrees with its plain version: {int((bad > 0).sum())} elements, "
-                f"worst at flat index {i}: kernel {got.flatten()[i].item()} plain "
-                f"{want.flatten()[i].item()}; finite {bool(torch.isfinite(got.float()).all())}"
-            )
-        gat["max_abs_err"] = max(gat["max_abs_err"], diff.max().item())
-        del got, want, diff
+        err = _ulp_check(torch, "pyramid_gather", got, want)
+        print(f"pyramid_gather {pass_}: maps={maps} N={n} max_abs_err={err:.3e} (tolerance one bf16 ulp)")
+        gat["max_abs_err"] = max(gat["max_abs_err"], err)
+        del got, want
         grid = uv[:, None]  # (maps, 1, N, 2)
         gat["ms"] += _time_ms(torch, lambda: pyramid_gather(feats, uv), 3, 20)
         gat["plain_ms"] += _time_ms(torch, lambda: pyramid_gather_plain(feats, uv), 1, 3)
@@ -354,12 +508,76 @@ def check_pyramid(torch, np, dev):
     ]
 
 
-def _grad_err(got, want):
-    """(max abs error, max abs error / max |want|, relative Frobenius error)."""
-    got, want = got.float(), want.float()
-    d = (got - want).abs()
-    scale = want.abs().max().item() + 1e-30
-    return d.max().item(), d.max().item() / scale, ((got - want).norm() / (want.norm() + 1e-30)).item()
+def check_bilerp(torch, np, dev):
+    """The single-map gather and scatter at the nearest-upsampling step's
+    two lookups (the coarse one, whose two consumers' cotangents autograd
+    adds before the scatter, and the fine pass's new samples), against
+    their plain versions and against grid_sample (and its backward) on the
+    same map in NCHW, which the port never calls."""
+    import torch.nn.functional as F
+
+    from pixelnerf_tpu_torch.ops.scatter import (
+        _taps, bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    maps, (hl, wl, c) = SB * TRAIN_NS, COMPOSED
+    feat = torch.randn((maps, hl, wl, c), generator=g, device=dev).to(torch.bfloat16)
+    nchw = feat.permute(0, 3, 1, 2).contiguous()
+    gat = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    sca = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for pass_, k in LOOKUPS.items():
+        n = TRAIN_RAYS * k
+        uv = torch.rand((maps, n, 2), generator=g, device=dev) * 2.2 - 1.1
+        taps = int((_taps(uv, hl, wl)[1] != 0).sum()) * c
+        got = bilerp_gather(feat, uv)
+        torch.cuda.synchronize()
+        want = bilerp_gather_plain(feat, uv)
+        err = _ulp_check(torch, "bilerp_gather", got, want)
+        print(f"bilerp_gather {pass_}: maps={maps} {hl}x{wl}x{c} N={n} max_abs_err={err:.3e} (tolerance one bf16 ulp)")
+        gat["max_abs_err"] = max(gat["max_abs_err"], err)
+        del got, want
+        gat["ms"] += _time_ms(torch, lambda: bilerp_gather(feat, uv), 3, 20)
+        gat["plain_ms"] += _time_ms(torch, lambda: bilerp_gather_plain(feat, uv), 1, 3)
+        grid = uv[:, None].to(torch.bfloat16)  # grid_sample takes the map's dtype
+        gat["library_ms"] += _time_ms(torch, lambda: F.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), 3, 20)
+        out_bytes = maps * n * c * 2
+        gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat.numel() * 2 + uv.numel() * 4 + out_bytes)[0]
+
+        dz = (torch.randn((maps, n, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+        got = bilerp_scatter_add(uv, dz, hl, wl)
+        torch.cuda.synchronize()
+        want = bilerp_scatter_add_plain(uv, dz, hl, wl)
+        d = (got - want).abs()
+        print(
+            f"bilerp_scatter_add {pass_}: max_abs_err={d.max().item():.3e} "
+            f"(tolerance {SCATTER_RTOL}*|plain| + {SCATTER_ATOL}*max|plain|)"
+        )
+        if not bool((d <= SCATTER_ATOL * want.abs().max() + SCATTER_RTOL * want.abs()).all()):
+            raise AssertionError("bilerp_scatter_add disagrees with its plain version")
+        sca["max_abs_err"] = max(sca["max_abs_err"], d.max().item())
+        del got, want, d
+        sca["ms"] += _time_ms(torch, lambda: bilerp_scatter_add(uv, dz, hl, wl), 3, 20)
+        sca["plain_ms"] += _time_ms(torch, lambda: bilerp_scatter_add_plain(uv, dz, hl, wl), 1, 3)
+        gout = dz.permute(0, 2, 1)[:, :, None].contiguous()  # (maps, C, 1, N)
+        sca["library_ms"] += _time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, nchw, grid, 0, 1, True, [True, False]), 3, 20)
+        sca["bound_ms"] += _bound(
+            2.0 * taps, PEAK_F32_FLOPS, out_bytes + uv.numel() * 4 + feat.numel() * 4
+        )[0]
+        del dz, gout
+    for name, r in (("bilerp_gather", gat), ("bilerp_scatter_add", sca)):
+        print(
+            f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
+            f"{'backward ' if name.endswith('add') else ''}{r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes), per nearest train step"
+        )
+    src, rep = "pixelnerf_tpu_torch/csrc/bilerp.cu", "pixelnerf_tpu/ops/scatter_pallas.py"
+    return [
+        _record("bilerp_gather", "cuda", src, f"{rep}:110", gat, "bytes", gat.pop("library_ms")),
+        _record("bilerp_scatter_add", "cuda", src, f"{rep}:172", sca, "bytes", sca.pop("library_ms")),
+    ]
 
 
 def check_resnetfc(torch, np, dev):
@@ -374,13 +592,7 @@ def check_resnetfc(torch, np, dev):
     g = torch.Generator(device=dev).manual_seed(6)
     rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
     ns, dl = TRAIN_NS, sum(c for _, _, c in LEVELS)
-    w = FieldWeights(
-        w_in=rnd(D_IN, HIDDEN, scale=D_IN ** -0.5), b_in=rnd(HIDDEN, scale=0.1),
-        wz=rnd(3, dl, HIDDEN, scale=dl ** -0.5), bz=rnd(3, HIDDEN, scale=0.1),
-        w0=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=HIDDEN ** -0.5), b0=rnd(N_BLOCKS, HIDDEN, scale=0.1),
-        w1=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=0.5 * HIDDEN ** -0.5), b1=rnd(N_BLOCKS, HIDDEN, scale=0.1),
-        w_out=rnd(HIDDEN, D_OUT, scale=HIDDEN ** -0.5), b_out=rnd(D_OUT, scale=0.1),
-    )
+    w = _random_weights(torch, g, dev, dl)
     wbytes = sum(t.numel() * 2 for t in w)  # bf16 operands
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     fwd, stash, bwd = ({k: 0.0 for k in keys} for _ in range(3))
@@ -417,19 +629,12 @@ def check_resnetfc(torch, np, dev):
         # the plain backward from the kernel's own stash: the two backwards
         # then differ only in their own rounding, not in the forward's
         wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args)
-        worst = 0.0
-        for name, a, bb in [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
+        pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
             (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields
-        ]:
-            mx, mrel, fro = _grad_err(a, bb)
-            worst = max(worst, mx)
-            if not (torch.isfinite(a.float()).all() and mrel <= GRAD_MAX and fro <= GRAD_FRO):
-                raise AssertionError(f"resnetfc_bwd {call} {name}: max/scale {mrel:.3e}, frobenius {fro:.3e}")
-            if call == "coarse":
-                print(f"resnetfc_bwd {call} {name}: max_abs_err={mx:.3e} max/scale={mrel:.3e} frobenius={fro:.3e}")
-        print(f"resnetfc_bwd {call}: every gradient within {GRAD_MAX} of its scale and {GRAD_FRO} Frobenius")
+        ]
+        worst = _check_grads(torch, f"resnetfc_bwd {call}", pairs, call == "coarse")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], worst)
-        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want
+        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want, pairs
 
         fwd["ms"] += _time_ms(torch, lambda: resnetfc_fwd(z, xin, w, *args), 1, 3)
         fwd["plain_ms"] += _time_ms(torch, lambda: resnetfc_fwd_plain(z, xin, w, *args), 1, 2)
@@ -502,17 +707,10 @@ def profile_view(torch, view, label="one view"):
 
 
 def _counters():
-    from pixelnerf_tpu_torch.ops.field import pyramid_field_fused
-    from pixelnerf_tpu_torch.ops.posenc import posenc_concat
-    from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather, pyramid_scatter_add
-    from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_bwd, resnetfc_fwd, resnetfc_fwd_stash
+    from pixelnerf_tpu_torch.ops import field, posenc, pyramid, resnetfc, scatter
 
-    return {
-        "posenc_concat": posenc_concat, "pyramid_field_fused": pyramid_field_fused,
-        "pyramid_gather": pyramid_gather, "pyramid_scatter_add": pyramid_scatter_add,
-        "resnetfc_fwd": resnetfc_fwd, "resnetfc_fwd_stash": resnetfc_fwd_stash,
-        "resnetfc_bwd": resnetfc_bwd,
-    }
+    modules = (field, posenc, pyramid, resnetfc, scatter)
+    return {name: next(getattr(m, name) for m in modules if hasattr(m, name)) for name in KERNELS}
 
 
 def _counted(torch, fn, expected, label):
@@ -531,6 +729,13 @@ def _counted(torch, fn, expected, label):
     return res, got
 
 
+def _nearest(conf):
+    """srn.conf with the reference's `encoder.upsample_interp = nearest`."""
+    conf = copy.deepcopy(conf)
+    conf["model"]["encoder"]["upsample_interp"] = "nearest"
+    return conf
+
+
 def _train_batch(torch, np, dev, sb):
     """bench.py's batch: random images, identity cameras at z = 1.3."""
     rng = np.random.default_rng(0)
@@ -547,17 +752,10 @@ def _train_batch(torch, np, dev, sb):
     }
 
 
-def _train_model(torch, conf, dev):
-    from pixelnerf_tpu_torch.models.pixelnerf import make_model
-
-    model = make_model(conf["model"], device=dev, seed=0, train=True)
-    shape_heads(torch, model)
-    return model
-
-
-def compare_step(torch, np, conf, rcfg, dev, dtype_name):
+def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False):
     """One train step on the card against the CPU plain step: the same
-    parameters (seeded), injected rays, perturb=0, a small batch."""
+    parameters (seeded), injected rays, perturb=0, a small batch; with
+    `fusion`, both steps run the model's fused-field view."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step, sample_rays
 
@@ -582,7 +780,8 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name):
 
         m.encoder.register_forward_hook(keep)
         t0 = time.perf_counter()
-        aux = make_train_step(m, rcfg, make_optimizer(m, 1e-4), CMP_RAYS, 0.8, 1.8)(
+        stepped = m.with_field_fusion() if fusion else m
+        aux = make_train_step(stepped, rcfg, make_optimizer(m, 1e-4), CMP_RAYS, 0.8, 1.8)(
             {k: v.to(d) for k, v in batch.items()}
         )
         grads = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
@@ -597,45 +796,51 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name):
         if err >= worst.get(part, (-1.0, ""))[0]:
             worst[part] = (err, n)
         if not math.isfinite(err) or (tol[part] is not None and err > tol[part]):
-            raise AssertionError(f"card vs CPU {dtype_name} step: gradient {n} relative error {err:.3e}")
+            raise AssertionError(f"{label}: card vs CPU {dtype_name} step: gradient {n} relative error {err:.3e}")
     print(
-        f"train: card vs CPU plain {dtype_name} step ({CMP_SB}x{CMP_RAYS} rays, CPU {cpu_s:.1f} s): "
+        f"{label}: card vs CPU plain {dtype_name} step ({CMP_SB}x{CMP_RAYS} rays, CPU {cpu_s:.1f} s): "
         f"loss {loss_d:.6f} vs {loss_c:.6f} (rel {rel:.2e}, tolerance {tol['loss']}); worst "
         "relative gradient errors: " + ", ".join(
             f"{part} {e:.2e} ({n}, tolerance {tol[part]})" for part, (e, n) in sorted(worst.items())
         )
     )
     if not rel <= tol["loss"]:
-        raise AssertionError(f"card vs CPU {dtype_name} step: losses disagree")
+        raise AssertionError(f"{label}: card vs CPU {dtype_name} step: losses disagree")
 
 
-def run_train(torch, np, dev, root, card):
-    """The training path at bench.py's shapes."""
+def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
+              fusion=False, cmp_dtypes=("bfloat16",)):
+    """A training path at bench.py's shapes: counted train and eval steps,
+    timed steps, a profiled step, and the card step against the CPU step.
+    Returns the counted runs' launches."""
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
-    from pixelnerf_tpu_torch.utils import hocon
 
-    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
     rcfg = RendererConfig.from_conf(conf["renderer"])
     near, far = 0.8, 1.8
-    model = _train_model(torch, conf, dev)
+    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    shape_heads(torch, model)
+    # the fused-field view shares every parameter and the optimizer
+    stepped = model.with_field_fusion() if fusion else model
     optimizer = make_optimizer(model, 1e-4)
-    step = make_train_step(model, rcfg, optimizer, TRAIN_RAYS, near, far)
-    eval_step = make_eval_step(model, rcfg, TRAIN_RAYS, near, far)
+    step = make_train_step(stepped, rcfg, optimizer, TRAIN_RAYS, near, far)
+    eval_step = make_eval_step(stepped, rcfg, TRAIN_RAYS, near, far)
     batch = _train_batch(torch, np, dev, SB)
     gen = torch.Generator(device=dev).manual_seed(7)
     print(
-        f"train: srn.conf bf16, {sum(p.numel() for p in model.parameters())} params, SB={SB} "
+        f"{label}: srn.conf bf16 (upsample {model.encoder.upsample_interp}, field fusion "
+        f"{stepped.use_field_fusion}), {sum(p.numel() for p in model.parameters())} params, SB={SB} "
         f"NV={NV} NS={TRAIN_NS} {TRAIN_SIZE}x{TRAIN_SIZE}, {TRAIN_RAYS} rays/object, "
         f"{rcfg.n_coarse} coarse + {rcfg.n_fine} fine samples, Adam"
     )
 
-    aux, train_launches = _counted(torch, lambda: step(batch, gen), TRAIN_LAUNCHES, "train step")
+    aux, train_launches = _counted(torch, lambda: step(batch, gen), train_expected, f"{label} step")
     if not all(torch.isfinite(v).all() for v in aux.values()):
-        raise AssertionError(f"non-finite train loss {aux}")
-    eaux, eval_launches = _counted(torch, lambda: eval_step(batch, gen), EVAL_LAUNCHES, "eval step")
+        raise AssertionError(f"{label}: non-finite train loss {aux}")
+    eaux, eval_launches = _counted(torch, lambda: eval_step(batch, gen), eval_expected, f"{label} eval step")
     if not all(torch.isfinite(v).all() for v in eaux.values()):
-        raise AssertionError(f"non-finite eval loss {eaux}")
+        raise AssertionError(f"{label}: non-finite eval loss {eaux}")
 
     for _ in range(WARMUP_STEPS):
         step(batch, gen)
@@ -648,30 +853,31 @@ def run_train(torch, np, dev, root, card):
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     losses = {k: round(v.item(), 6) for k, v in aux.items()}
     if not all(math.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"non-finite train loss {losses}")
+        raise AssertionError(f"{label}: non-finite train loss {losses}")
     print(
-        f"train: {TIMED_STEPS} steps, {step_s * 1e3:.1f} ms/step = "
+        f"{label}: {TIMED_STEPS} steps, {step_s * 1e3:.1f} ms/step = "
         f"{SB * TRAIN_RAYS / step_s:.1f} train rays/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, last loss {losses}, on {card}"
     )
-    profile_view(torch, lambda: step(batch, gen), "one train step")
+    profile_view(torch, lambda: step(batch, gen), f"one {label} step")
+    del model, stepped, optimizer, step, eval_step
+    torch.cuda.empty_cache()
 
-    for dtype in CMP_TOL:
-        compare_step(torch, np, conf, rcfg.replace(perturb=0.0, noise_std=0.0), dev, dtype)
-    launches = dict(train_launches)
-    launches["resnetfc_fwd"] = eval_launches["resnetfc_fwd"]
-    return launches
+    for dtype in cmp_dtypes:
+        compare_step(torch, np, conf, rcfg.replace(perturb=0.0, noise_std=0.0), dev, dtype, label, fusion)
+    return [train_launches, eval_launches]
 
 
-def run_slice(torch, np, dev, root, card):
+def run_view(torch, np, dev, conf, card, label, expected):
+    """One full 128x128 view of the bf16 model through `render_full`,
+    counted, timed warm, profiled, and its first rays against the CPU plain
+    render. Returns the counted run's launches."""
     from pixelnerf_tpu_torch.eval.common import encode_views
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
-    from pixelnerf_tpu_torch.utils import hocon
     from pixelnerf_tpu_torch.utils.rays import gen_rays
 
-    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
     model = make_model(conf["model"], device=dev, seed=0)
     if model.dtype != torch.bfloat16:
         raise AssertionError("srn.conf should build a bf16 model")
@@ -685,7 +891,8 @@ def run_slice(torch, np, dev, root, card):
     rays = gen_rays(target, size, size, focal, near, far).reshape(-1, 8)
     rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0)
     print(
-        f"slice: srn.conf bf16, {sum(p.numel() for p in model.parameters())} params, "
+        f"{label}: srn.conf bf16 (upsample {model.encoder.upsample_interp}), "
+        f"{sum(p.numel() for p in model.parameters())} params, "
         f"{rays.shape[0]} rays, {rcfg.n_coarse} coarse + {rcfg.n_fine - rcfg.n_fine_depth} "
         f"importance + {rcfg.n_fine_depth} depth samples, 2 source views"
     )
@@ -695,24 +902,22 @@ def run_slice(torch, np, dev, root, card):
         return enc, render_full(model, enc, rays, rcfg)
 
     t0 = time.perf_counter()
-    slice_expected = {name: 0 for name in TRAIN_LAUNCHES}
-    slice_expected.update(posenc_concat=2, pyramid_field_fused=2)
-    (enc, out), launches = _counted(torch, view, slice_expected, "slice")
+    (enc, out), launches = _counted(torch, view, expected, label)
     first_s = time.perf_counter() - t0
     for head in ("coarse", "fine"):
         for k, v in out[head].items():
             if not torch.isfinite(v).all():
-                raise AssertionError(f"{head} {k} has non-finite values")
+                raise AssertionError(f"{label}: {head} {k} has non-finite values")
         rgb = out[head]["rgb"]
         lo, hi = rgb.min().item(), rgb.max().item()
         # sum(w * rgb) + 1 - sum(w) rounds a few float32 ulps past [0, 1]
         if rgb.shape != (size * size, 3) or lo < -RGB_SLACK or hi > 1 + RGB_SLACK:
             raise AssertionError(
-                f"{head} rgb out of [0, 1] ({lo}, {hi}) or misshapen: {tuple(rgb.shape)}"
+                f"{label}: {head} rgb out of [0, 1] ({lo}, {hi}) or misshapen: {tuple(rgb.shape)}"
             )
     alpha = out["fine"]["alpha"]
     print(
-        f"slice: fine alpha mean {alpha.mean().item():.4f}, rgb range "
+        f"{label}: fine alpha mean {alpha.mean().item():.4f}, rgb range "
         f"[{out['fine']['rgb'].min().item():.6f}, {out['fine']['rgb'].max().item():.6f}], rgb mean "
         f"{out['fine']['rgb'].mean().item():.4f}, depth mean {out['fine']['depth'].mean().item():.4f}"
     )
@@ -724,33 +929,33 @@ def run_slice(torch, np, dev, root, card):
     torch.cuda.synchronize()
     view_s = time.perf_counter() - t0
     print(
-        f"slice: {size}x{size} view (encode + render_full) {view_s:.3f} s warm = "
+        f"{label}: {size}x{size} view (encode + render_full) {view_s:.3f} s warm = "
         f"{rays.shape[0] / view_s:.1f} rays/s (first call {first_s:.3f} s), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}"
     )
-    profile_view(torch, view)
+    profile_view(torch, view, f"one {label} view")
 
     n = CPU_RAYS
     model_cpu = copy.deepcopy(model).to("cpu")
     t0 = time.perf_counter()
     ref = render_full(model_cpu, enc.to("cpu"), rays[:n].cpu(), rcfg)
-    print(f"slice: CPU plain render of {n} rays {time.perf_counter() - t0:.1f} s")
+    print(f"{label}: CPU plain render of {n} rays {time.perf_counter() - t0:.1f} s")
     for head in ("coarse", "fine"):
         d = (out[head]["rgb"][:n].cpu() - ref[head]["rgb"]).abs()
         dd = (out[head]["depth"][:n].cpu() - ref[head]["depth"]).abs()
         alpha = ref[head]["alpha"].mean().item()
         rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
         print(
-            f"slice: {head} rgb vs CPU plain max {d.max().item():.3e} mean {d.mean().item():.3e} "
+            f"{label}: {head} rgb vs CPU plain max {d.max().item():.3e} mean {d.mean().item():.3e} "
             f"(tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); depth max {dd.max().item():.3e}; "
             f"compared rays' alpha mean {alpha:.4f}, rgb std {rgb_std:.4f}"
         )
         if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
-            raise AssertionError(f"{head} render disagrees with the CPU plain render")
+            raise AssertionError(f"{label}: {head} render disagrees with the CPU plain render")
         # an empty or saturated render would agree whatever the field did
         if not (ALPHA_RANGE[0] <= alpha <= ALPHA_RANGE[1] and rgb_std >= RGB_STD_MIN):
-            raise AssertionError(f"{head}: the compared rays show too little of the field")
-    return launches
+            raise AssertionError(f"{label}: {head}: the compared rays show too little of the field")
+    return [launches]
 
 
 def main() -> int:
@@ -764,6 +969,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from pixelnerf_tpu_torch.ops.cuda_build import SOURCES, build_libraries
+    from pixelnerf_tpu_torch.utils import hocon
 
     dev = torch.device("cuda")
     card = _card_line()
@@ -780,12 +986,24 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}")
 
     kernels = [check_posenc(torch, dev), check_field(torch, np, dev)]
-    kernels += check_pyramid(torch, np, dev) + check_resnetfc(torch, np, dev)
+    kernels += check_field_vjp(torch, np, dev) + check_pyramid(torch, np, dev)
+    kernels += check_resnetfc(torch, np, dev) + check_bilerp(torch, np, dev)
     torch.cuda.empty_cache()
-    launches = run_slice(torch, np, dev, root, card)
-    launches.update({k: v for k, v in run_train(torch, np, dev, root, card).items() if k not in ("posenc_concat", "pyramid_field_fused")})
+
+    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
+    nearest = _nearest(conf)
+    runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES)
+    runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
+                      cmp_dtypes=tuple(CMP_TOL))
+    runs += run_train(torch, np, dev, conf, card, "fused train", FUSED_TRAIN_LAUNCHES,
+                      FUSED_EVAL_LAUNCHES, fusion=True)
+    runs += run_view(torch, np, dev, nearest, card, "nearest slice", NEAREST_VIEW_LAUNCHES)
+    runs += run_train(torch, np, dev, nearest, card, "nearest train", NEAREST_TRAIN_LAUNCHES,
+                      NEAREST_EVAL_LAUNCHES)
+    if sorted(k["name"] for k in kernels) != sorted(KERNELS):
+        raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = max(r[k["name"]] for r in runs)
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {k['name']}")
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

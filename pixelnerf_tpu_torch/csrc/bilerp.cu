@@ -1,0 +1,149 @@
+// Single-map bilinear lookup for training: gather and scatter-add.
+//
+// Replaces the TPU kernels pixelnerf_tpu/ops/scatter_pallas.py:
+// bilerp_gather (`_gather_kernel`) and bilerp_scatter_add
+// (`_scatter_kernel`), the forward and backward of
+// grid_sample_border_train.
+//
+// What they compute, per map b and point n of a (B, hl, wl, C) map, as
+// `_onehot_w` (scatter_pallas.py:55-96) does:
+//   x, y  = clip((u + 1) / 2 * (wl - 1), 0, wl - 1), the same for v
+//   axis weights 1 - fx, fx (fx = x - floor x) and 1 - fy, fy, in float32
+//   w     = bf16(wy * wx), the float32 product rounded to bf16 once (not
+//           pyramid.cu's rounding, which rounds each axis weight first)
+//   a tap at x0 + 1 == wl (or y0 + 1 == hl) is dropped
+//   gather:  out[b, n, c] = bf16(sum_taps w * feat[b, iy, ix, c])   (f32 sum)
+//   scatter: grad[b, iy, ix, c] += w * bf16(dz[b, n, c])            (f32)
+// Products of two bf16 values are exact in f32.
+//
+// Bound on the H100: bytes. The gather writes, and the scatter reads, the
+// (N, C) bf16 latent (1 KB a point at C = 512) for 4 * 2 flops a channel:
+// far below the ~295 flop/byte ridge. The map (4 MB for 8 views of
+// 64x64x512 bf16) stays in L2.
+//
+// Design, simple first (pyramid.cu's): one warp per point, its lanes over
+// channel pairs (bf16x2), so a warp's loads of a tap row, of the cotangent
+// row and its stores are contiguous; the TPU kernels' (TN, P) one-hot
+// matrices on the MXU are gone. The scatter adds into the
+// channel-contiguous (B, hl, wl, C) f32 gradient with f32 atomics.
+
+#include "tile_common.cuh"
+
+#define PTS_PER_BLOCK WARPS
+
+struct BilerpParams {
+  const float* uv;   // (B, N, 2)
+  const bf16* feat;  // (B, hl, wl, C), gather
+  bf16* out;         // (B, N, C), gather
+  const bf16* dz;    // (B, N, C), scatter
+  float* grad;       // (B, hl, wl, C), scatter
+  int n, hl, wl, c;
+};
+
+// the 2x2 taps of one point: corner (x0, y0) and weights, zero for a tap
+// past the map's edge
+__device__ __forceinline__ void bilerp_taps(const BilerpParams& p, int b, int n, int* x0,
+                                            int* y0, float w[2][2]) {
+  float x, y;
+  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.hl, p.wl, &x, &y);
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = __fsub_rn(x, x0f), fy = __fsub_rn(y, y0f);
+  const float ax[2] = {__fsub_rn(1.f, fx), fx}, ay[2] = {__fsub_rn(1.f, fy), fy};
+  *x0 = (int)x0f;
+  *y0 = (int)y0f;
+#pragma unroll
+  for (int ty = 0; ty < 2; ty++)
+#pragma unroll
+    for (int tx = 0; tx < 2; tx++)
+      w[ty][tx] = (*y0 + ty < p.hl && *x0 + tx < p.wl) ? round_bf16(__fmul_rn(ay[ty], ax[tx]))
+                                                       : 0.f;
+}
+
+__global__ void __launch_bounds__(THREADS) bilerp_gather_kernel(BilerpParams p) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.y;
+  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
+  if (n >= p.n) return;
+  int x0, y0;
+  float w[2][2];
+  bilerp_taps(p, b, n, &x0, &y0, w);
+  const bf16* f = p.feat + (size_t)b * p.hl * p.wl * p.c;
+  bf16* out = p.out + ((size_t)b * p.n + n) * p.c;
+  for (int c = 2 * lane; c < p.c; c += 64) {
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int ty = 0; ty < 2; ty++) {
+      if (y0 + ty >= p.hl) continue;
+#pragma unroll
+      for (int tx = 0; tx < 2; tx++) {
+        if (x0 + tx >= p.wl) continue;
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            f + ((size_t)(y0 + ty) * p.wl + x0 + tx) * p.c + c));
+        a0 += w[ty][tx] * v.x;
+        a1 += w[ty][tx] * v.y;
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(a0, a1);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) bilerp_scatter_kernel(BilerpParams p) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.y;
+  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
+  if (n >= p.n) return;
+  int x0, y0;
+  float w[2][2];
+  bilerp_taps(p, b, n, &x0, &y0, w);
+  float* grad = p.grad + (size_t)b * p.hl * p.wl * p.c;
+  const bf16* dz = p.dz + ((size_t)b * p.n + n) * p.c;
+  for (int c = 2 * lane; c < p.c; c += 64) {
+    const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dz + c));
+#pragma unroll
+    for (int ty = 0; ty < 2; ty++) {
+      if (y0 + ty >= p.hl) continue;
+#pragma unroll
+      for (int tx = 0; tx < 2; tx++) {
+        if (x0 + tx >= p.wl || w[ty][tx] == 0.f) continue;
+        float* dst = grad + ((size_t)(y0 + ty) * p.wl + x0 + tx) * p.c + c;
+        atomicAdd(dst, w[ty][tx] * g.x);
+        atomicAdd(dst + 1, w[ty][tx] * g.y);
+      }
+    }
+  }
+}
+
+extern "C" {
+
+// Launch on `stream`; each returns cudaGetLastError().
+int pnt_bilerp_gather(const void* feat, const void* uv, void* out, int b, int n, int hl, int wl,
+                      int c, void* stream) {
+  BilerpParams p = {};
+  p.uv = static_cast<const float*>(uv);
+  p.feat = static_cast<const bf16*>(feat);
+  p.out = static_cast<bf16*>(out);
+  p.n = n;
+  p.hl = hl;
+  p.wl = wl;
+  p.c = c;
+  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
+  bilerp_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int pnt_bilerp_scatter(const void* uv, const void* dz, void* grad, int b, int n, int hl, int wl,
+                       int c, void* stream) {
+  BilerpParams p = {};
+  p.uv = static_cast<const float*>(uv);
+  p.dz = static_cast<const bf16*>(dz);
+  p.grad = static_cast<float*>(grad);
+  p.n = n;
+  p.hl = hl;
+  p.wl = wl;
+  p.c = c;
+  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
+  bilerp_scatter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

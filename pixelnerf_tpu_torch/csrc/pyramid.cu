@@ -43,49 +43,19 @@ struct PyrParams {
   const bf16* dz2;  // (B, N, csum) or null
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// the level's taps for one point: base indices and 3x3 rounded weights,
-// zero past the map's edge
-__device__ __forceinline__ void level_weights(const PyrParams& p, int l, float fx,
-                                              float fy, int* bx, int* by,
-                                              float w[3][3]) {
-  const int hn = p.lh[l], wn = p.lw[l];
-  float wx[3], wy[3];
-  axis_taps(fx, wn, p.lw[0], bx, wx);
-  axis_taps(fy, hn, p.lh[0], by, wy);
-#pragma unroll
-  for (int ty = 0; ty < 3; ty++)
-#pragma unroll
-    for (int tx = 0; tx < 3; tx++)
-      w[ty][tx] = (*by + ty < hn && *bx + tx < wn)
-                      ? round_bf16(round_bf16(wy[ty]) * round_bf16(wx[tx]))
-                      : 0.f;
-}
-
-__device__ __forceinline__ void fine_coords(const PyrParams& p, int b, int n,
-                                            float* fx, float* fy) {
-  const float* g = p.uv + ((size_t)b * p.n + n) * 2;
-  const int hf = p.lh[0], wf = p.lw[0];
-  *fx = fminf(fmaxf((g[0] + 1.f) * 0.5f * (float)(wf - 1), 0.f), (float)(wf - 1));
-  *fy = fminf(fmaxf((g[1] + 1.f) * 0.5f * (float)(hf - 1), 0.f), (float)(hf - 1));
-}
-
 __global__ void __launch_bounds__(THREADS) pyramid_gather_kernel(PyrParams p) {
   const int lane = threadIdx.x % 32;
   const int b = blockIdx.y;
   const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
   if (n >= p.n) return;
   float fx, fy;
-  fine_coords(p, b, n, &fx, &fy);
+  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.lh[0], p.lw[0], &fx, &fy);
   bf16* out = p.out + ((size_t)b * p.n + n) * p.csum;
   for (int l = 0; l < p.nlev; l++) {
     const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
     int bx, by;
     float w[3][3];
-    level_weights(p, l, fx, fy, &bx, &by, w);
+    level_taps(fx, fy, hn, wn, p.lh[0], p.lw[0], &bx, &by, w);
     const bf16* f = p.feats[l] + (size_t)b * hn * wn * C;
     for (int c = 2 * lane; c < C; c += 64) {
       float a0 = 0.f, a1 = 0.f;
@@ -112,13 +82,13 @@ __global__ void __launch_bounds__(THREADS) pyramid_scatter_kernel(PyrParams p) {
   const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
   if (n >= p.n) return;
   float fx, fy;
-  fine_coords(p, b, n, &fx, &fy);
+  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.lh[0], p.lw[0], &fx, &fy);
   const size_t row = ((size_t)b * p.n + n) * p.csum;
   for (int l = 0; l < p.nlev; l++) {
     const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
     int bx, by;
     float w[3][3];
-    level_weights(p, l, fx, fy, &bx, &by, w);
+    level_taps(fx, fy, hn, wn, p.lh[0], p.lw[0], &bx, &by, w);
     float* grad = p.grads[l] + (size_t)b * hn * wn * C;
     for (int c = 2 * lane; c < C; c += 64) {
       float2 g = __bfloat1622float2(

@@ -1,8 +1,11 @@
 // ResnetFC backward from the bf16 stash: dz, dxin and every weight
-// gradient, with no recomputation of the forward.
+// gradient, with no recomputation of the forward; and the fused field's
+// backward, which scatters dz onto the native pyramid levels instead.
 //
-// Replaces the TPU kernel pixelnerf_tpu/ops/resnetfc_pallas.py:
-// `_bwd_kernel` / `_backward_tile` (`_fused_bwd_impl`).
+// Replaces the TPU kernels pixelnerf_tpu/ops/resnetfc_pallas.py:
+// `_bwd_kernel` / `_backward_tile` (`_fused_bwd_impl`) and
+// pixelnerf_tpu/ops/field_pallas.py: `_field_bwd_kernel`
+// (`_field_vjp_bwd`).
 //
 // What it computes (row-wise over the points; `bf(.)` rounds to bf16, the
 // casts of the TPU kernel's `_dot_t` and `_dot_g`; masks are stash > 0):
@@ -18,9 +21,17 @@
 //   dW = act^T @ bf(G): dw1_i = relu(h1_i)^T G1_i, dw0_i = relu(bin_i)^T
 //        G0_i, dwz_i = z^T Gin_i, dw_in = xin^T gx, dw_out = relu(xf)^T g
 //
+// The field's backward (levels given): z is the forward's bf16 z-stash, and
+// the chain's epilogue rounds gz to bf16 once and adds w * bf(gz) into
+// per-level f32 gradients (B, H_l, W_l, C_l) with f32 atomics, w the
+// composed taps rounded as the forward's (tile_common.cuh:level_taps),
+// recomputed from the grid: pyramid.cu's scatter of dz, with the (M, DL)
+// cotangent never written to device memory (field_pallas.py:26-30).
+//
 // Bound on the H100: operations. The backward does about twice the
 // forward's bf16 products (~23 MFLOP a point at the flagship width and
-// NS=2) against ~17 KB of stash read a point.
+// NS=2) against ~17 KB of stash read a point; the field's scatter adds
+// bytes, not operations worth counting.
 //
 // Design, simple first: the TPU kernel sums weight gradients across its
 // sequential grid, which Hopper's concurrent CTAs cannot do. So two kernels:
@@ -28,8 +39,9 @@
 //    blocks backward with wmma (weights read transposed as col-major
 //    fragments from L2), keeps gx and gz in f32 shared memory, writes the
 //    bf16 cotangents G1, G0, Gin and bf(g) to device memory in the stash's
-//    layout, writes dz and dxin, and adds each tile's f32 column sums to
-//    the bias gradients with one f32 atomic per column.
+//    layout, writes dz (or, for the field, scatters it from shared memory,
+//    one warp per row, lanes over channels) and dxin, and adds each tile's
+//    f32 column sums to the bias gradients with one f32 atomic per column.
 // 2. `wgrad`: a split-K wmma product act^T @ G over all points for each
 //    weight gradient: 64x64 output tiles, the point axis cut into slices,
 //    f32 atomics into the result.
@@ -58,8 +70,12 @@ struct BwdParams {
   bf16* gpost;        // (2m, SB, B, H): [G1 | G0] of the others
   bf16* gin;          // (SB, NS, B, H): cotangent at block 0's input
   bf16* gout;         // (SB, B, GOUT_LD): bf(g), zero past d_out
-  bf16* dz;           // (SB, NS, B, DL)
+  bf16* dz;           // (SB, NS, B, DL); null for the field
   bf16* dxin;         // (SB, NS, B, d_in)
+  float* grads[MAX_LEVELS];  // the field's level gradients (SB*NS, H_l, W_l, C_l)
+  int lh[MAX_LEVELS], lw[MAX_LEVELS], lc[MAX_LEVELS], lc0[MAX_LEVELS];
+  int nlev;           // 0: no levels, write dz
+  const float* grid;  // (SB, NS, B, 2) normalized fine-grid coords
   float* db_in;       // (H)
   float* dbz;         // (n_inj, H)
   float* db0;         // (n_blocks, H)
@@ -112,6 +128,40 @@ __device__ void round_and_sum(const float* GX, bf16* Gb, int H, int nrows, float
     atomicAdd(db + c, sum);
   }
   __syncthreads();
+}
+
+// the field's epilogue: each pre-pool row's bf16 gz times its composed
+// taps, added into the level gradients of its map (s, v)
+__device__ void scatter_gz(const BwdParams& p, const float* GZ, int s, int p0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tb = p.tb, DL = p.d_latent, hf = p.lh[0], wf = p.lw[0];
+  for (int r = warp; r < p.ns * tb; r += WARPS) {
+    const int v = r / tb, pt = p0 + r % tb;
+    if (pt >= p.b) continue;
+    const size_t map = (size_t)s * p.ns + v;
+    float fx, fy;
+    fine_coords(p.grid + (map * p.b + pt) * 2, hf, wf, &fx, &fy);
+    for (int l = 0; l < p.nlev; l++) {
+      const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
+      int bx, by;
+      float w[3][3];
+      level_taps(fx, fy, hn, wn, hf, wf, &bx, &by, w);
+      float* grad = p.grads[l] + map * hn * wn * C;
+      const float* g = GZ + r * DL + p.lc0[l];
+      for (int c = lane; c < C; c += 32) {
+        const float gv = round_bf16(g[c]);
+#pragma unroll
+        for (int ty = 0; ty < 3; ty++) {
+          if (by + ty >= hn) continue;
+#pragma unroll
+          for (int tx = 0; tx < 3; tx++) {
+            if (bx + tx >= wn || w[ty][tx] == 0.f) continue;
+            atomicAdd(grad + ((size_t)(by + ty) * wn + bx + tx) * C + c, w[ty][tx] * gv);
+          }
+        }
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1) resnetfc_bwd_chain_kernel(BwdParams p) {
@@ -226,6 +276,10 @@ __global__ void __launch_bounds__(THREADS, 1) resnetfc_bwd_chain_kernel(BwdParam
                   const long long row = tile_row(p, pre0, s, p0, r);
                   if (row >= 0 && c < p.d_in) p.dxin[row * p.d_in + c] = __float2bfloat16(v);
                 });
+  if (p.nlev > 0) {
+    scatter_gz(p, GZ, s, p0);
+    return;
+  }
   for (int e = threadIdx.x; e < cur0 * DL; e += THREADS) {
     const int r = e / DL, c = e % DL;
     const long long row = tile_row(p, pre0, s, p0, r);
@@ -334,10 +388,14 @@ size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
 // ptrs, in order: z, xin, g, spre, spost, w_in, wz, w0, w1, w_out, gpre,
 // gpost, gin, gout, dz, dxin, dw_in, db_in, dwz, dbz, dw0, db0, dw1, db1,
 // dw_out, db_out. dims: sb, ns, b, d_latent, d_in, d_in_pad, hidden,
-// d_out, n_blocks, combine_layer. Gradients are added to (the caller
-// zeroes them). Launches the chain kernel and the weight-gradient
-// products on `stream`; returns the first cudaGetLastError() that fails.
-int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* stream_) {
+// d_out, n_blocks, combine_layer. For the field, nlev > 0 level gradients
+// `grads` of (H_l, W_l, C_l) `ldims` (finest first) and the `grid` of the
+// forward, and dz is not written; nlev 0 ignores the three. Gradients are
+// added to (the caller zeroes them). Launches the chain kernel and the
+// weight-gradient products on `stream`; returns the first
+// cudaGetLastError() that fails.
+int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
+                     int nlev, const void* grid, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   BwdParams p;
   p.z = static_cast<const bf16*>(ptrs[0]);
@@ -376,6 +434,19 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* stream_) {
   p.d_out = dims[7];
   p.n_blocks = dims[8];
   p.combine_layer = dims[9];
+  int c0 = 0;
+  for (int l = 0; l < MAX_LEVELS; l++) {
+    const bool on = l < nlev;
+    p.grads[l] = on ? static_cast<float*>(grads[l]) : nullptr;
+    p.lh[l] = on ? ldims[3 * l] : 0;
+    p.lw[l] = on ? ldims[3 * l + 1] : 0;
+    p.lc[l] = on ? ldims[3 * l + 2] : 0;
+    p.lc0[l] = c0;
+    c0 += p.lc[l];
+  }
+  p.nlev = nlev;
+  p.grid = static_cast<const float*>(grid);
+  if (nlev > 0 && c0 != p.d_latent) return (int)cudaErrorInvalidValue;
   p.tb = tile_points(p.ns);
   p.rows_pad = tile_rows_padded(p.ns);
   p.k = p.ns > 1 ? (p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks) : 0;
@@ -385,8 +456,8 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* stream_) {
   cudaError_t err = cudaFuncSetAttribute(
       resnetfc_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.b + p.tb - 1) / p.tb, p.sb);
-  resnetfc_bwd_chain_kernel<<<grid, THREADS, smem, stream>>>(p);
+  dim3 grid_dim((p.b + p.tb - 1) / p.tb, p.sb);
+  resnetfc_bwd_chain_kernel<<<grid_dim, THREADS, smem, stream>>>(p);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
 

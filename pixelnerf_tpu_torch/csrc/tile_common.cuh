@@ -1,7 +1,7 @@
 // Device code shared by the package's CUDA sources: the composed
-// native-pyramid taps (pyramid_pallas.py:_axis_pairs) and the wmma tile
-// product of the ResnetFC block chains, forward and backward, whose
-// callers give the epilogue.
+// native-pyramid taps (pyramid_pallas.py:_axis_pairs), rounded as the TPU
+// kernels round them, and the wmma tile product of the ResnetFC block
+// chains, forward and backward, whose callers give the epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +55,36 @@ __device__ __forceinline__ void axis_taps(float cf, int wn, int wf, int* base,
   w[1] = __fmul_rn(u, fl);
   w[d] = __fadd_rn(w[d], __fmul_rn(t, __fsub_rn(1.f, fr)));
   w[d + 1] = __fadd_rn(w[d + 1], __fmul_rn(t, fr));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Clipped fine pixel coordinates of a normalized [-1, 1] point on an
+// (hf, wf) grid (align_corners, border padding).
+__device__ __forceinline__ void fine_coords(const float* g, int hf, int wf, float* fx,
+                                            float* fy) {
+  *fx = fminf(fmaxf((g[0] + 1.f) * 0.5f * (float)(wf - 1), 0.f), (float)(wf - 1));
+  *fy = fminf(fmaxf((g[1] + 1.f) * 0.5f * (float)(hf - 1), 0.f), (float)(hf - 1));
+}
+
+// The <=3x3 composed taps of one native (hn, wn) level under the (hf, wf)
+// fine grid: base indices and weights, each axis weight and their product
+// rounded to bf16 as the TPU kernels' bf16 one-hot matrices
+// (pyramid_pallas.py:_level_onehot), zero past the map's edge.
+__device__ __forceinline__ void level_taps(float fx, float fy, int hn, int wn, int hf, int wf,
+                                           int* bx, int* by, float w[3][3]) {
+  float wx[3], wy[3];
+  axis_taps(fx, wn, wf, bx, wx);
+  axis_taps(fy, hn, hf, by, wy);
+#pragma unroll
+  for (int ty = 0; ty < 3; ty++)
+#pragma unroll
+    for (int tx = 0; tx < 3; tx++)
+      w[ty][tx] = (*by + ty < hn && *bx + tx < wn)
+                      ? round_bf16(round_bf16(wy[ty]) * round_bf16(wx[tx]))
+                      : 0.f;
 }
 
 // C (16*mtiles x ncols) = A (16*mtiles x K, bf16, smem, row-major) @ B, with

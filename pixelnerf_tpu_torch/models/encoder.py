@@ -3,7 +3,8 @@
 Counterpart of `pixelnerf_tpu/models/encoder.py`: `SpatialEncoder`,
 `latent_scaling_for`, `pack_pyramid_levels`, `compose_pyramid` and
 `index_features`, which looks native levels up with the pyramid kernels
-(ops/pyramid.py) under the JAX package's predicate and composes the
+(ops/pyramid.py) and a single bf16 map with the bilerp kernels
+(ops/scatter.py) under the JAX package's predicates, and composes the
 upsampled map for every other lookup. Layout is NHWC.
 """
 
@@ -17,10 +18,11 @@ from torch import nn
 
 from pixelnerf_tpu_torch.models.resnet import ResNetTrunk
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
-from pixelnerf_tpu_torch.ops.interpolate import resize_bilinear
+from pixelnerf_tpu_torch.ops.interpolate import resize_bilinear, resize_nearest
 from pixelnerf_tpu_torch.ops.pyramid import (
     pyramid_index_train, pyramid_index_train_dual, pyramid_supported,
 )
+from pixelnerf_tpu_torch.ops.scatter import fused_supported, grid_sample_border_train
 
 __all__ = [
     "SpatialEncoder",
@@ -59,11 +61,11 @@ def pyramid_fused_ok(
 
 
 def _resize_levels(levels, target_hw, upsample_interp, index_interp):
-    """Resize levels to `target_hw`. The align_corners choice keys on
-    index_interp == "nearest " WITH the trailing space, as the reference
-    compares it."""
+    """Resize levels to `target_hw` with `upsample_interp`. The bilinear
+    align_corners choice keys on index_interp == "nearest " WITH the
+    trailing space, as the reference compares it."""
     if upsample_interp.startswith("nearest"):
-        raise NotImplementedError("nearest upsampling is not ported yet")
+        return [resize_nearest(l, target_hw) for l in levels]
     align = None if index_interp == "nearest " else True
     return [resize_bilinear(l, target_hw, align_corners=bool(align)) for l in levels]
 
@@ -125,11 +127,15 @@ def index_features(
 
     Native levels that `pyramid_fused_ok` accepts go through the pyramid
     kernels (gradient for the levels, none for uv); other levels are
-    composed first and sampled with `grid_sample_2d`.
+    composed first. A bf16 map of at most 8192 pixels under a bilinear,
+    border lookup goes through the bilerp kernels (`grid_sample_border_train`:
+    gradient for the map, none for uv); any other map through
+    `grid_sample_2d`.
 
     :param dual return the latent twice, for two consumers (the coarse MLP
         and the fine pass's query cache); on the pyramid path the two
-        cotangents are summed inside the scatter kernel
+        cotangents are summed inside the scatter kernel, elsewhere autograd
+        adds them
     :return (B, N, C); with dual, a pair of (B, N, C)
     """
     grid = uv * (latent_scaling / image_size) - 1.0
@@ -140,6 +146,14 @@ def index_features(
                 return pyramid_index_train_dual(levels, grid)
             return pyramid_index_train(levels, grid)
         latent = compose_pyramid(levels, upsample_interp, index_interp)
+    if (
+        index_interp == "bilinear"
+        and index_padding == "border"
+        and latent.dtype == torch.bfloat16
+        and fused_supported(latent.shape[1], latent.shape[2])
+    ):
+        out = grid_sample_border_train(latent, grid)
+        return (out, out) if dual else out
     out = grid_sample_2d(
         latent, grid, padding_mode=index_padding, align_corners=True,
         mode=index_interp,

@@ -120,7 +120,8 @@ class PixelNeRFNet(nn.Module):
         self.stop_encoder_grad = stop_encoder_grad
         self.dtype = dtype
         # run the fused gather+field kernel in query(); eval renders turn
-        # it on (eval/render_utils.py:make_chunk_renderer)
+        # it on (eval/render_utils.py:make_chunk_renderer), and a train step
+        # of `with_field_fusion()` trains through it
         self.use_field_fusion = False
 
     def with_field_fusion(self) -> "PixelNeRFNet":
@@ -193,10 +194,10 @@ class PixelNeRFNet(nn.Module):
         return not self.use_field_fusion
 
     def _field_fused_ok(self, enc: SceneEncoding, mlp, ns: int) -> bool:
-        # the field kernel has no backward: never in a train step
+        # stop_encoder_grad: the fused backward always computes the level
+        # gradients, so the lookup path detaches the latent instead
         return (
             self.use_field_fusion
-            and not self.training
             and not self.stop_encoder_grad
             and isinstance(enc.latent, tuple)
             and self.d_in > 0

@@ -5,10 +5,9 @@ path (latent injection below `combine_layer`, view pooling at it), the
 fused (z, x) path of bf16 models (`_call_pallas`'s counterpart: the
 ResnetFC kernels of ops/resnetfc.py, with their backward), and the
 `FieldInput` path, which hands the native pyramid and the sample
-coordinates to the fused field kernel (ops/field.py, forward only: it
-raises when autograd would need its gradient). Parameter names
-follow the Flax tree: `lin_in`, `lin_z_{i}`, `block_{i}.fc_{0,1}`,
-`lin_out`, each an `nn.Linear`. Parameters stay float32; the per-layer
+coordinates to the fused field kernel (ops/field.py, with its backward).
+Parameter names follow the Flax tree: `lin_in`, `lin_z_{i}`,
+`block_{i}.fc_{0,1}`, `lin_out`, each an `nn.Linear`. Parameters stay float32; the per-layer
 path computes in the model dtype, as Flax's `nn.Dense(dtype=...)` does.
 """
 
@@ -198,19 +197,16 @@ class ResnetFC(nn.Module):
         ns, b = combine_inner_dims
         if not self.field_path_ok(ns):
             raise ValueError("FieldInput passed but the fused field path does not apply")
-        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
-            raise RuntimeError(
-                "the fused field kernel has no backward: call the FieldInput path "
-                "under torch.no_grad() or torch.inference_mode(), or query without "
-                "use_field_fusion to train"
-            )
+        # with a gradient wanted, views that autograd follows back to the
+        # float32 parameters (as _call_fused); otherwise the packed cache
+        wants_grad = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         m = fi.x.shape[0]
         sb = m // (ns * b)
         out = pyramid_field_fused(
             tuple(fi.feats),
             fi.grid.reshape(sb, ns, b, 2),
             fi.x.reshape(sb, ns, b, -1),
-            self.field_weights(),
+            self.weights() if wants_grad else self.field_weights(),
             self.n_blocks,
             self.combine_layer,
             ns,

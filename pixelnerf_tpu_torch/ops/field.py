@@ -1,68 +1,73 @@
-"""Fused pixel-aligned field: native-pyramid gather feeding the ResnetFC.
+"""Fused pixel-aligned field: native-pyramid gather feeding the ResnetFC,
+with its VJP.
 
 Replaces the TPU kernel `pixelnerf_tpu/ops/field_pallas.py:
-pyramid_field_fused` (forward only; its VJP belongs to the training path)
-with the CUDA C++ kernel `csrc/field_fwd.cu`, whose header note gives the
-bound on the H100 (operations: ~11.6 MFLOP of bf16 products per point at
-NS=2) and the design. The (M, d_latent) gathered latent never exists in
-device memory. The kernel takes any number of views whose tile fits in
-shared memory: up to 32 at the flagship width (hidden 512, d_latent 512);
-beyond, the wrapper raises.
+pyramid_field_fused` and its custom VJP:
 
-`pyramid_field_fused` launches the kernel on CUDA tensors and counts the
-launch in `pyramid_field_fused.launches`; CPU tensors take
-`field_plain`: compose_pyramid + grid_sample_2d + the per-layer ResnetFC
-chain, with the kernel's cast points (z cast to bf16 after a float32
-gather, bf16 matmul operands, float32 accumulation and residual stream).
-Both take the weights as `pack_field_weights` leaves them; packing
-packed weights copies nothing. The kernel has no backward (the TPU
-kernel's VJP is still to be ported), so `pyramid_field_fused` raises when
-autograd is recording and an input needs a gradient, rather than return
-a result that silently drops it.
+- the primal (`_field_fwd_kernel`, stash=False) and the VJP forward
+  (`_field_vjp_fwd`, stash=True) by the CUDA C++ kernel
+  `csrc/field_fwd.cu`: null stash pointers give the primal, given ones
+  make it also write the bf16 z-stash (SB, NS, B, d_latent) and the
+  activation stash in `ops/resnetfc.py:stash_layout`'s layout;
+- the backward (`_field_vjp_bwd`, `_field_bwd_kernel`) by
+  `csrc/resnetfc_bwd.cu`'s chain kernel with the field's epilogue, which
+  rounds the latent cotangent to bf16 once and scatters it onto the native
+  levels in float32 (the (M, d_latent) cotangent never reaches device
+  memory), and its weight-gradient products, with the z-stash as the
+  activation of the injection gradients.
+
+Their header notes give the bound on the H100 (operations: ~11.6 MFLOP of
+bf16 products per point at NS=2 forward, about twice that backward) and
+the design. The kernels take any number of views whose tile fits in shared
+memory: up to 32 at the flagship width (hidden 512, d_latent 512); beyond,
+the wrappers raise.
+
+`pyramid_field_fused` is the entry point: with autograd recording and an
+input or weight that needs a gradient it runs the stash forward and, on
+backward, the backward (a `torch.autograd.Function` whose saved tensors
+are the stash; the grid gets a zero gradient, as in
+`field_pallas.py:595-596`); otherwise it runs the primal. The primal
+launches count in `pyramid_field_fused.launches`, the others in
+`pyramid_field_fused_fwd_stash.launches` and
+`pyramid_field_fused_bwd.launches` (the chain and the weight-gradient
+products together count one). CPU tensors take the plain versions: the
+composition `pyramid_gather_plain` + `resnetfc_fwd_plain` forward, and
+`resnetfc_bwd_plain` from the stash then `pyramid_scatter_add_plain` of
+the cotangent in the levels' dtype backward, which are the cast points of
+the TPU kernel (its z is bit-identical to the standalone gather's, and its
+backward casts `dz` once, `field_pallas.py:253-270, 582-587`). The weights
+come as `pack_field_weights` leaves them or as float32 (in, out) views of
+the parameters, whose gradients come back in the same shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
-from pixelnerf_tpu_torch.models.encoder import compose_pyramid
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
-from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
+from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather_plain, pyramid_scatter_add_plain
+from pixelnerf_tpu_torch.ops.resnetfc import (
+    FieldWeights, _device_of, _pad16, launch_bwd, pack_field_weights, resnetfc_bwd_plain,
+    resnetfc_fwd_plain, stash_layout,
+)
 
 __all__ = [
     "FieldWeights",
     "pyramid_field_fused",
+    "pyramid_field_fused_fwd_stash",
+    "pyramid_field_fused_bwd",
     "field_plain",
+    "field_bwd_plain",
     "field_supported",
     "pack_field_weights",
     "field_flops",
 ]
 
 _MAX_LEVELS = 4
-
-
-class FieldWeights(NamedTuple):
-    """ResnetFC weights in (in, out) orientation (H = d_hidden):
-
-    w_in (d_in, H), b_in (H,); wz (n_inj, d_latent, H), bz (n_inj, H);
-    w0, w1 (n_blocks, H, H), b0, b1 (n_blocks, H); w_out (H, d_out),
-    b_out (d_out,). `pack_field_weights` gives the kernel's form.
-    """
-
-    w_in: torch.Tensor
-    b_in: torch.Tensor
-    wz: torch.Tensor
-    bz: torch.Tensor
-    w0: torch.Tensor
-    b0: torch.Tensor
-    w1: torch.Tensor
-    b1: torch.Tensor
-    w_out: torch.Tensor
-    b_out: torch.Tensor
 
 
 def field_supported(ns: int, n_blocks: int, combine_layer: int) -> bool:
@@ -84,51 +89,41 @@ def field_flops(ns: int, d_in: int, d_latent: int, hidden: int, d_out: int,
     return 2 * macs
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def pack_field_weights(w: FieldWeights) -> FieldWeights:
-    """The kernel's operand form: matrices bf16, biases float32, all
-    contiguous and detached, w_in zero-padded to a multiple of 16 rows
-    (the wmma K step). Leaves already in that form are kept as they are."""
-    mat = lambda t: t.detach().to(torch.bfloat16).contiguous()
-    vec = lambda t: t.detach().float().contiguous()
-    w_in = mat(w.w_in)
-    d_in = w_in.shape[0]
-    if d_in % 16:
-        w_in = torch.cat([w_in, w_in.new_zeros((_pad16(d_in) - d_in, w_in.shape[1]))])
-    return FieldWeights(
-        w_in=w_in, b_in=vec(w.b_in), wz=mat(w.wz), bz=vec(w.bz), w0=mat(w.w0),
-        b0=vec(w.b0), w1=mat(w.w1), b1=vec(w.b1), w_out=mat(w.w_out), b_out=vec(w.b_out),
-    )
-
-
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """bf16 operands, float32 products and sums (exact bf16 x bf16 in f32)."""
-    return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+def _levels(feats) -> List[Tuple[int, int, int]]:
+    return [tuple(int(d) for d in f.shape[1:]) for f in feats]
 
 
 def field_plain(
     feats: Sequence[torch.Tensor], grid: torch.Tensor, xin: torch.Tensor,
-    w: FieldWeights, n_blocks: int, combine_layer: int, ns: int,
-) -> torch.Tensor:
-    """The plain version of the kernel; same signature and result."""
-    sb, _, b, d_in = xin.shape
-    latent = compose_pyramid([f.float() for f in feats])
-    z = grid_sample_2d(latent, grid.reshape(sb * ns, b, 2).float())
-    z = z.to(torch.bfloat16).reshape(sb, ns, b, -1)
-    x = _dot(xin, w.w_in[:d_in]) + w.b_in
-    n_inj = min(combine_layer, n_blocks)
-    for blk in range(n_blocks):
-        if blk == combine_layer and ns > 1:
-            x = x.mean(dim=1, keepdim=True)
-        if blk < n_inj:
-            x = x + (_dot(z, w.wz[blk]) + w.bz[blk])
-        h1 = _dot(torch.relu(x), w.w0[blk]) + w.b0[blk]
-        x = x + (_dot(torch.relu(h1), w.w1[blk]) + w.b1[blk])
-    out = _dot(torch.relu(x), w.w_out) + w.b_out
-    return out.reshape(sb, b, -1)
+    w: FieldWeights, n_blocks: int, combine_layer: int, ns: int, stash: bool = False,
+):
+    """The plain version of the kernel: (SB, B, d_out) float32, and with
+    `stash` (out, zstash (SB, NS, B, d_latent) in the levels' dtype,
+    stash_pre or None, stash_post)."""
+    sb, _, b, _ = xin.shape
+    z = pyramid_gather_plain(feats, grid.reshape(sb * ns, b, 2).float()).reshape(sb, ns, b, -1)
+    res = resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns, stash=stash)
+    return (res[0], z, res[1], res[2]) if stash else res
+
+
+def field_bwd_plain(
+    grid: torch.Tensor, xin: torch.Tensor, g: torch.Tensor, zstash: torch.Tensor,
+    stash_pre, stash_post: torch.Tensor, w: FieldWeights, n_blocks: int,
+    combine_layer: int, ns: int, levels: Sequence[Tuple[int, int, int]],
+):
+    """The plain version of the backward: (d_feats [(SB*NS, H_l, W_l, C_l)]
+    in the z-stash's dtype, dxin in xin's dtype, float32 FieldWeights
+    gradients with w_in (d_in, H))."""
+    sb, _, b, dl = zstash.shape
+    dz, dxin, dw = resnetfc_bwd_plain(
+        zstash, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns,
+    )
+    hws = [(h, wd) for h, wd, _ in levels]
+    d_feats = pyramid_scatter_add_plain(
+        grid.reshape(sb * ns, b, 2).float(), dz.reshape(sb * ns, b, dl),
+        [c for _, _, c in levels], hws, hws[0],
+    )
+    return [d.to(zstash.dtype) for d in d_feats], dxin, dw
 
 
 def _check(feats, grid, xin, w, n_blocks, combine_layer, ns):
@@ -147,6 +142,8 @@ def _check(feats, grid, xin, w, n_blocks, combine_layer, ns):
             raise ValueError(f"levels must be (SB*NS, H, W, C), got {tuple(f.shape)}")
         if f.shape[1] > hf or f.shape[2] > wf:
             raise ValueError("level 0 must be the finest level")
+        if f.dtype != feats[0].dtype:
+            raise ValueError("levels must share one dtype")
     if sum(f.shape[3] for f in feats) != w.wz.shape[1]:
         raise ValueError("level channels must sum to d_latent")
     if not field_supported(ns, n_blocks, combine_layer):
@@ -167,14 +164,16 @@ def _library() -> ctypes.CDLL:
     lib.pnt_field_fwd.restype = ctypes.c_int
     lib.pnt_field_fwd.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.c_void_p] * 13
+        + [ctypes.c_void_p] * 16
         + [ctypes.c_int] * 9
         + [ctypes.c_void_p]
     )
     return lib
 
 
-def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns):
+def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
+    """(out, zstash, stash_pre, stash_post); the three stash tensors are
+    None without `stash`."""
     device = grid.device
     sb, _, b, d_in = xin.shape
     w = pack_field_weights(w)
@@ -201,22 +200,106 @@ def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns):
     grid = grid.contiguous()
     xin = xin.contiguous()
     out = torch.empty((sb, b, d_out), dtype=torch.float32, device=device)
+    zstash = spre = spost = None
+    if stash:
+        k, m = stash_layout(n_blocks, combine_layer, ns)
+        zstash = torch.empty((sb, ns, b, d_latent), dtype=torch.bfloat16, device=device)
+        if k:
+            spre = torch.empty((2 * k, sb, ns, b, hidden), dtype=torch.bfloat16, device=device)
+        spost = torch.empty((2 * m + 1, sb, b, hidden), dtype=torch.bfloat16, device=device)
 
     nlev = len(feats)
     ptrs = (ctypes.c_void_p * nlev)(*[f.data_ptr() for f in feats])
-    dims = (ctypes.c_int * (3 * nlev))(
-        *[d for f in feats for d in (f.shape[1], f.shape[2], f.shape[3])]
-    )
+    dims = (ctypes.c_int * (3 * nlev))(*[d for hwc in _levels(feats) for d in hwc])
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     err = lib.pnt_field_fwd(
         ptrs, dims, nlev, grid.data_ptr(), xin.data_ptr(),
-        *[t.data_ptr() for t in w], out.data_ptr(),
+        *[t.data_ptr() for t in w], out.data_ptr(), ptr(zstash), ptr(spre), ptr(spost),
         sb, ns, b, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"field_fwd launch failed: {lib.pnt_error_string(err).decode()}")
-    pyramid_field_fused.launches += 1
-    return out
+    return out, zstash, spre, spost
+
+
+def pyramid_field_fused_fwd_stash(
+    feats: Sequence[torch.Tensor], grid: torch.Tensor, xin: torch.Tensor,
+    weights: FieldWeights, n_blocks: int, combine_layer: int, ns: int,
+):
+    """The forward that also writes the bf16 stash: (out (SB, B, d_out)
+    float32, zstash (SB, NS, B, d_latent), stash_pre or None, stash_post)."""
+    feats = tuple(feats)
+    _check(feats, grid, xin, weights, n_blocks, combine_layer, ns)
+    if _device_of(grid, "pyramid_field_fused_fwd_stash") == "cpu":
+        return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
+    res = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
+    pyramid_field_fused_fwd_stash.launches += 1
+    return res
+
+
+pyramid_field_fused_fwd_stash.launches = 0
+
+
+def pyramid_field_fused_bwd(
+    grid: torch.Tensor, xin: torch.Tensor, g: torch.Tensor, zstash: torch.Tensor,
+    stash_pre, stash_post: torch.Tensor, weights: FieldWeights, n_blocks: int,
+    combine_layer: int, ns: int, levels: Sequence[Tuple[int, int, int]],
+):
+    """The backward from the stash of `pyramid_field_fused_fwd_stash` and
+    the output cotangent g (SB, B, d_out): (d_feats [(SB*NS, H_l, W_l,
+    C_l)] in the levels' dtype, dxin in xin's dtype, float32 FieldWeights
+    gradients with w_in (d_in, H)).
+
+    :param levels (H_l, W_l, C_l) of each native level, finest first
+    """
+    levels = [tuple(int(d) for d in hwc) for hwc in levels]
+    if sum(c for _, _, c in levels) != zstash.shape[3] or not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError("levels do not match the z-stash")
+    if not field_supported(ns, n_blocks, combine_layer):
+        raise ValueError(f"unsupported field config ns={ns} n_blocks={n_blocks}")
+    if _device_of(grid, "pyramid_field_fused_bwd") == "cpu":
+        return field_bwd_plain(
+            grid, xin, g, zstash, stash_pre, stash_post, weights, n_blocks, combine_layer, ns,
+            levels,
+        )
+    if any(c % 2 for _, _, c in levels):
+        raise ValueError("level channel counts must be even")
+    d_feats, dxin, dw = launch_bwd(
+        zstash, xin, g, stash_pre, stash_post, weights, n_blocks, combine_layer, ns,
+        levels=levels, grid=grid,
+    )
+    pyramid_field_fused_bwd.launches += 1
+    return [d.to(zstash.dtype) for d in d_feats], dxin, dw
+
+
+pyramid_field_fused_bwd.launches = 0
+
+
+class _FieldFn(torch.autograd.Function):
+    """Forward with stash, backward from it: the stash is the saved
+    tensors (no recomputation); the feature maps are not kept."""
+
+    @staticmethod
+    def forward(ctx, grid, xin, cfg, nlev, *tensors):
+        feats, w = tensors[:nlev], FieldWeights(*tensors[nlev:])
+        out, zstash, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *cfg)
+        ctx.cfg = cfg
+        ctx.levels = _levels(feats)
+        ctx.has_pre = spre is not None
+        ctx.save_for_backward(grid, xin, zstash, spost, *([spre] if ctx.has_pre else []), *w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grid, xin, zstash, spost, *rest = ctx.saved_tensors
+        spre = rest.pop(0) if ctx.has_pre else None
+        d_feats, dxin, dw = pyramid_field_fused_bwd(
+            grid, xin, g, zstash, spre, spost, FieldWeights(*rest), *ctx.cfg, ctx.levels,
+        )
+        grads = (*d_feats, *dw)
+        grads = tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad[4:]))
+        return (torch.zeros_like(grid), dxin, None, None) + grads
 
 
 def pyramid_field_fused(
@@ -234,7 +317,8 @@ def pyramid_field_fused(
         first, bf16
     :param grid (SB, NS, B, 2) normalized [-1, 1] fine-grid coordinates
     :param xin (SB, NS, B, d_in) positional-code features, bf16
-    :param weights FieldWeights, as given or packed (pack_field_weights)
+    :param weights FieldWeights, packed (pack_field_weights) or the float32
+        parameters in (in, out) orientation
     :return (SB, B, d_out) float32, before the rgb/sigma heads
     """
     feats = tuple(feats)
@@ -242,15 +326,12 @@ def pyramid_field_fused(
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (*feats, grid, xin, *weights)
     ):
-        raise RuntimeError(
-            "pyramid_field_fused has no backward: an input requires grad while "
-            "autograd is recording; run it under torch.no_grad()"
-        )
-    if grid.device.type == "cpu":
+        return _FieldFn.apply(grid, xin, (n_blocks, combine_layer, ns), len(feats), *feats, *weights)
+    if _device_of(grid, "pyramid_field_fused") == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns)
-    if grid.device.type != "cuda":
-        raise ValueError(f"pyramid_field_fused runs on CUDA or CPU tensors, got {grid.device}")
-    return _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns)
+    out = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=False)[0]
+    pyramid_field_fused.launches += 1
+    return out
 
 
 pyramid_field_fused.launches = 0

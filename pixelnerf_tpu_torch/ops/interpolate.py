@@ -1,8 +1,11 @@
-"""Separable bilinear resize of NHWC maps.
+"""Separable bilinear and nearest resize of NHWC maps.
 
-Counterpart of `pixelnerf_tpu/ops/interpolate.py:resize_bilinear`: the
-same dense 1-D interpolation matrices (torch `F.interpolate` semantics),
-applied as two small products over the H and W axes.
+Counterpart of `pixelnerf_tpu/ops/interpolate.py:resize_bilinear` and
+`resize_nearest`: the same dense 1-D interpolation and selection matrices
+(torch `F.interpolate` semantics), applied as two small products over the
+H and W axes. As products, their gradients are the transposed products,
+which round where the JAX einsums' transposes round (an index-based
+nearest resize would accumulate its backward in the map's dtype).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "interp_matrix"]
+__all__ = ["resize_bilinear", "resize_nearest", "interp_matrix"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -56,5 +59,27 @@ def resize_bilinear(
         return x
     Mh = interp_matrix(Ho, H, align_corners, x.device, x.dtype)
     Mw = interp_matrix(Wo, W, align_corners, x.device, x.dtype)
+    x = torch.einsum("ih,...hwc->...iwc", Mh, x)
+    return torch.einsum("jw,...iwc->...ijc", Mw, x)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_matrix_np(out_size: int, in_size: int) -> np.ndarray:
+    """1-D selection matrix of torch F.interpolate(mode='nearest'): output
+    index i reads input floor(i * in / out)."""
+    M = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        M[i, (i * in_size) // out_size] = 1.0
+    return M
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of (..., H, W, C) to (..., H', W', C)."""
+    H, W = x.shape[-3], x.shape[-2]
+    Ho, Wo = out_hw
+    if (H, W) == (Ho, Wo):
+        return x
+    Mh = torch.from_numpy(_nearest_matrix_np(Ho, H)).to(device=x.device, dtype=x.dtype)
+    Mw = torch.from_numpy(_nearest_matrix_np(Wo, W)).to(device=x.device, dtype=x.dtype)
     x = torch.einsum("ih,...hwc->...iwc", Mh, x)
     return torch.einsum("jw,...iwc->...ijc", Mw, x)

@@ -22,21 +22,24 @@ backward kernel (a `torch.autograd.Function` whose saved tensors are the
 stash); otherwise it runs the stash-free forward. Each of
 `resnetfc_fwd`, `resnetfc_fwd_stash` and `resnetfc_bwd` launches its
 kernel on CUDA tensors and counts the launch (`.launches`); on CPU tensors
-it takes its plain version (`*_plain`).
+it takes its plain version (`*_plain`). The fused field (ops/field.py)
+shares the weights' form (`FieldWeights`, `pack_field_weights`), the plain
+versions and the backward kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
-from pixelnerf_tpu_torch.ops.field import FieldWeights, pack_field_weights
 
 __all__ = [
+    "FieldWeights",
+    "pack_field_weights",
     "resnetfc_fused",
     "resnetfc_fwd",
     "resnetfc_fwd_stash",
@@ -50,6 +53,46 @@ __all__ = [
 _GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/resnetfc_bwd.cu)
 
 _BF = torch.bfloat16
+
+
+class FieldWeights(NamedTuple):
+    """ResnetFC weights in (in, out) orientation (H = d_hidden):
+
+    w_in (d_in, H), b_in (H,); wz (n_inj, d_latent, H), bz (n_inj, H);
+    w0, w1 (n_blocks, H, H), b0, b1 (n_blocks, H); w_out (H, d_out),
+    b_out (d_out,). `pack_field_weights` gives the kernels' form.
+    """
+
+    w_in: torch.Tensor
+    b_in: torch.Tensor
+    wz: torch.Tensor
+    bz: torch.Tensor
+    w0: torch.Tensor
+    b0: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w_out: torch.Tensor
+    b_out: torch.Tensor
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_field_weights(w: FieldWeights) -> FieldWeights:
+    """The kernels' operand form: matrices bf16, biases float32, all
+    contiguous and detached, w_in zero-padded to a multiple of 16 rows
+    (the wmma K step). Leaves already in that form are kept as they are."""
+    mat = lambda t: t.detach().to(_BF).contiguous()
+    vec = lambda t: t.detach().float().contiguous()
+    w_in = mat(w.w_in)
+    d_in = w_in.shape[0]
+    if d_in % 16:
+        w_in = torch.cat([w_in, w_in.new_zeros((_pad16(d_in) - d_in, w_in.shape[1]))])
+    return FieldWeights(
+        w_in=w_in, b_in=vec(w.b_in), wz=mat(w.wz), bz=vec(w.bz), w0=mat(w.w0),
+        b0=vec(w.b0), w1=mat(w.w1), b1=vec(w.b1), w_out=mat(w.w_out), b_out=vec(w.b_out),
+    )
 
 
 def supported_config(
@@ -234,7 +277,9 @@ def _library(name: str) -> ctypes.CDLL:
         lib.pnt_resnetfc_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.pnt_resnetfc_bwd.restype = ctypes.c_int
         lib.pnt_resnetfc_bwd.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
     return lib
 
@@ -302,14 +347,14 @@ def resnetfc_fwd_stash(z, xin, w: FieldWeights, n_blocks: int, combine_layer: in
 resnetfc_fwd_stash.launches = 0
 
 
-def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,
-                 combine_layer: int, ns: int):
-    """dz, dxin and the float32 weight gradients (FieldWeights, w_in
-    (d_in, H)) from the stash of `resnetfc_fwd_stash` and the output
-    cotangent g (SB, B, d_out)."""
-    _check(z, xin, w, n_blocks, combine_layer, ns)
-    if _device_of(z, "resnetfc_bwd") == "cpu":
-        return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+def launch_bwd(
+    z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int, combine_layer: int,
+    ns: int, levels: Sequence[Tuple[int, int, int]] = (), grid: Optional[torch.Tensor] = None,
+):
+    """Launch `csrc/resnetfc_bwd.cu` on CUDA tensors: (dz, dxin, float32
+    FieldWeights gradients); with the field's `levels` ((H_l, W_l, C_l),
+    finest first) and forward `grid` (SB, NS, B, 2), the float32 level
+    gradients [(SB*NS, H_l, W_l, C_l)] in place of dz. Counts nothing."""
     z, xin, wp = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
     d_in = xin.shape[3]
@@ -333,7 +378,15 @@ def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: in
     gpost = empty(2 * m, sb, b, hidden)
     gin = empty(sb, ns, b, hidden)
     gout = empty(sb, b, _GOUT_LD)
-    dz, dxin = torch.empty_like(z), torch.empty_like(xin)
+    dxin = torch.empty_like(xin)
+    dz = None if levels else torch.empty_like(z)
+    d_feats = [zeros(sb * ns, h, wd, c) for h, wd, c in levels]
+    if levels:
+        if grid is None or grid.shape != (sb, ns, b, 2) or grid.dtype != torch.float32:
+            raise ValueError(f"grid must be float32 {(sb, ns, b, 2)}")
+        if sum(c for _, _, c in levels) != dl:
+            raise ValueError("level channels must sum to d_latent")
+        grid = grid.to(dev).contiguous()
     dw = FieldWeights(
         w_in=zeros(d_in, hidden), b_in=zeros(hidden), wz=zeros(n_inj, dl, hidden),
         bz=zeros(n_inj, hidden), w0=zeros(n_blocks, hidden, hidden), b0=zeros(n_blocks, hidden),
@@ -351,10 +404,27 @@ def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: in
     tensors = [None if t is None else t.contiguous() for t in tensors]
     ptrs = (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
     dims = (ctypes.c_int * 10)(sb, ns, b, dl, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer)
-    err = lib.pnt_resnetfc_bwd(ptrs, dims, torch.cuda.current_stream(dev).cuda_stream)
+    nlev = len(levels)
+    lptrs = (ctypes.c_void_p * max(nlev, 1))(*[t.data_ptr() for t in d_feats])
+    ldims = (ctypes.c_int * max(3 * nlev, 1))(*[d for hwc in levels for d in hwc])
+    err = lib.pnt_resnetfc_bwd(
+        ptrs, dims, lptrs, ldims, nlev, ptr(grid), torch.cuda.current_stream(dev).cuda_stream,
+    )
     _raise_on(err, lib, "resnetfc_bwd")
+    return (d_feats if levels else dz), dxin, dw
+
+
+def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,
+                 combine_layer: int, ns: int):
+    """dz, dxin and the float32 weight gradients (FieldWeights, w_in
+    (d_in, H)) from the stash of `resnetfc_fwd_stash` and the output
+    cotangent g (SB, B, d_out)."""
+    _check(z, xin, w, n_blocks, combine_layer, ns)
+    if _device_of(z, "resnetfc_bwd") == "cpu":
+        return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+    res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
     resnetfc_bwd.launches += 1
-    return dz, dxin, dw
+    return res
 
 
 resnetfc_bwd.launches = 0

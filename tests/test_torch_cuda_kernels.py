@@ -13,7 +13,11 @@ and carry that through the blocks; every ResnetFC gradient, 2e-2 of its
 largest magnitude at worst and 1e-2 relative in Frobenius norm (bf16 dz
 and dxin one bf16 ulp more). The pyramid gather: one bf16 ulp plus 1e-6
 (the same exact products summed in another order); the scatter: 1e-4
-relative plus 1e-5 (float32 atomics add in any order).
+relative plus 1e-5 (float32 atomics add in any order). The bilerp gather
+and scatter as the pyramid's. The field's stash forward: its output as the
+field's, its z-stash one bf16 ulp of the plain gather; its backward, from
+the kernel's own stash, every gradient as the ResnetFC backward's, the
+bf16 level gradients one more bf16 ulp.
 """
 
 import numpy as np
@@ -21,12 +25,18 @@ import pytest
 import torch
 
 from pixelnerf_tpu_torch.ops import resnetfc as ops_resnetfc
-from pixelnerf_tpu_torch.ops.field import FieldWeights, field_plain, pyramid_field_fused
+from pixelnerf_tpu_torch.ops.field import (
+    FieldWeights, field_bwd_plain, field_plain, pyramid_field_fused, pyramid_field_fused_bwd,
+    pyramid_field_fused_fwd_stash,
+)
 from pixelnerf_tpu_torch.ops.pyramid import (
     pyramid_gather, pyramid_gather_plain, pyramid_scatter_add, pyramid_scatter_add_plain,
 )
 from pixelnerf_tpu_torch.ops.resnetfc import (
     resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+)
+from pixelnerf_tpu_torch.ops.scatter import (
+    bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
 )
 from pixelnerf_tpu_torch.utils.hocon import loads
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
@@ -271,3 +281,66 @@ def test_failed_resnetfc_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         resnetfc_fwd(z, xin, w, 5, 3, 33)
     assert resnetfc_fwd.launches == before
+
+
+FIELD_SHAPES = [(16, 16, 32), (8, 8, 32), (4, 4, 64)]
+
+
+@pytest.mark.parametrize("ns,sb,b", [(1, 2, 50), (2, 2, 37), (3, 1, 45), (5, 2, 13)])
+def test_field_vjp_kernels_match_plain(cuda, ns, sb, b):
+    """The field's stash forward and its backward against their plain
+    versions (the backward from the kernel's own stash), every gradient."""
+    rng = np.random.default_rng(ns * 10 + b)
+    combine, n_blocks = (3 if ns > 1 else 1000), 5
+    d_latent = sum(c for (_, _, c) in FIELD_SHAPES)
+    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, d_latent=d_latent, combine=combine)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in FIELD_SHAPES]
+    grid = rng.uniform(-1.2, 1.2, size=(sb, ns, b, 2))
+    grid[:, :, :2] = [[1.0, 1.0], [-1.0, 1.0]]
+    grid = t(grid)
+    args = (n_blocks, combine, ns)
+    before = (pyramid_field_fused_fwd_stash.launches, pyramid_field_fused_bwd.launches)
+    out, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    d_feats, dxin, dw = pyramid_field_fused_bwd(
+        grid, xin, g, zs, spre, spost, w, *args, FIELD_SHAPES,
+    )
+    torch.cuda.synchronize()
+    assert (pyramid_field_fused_fwd_stash.launches, pyramid_field_fused_bwd.launches) == tuple(
+        x + 1 for x in before
+    )
+    assert torch.equal(out, pyramid_field_fused(feats, grid, xin, w, *args))
+    want, wz, wpre, wpost = field_plain(feats, grid, xin, w, *args, stash=True)
+    torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2)
+    assert zs.shape == wz.shape and (spre is None) == (wpre is None) and spost.shape == wpost.shape
+    assert ((zs.float() - wz.float()).abs() <= 2.0 ** -7 * wz.float().abs() + 1e-6).all()
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs, spre, spost, w, *args, FIELD_SHAPES)
+    for got, ref in zip(d_feats, wd_feats):
+        assert got.dtype == torch.bfloat16
+        _grad_close(got, ref, extra_ulp=True)
+    _grad_close(dxin, wdxin, extra_ulp=True)
+    for name in FieldWeights._fields:
+        _grad_close(getattr(dw, name), getattr(wdw, name))
+
+
+@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 64, 64, 64, 1001), (1, 8, 8, 512, 513)])
+def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n):
+    rng = np.random.default_rng(n)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feat = t(rng.normal(size=(b, hl, wl, c)), torch.bfloat16)
+    uv = rng.uniform(-1.3, 1.3, size=(b, n, 2))
+    uv[:, :4] = [[1.0, 1.0], [-1.0, -1.0], [1.0, -0.3], [-0.5, 1.0]]
+    uv = t(uv)
+    before = bilerp_gather.launches
+    got = bilerp_gather(feat, uv)
+    torch.cuda.synchronize()
+    assert bilerp_gather.launches == before + 1
+    want = bilerp_gather_plain(feat, uv)
+    assert got.shape == want.shape == (b, n, c) and got.dtype == torch.bfloat16
+    assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-6).all()
+    dz = t(rng.normal(size=(b, n, c)), torch.bfloat16)
+    before = bilerp_scatter_add.launches
+    got = bilerp_scatter_add(uv, dz, hl, wl)
+    torch.cuda.synchronize()
+    assert bilerp_scatter_add.launches == before + 1
+    torch.testing.assert_close(got, bilerp_scatter_add_plain(uv, dz, hl, wl), rtol=1e-4, atol=1e-5)

@@ -1,0 +1,183 @@
+"""Port parity: the single-map bilinear lookup (ops/scatter.py) and the
+nearest resize (ops/interpolate.py).
+
+`bilerp_gather` and `bilerp_scatter_add` on CPU tensors run their plain
+versions. They are held against the Pallas kernels of
+`pixelnerf_tpu/ops/scatter_pallas.py` in interpret mode on the same numpy
+inputs: maps of 5x7 and 8x8 pixels, points on the border (exact corners,
+the far edges, where a tap is dropped) and beyond it, and point counts
+that are not a multiple of the TPU kernel's 512-point tile.
+`grid_sample_border_train`'s gradients are held against the JAX custom
+VJP, for one consumer and for two (the dual lookup, whose two bf16
+cotangents autograd adds, as JAX does). `resize_nearest` is held against
+JAX's forward and gradient in float32 and bf16.
+
+Tolerances. Both sides round the same 2x2 weights to bf16 once and form
+exact bf16 x bf16 products, so only the order of the float32 sums
+differs: the gather agrees to one bf16 ulp (2^-7 relative) plus 1e-6. The
+interpret-mode scatter on the CPU rounds each product w * g to bf16
+before summing (tests/test_torch_pyramid.py), so the scatter is held to
+2^-7 times the sum of |w * g| over each element's contributions, plus
+1e-6, and one more bf16 ulp of the result for a bf16 map's gradient. The
+nearest resize selects: its forward is exact, its gradient sums a few
+cotangents per input pixel (float32: 1e-6 relative; bf16: one ulp).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pixelnerf_tpu.ops.interpolate import resize_nearest as j_resize_nearest
+from pixelnerf_tpu.ops.scatter_pallas import (
+    bilerp_gather as j_gather,
+    bilerp_scatter_add as j_scatter,
+    grid_sample_border_train as j_gsbt,
+)
+from pixelnerf_tpu_torch.models import encoder as tenc
+from pixelnerf_tpu_torch.ops.interpolate import resize_nearest
+from pixelnerf_tpu_torch.ops.scatter import (
+    bilerp_gather, bilerp_scatter_add, bilerp_scatter_add_plain, fused_supported,
+    grid_sample_border_train,
+)
+
+BF16_ULP = 2.0 ** -7
+
+
+def _uv(rng, b, n):
+    uv = rng.uniform(-1.3, 1.3, size=(b, n, 2)).astype(np.float32)
+    uv[:, 0] = [1.0, 1.0]  # the far corner: both second taps dropped
+    uv[:, 1] = [-1.0, -1.0]
+    uv[:, 2] = [1.0, -0.3]
+    uv[:, 3] = [-0.5, 1.0]
+    return uv
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _bound(uv, g, hl, wl):
+    """2^-7 * sum of |w * g| per element of the gradient, plus 1e-6."""
+    mag = bilerp_scatter_add_plain(torch.from_numpy(uv), g.float().abs(), hl, wl)
+    return BF16_ULP * mag.numpy() + 1e-6
+
+
+@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 8, 8, 16, 515)])
+def test_gather_matches_pallas(b, hl, wl, c, n):
+    rng = np.random.default_rng(b * 100 + n)
+    feat = rng.normal(size=(b, hl, wl, c)).astype(np.float32)
+    uv = _uv(rng, b, n)
+    want = np.asarray(
+        j_gather(jnp.asarray(feat, jnp.bfloat16), jnp.asarray(uv), interpret=True).astype(jnp.float32)
+    )
+    before = bilerp_gather.launches
+    got = bilerp_gather(_bf16(feat), torch.from_numpy(uv))
+    assert bilerp_gather.launches == before  # CPU tensors: no kernel
+    assert got.shape == (b, n, c) and got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6)
+
+
+@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 8, 8, 16, 515)])
+def test_scatter_matches_pallas(b, hl, wl, c, n):
+    rng = np.random.default_rng(b * 10 + n)
+    uv = _uv(rng, b, n)
+    dz = rng.normal(size=(b, n, c)).astype(np.float32)
+    want = np.asarray(j_scatter(jnp.asarray(uv), jnp.asarray(dz), hl, wl, interpret=True))
+    before = bilerp_scatter_add.launches
+    got = bilerp_scatter_add(torch.from_numpy(uv), torch.from_numpy(dz), hl, wl)
+    assert bilerp_scatter_add.launches == before
+    assert got.shape == (b, hl, wl, c) and got.dtype == torch.float32
+    # the scatter rounds the cotangent to bf16, as the TPU kernel
+    assert np.all(np.abs(got.numpy() - want) <= _bound(uv, _bf16(dz), hl, wl))
+    assert torch.equal(got, bilerp_scatter_add(torch.from_numpy(uv), _bf16(dz), hl, wl))
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_grid_sample_border_train_matches_jax(dual, dtype):
+    """Forward and the map's gradient, with one consumer or two; the
+    gradient for uv is zero. A float32 map is gathered by grid_sample
+    (`_fwd_gather`) and scattered by the bf16 kernel."""
+    rng = np.random.default_rng(3 + dual)
+    b, hl, wl, c, n = 2, 6, 5, 8, 70
+    feat, uv = rng.normal(size=(b, hl, wl, c)).astype(np.float32), _uv(rng, b, n)
+    g1, g2 = rng.normal(size=(2, b, n, c)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jfn(f, u):
+        out = j_gsbt(f, u, True)
+        return (out, out) if dual else out
+
+    jout, vjp = jax.vjp(jfn, jnp.asarray(feat, jdt), jnp.asarray(uv))
+    cot = (jnp.asarray(g1, jdt), jnp.asarray(g2, jdt)) if dual else jnp.asarray(g1, jdt)
+    jd_feat, jd_uv = vjp(cot)
+
+    tf = torch.from_numpy(feat).to(tdt).requires_grad_(True)
+    tuv = torch.from_numpy(uv).requires_grad_(True)
+    out = grid_sample_border_train(tf, tuv)
+    t1, t2 = torch.from_numpy(g1).to(tdt), torch.from_numpy(g2).to(tdt)
+    if dual:
+        # the lookup's two consumers: autograd adds the two cotangents in
+        # the map's dtype before the scatter
+        torch.autograd.backward([out, out], [t1, t2])
+        gsum = t1 + t2
+    else:
+        out.backward(t1)
+        gsum = t1
+    want = np.asarray((jout[0] if dual else jout).astype(jnp.float32))
+    assert out.dtype == tdt
+    got = out.detach().float().numpy()
+    if dtype == "bfloat16":
+        assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert not np.asarray(jd_uv).any() and not tuv.grad.any()
+    assert tf.grad.dtype == tdt
+    jd = np.asarray(jd_feat.astype(jnp.float32))
+    tol = _bound(uv, gsum.to(torch.bfloat16), hl, wl) + BF16_ULP * np.abs(jd)
+    assert np.all(np.abs(tf.grad.float().numpy() - jd) <= tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("in_hw,out_hw", [((4, 4), (16, 16)), ((3, 5), (8, 12)), ((8, 8), (8, 8))])
+def test_resize_nearest_matches_jax(dtype, in_hw, out_hw):
+    rng = np.random.default_rng(sum(in_hw) + sum(out_hw))
+    x = rng.normal(size=(2,) + in_hw + (6,)).astype(np.float32)
+    g = rng.normal(size=(2,) + out_hw + (6,)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jout, vjp = jax.vjp(lambda a: j_resize_nearest(a, out_hw), jnp.asarray(x, jdt))
+    (jgx,) = vjp(jnp.asarray(g, jdt))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    out = resize_nearest(tx, out_hw)
+    out.backward(torch.from_numpy(g).to(tdt))
+    assert out.dtype == tx.grad.dtype == tdt and out.shape == (2,) + out_hw + (6,)
+    np.testing.assert_array_equal(out.detach().float().numpy(), np.asarray(jout.astype(jnp.float32)))
+    jgx = np.asarray(jgx.astype(jnp.float32))
+    rel = 1e-6 if dtype == "float32" else BF16_ULP
+    assert np.all(np.abs(tx.grad.float().numpy() - jgx) <= rel * np.abs(jgx) + 1e-6)
+
+
+def test_index_features_routes_single_maps(monkeypatch):
+    """A bf16 map of at most 8192 pixels under the bilinear, border lookup
+    takes grid_sample_border_train (as the JAX package's `index_features`
+    on a TPU); a float32 map, a larger map or another lookup grid_sample."""
+    assert fused_supported(64, 64) and fused_supported(64, 128) and not fused_supported(128, 128)
+    calls = []
+    orig = tenc.grid_sample_border_train
+    monkeypatch.setattr(tenc, "grid_sample_border_train", lambda *a: calls.append(1) or orig(*a))
+    uv = torch.rand(2, 9, 2) * 30
+    size, scale = torch.tensor([32.0, 32.0]), torch.tensor([2.0, 2.0])
+    cases = [
+        (torch.bfloat16, (16, 16), "border", True), (torch.float32, (16, 16), "border", False),
+        (torch.bfloat16, (128, 128), "border", False), (torch.bfloat16, (16, 16), "zeros", False),
+    ]
+    for dtype, hw, padding, taken in cases:
+        calls.clear()
+        latent = torch.randn((2,) + hw + (4,)).to(dtype)
+        out = tenc.index_features(latent, scale, uv, size, index_padding=padding)
+        assert out.shape == (2, 9, 4) and bool(calls) == taken
+    pair = tenc.index_features(torch.randn(2, 8, 8, 4).to(torch.bfloat16), scale, uv, size, dual=True)
+    assert pair[0] is pair[1]

@@ -46,7 +46,6 @@ from pixelnerf_tpu_torch.convert import params_from_jax, state_dict_from_jax
 from pixelnerf_tpu_torch.models import losses
 from pixelnerf_tpu_torch.models.pixelnerf import make_model
 from pixelnerf_tpu_torch.models.resnet import BatchNorm
-from pixelnerf_tpu_torch.ops.field import FieldWeights, pyramid_field_fused
 from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
 from pixelnerf_tpu_torch.train.step import (
     make_eval_step, make_optimizer, make_train_step, sample_rays,
@@ -279,8 +278,8 @@ def test_losses_match_jax():
 # ------------------------------------------------------ models and the step
 
 
-def _models(dtype_name, seed=0):
-    conf_j, conf_t = j_loads(CONF), loads(CONF)
+def _models(dtype_name, seed=0, conf=CONF):
+    conf_j, conf_t = j_loads(conf), loads(conf)
     b = _batch()
     jdtype = getattr(jnp, dtype_name)
     jmodel = j_make_model(conf_j["model"], dtype=jdtype, use_pallas=dtype_name == "bfloat16")
@@ -380,12 +379,19 @@ def test_train_step_matches_jax(dtype_name, monkeypatch):
         monkeypatch.setattr(jpyr, "pyramid_index_train_dual", lambda f, uv: dual(f, uv, True))
     rcfg_j = JRendererConfig.from_conf(conf_j["renderer"])
     jstate, jaux, jgrads = _jax_step(jmodel, variables, b, rcfg_j)
+    _assert_step_matches(dtype_name, model, model, conf_t, variables, b, jstate, jaux, jgrads)
 
+
+def _assert_step_matches(dtype_name, model, stepped, conf_t, variables, b, jstate, jaux, jgrads):
+    """One port train step of `stepped` (`model`, or a view of it sharing
+    its parameters) with an optimizer over `model`'s parameters, held
+    against the JAX step's loss, gradients, parameters after Adam and
+    running statistics."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     optimizer = make_optimizer(model, LR)
-    step = make_train_step(model, RendererConfig.from_conf(conf_t["renderer"]), optimizer, R, NEAR, FAR)
+    step = make_train_step(stepped, RendererConfig.from_conf(conf_t["renderer"]), optimizer, R, NEAR, FAR)
     aux = step({k: torch.from_numpy(v) for k, v in b.items()})
-    assert model.training
+    assert stepped.training
 
     ltol = 1e-5 if dtype_name == "float32" else 2e-2
     for k in ("rc", "rf", "t"):
@@ -434,39 +440,40 @@ def test_eval_step_runs_the_stash_free_forward(monkeypatch):
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in sd.items())
 
 
-# ------------------------------------------- the fused field's missing VJP
+# --------------------------------------------------- the fused field's VJP
 
 
-def test_fused_field_refuses_to_drop_gradients():
-    """The field kernel has no backward. Asked for one, it raises instead
-    of returning a result without a gradient; a train-mode query never
-    takes it, and its gradients reach the MLP and the encoder."""
-    _, conf_t, _, _, model, b = _models("bfloat16")
+def test_fused_field_refuses_to_drop_gradients(monkeypatch):
+    """A train-mode query through the fused field (`with_field_fusion`)
+    computes every gradient: its outputs and the gradients of every
+    parameter, the encoder's included, equal the unfused query's (the
+    pyramid lookup + ResnetFC kernels' plain versions) bit for bit, and the
+    field path was taken."""
+    import pixelnerf_tpu_torch.ops.field as ops_field
+
+    _, _, _, _, model, b = _models("bfloat16")
     fused = model.with_field_fusion()
-    enc = fused.encode(torch.from_numpy(b["src_images"]), torch.from_numpy(b["src_poses"]),
-                       torch.from_numpy(b["focal"]))
-    xyz = torch.from_numpy(b["rays"][:, :4, :3] + 1.2 * b["rays"][:, :4, 3:6])
-    vd = torch.from_numpy(b["rays"][:, :4, 3:6])
-    fused.eval()
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused.query(enc, xyz, vd)
-    with torch.no_grad():
-        fused.query(enc, xyz, vd)  # serving: fine
-
-    t = lambda *s: torch.zeros(s, requires_grad=True)
-    w = FieldWeights(
-        w_in=t(42, 16), b_in=t(16), wz=t(1, 32, 16), bz=t(1, 16), w0=t(2, 16, 16),
-        b0=t(2, 16), w1=t(2, 16, 16), b1=t(2, 16), w_out=t(16, 4), b_out=t(4),
-    )
-    feats = [torch.zeros(2, 8, 8, 32, dtype=torch.bfloat16)]
-    args = (feats, torch.zeros(1, 2, 5, 2), torch.zeros(1, 2, 5, 42, dtype=torch.bfloat16), w, 2, 1, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        pyramid_field_fused(*args)
-    with torch.no_grad():
-        pyramid_field_fused(*args)
-
-    fused.train()
-    out = fused.query(enc, xyz, vd)
-    out.sum().backward()
-    assert fused.mlp_coarse.lin_in.weight.grad.norm() > 0
-    assert fused.encoder.model.conv1.weight.grad.norm() > 0
+    xyz = torch.from_numpy(b["rays"][:, :5, :3] + 1.2 * b["rays"][:, :5, 3:6])
+    vd = torch.from_numpy(b["rays"][:, :5, 3:6])
+    images, poses = torch.from_numpy(b["src_images"]), torch.from_numpy(b["src_poses"])
+    calls = []
+    for name in ("pyramid_field_fused_fwd_stash", "pyramid_field_fused_bwd"):
+        orig = getattr(ops_field, name)
+        monkeypatch.setattr(ops_field, name, lambda *a, _o=orig, _n=name: calls.append(_n) or _o(*a))
+    results = []
+    for m in (fused, model):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        calls.clear()
+        enc = m.encode(images, poses, torch.from_numpy(b["focal"]))
+        out = m.query(enc, xyz, vd, coarse=False)
+        torch.sin(out).sum().backward()
+        want = ["pyramid_field_fused_fwd_stash", "pyramid_field_fused_bwd"] if m is fused else []
+        assert calls == want
+        results.append((out.detach(), {n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None}))
+    (out_f, grads_f), (out_u, grads_u) = results
+    assert torch.equal(out_f, out_u)
+    assert set(grads_f) == set(grads_u) and "encoder.model.conv1.weight" in grads_f
+    assert "mlp_fine.lin_z_0.weight" in grads_f and grads_f["mlp_fine.lin_in.weight"].norm() > 0
+    for n, g in grads_u.items():
+        assert torch.equal(grads_f[n], g), n
