@@ -44,6 +44,15 @@ Phases, each failing loudly (an exception and a non-zero exit):
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
    launches are the most that one counted run of phases 4-7 made.
+
+For the four forward-chain kernels (the field and ResnetFC primal and
+stash forwards, csrc/fwd_chain.cuh) phase 3 also prints TFLOP/s, the L2
+weight bytes a point, and `products_ms`: the chain's matrix products alone
+as bf16 torch.matmul at the same shapes, a yardstick timed only (it is in
+their `kernels` records; `library_ms` stays null, since no single call
+computes the chain). It also times the field primal once at NS=3 on the
+fine chunk's shape, and a wave of ResnetFC tiles (primal and stash) with
+a quarter of the SMs busy, all of them, and ten waves.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ FIELD_CALLS = {"coarse": N_COARSE, "fine": N_COARSE + N_NEW}
 LEVELS = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]  # srn.conf at 128x128
 COMPOSED = (64, 64, 512)  # the nearest-upsampled pyramid, one map a view
 D_IN, HIDDEN, D_OUT, N_BLOCKS, COMBINE = 42, 512, 4, 5, 3
+D_IN_PAD = -(-D_IN // 16) * 16
 KERNELS = (
     "posenc_concat", "pyramid_field_fused", "pyramid_field_fused_fwd_stash",
     "pyramid_field_fused_bwd", "pyramid_gather", "pyramid_scatter_add", "resnetfc_fwd",
@@ -165,10 +175,64 @@ def _time_ms(torch, fn, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, iters: int) -> float:
+    """The device time of `fn` for a launch shorter than its host-side
+    cost: the card sleeps while the host queues the launches, so the
+    timed launches run back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # cycles: ~50 ms, longer than queueing `iters` launches
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _bound(flops: float, flop_rate: float, nbytes: float):
     t_ops = flops / flop_rate * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _products_ms(torch, dev, g, sb, ns, b, d_in_pad, d_latent):
+    """A yardstick, timed only and never on the port's path: the forward
+    chain's matrix products alone, as bf16 torch.matmul at the kernel's
+    shapes (the pre-pool products over SB*NS*B rows, the others over SB*B;
+    no bias, relu, pooling, stash or gather)."""
+    n_inj = min(COMBINE, N_BLOCKS)
+    k = n_inj if ns > 1 else 0
+    pre, post = sb * ns * b, sb * b
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w_in, wz, w, w_out = r(d_in_pad, HIDDEN), r(d_latent, HIDDEN), r(HIDDEN, HIDDEN), r(HIDDEN, D_OUT)
+    xin, z, act = r(pre, d_in_pad), r(pre, d_latent), r(pre, HIDDEN)
+
+    def run():
+        xin @ w_in
+        for _ in range(n_inj):
+            z @ wz
+        for i in range(N_BLOCKS):
+            a = act if i < k else act[:post]
+            a @ w
+            a @ w
+        act[:post] @ w_out
+
+    return _time_ms(torch, run, 1, 3)
+
+
+def _chain_line(name, flops, ms, products_ms, ns, wbytes, per):
+    """TFLOP/s, the L2 weight bytes a point (every CTA reads a head's
+    weights once for its max(1, 64 // NS) points) and the products'
+    yardstick of one forward-chain kernel."""
+    print(
+        f"{name}: {ms:.3f} ms {per}, {flops / ms / 1e9:.1f} TFLOP/s "
+        f"({flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of the bf16 peak), L2 weight bytes a "
+        f"point {wbytes / max(1, 64 // ns):.0f}, products alone (bf16 torch.matmul) "
+        f"{products_ms:.3f} ms = {flops / products_ms / 1e9:.1f} TFLOP/s"
+    )
 
 
 def _look_at(np, eye):
@@ -286,7 +350,9 @@ def check_field(torch, np, dev):
     feats = [(torch.randn((sb * ns, h, w, c), generator=g, device=dev)).to(torch.bfloat16) for h, w, c in LEVELS]
     # packed once, as ResnetFC.field_weights packs a head's weights
     w = pack_field_weights(_random_weights(torch, g, dev, d_latent))
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, products_ms=0.0)
+    wbytes = sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1))
+    total_flops = 0.0
     for chunk, k in CHUNK_SAMPLES.items():
         b = CHUNK_RAYS * k
         grid = torch.rand((sb, ns, b, 2), generator=g, device=dev) * 2.2 - 1.1
@@ -323,6 +389,26 @@ def check_field(torch, np, dev):
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["bound_ms"] += bound_ms
+        res["products_ms"] += _products_ms(torch, dev, g, sb, ns, b, w.w_in.shape[0], d_latent)
+        total_flops += flops
+    _chain_line("pyramid_field_fused", total_flops, res["ms"], res["products_ms"], ns, wbytes, "a view")
+    # the fine chunk's shape at NS=3: 21 points x 3 views fill 63 of the
+    # tile's 64 rows before the pooling, 21 after it
+    ns3, b = 3, CHUNK_RAYS * CHUNK_SAMPLES["fine"]
+    feats3 = [torch.randn((ns3, h, wd, c), generator=g, device=dev).to(torch.bfloat16) for h, wd, c in LEVELS]
+    grid = torch.rand((1, ns3, b, 2), generator=g, device=dev) * 2.2 - 1.1
+    xin = torch.randn((1, ns3, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+    run = lambda: pyramid_field_fused(feats3, grid, xin, w, N_BLOCKS, COMBINE, ns3)
+    if not torch.isfinite(run()).all():
+        raise AssertionError("the field at NS=3 gave non-finite values")
+    ms = _time_ms(torch, run, 1, 3)
+    flops = field_flops(ns3, D_IN, d_latent, HIDDEN, D_OUT, N_BLOCKS, COMBINE) * b
+    print(
+        f"field fine chunk at NS=3: B={b} {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{flops / 1e9 / b:.4f} GFLOP a point (NS=2: "
+        f"{field_flops(ns, D_IN, d_latent, HIDDEN, D_OUT, N_BLOCKS, COMBINE) / 1e9:.4f})"
+    )
+    del feats3, grid, xin
     return dict(
         name="pyramid_field_fused", route="cuda", source="pixelnerf_tpu_torch/csrc/field_fwd.cu",
         replaces="pixelnerf_tpu/ops/field_pallas.py:332", **res, bound_by=bound_by,
@@ -348,6 +434,7 @@ def check_field_vjp(torch, np, dev):
     wbytes = sum(t.numel() * 2 for t in w)  # bf16 operands
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     fwd, bwd = ({k: 0.0 for k in keys} for _ in range(2))
+    fwd["products_ms"], fwd_flops = 0.0, 0.0
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in FIELD_CALLS.items():
         b = TRAIN_RAYS * k
@@ -388,6 +475,8 @@ def check_field_vjp(torch, np, dev):
         fwd["ms"] += _time_ms(torch, lambda: pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args), 1, 3)
         fwd["plain_ms"] += _time_ms(torch, lambda: field_plain(feats, grid, xin, w, *args, stash=True), 1, 2)
         fwd["bound_ms"] += _bound(flops, PEAK_BF16_FLOPS, in_bytes + out_bytes + stash_bytes)[0]
+        fwd["products_ms"] += _products_ms(torch, dev, g, SB, ns, b, D_IN_PAD, dl)
+        fwd_flops += flops
         bwd["ms"] += _time_ms(
             torch, lambda: pyramid_field_fused_bwd(grid, xin, gout, zs, spre, spost, w, *args, LEVELS), 1, 3,
         )
@@ -403,6 +492,8 @@ def check_field_vjp(torch, np, dev):
         )[0]
         del grid, xin, gout, zs, spre, spost
         torch.cuda.empty_cache()
+    _chain_line("pyramid_field_fused_fwd_stash", fwd_flops, fwd["ms"], fwd["products_ms"], ns,
+                sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1)), "a fused train step")
     for name, r in (("pyramid_field_fused_fwd_stash", fwd), ("pyramid_field_fused_bwd", bwd)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -596,6 +687,8 @@ def check_resnetfc(torch, np, dev):
     wbytes = sum(t.numel() * 2 for t in w)  # bf16 operands
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     fwd, stash, bwd = ({k: 0.0 for k in keys} for _ in range(3))
+    fwd["products_ms"] = stash["products_ms"] = 0.0
+    total_flops = 0.0
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in MLP_CALLS.items():
         b = TRAIN_RAYS * k
@@ -642,6 +735,10 @@ def check_resnetfc(torch, np, dev):
         stash["ms"] += _time_ms(torch, lambda: resnetfc_fwd_stash(z, xin, w, *args), 1, 3)
         stash["plain_ms"] += _time_ms(torch, lambda: resnetfc_fwd_plain(z, xin, w, *args, stash=True), 1, 2)
         stash["bound_ms"] += _bound(flops, PEAK_BF16_FLOPS, in_bytes + out_bytes + stash_bytes)[0]
+        products_ms = _products_ms(torch, dev, g, SB, ns, b, D_IN_PAD, dl)
+        fwd["products_ms"] += products_ms
+        stash["products_ms"] += products_ms
+        total_flops += flops
         bwd["ms"] += _time_ms(torch, lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args), 1, 3)
         bwd["plain_ms"] += _time_ms(torch, lambda: resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args), 1, 2)
         grad_bytes = in_bytes - wbytes + sum(t.numel() * 4 for t in w)  # dz, dxin, f32 dW
@@ -650,6 +747,24 @@ def check_resnetfc(torch, np, dev):
         )[0]
         del z, xin, gout, spre, spost
         torch.cuda.empty_cache()
+    mats = sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1))
+    for name, r in (("resnetfc_fwd", fwd), ("resnetfc_fwd_stash", stash)):
+        _chain_line(name, total_flops, r["ms"], r["products_ms"], ns, mats, "a train step")
+    # A tile is one CTA and an SM holds one: a wave that takes as long with
+    # a quarter of the SMs busy as with all of them is bound by nothing the
+    # CTAs share (L2, device memory).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for ctas in (sms // 4, sms, 10 * sms):
+        b = (64 // ns) * ctas
+        z = rnd(1, ns, b, dl).to(torch.bfloat16)
+        xin = rnd(1, ns, b, D_IN).to(torch.bfloat16)
+        waves = -(-ctas // sms)
+        us = [
+            _device_ms(torch, lambda f=f: f(z, xin, w, *args), 20) / waves * 1e3
+            for f in (resnetfc_fwd, resnetfc_fwd_stash)
+        ]
+        print(f"resnetfc_fwd waves: {ctas} CTAs on {sms} SMs, primal {us[0]:.1f} us a wave, stash {us[1]:.1f}")
+        del z, xin
     for name, r in (("resnetfc_fwd", fwd), ("resnetfc_fwd_stash", stash), ("resnetfc_bwd", bwd)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -982,7 +1097,8 @@ def main() -> int:
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            # C7519: ptxas's note on each wgmma accumulator fence it adds
+            if any(w in line for w in ("Used", "spill", "smem")) and "C7519" not in line:
                 print(f"build: {name}: {line.strip()}")
 
     kernels = [check_posenc(torch, dev), check_field(torch, np, dev)]

@@ -1,229 +1,574 @@
-// The ResnetFC forward block chain of one point tile, shared by the field
-// kernel (field_fwd.cu, which gathers z from the pyramid) and the ResnetFC
-// kernel (resnetfc_fwd.cu, which loads z), with the optional bf16 stash
-// of the VJP forward.
+// The ResnetFC forward block chain of one point tile on Hopper, shared by
+// the field kernel (field_fwd.cu, which gathers z from the pyramid) and the
+// ResnetFC kernel (resnetfc_fwd.cu, which loads z), with the optional bf16
+// stash of the VJP forward. Replaces the MLP of the TPU kernels
+// resnetfc_pallas.py `_forward_body` (used by `_fwd_kernel`,
+// `_fwd_stash_kernel` and field_pallas.py `_field_fwd_kernel`).
 //
-// A tile is one CTA of 8 warps over (scene s, TB = max(1, 32/NS) points
-// x NS views), rows view-major (row = v * TB + point), zero rows padding
-// to a multiple of 16 for the wmma row tiles. Per point:
+// A tile is one CTA over (scene s, P = max(1, 64/NS) points x NS views),
+// rows view-major (row = v * P + point) in one 64-row wgmma tile. Per point:
 //   x     = xin_v @ W_in + b_in                       (f32 residual stream)
 //   block i: [mean over views at i == combine_layer, NS > 1]
 //            x += z_v @ Wz_i + bz_i                  (i < n_inj)
 //            x += relu(relu(x) @ W0_i + b0_i) @ W1_i + b1_i
 //   out   = relu(x) @ W_out + b_out                   (f32)
 // with every matmul operand bf16 and every sum f32 (the TPU kernels'
-// `_dot`). The stash holds exactly the bf16 operands the products consumed,
-// in the port's own layout (not the TPU tile order):
+// `_dot`); after the pooling the P points sit in the tile's first rows and
+// the other rows idle. The stash holds exactly the bf16 operands the
+// products consumed, in the port's own layout (not the TPU tile order):
 //   stash_pre  (2k, SB, NS, B, H)  blocks before the pooling (NS > 1):
 //              [relu(block_in) for i < k | relu(h1) for i < k]
 //   stash_post (2m+1, SB, B, H)    the m = n_blocks - k blocks after it:
 //              [relu(block_in) | relu(h1) | relu(x_final)]
-// Weights stream from L2 as wmma B fragments (tile_common.cuh:tile_mm).
+//
+// Bound on the H100: operations. At the flagship width (hidden 512,
+// d_latent 512, d_in 42 padded to 48, 5 blocks, 3 injections, NS=2) a point
+// costs ~11.6 MFLOP of bf16 products against ~2 KB of inputs and outputs,
+// or ~17 KB with the stash, far above the ~295 FLOP/byte ridge: the least
+// time is FLOP / 989 TFLOP/s. Every CTA reads a head's ~6.9 MB of bf16
+// weights from L2 (64 rows a CTA: 64 FLOP per L2 byte), yet a tile takes
+// as long with 33 CTAs on the card as with 132: neither L2 nor the TMA
+// ring binds, but the consumer warpgroups' own work between and around
+// the products (bias adds, relu stores, barriers, drains), ~2-3x the
+// products' time as bf16 torch.matmul (PERF.md).
+//
+// Design. 384 threads: two consumer warpgroups and one producer warpgroup
+// (setmaxnreg gives the consumers 232 registers, the producer 40).
+// - The residual stream x lives in registers as the wgmma f32
+//   accumulators: warpgroup w owns x's columns [w*H/2, (w+1)*H/2) of all
+//   64 rows (128 registers a thread at H = 512); the injections and
+//   h @ W1 accumulate onto it in place.
+// - One producer thread streams every weight tile of the chain, in the
+//   order the consumers use them, one TMA box a stage (tensor maps over
+//   the unchanged row-major (K, N) weights, 128-byte swizzle, 64-byte at
+//   H = 64; kept in L2 with evict-last) into a ring of 4 16-KB stages with
+//   full/empty mbarriers. The products read them from shared memory as
+//   wgmma's transposed (MN-major) B.
+// - The A operands are bf16 tiles in shared memory, K-major with the
+//   128-byte swizzle, written by the consumer threads (generic stores,
+//   then fence.proxy.async): the xin tile, the z tile (resident across the
+//   injections), relu(x) (64 x H), and h in chunks of 256 columns (64 at
+//   H = 64) into one buffer: each warpgroup computes half a chunk,
+//   h = relu(relu(x) @ W0[:, chunk] + b0) (wgmma n128), writes it, and
+//   both then add chunk @ W1[chunk, :] to their x columns.
+// - Stash rows are copied from the same shared-memory operand tiles (16
+//   bytes a thread, rows past B skipped) by three copier warps of the
+//   producer warpgroup, handed each tile through mbarriers, while the
+//   tensor cores run the products that read it. (TMA stores would need
+//   each view's rows to start on a 1024-byte swizzle atom, which P = 21 or
+//   12 rows break.)
+// Shared memory at H = d_latent = 512: ring 64 KB, relu(x) 64 KB, z 64 KB,
+// h 32 KB (225 KB). The view pooling goes through the relu(x) and z tiles
+// as f32 scratch, and the output layer keeps W_out in the z tile (z is dead
+// after the last injection).
 #pragma once
 
+#include "sm90.cuh"
 #include "tile_common.cuh"
+
+#define FWD_ROWS 64         // rows of one tile: one wgmma M
+#define FWD_CONSUMERS 256   // two consumer warpgroups
+#define FWD_THREADS 384     // and one producer warpgroup: the TMA thread's
+#define FWD_COPIERS 96      // warp and three warps that copy the stash
+#define FWD_STAGES 4
+#define FWD_STAGE_BYTES 16384
 
 struct ChainParams {
   const bf16* xin;    // (SB, NS, B, d_in)
-  const bf16* w_in;   // (d_in_pad, H), rows past d_in zero
   const float* b_in;  // (H)
-  const bf16* wz;     // (n_inj, DL, H)
   const float* bz;    // (n_inj, H)
-  const bf16* w0;     // (n_blocks, H, H)
   const float* b0;    // (n_blocks, H)
-  const bf16* w1;
   const float* b1;
   const bf16* w_out;  // (H, d_out)
   const float* b_out; // (d_out)
   float* out;         // (SB, B, d_out)
   bf16* spre;         // (2k, SB, NS, B, H) or null
   bf16* spost;        // (2m+1, SB, B, H) or null: no stash
-  int sb, ns, b, tb, rows_pad, d_in, d_in_pad, hidden, d_latent, d_out,
-      n_blocks, combine_layer, k;
+  bf16* zstash;       // (SB, NS, B, DL) or null: the z tile's rows
+  int sb, ns, b, pts, d_in, d_in_pad, d_latent, d_out, n_blocks, combine_layer, k, n_inj;
 };
 
-// The tile's dynamic shared memory: the f32 residual stream X, the bf16 z
-// tile Z, two bf16 operand buffers A (KA wide) and Hb, and one 16x16 f32
-// staging tile per warp.
-struct FwdSmem {
-  float* X;
-  bf16* Z;
-  bf16* A;
-  bf16* Hb;
-  float* stage;
-  int KA;
+// TMA maps over w_in (d_in_pad, H), wz (n_inj * DL, H), w0 and w1
+// (n_blocks * H, H) in column blocks of the swizzle's width (sm90.cuh:
+// weight_map); a box is 16 rows of every block (w0: 64 rows of two)
+struct ChainMaps {
+  CUtensorMap w_in, wz, w0, w1;
 };
 
-__device__ __forceinline__ FwdSmem fwd_smem(unsigned char* smem, const ChainParams& p) {
-  FwdSmem m;
-  const int H = p.hidden, RP = p.rows_pad;
-  m.KA = H > p.d_in_pad ? H : p.d_in_pad;
-  m.X = reinterpret_cast<float*>(smem);
-  m.Z = reinterpret_cast<bf16*>(m.X + RP * H);
-  m.A = m.Z + RP * p.d_latent;
-  m.Hb = m.A + RP * m.KA;
-  m.stage = reinterpret_cast<float*>(m.Hb + RP * H) + (threadIdx.x / 32) * 256;
+// Widths the chain is built for (`hidden`, at compile time).
+template <int H>
+struct ChainShape {
+  static_assert(H == 64 || H == 512, "the chain is built for hidden 64 and 512");
+  static constexpr int NX = H / 2;              // x columns of one warpgroup
+  static constexpr int SWE = NX >= 64 ? 64 : 32;  // B column block: 128- or 64-byte swizzle
+  static constexpr int NH = NX >= 128 ? 128 : NX;  // h columns of one warpgroup a chunk
+  static constexpr int HC = 2 * NH;             // h chunk
+  // W0 rows a stage (16 KB at H = 512)
+  static constexpr int KS3 = FWD_STAGE_BYTES / (HC * 2) < H ? FWD_STAGE_BYTES / (HC * 2) : H;
+};
+
+static inline bool chain_width_ok(int hidden) { return hidden == 64 || hidden == 512; }
+
+static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 1; }
+
+__host__ __device__ inline int chain_chunk(int hidden) { return hidden >= 256 ? 256 : hidden; }
+
+// Dynamic shared memory of a tile: alignment slack, the ring, relu(x), z
+// (at least H wide: it doubles as pooling scratch), the h chunk and
+// the barriers. A tile of more than 64 views would need a 128-row tile.
+static inline size_t fwd_smem_bytes(int hidden, int d_latent, int ns) {
+  const size_t tiles = (size_t)(ns + FWD_ROWS - 1) / FWD_ROWS;
+  const size_t rows = FWD_ROWS * (tiles < 1 ? 1 : tiles);
+  const int zw = d_latent > hidden ? d_latent : hidden;
+  return 1024 + (size_t)FWD_STAGES * FWD_STAGE_BYTES + rows * 2 * (hidden + zw) +
+         rows * chain_chunk(hidden) * 2 + (2 * FWD_STAGES + 6) * 8;
+}
+
+// The launch's checks and its tensor maps; 0 or a cudaError_t.
+static inline int chain_setup(ChainParams* p, ChainMaps* m, const void* xin, const void* w_in,
+                              const void* b_in, const void* wz, const void* bz, const void* w0,
+                              const void* b0, const void* w1, const void* b1, const void* w_out,
+                              const void* b_out, void* out, void* spre, void* spost, int sb,
+                              int ns, int b, int d_latent, int d_in, int d_in_pad, int hidden,
+                              int d_out, int n_blocks, int combine_layer) {
+  if (!chain_width_ok(hidden) || d_latent % 64 || d_in % 2 || d_in_pad % 16 ||
+      d_in_pad > hidden || d_out > 16 || ns < 1)
+    return (int)cudaErrorInvalidValue;
+  p->xin = static_cast<const bf16*>(xin);
+  p->b_in = static_cast<const float*>(b_in);
+  p->bz = static_cast<const float*>(bz);
+  p->b0 = static_cast<const float*>(b0);
+  p->b1 = static_cast<const float*>(b1);
+  p->w_out = static_cast<const bf16*>(w_out);
+  p->b_out = static_cast<const float*>(b_out);
+  p->out = static_cast<float*>(out);
+  p->spre = static_cast<bf16*>(spre);
+  p->spost = static_cast<bf16*>(spost);
+  p->zstash = nullptr;
+  p->sb = sb;
+  p->ns = ns;
+  p->b = b;
+  p->pts = chain_points(ns);
+  p->d_in = d_in;
+  p->d_in_pad = d_in_pad;
+  p->d_latent = d_latent;
+  p->d_out = d_out;
+  p->n_blocks = n_blocks;
+  p->combine_layer = combine_layer;
+  p->n_inj = combine_layer < n_blocks ? combine_layer : n_blocks;
+  p->k = ns > 1 ? p->n_inj : 0;
+  const int swe = hidden / 2 >= 64 ? 64 : 32;
+  const int nblk = hidden / swe;
+  int err = weight_map(&m->w_in, w_in, d_in_pad, hidden, swe, 16, nblk);
+  if (!err) err = weight_map(&m->wz, wz, p->n_inj * d_latent, hidden, swe, 16, nblk);
+  const int hc = chain_chunk(hidden);
+  const int ks3 = FWD_STAGE_BYTES / (hc * 2) < hidden ? FWD_STAGE_BYTES / (hc * 2) : hidden;
+  if (!err) err = weight_map(&m->w0, w0, n_blocks * hidden, hidden, swe, ks3, hc / swe);
+  if (!err) err = weight_map(&m->w1, w1, n_blocks * hidden, hidden, swe, 16, nblk);
+  return err;
+}
+
+// The producer thread: every weight tile of the chain, in the consumers'
+// order, into the ring.
+template <int H>
+__device__ __forceinline__ void chain_produce(const ChainParams& p, const ChainMaps& m, unsigned char* ring,
+                              uint64_t* full, uint64_t* empty) {
+  typedef ChainShape<H> S;
+  const uint64_t keep = l2_evict_last();
+  int stage = 0;
+  uint32_t phase = 0;
+  auto slot = [&](uint32_t bytes) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], bytes);
+    return ring + stage * FWD_STAGE_BYTES;
+  };
+  auto next = [&]() {
+    if (++stage == FWD_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  // a band of 16 rows x H: H / SWE column blocks of 16 x SWE, one box
+  auto band = [&](const CUtensorMap* map, int row) {
+    tma_load_3d(slot(16 * H * 2), map, &full[stage], 0, row, 0, keep);
+    next();
+  };
+  for (int kk = 0; kk < p.d_in_pad; kk += 16) band(&m.w_in, kk);
+  for (int blk = 0; blk < p.n_blocks; blk++) {
+    if (blk < p.n_inj)
+      for (int kk = 0; kk < p.d_latent; kk += 16) band(&m.wz, blk * p.d_latent + kk);
+    for (int c = 0; c < H; c += S::HC) {
+      // KS3 rows of W0's chunk columns (each warpgroup's NH of them in
+      // SWE-wide blocks), one box
+      for (int kk = 0; kk < H; kk += S::KS3) {
+        tma_load_3d(slot(S::KS3 * S::HC * 2), &m.w0, &full[stage], 0, blk * H + kk,
+                    c / S::SWE, keep);
+        next();
+      }
+      for (int kk = 0; kk < S::HC; kk += 16) band(&m.w1, blk * H + c + kk);
+    }
+  }
+}
+
+template <int N, int R>
+__device__ __forceinline__ void wgmma_n(float (&d)[R], uint64_t da, uint64_t db) {
+  static_assert(R == N / 2, "accumulator size");
+  if constexpr (N == 256) wgmma_n256(d, da, db);
+  else if constexpr (N == 128) wgmma_n128(d, da, db);
+  else wgmma_n32(d, da, db);
+}
+
+// The consumers' view of the ring: stage and phase walk in lockstep with
+// the producer's.
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage;
+  uint32_t phase;
+};
+
+// acc (64 x N, this warpgroup's columns) += A[:, :K] @ the next K / KS ring
+// stages of KS rows each; this warpgroup's B starts `boff` bytes into a
+// stage, rows `swb` bytes apart, MN blocks of swb / 2 columns `lbo` apart.
+// Each warp frees a stage as soon as its products on it have completed;
+// the other warpgroup's products fill the wait.
+template <int N, int R>
+__device__ __forceinline__ void ring_product(float (&acc)[R], const unsigned char* A, int K,
+                                             int KS, Ring& rg, uint32_t boff, uint32_t lbo,
+                                             uint32_t swb) {
+  const uint32_t layout = swb == 128 ? 1 : 2;
+  const bool lead = threadIdx.x % 32 == 0;
+  fence_regs(acc);
+  wgmma_fence();
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    mbar_wait(&rg.full[rg.stage], rg.phase);
+    const unsigned char* B = rg.base + rg.stage * FWD_STAGE_BYTES + boff;
+    for (int kk = 0; kk < KS; kk += 16)
+      wgmma_n<N>(acc, a_desc(A, k0 + kk), smem_desc(B + kk * swb, lbo, 8 * swb, layout));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lead) mbar_arrive(&rg.empty[rg.stage]);
+    if (++rg.stage == FWD_STAGES) {
+      rg.stage = 0;
+      rg.phase ^= 1;
+    }
+  }
+  fence_regs(acc);
+}
+
+// Accumulator fragment of m64nN: register 4j + {0,1} holds row r0, columns
+// 8j + 2q + {0,1}; 4j + {2,3} row r0 + 8 (r0 = 16 * warp + lane / 4, q =
+// lane % 4, within the warpgroup).
+template <int R>
+__device__ __forceinline__ void add_bias(float (&x)[R], const float* b, int col0, int q) {
+#pragma unroll
+  for (int j = 0; j < R / 4; j++) {
+    const float2 bb = *reinterpret_cast<const float2*>(b + col0 + 8 * j + 2 * q);
+    x[4 * j] += bb.x;
+    x[4 * j + 1] += bb.y;
+    x[4 * j + 2] += bb.x;
+    x[4 * j + 3] += bb.y;
+  }
+}
+
+// bf16(relu(acc (+ b))) into a K-major swizzled tile at columns col0 + ...
+template <int R>
+__device__ __forceinline__ void store_relu(unsigned char* tile, const float (&x)[R],
+                                           const float* b, int col0, int r0, int q) {
+#pragma unroll
+  for (int j = 0; j < R / 4; j++) {
+    const int c = col0 + 8 * j + 2 * q;
+    float2 bb = make_float2(0.f, 0.f);
+    if (b != nullptr) bb = *reinterpret_cast<const float2*>(b + c);
+    *reinterpret_cast<__nv_bfloat162*>(tile + sw128_offset(r0, c)) = __floats2bfloat162_rn(
+        fmaxf(x[4 * j] + bb.x, 0.f), fmaxf(x[4 * j + 1] + bb.y, 0.f));
+    *reinterpret_cast<__nv_bfloat162*>(tile + sw128_offset(r0 + 8, c)) = __floats2bfloat162_rn(
+        fmaxf(x[4 * j + 2] + bb.x, 0.f), fmaxf(x[4 * j + 3] + bb.y, 0.f));
+  }
+}
+
+// Copy `ncols` columns of a swizzled tile's valid rows to columns dc0 of
+// `dst` (rows `width` wide), 16 bytes a copier thread (streaming stores,
+// evicted from L2 first: the stash must not push the weights out):
+// pre-pool rows r = v * P + pt go to row (s, v, p0 + pt) of an (SB, NS, B,
+// width) array, post-pool rows r = pt to row (s, p0 + pt) of an (SB, B,
+// width) one; rows of points past B are skipped.
+__device__ void stash_rows(const ChainParams& p, const unsigned char* tile, int ncols, bool pre,
+                           bf16* dst, int width, int dc0, int s, int p0) {
+  const int P = p.pts, nrows = pre ? p.ns * P : P, chunks = ncols / 8;
+  for (int e = threadIdx.x - (FWD_THREADS - FWD_COPIERS); e < nrows * chunks; e += FWD_COPIERS) {
+    const int r = e / chunks, j = e % chunks;
+    const int v = pre ? r / P : 0, pt = pre ? r % P : r;
+    if (p0 + pt >= p.b) continue;
+    const size_t row = pre ? ((size_t)s * p.ns + v) * p.b + p0 + pt : (size_t)s * p.b + p0 + pt;
+    __stcs(reinterpret_cast<int4*>(dst + row * width + dc0 + j * 8),
+           *reinterpret_cast<const int4*>(tile + sw128_offset(r, j * 8)));
+  }
+}
+
+// slot `slot` of the pre- or post-pool stash
+__device__ __forceinline__ bf16* stash_slot(const ChainParams& p, int H, bool pre, int slot) {
+  const size_t rows = (size_t)p.sb * (pre ? p.ns : 1) * p.b;
+  return (pre ? p.spre : p.spost) + slot * rows * H;
+}
+
+// the positional-code rows into the A tile, zero past d_in, past the last
+// point and past NS * P: column pairs (d_in is even), eight loads in flight
+// a thread before their stores
+__device__ void load_xin(const ChainParams& p, unsigned char* A, int s, int p0) {
+  const int P = p.pts, rows = p.ns * P, pairs = p.d_in_pad / 2;
+  for (int e0 = threadIdx.x; e0 < FWD_ROWS * pairs; e0 += 8 * FWD_CONSUMERS) {
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const int e = e0 + i * FWD_CONSUMERS, r = e / pairs, kk = 2 * (e % pairs);
+      const int pt = p0 + r % P;
+      v[i] = 0u;
+      if (e < FWD_ROWS * pairs && kk < p.d_in && r < rows && pt < p.b)
+        v[i] = *reinterpret_cast<const uint32_t*>(
+            p.xin + (((size_t)s * p.ns + r / P) * p.b + pt) * p.d_in + kk);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const int e = e0 + i * FWD_CONSUMERS;
+      if (e < FWD_ROWS * pairs)
+        *reinterpret_cast<uint32_t*>(A + sw128_offset(e / pairs, 2 * (e % pairs))) = v[i];
+    }
+  }
+}
+
+// Shared-memory carve-up of a 64-row tile.
+struct ChainSmem {
+  unsigned char* ring;
+  unsigned char* A;   // relu(x) (64 x H), first the xin tile
+  unsigned char* Z;   // the z tile (64 x DL); A and Z are the pooling scratch
+  unsigned char* Hb;  // an h chunk (64 x HC)
+  uint64_t* full;
+  uint64_t* empty;
+  // stash handoffs, consumers to copiers and back: the z tile, relu(x) in
+  // A, an h chunk in Hb
+  uint64_t *z_ready, *z_free, *a_ready, *a_free, *h_ready, *h_free;
+};
+
+__device__ __forceinline__ ChainSmem chain_smem(unsigned char* raw, int H, int DL) {
+  ChainSmem m;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int zw = DL > H ? DL : H;
+  m.ring = base;
+  m.A = m.ring + FWD_STAGES * FWD_STAGE_BYTES;
+  m.Z = m.A + FWD_ROWS * H * 2;
+  m.Hb = m.Z + FWD_ROWS * zw * 2;
+  m.full = reinterpret_cast<uint64_t*>(m.Hb + FWD_ROWS * chain_chunk(H) * 2);
+  m.empty = m.full + FWD_STAGES;
+  m.z_ready = m.empty + FWD_STAGES;
+  m.z_free = m.z_ready + 1;
+  m.a_ready = m.z_ready + 2;
+  m.a_free = m.z_ready + 3;
+  m.h_ready = m.z_ready + 4;
+  m.h_free = m.z_ready + 5;
   return m;
 }
 
-static inline size_t fwd_smem_bytes(int hidden, int d_latent, int d_in_pad, int ns) {
-  const int ka = hidden > d_in_pad ? hidden : d_in_pad;
-  const size_t rp = tile_rows_padded(ns);
-  return rp * hidden * 4 + rp * d_latent * 2 + rp * ka * 2 + rp * hidden * 2 +
-         (size_t)WARPS * 256 * 4;
+// A consumer warp hands a tile it has written (after the barrier that
+// completes it) to the stash copiers.
+__device__ __forceinline__ void hand_over(uint64_t* ready) {
+  if (threadIdx.x % 32 == 0) mbar_arrive(ready);
 }
 
-static inline ChainParams chain_params(const void* xin, const void* w_in, const void* b_in,
-                                       const void* wz, const void* bz, const void* w0,
-                                       const void* b0, const void* w1, const void* b1,
-                                       const void* w_out, const void* b_out, void* out,
-                                       void* spre, void* spost, int sb, int ns, int b,
-                                       int d_latent, int d_in, int d_in_pad, int hidden,
-                                       int d_out, int n_blocks, int combine_layer) {
-  ChainParams p;
-  p.xin = static_cast<const bf16*>(xin);
-  p.w_in = static_cast<const bf16*>(w_in);
-  p.b_in = static_cast<const float*>(b_in);
-  p.wz = static_cast<const bf16*>(wz);
-  p.bz = static_cast<const float*>(bz);
-  p.w0 = static_cast<const bf16*>(w0);
-  p.b0 = static_cast<const float*>(b0);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w_out = static_cast<const bf16*>(w_out);
-  p.b_out = static_cast<const float*>(b_out);
-  p.out = static_cast<float*>(out);
-  p.spre = static_cast<bf16*>(spre);
-  p.spost = static_cast<bf16*>(spost);
-  p.sb = sb;
-  p.ns = ns;
-  p.b = b;
-  p.tb = tile_points(ns);
-  p.rows_pad = tile_rows_padded(ns);
-  p.d_in = d_in;
-  p.d_in_pad = d_in_pad;
-  p.hidden = hidden;
-  p.d_latent = d_latent;
-  p.d_out = d_out;
-  p.n_blocks = n_blocks;
-  p.combine_layer = combine_layer;
-  p.k = ns > 1 ? (combine_layer < n_blocks ? combine_layer : n_blocks) : 0;
-  return p;
-}
+// The consumer warpgroups: the chain from the loaded z tile to the output
+// rows. `load_z(Z, s, p0)` fills the z tile. With the stash, each operand
+// tile it belongs to is handed to the copiers once written, and rewritten
+// only after they have freed it: na, nh count the relu(x) and h handoffs.
+template <int H, class LoadZ>
+__device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainSmem& m,
+                                              LoadZ load_z) {
+  typedef ChainShape<H> S;
+  constexpr int NX = S::NX, NH = S::NH, HC = S::HC, SWB = S::SWE * 2;
+  const int s = blockIdx.y, P = p.pts, p0 = blockIdx.x * P;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * (warp % 4) + lane / 4, q = lane % 4;
+  const int xc0 = wg * NX;  // this warpgroup's x columns
+  const bool stash = p.spost != nullptr, zstash = p.zstash != nullptr;
+  const int ns = p.ns;
+  // products of a 16 x H band stage (x columns) and of a KS3 x HC one (h)
+  const uint32_t band_off = wg * 16 * NX * 2, band_lbo = 16 * S::SWE * 2;
+  const uint32_t chunk_off = wg * (NH / S::SWE) * S::KS3 * SWB, chunk_lbo = S::KS3 * SWB;
+  Ring rg{m.ring, m.full, m.empty, 0, 0};
+  uint32_t na = 0, nh = 0;
+  // before rewriting A (or using it as scratch): the last relu(x) copied
+  auto a_freed = [&]() {
+    if (stash && na > 0) mbar_wait(m.a_free, (na - 1) & 1);
+  };
 
-// copy the tile's rows (stride ld) of `width` bf16 values to their rows of
-// `dst`, 16 bytes a thread: pre-pool rows r = v * tb + pt go to row
-// (s, v, p0 + pt) of an (SB, NS, B, width) array, post-pool rows r = pt to
-// row (s, p0 + pt) of an (SB, B, width) one; rows of points past B are
-// skipped
-__device__ void write_rows(const ChainParams& p, const bf16* tile, int ld, int width, bool pre,
-                           bf16* dst, int s, int p0) {
-  const int tb = p.tb;
-  const int nrows = pre ? p.ns * tb : tb;
-  const int chunks = width / 8;
-  for (int e = threadIdx.x; e < nrows * chunks; e += THREADS) {
-    const int r = e / chunks, c8 = (e % chunks) * 8;
-    const int v = pre ? r / tb : 0, pt = pre ? r % tb : r;
-    if (p0 + pt >= p.b) continue;
-    const size_t row = pre ? ((size_t)s * p.ns + v) * p.b + p0 + pt : (size_t)s * p.b + p0 + pt;
-    *reinterpret_cast<uint4*>(dst + row * width + c8) =
-        *reinterpret_cast<const uint4*>(tile + r * ld + c8);
-  }
-}
+  load_z(m.Z, s, p0);
+  load_xin(p, m.A, s, p0);
+  fence_async_smem();
+  bar_sync(1, FWD_CONSUMERS);
+  if (zstash) hand_over(m.z_ready);
 
-// stash slot `slot` of the pre- or post-pool stash
-__device__ __forceinline__ void write_stash(const ChainParams& p, const bf16* tile, int ld,
-                                            bool pre, int slot, int s, int p0) {
-  const size_t rows = (size_t)p.sb * (pre ? p.ns : 1) * p.b;
-  write_rows(p, tile, ld, p.hidden, pre, (pre ? p.spre : p.spost) + slot * rows * p.hidden, s,
-             p0);
-}
+  float x[NX / 2];
+#pragma unroll
+  for (int i = 0; i < NX / 2; i++) x[i] = 0.f;
+  ring_product<NX>(x, m.A, p.d_in_pad, 16, rg, band_off, band_lbo, SWB);
+  add_bias(x, p.b_in, xc0, q);
 
-// the positional-code rows into A, zero past d_in, past the last point and
-// past ns * tb
-__device__ void load_xin(const ChainParams& p, const FwdSmem& m, int s, int p0) {
-  const int tb = p.tb, rows = p.ns * tb;
-  for (int e = threadIdx.x; e < p.rows_pad * p.d_in_pad; e += THREADS) {
-    const int r = e / p.d_in_pad, kk = e % p.d_in_pad;
-    const int v = r / tb, pt = p0 + r % tb;
-    bf16 val = __float2bfloat16(0.f);
-    if (kk < p.d_in && r < rows && pt < p.b)
-      val = p.xin[(((size_t)s * p.ns + v) * p.b + pt) * p.d_in + kk];
-    m.A[r * m.KA + kk] = val;
-  }
-}
-
-// the chain from the loaded Z and xin (in A) tiles to the output rows;
-// starts after a __syncthreads that follows the loads
-__device__ void forward_chain(const ChainParams& p, const FwdSmem& m, int s, int p0) {
-  const int H = p.hidden, DL = p.d_latent, KA = m.KA;
-  const int ns = p.ns, tb = p.tb, B = p.b;
-  const bool stash = p.spost != nullptr;
-  const int k = p.k, mm = p.n_blocks - p.k;
-  float* X = m.X;
-  bf16 *A = m.A, *Hb = m.Hb;
-
-  // x = xin @ W_in + b_in
-  tile_mm<false>(A, KA, p.d_in_pad, p.rows_pad / 16, p.w_in, H, H, m.stage,
-                 [&](int r, int c, float v) { X[r * H + c] = v + p.b_in[c]; });
-  __syncthreads();
-
-  // residual blocks; after the pooling the first tb rows (padded to a
-  // multiple of 16) carry the points
-  const int n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
-  int cur = p.rows_pad;
   for (int blk = 0; blk < p.n_blocks; blk++) {
     if (blk == p.combine_layer && ns > 1) {
-      for (int e = threadIdx.x; e < tb * H; e += THREADS) {
-        const int pt = e / H, c = e % H;
-        float sum = 0.f;
-        for (int v = 0; v < ns; v++) sum += X[(v * tb + pt) * H + c];
-        X[pt * H + c] = sum / (float)ns;
+      // mean over the views through f32 scratch over the A and Z tiles
+      a_freed();
+      if (zstash) mbar_wait(m.z_free, 0);
+      float* scr = reinterpret_cast<float*>(m.A);
+#pragma unroll
+      for (int j = 0; j < NX / 8; j++) {
+        const int c = xc0 + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(scr + r0 * H + c) = make_float2(x[4 * j], x[4 * j + 1]);
+        *reinterpret_cast<float2*>(scr + (r0 + 8) * H + c) = make_float2(x[4 * j + 2], x[4 * j + 3]);
       }
-      cur = (tb + 15) / 16 * 16;
-      __syncthreads();
+      bar_sync(1, FWD_CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < NX / 8; j++) {
+        const int c = xc0 + 8 * j + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; h++) {
+          const int r = r0 + 8 * h;
+          if (r >= P) continue;
+          float s0 = 0.f, s1 = 0.f;
+          for (int v = 0; v < ns; v++) {
+            const float2 t = *reinterpret_cast<const float2*>(scr + (v * P + r) * H + c);
+            s0 += t.x;
+            s1 += t.y;
+          }
+          x[4 * j + 2 * h] = s0 / (float)ns;
+          x[4 * j + 2 * h + 1] = s1 / (float)ns;
+        }
+      }
+      bar_sync(1, FWD_CONSUMERS);
     }
-    if (blk < n_inj) {
-      const float* bz = p.bz + (size_t)blk * H;
-      tile_mm<false>(m.Z, DL, DL, cur / 16, p.wz + (size_t)blk * DL * H, H, H, m.stage,
-                     [&](int r, int c, float v) { X[r * H + c] += v + bz[c]; });
-      __syncthreads();
+    if (blk < p.n_inj) {
+      ring_product<NX>(x, m.Z, p.d_latent, 16, rg, band_off, band_lbo, SWB);
+      add_bias(x, p.bz + (size_t)blk * H, xc0, q);
     }
-    for (int e = threadIdx.x; e < cur * H; e += THREADS) {
-      const int r = e / H, c = e % H;
-      A[r * KA + c] = __float2bfloat16(fmaxf(X[r * H + c], 0.f));
-    }
-    __syncthreads();
-    const bool pre = blk < k;
-    if (stash) write_stash(p, A, KA, pre, pre ? blk : blk - k, s, p0);
+    a_freed();
+    store_relu(m.A, x, nullptr, xc0, r0, q);
+    fence_async_smem();
+    bar_sync(1, FWD_CONSUMERS);
+    if (stash) hand_over(m.a_ready);
+    na++;
     const float* b0 = p.b0 + (size_t)blk * H;
-    tile_mm<false>(A, KA, H, cur / 16, p.w0 + (size_t)blk * H * H, H, H, m.stage,
-                   [&](int r, int c, float v) {
-                     Hb[r * H + c] = __float2bfloat16(fmaxf(v + b0[c], 0.f));
-                   });
-    __syncthreads();
-    if (stash) write_stash(p, Hb, H, pre, pre ? k + blk : mm + blk - k, s, p0);
-    const float* b1 = p.b1 + (size_t)blk * H;
-    tile_mm<false>(Hb, H, H, cur / 16, p.w1 + (size_t)blk * H * H, H, H, m.stage,
-                   [&](int r, int c, float v) { X[r * H + c] += v + b1[c]; });
-    __syncthreads();
+    for (int c = 0; c < H; c += HC) {
+      float h[NH / 2];
+#pragma unroll
+      for (int i = 0; i < NH / 2; i++) h[i] = 0.f;
+      ring_product<NH>(h, m.A, H, S::KS3, rg, chunk_off, chunk_lbo, SWB);
+      // both warpgroups are done with the previous chunk (for a block's
+      // first, the barrier after relu(x) saw to it) and it is copied
+      if (c > 0) bar_sync(1, FWD_CONSUMERS);
+      if (stash && nh > 0) mbar_wait(m.h_free, (nh - 1) & 1);
+      store_relu(m.Hb, h, b0 + c, wg * NH, r0, q);
+      fence_async_smem();
+      bar_sync(1, FWD_CONSUMERS);
+      if (stash) hand_over(m.h_ready);
+      nh++;
+      ring_product<NX>(x, m.Hb, HC, 16, rg, band_off, band_lbo, SWB);
+    }
+    add_bias(x, p.b1 + (size_t)blk * H, xc0, q);
   }
 
-  // out = relu(x) @ W_out + b_out for the tile's tb points (d_out is 4:
-  // plain FMA; ns == 1 leaves rows == tb)
-  for (int e = threadIdx.x; e < tb * H; e += THREADS) {
-    const int r = e / H, c = e % H;
-    A[r * KA + c] = __float2bfloat16(fmaxf(X[r * H + c], 0.f));
+  // out = relu(x) @ W_out + b_out for the tile's P points: W_out goes to
+  // the z tile (dead since the last injection) as f32 [o][k]; one warp a
+  // row, lanes over columns, d_out <= 16 sums a lane
+  a_freed();
+  if (zstash) mbar_wait(m.z_free, 0);
+  store_relu(m.A, x, nullptr, xc0, r0, q);
+  const int d_out = p.d_out;
+  float* wo = reinterpret_cast<float*>(m.Z);
+  for (int e = tid; e < H * d_out; e += FWD_CONSUMERS)
+    wo[(e % d_out) * H + e / d_out] = __bfloat162float(p.w_out[e]);
+  bar_sync(1, FWD_CONSUMERS);
+  if (stash) hand_over(m.a_ready);
+  for (int r = warp; r < P; r += FWD_CONSUMERS / 32) {
+    if (p0 + r >= p.b) break;
+    float acc[16];
+#pragma unroll
+    for (int o = 0; o < 16; o++) acc[o] = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) {
+      const float a = __bfloat162float(*reinterpret_cast<const bf16*>(m.A + sw128_offset(r, k)));
+#pragma unroll
+      for (int o = 0; o < 16; o++)
+        if (o < d_out) acc[o] += a * wo[o * H + k];
+    }
+#pragma unroll
+    for (int o = 0; o < 16; o++) {
+      if (o >= d_out) break;
+      float v = acc[o];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) p.out[((size_t)s * p.b + p0 + r) * d_out + o] = v + p.b_out[o];
+    }
+  }
+}
+
+// The stash copiers (three warps of the producer warpgroup): each operand
+// tile the consumers hand over goes to its stash slot while the tensor
+// cores run the products that read it; a warp frees the tile once its
+// copies are issued.
+template <int H>
+__device__ __forceinline__ void chain_copy(const ChainParams& p, const ChainSmem& m) {
+  const int s = blockIdx.y, p0 = blockIdx.x * p.pts, k = p.k, mm = p.n_blocks - p.k;
+  const int HC = chain_chunk(H);
+  uint32_t na = 0, nh = 0;
+  auto free_tile = [&](uint64_t* bar) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+  };
+  if (p.zstash != nullptr) {
+    mbar_wait(m.z_ready, 0);
+    stash_rows(p, m.Z, p.d_latent, true, p.zstash, p.d_latent, 0, s, p0);
+    free_tile(m.z_free);
+  }
+  for (int blk = 0; blk < p.n_blocks; blk++) {
+    const bool pre = blk < k;
+    mbar_wait(m.a_ready, na++ & 1);
+    stash_rows(p, m.A, H, pre, stash_slot(p, H, pre, pre ? blk : blk - k), H, 0, s, p0);
+    free_tile(m.a_free);
+    for (int c = 0; c < H; c += HC) {
+      mbar_wait(m.h_ready, nh++ & 1);
+      stash_rows(p, m.Hb, HC, pre, stash_slot(p, H, pre, pre ? k + blk : mm + blk - k), H, c, s,
+                 p0);
+      free_tile(m.h_free);
+    }
+  }
+  mbar_wait(m.a_ready, na & 1);
+  stash_rows(p, m.A, H, false, stash_slot(p, H, false, 2 * mm), H, 0, s, p0);
+}
+
+// The whole tile: barriers, then the producer and consumer roles (which
+// never meet at a __syncthreads again).
+template <int H, class LoadZ>
+__device__ __forceinline__ void run_chain(const ChainParams& p, const ChainMaps& maps,
+                                          LoadZ load_z) {
+  extern __shared__ __align__(1024) unsigned char chain_raw[];
+  const ChainSmem m = chain_smem(chain_raw, H, p.d_latent);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < FWD_STAGES; i++) {
+      mbar_init(&m.full[i], 1);
+      mbar_init(&m.empty[i], FWD_CONSUMERS / 32);
+    }
+    for (uint64_t* b = m.z_ready; b <= m.h_free; b += 2) {
+      mbar_init(b, FWD_CONSUMERS / 32);    // *_ready: the consumer warps
+      mbar_init(b + 1, FWD_COPIERS / 32);  // *_free: the copier warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (stash) write_stash(p, A, KA, false, 2 * mm, s, p0);
-  for (int e = threadIdx.x; e < tb * p.d_out; e += THREADS) {
-    const int r = e / p.d_out, o = e % p.d_out;
-    const int pt = p0 + r;
-    if (pt >= B) continue;
-    float acc = 0.f;
-    for (int kk = 0; kk < H; kk++)
-      acc += __bfloat162float(A[r * KA + kk]) * __bfloat162float(p.w_out[kk * p.d_out + o]);
-    p.out[((size_t)s * B + pt) * p.d_out + o] = acc + p.b_out[o];
+  if (threadIdx.x >= FWD_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == FWD_CONSUMERS) chain_produce<H>(p, maps, m.ring, m.full, m.empty);
+    if (threadIdx.x >= FWD_THREADS - FWD_COPIERS && p.spost != nullptr) chain_copy<H>(p, m);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    chain_consume<H>(p, m, load_z);
   }
 }

@@ -11,44 +11,65 @@
 // with the stash it also writes ~17 KB a point, ~1/20 of the time the
 // products need at the bf16 peak.
 //
-// Design: field_fwd.cu's block chain (fwd_chain.cuh) with the gather
-// replaced by a load of the bf16 z tile. The stash rows are written from
-// the same shared-memory operand tiles the products read, 16 bytes a
-// thread.
+// Design: fwd_chain.cuh's wgmma chain on TMA-fed weight tiles, the z tile
+// loaded by the consumer threads into its swizzled K-major layout, 16 bytes
+// a thread (a TMA box a view would need P rows to start on a 1024-byte
+// swizzle atom, which P = 21 at NS = 3 breaks). The stash forward is the
+// primal's code with the stash copies switched on, so both write the same
+// output bit for bit.
 
 #include "fwd_chain.cuh"
 
-__global__ void __launch_bounds__(THREADS, 1) resnetfc_fwd_kernel(ChainParams p, const bf16* z) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem m = fwd_smem(smem, p);
-  const int DL = p.d_latent, tb = p.tb, B = p.b;
-  const int s = blockIdx.y, p0 = blockIdx.x * tb;
-  const int rows = p.ns * tb;
+template <int H>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    resnetfc_fwd_kernel(const __grid_constant__ ChainParams p,
+                        const __grid_constant__ ChainMaps maps, const bf16* z) {
+  run_chain<H>(p, maps, [&](unsigned char* Z, int s, int p0) {
+    // the z tile, rows view-major; rows past the last point or past NS * P
+    // are zero; eight 16-byte loads in flight a thread before their stores
+    const int DL = p.d_latent, P = p.pts, rows = p.ns * P, chunks = DL / 8;
+    for (int e0 = threadIdx.x; e0 < FWD_ROWS * chunks; e0 += 8 * FWD_CONSUMERS) {
+      uint4 val[8];
+#pragma unroll
+      for (int i = 0; i < 8; i++) {
+        const int e = e0 + i * FWD_CONSUMERS, r = e / chunks, j = e % chunks;
+        const int v = r / P, pt = p0 + r % P;
+        val[i] = make_uint4(0, 0, 0, 0);
+        if (e < FWD_ROWS * chunks && r < rows && pt < p.b)
+          val[i] = *reinterpret_cast<const uint4*>(z + (((size_t)s * p.ns + v) * p.b + pt) * DL +
+                                                   j * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; i++) {
+        const int e = e0 + i * FWD_CONSUMERS;
+        if (e < FWD_ROWS * chunks)
+          *reinterpret_cast<uint4*>(Z + sw128_offset(e / chunks, (e % chunks) * 8)) = val[i];
+      }
+    }
+  });
+}
 
-  // the z tile, rows view-major; rows past the last point or past ns * tb
-  // are zero
-  for (int e = threadIdx.x; e < p.rows_pad * (DL / 2); e += THREADS) {
-    const int r = e / (DL / 2), c = (e % (DL / 2)) * 2;
-    const int v = r / tb, pt = p0 + r % tb;
-    __nv_bfloat162 val = __floats2bfloat162_rn(0.f, 0.f);
-    if (r < rows && pt < B)
-      val = *reinterpret_cast<const __nv_bfloat162*>(
-          z + (((size_t)s * p.ns + v) * B + pt) * DL + c);
-    *reinterpret_cast<__nv_bfloat162*>(m.Z + r * DL + c) = val;
-  }
-  load_xin(p, m, s, p0);
-  __syncthreads();
-  forward_chain(p, m, s, p0);
+template <int H>
+static int launch(const ChainParams& p, const ChainMaps& maps, const void* z, size_t smem,
+                  cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_dim((p.b + p.pts - 1) / p.pts, p.sb);
+  resnetfc_fwd_kernel<H><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps,
+                                                                  static_cast<const bf16*>(z));
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 size_t pnt_resnetfc_fwd_smem_bytes(int hidden, int d_latent, int d_in_pad, int ns) {
-  return fwd_smem_bytes(hidden, d_latent, d_in_pad, ns);
+  return fwd_smem_bytes(hidden, d_latent, ns);
 }
 
 // Launches the kernel on `stream` (stash written when spost is not null);
-// returns cudaGetLastError().
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a width the
+// chain is not built for.
 int pnt_resnetfc_fwd(const void* z, const void* xin, const void* w_in,
                      const void* b_in, const void* wz, const void* bz,
                      const void* w0, const void* b0, const void* w1,
@@ -56,17 +77,15 @@ int pnt_resnetfc_fwd(const void* z, const void* xin, const void* w_in,
                      void* out, void* spre, void* spost, int sb, int ns, int b,
                      int d_latent, int d_in, int d_in_pad, int hidden,
                      int d_out, int n_blocks, int combine_layer, void* stream) {
-  const ChainParams p =
-      chain_params(xin, w_in, b_in, wz, bz, w0, b0, w1, b1, w_out, b_out, out, spre, spost, sb,
-                   ns, b, d_latent, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer);
-  const size_t smem = fwd_smem_bytes(hidden, d_latent, d_in_pad, ns);
-  cudaError_t err = cudaFuncSetAttribute(
-      resnetfc_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_dim((b + p.tb - 1) / p.tb, sb);
-  resnetfc_fwd_kernel<<<grid_dim, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const bf16*>(z));
-  return (int)cudaGetLastError();
+  ChainParams p;
+  ChainMaps maps;
+  const int err = chain_setup(&p, &maps, xin, w_in, b_in, wz, bz, w0, b0, w1, b1, w_out, b_out,
+                              out, spre, spost, sb, ns, b, d_latent, d_in, d_in_pad, hidden,
+                              d_out, n_blocks, combine_layer);
+  if (err) return err;
+  const size_t smem = fwd_smem_bytes(hidden, d_latent, ns);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hidden == 512 ? launch<512>(p, maps, z, smem, st) : launch<64>(p, maps, z, smem, st);
 }
 
 }  // extern "C"

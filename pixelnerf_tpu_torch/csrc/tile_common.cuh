@@ -1,7 +1,7 @@
 // Device code shared by the package's CUDA sources: the composed
 // native-pyramid taps (pyramid_pallas.py:_axis_pairs), rounded as the TPU
-// kernels round them, and the wmma tile product of the ResnetFC block
-// chains, forward and backward, whose callers give the epilogue.
+// kernels round them, and the wmma tile product of the ResnetFC backward
+// chain (resnetfc_bwd.cu), whose callers give the epilogue.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -18,9 +18,9 @@ pyramid_field_fused` and its custom VJP:
 
 Their header notes give the bound on the H100 (operations: ~11.6 MFLOP of
 bf16 products per point at NS=2 forward, about twice that backward) and
-the design. The kernels take any number of views whose tile fits in shared
-memory: up to 32 at the flagship width (hidden 512, d_latent 512); beyond,
-the wrappers raise.
+the design. The forward takes hidden 64 or 512 (every config under
+`conf/` is 512 wide) and up to 64 views, whose rows fit one 64-row tile;
+beyond, the wrappers raise.
 
 `pyramid_field_fused` is the entry point: with autograd recording and an
 input or weight that needs a gradient it runs the stash forward and, on
@@ -51,8 +51,8 @@ import torch
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
 from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather_plain, pyramid_scatter_add_plain
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    FieldWeights, _device_of, _pad16, launch_bwd, pack_field_weights, resnetfc_bwd_plain,
-    resnetfc_fwd_plain, stash_layout,
+    FieldWeights, _device_of, _pad16, check_chain_widths, launch_bwd, pack_field_weights,
+    resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
 )
 
 __all__ = [
@@ -185,8 +185,7 @@ def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
             raise ValueError("levels must be contiguous bf16 tensors on the grid's device")
         if f.shape[3] % 2:
             raise ValueError("level channel counts must be even")
-    if hidden % 16 or d_latent % 16:
-        raise ValueError("d_hidden and d_latent must be multiples of 16")
+    check_chain_widths(hidden, d_latent, d_in, d_out)
     if grid.dtype != torch.float32 or xin.dtype != torch.bfloat16:
         raise TypeError("grid must be float32 and xin bf16")
     if any(t.device != device for t in w):

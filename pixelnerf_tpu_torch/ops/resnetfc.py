@@ -48,6 +48,7 @@ __all__ = [
     "resnetfc_bwd_plain",
     "supported_config",
     "stash_layout",
+    "check_chain_widths",
 ]
 
 _GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/resnetfc_bwd.cu)
@@ -82,7 +83,7 @@ def _pad16(n: int) -> int:
 def pack_field_weights(w: FieldWeights) -> FieldWeights:
     """The kernels' operand form: matrices bf16, biases float32, all
     contiguous and detached, w_in zero-padded to a multiple of 16 rows
-    (the wmma K step). Leaves already in that form are kept as they are."""
+    (the K step of the kernels' products). Leaves already in that form are kept as they are."""
     mat = lambda t: t.detach().to(_BF).contiguous()
     vec = lambda t: t.detach().float().contiguous()
     w_in = mat(w.w_in)
@@ -239,6 +240,24 @@ def _check(z, xin, w, n_blocks, combine_layer, ns):
         )
 
 
+CHAIN_HIDDEN = (64, 512)  # widths csrc/fwd_chain.cuh is compiled for
+
+
+def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int) -> None:
+    """Raise unless the forward chain (`csrc/fwd_chain.cuh`, shared by the
+    ResnetFC and field forward kernels) takes these widths: hidden 64 or
+    512, d_latent a multiple of 64 (its 128-byte swizzled operand tiles),
+    an even d_in whose padding to 16 is at most hidden (it shares the
+    relu(x) tile) and at most 16 outputs."""
+    if hidden not in CHAIN_HIDDEN:
+        raise ValueError(f"the forward kernels take d_hidden in {CHAIN_HIDDEN}, got {hidden}")
+    if d_latent % 64 or d_in % 2 or _pad16(d_in) > hidden or d_out > 16:
+        raise ValueError(
+            f"the forward kernels take d_latent a multiple of 64, an even d_in <= d_hidden and "
+            f"d_out <= 16, got d_latent={d_latent} d_in={d_in} d_out={d_out}"
+        )
+
+
 def _device_of(z: torch.Tensor, what: str) -> str:
     if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on CUDA or CPU tensors, got {z.device}")
@@ -295,6 +314,7 @@ def _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
     d_in = xin.shape[3]
     d_in_pad, hidden = w.w_in.shape
     d_out = w.w_out.shape[1]
+    check_chain_widths(hidden, dl, d_in, d_out)
     lib = _library("resnetfc_fwd")
     smem = lib.pnt_resnetfc_fwd_smem_bytes(hidden, dl, d_in_pad, ns)
     if smem > SMEM_LIMIT:

@@ -100,9 +100,10 @@ def test_field_kernel_matches_plain(cuda, ns, sb, b):
 
 
 def test_field_kernel_raises_past_its_shared_memory(cuda):
-    """At the flagship width a tile of 33 views does not fit in shared
-    memory: the wrapper raises instead of launching."""
-    ns, d_in, hidden, d_latent = 33, 42, 512, 512
+    """At the flagship width a tile of 65 views (more rows than the 64-row
+    tile holds) does not fit in shared memory: the wrapper raises instead
+    of launching."""
+    ns, d_in, hidden, d_latent = 65, 42, 512, 512
     z = lambda *shape: torch.zeros(shape, device=cuda)
     w = FieldWeights(
         w_in=z(d_in, hidden), b_in=z(hidden), wz=z(3, d_latent, hidden), bz=z(3, hidden),
@@ -275,11 +276,11 @@ def test_failed_resnetfc_launch_raises(cuda, monkeypatch):
     """A launch the card refuses (here: more shared memory than a block
     may have, past the wrapper's own check) raises; nothing is counted."""
     rng = np.random.default_rng(0)
-    z, xin, w, _ = _mlp_case(rng, cuda, 33, 1, 4, hidden=512, d_latent=512)
+    z, xin, w, _ = _mlp_case(rng, cuda, 65, 1, 4, hidden=512, d_latent=512)
     monkeypatch.setattr(ops_resnetfc, "SMEM_LIMIT", 1 << 30)
     before = resnetfc_fwd.launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        resnetfc_fwd(z, xin, w, 5, 3, 33)
+        resnetfc_fwd(z, xin, w, 5, 3, 65)
     assert resnetfc_fwd.launches == before
 
 
@@ -344,3 +345,109 @@ def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n):
     torch.cuda.synchronize()
     assert bilerp_scatter_add.launches == before + 1
     torch.testing.assert_close(got, bilerp_scatter_add_plain(uv, dz, hl, wl), rtol=1e-4, atol=1e-5)
+
+
+# The wgmma forward chain (csrc/fwd_chain.cuh) at the flagship width: hidden
+# 512, d_latent 512 (srn.conf's three packed levels), d_in 42. Outputs as
+# chip_smoke.py holds them (3e-2 + 3e-2 |plain|: bf16 operands and float32
+# sums in other orders through five 512-wide blocks); every gradient of the
+# backward from the kernel's stash within 5e-2 of its largest magnitude and
+# 2e-2 Frobenius of the plain backward from the same stash (chip_smoke.py's
+# GRAD_MAX, GRAD_FRO). Each NS has a B that is not a multiple of the tile's
+# max(1, 64 // NS) points, and one B is smaller than a tile.
+WIDE_LEVELS = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
+WIDE_CASES = [(1, 1, 100), (2, 2, 45), (2, 1, 5), (3, 1, 50), (5, 2, 9)]
+
+
+def _wide_weights(rng, cuda, d_in=42, hidden=512, d_latent=512, n_blocks=5, combine=3):
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    m = lambda scale, *shape: t(rng.normal(size=shape, scale=scale))
+    n_inj = min(combine, n_blocks)
+    return FieldWeights(
+        w_in=m(d_in ** -0.5, d_in, hidden), b_in=m(0.1, hidden),
+        wz=m(d_latent ** -0.5, n_inj, d_latent, hidden), bz=m(0.1, n_inj, hidden),
+        w0=m(hidden ** -0.5, n_blocks, hidden, hidden), b0=m(0.1, n_blocks, hidden),
+        w1=m(0.5 * hidden ** -0.5, n_blocks, hidden, hidden), b1=m(0.1, n_blocks, hidden),
+        w_out=m(hidden ** -0.5, hidden, 4), b_out=m(0.1, 4),
+    )
+
+
+def _out_close(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 3e-2 + 3e-2 * want.abs()).all()
+
+
+def _grad_within(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 5e-2 * want.abs().max() + 1e-30
+    assert (got - want).norm() <= 2e-2 * want.norm() + 1e-30
+
+
+@pytest.mark.parametrize("ns,sb,b", WIDE_CASES)
+def test_resnetfc_forward_chain_flagship_width(cuda, ns, sb, b):
+    rng = np.random.default_rng(1000 + ns * 100 + b)
+    combine = 3 if ns > 1 else 1000
+    w = _wide_weights(rng, cuda, combine=combine)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, torch.bfloat16)
+    z, xin = t(rng.normal(size=(sb, ns, b, 512))), t(rng.normal(size=(sb, ns, b, 42)))
+    g = torch.from_numpy(rng.normal(size=(sb, b, 4)).astype(np.float32)).to(cuda)
+    args = (5, combine, ns)
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches)
+    out = resnetfc_fwd(z, xin, w, *args)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    torch.cuda.synchronize()
+    assert (resnetfc_fwd.launches, resnetfc_fwd_stash.launches) == tuple(x + 1 for x in before)
+    assert torch.equal(out, out_s)
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
+    _out_close(out, want)
+    assert (spre is None) == (wpre is None) and spost.shape == wpost.shape
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+@pytest.mark.parametrize("ns,sb,b", WIDE_CASES)
+def test_field_forward_chain_flagship_width(cuda, ns, sb, b):
+    rng = np.random.default_rng(2000 + ns * 100 + b)
+    combine = 3 if ns > 1 else 1000
+    w = _wide_weights(rng, cuda, combine=combine)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in WIDE_LEVELS]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    xin = t(rng.normal(size=(sb, ns, b, 42)), torch.bfloat16)
+    g = t(rng.normal(size=(sb, b, 4)) * 1e-3)
+    args = (5, combine, ns)
+    before = (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches)
+    out = pyramid_field_fused(feats, grid, xin, w, *args)
+    out_s, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    torch.cuda.synchronize()
+    assert (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches) == tuple(
+        x + 1 for x in before
+    )
+    assert torch.equal(out, out_s)
+    want, wz, wpre, wpost = field_plain(feats, grid, xin, w, *args, stash=True)
+    _out_close(out, want)
+    assert torch.equal(zs, pyramid_gather_plain(feats, grid.reshape(sb * ns, b, 2)).reshape(zs.shape))
+    assert (spre is None) == (wpre is None) and spost.shape == wpost.shape
+    d_feats, dxin, dw = pyramid_field_fused_bwd(grid, xin, g, zs, spre, spost, w, *args, WIDE_LEVELS)
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs, spre, spost, w, *args, WIDE_LEVELS)
+    for got, ref in zip(d_feats, wd_feats):
+        _grad_within(got, ref)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+def test_resnetfc_forward_raises_on_widths_the_chain_lacks(cuda):
+    """hidden 256 is not a width the chain is built for: the wrapper raises
+    before launching."""
+    rng = np.random.default_rng(5)
+    z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=256, d_latent=64)
+    before = resnetfc_fwd.launches
+    with pytest.raises(ValueError, match="d_hidden"):
+        resnetfc_fwd(z, xin, w, 5, 3, 2)
+    assert resnetfc_fwd.launches == before
