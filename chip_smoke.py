@@ -30,7 +30,8 @@ Phases, each failing loudly (an exception and a non-zero exit):
    needs it), then warm-up and timed steps (train rays/s, peak memory),
    one step under torch.profiler, and one step of the card held against
    the CPU plain step on the same parameters and injected rays (bf16 and
-   float32);
+   float32), and each side's bf16 trunk gradients against its own float32
+   step's, layer by layer;
 6. path A, training through the fused field: phase 5 for
    `model.with_field_fusion()` (the field's stash forward and backward in
    the train step, its primal in the eval step, no pyramid or ResnetFC
@@ -44,6 +45,13 @@ Phases, each failing loudly (an exception and a non-zero exit):
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
    launches are the most that one counted run of phases 4-7 made.
+
+For the two backwards (the ResnetFC's and the field's) phase 3 also holds
+the bf16 cotangents the chain hands the weight-gradient products against
+their plain version, and prints the chain (csrc/bwd_chain.cuh) and the
+weight-gradient products on their own: ms and launches by kernel name under
+torch.profiler, TFLOP/s, bytes moved, bound, and each one's products alone
+as bf16 torch.matmul (`chain_*` and `wgrad_*` in their `kernels` records).
 
 For the four forward-chain kernels (the field and ResnetFC primal and
 stash forwards, csrc/fwd_chain.cuh) phase 3 also prints TFLOP/s, the L2
@@ -142,15 +150,19 @@ GRAD_MAX, GRAD_FRO = 5e-2, 2e-2
 # (Frobenius). bf16, the flagship, with every kernel on the card: cuDNN and
 # the CPU round the trunk's bf16 activations and gradients at other
 # places, and train-mode BatchNorm subtracts nearly equal terms in the
-# trunk's parameter gradients, which then differ by up to ~0.5 relative
-# while the rest agree to a few percent; so the bf16 step holds the loss,
-# the encoder-output gradient and the heads, and the float32 step (the
-# same path without the bf16 kernels) holds every parameter.
+# trunk's parameter gradients. Each side's bf16 trunk gradients differ from
+# its own float32 step's by up to ~0.63 relative, the card's within 1.26x
+# of the CPU's layer by layer (trunk_precision; NVIDIA H100 80GB HBM3,
+# 700 W): rounding, not a fault. So the bf16 trunk is held to 0.75 against
+# the CPU (measured 0.53-0.54 on the three paths) and each layer's card
+# error to TRUNK_RATIO times the CPU's; the float32 step (the same path
+# without the bf16 kernels) holds every parameter to 3e-2.
 CMP_SB, CMP_RAYS = 2, 64
 CMP_TOL = {
-    "bfloat16": {"loss": 1e-2, "latent": 1e-1, "head": 5e-2, "encoder": None},
+    "bfloat16": {"loss": 1e-2, "latent": 1e-1, "head": 5e-2, "encoder": 0.75},
     "float32": {"loss": 1e-4, "latent": 1e-2, "head": 1e-2, "encoder": 3e-2},
 }
+TRUNK_RATIO = 1.5
 
 
 def _card_line() -> str:
@@ -233,6 +245,88 @@ def _chain_line(name, flops, ms, products_ms, ns, wbytes, per):
         f"point {wbytes / max(1, 64 // ns):.0f}, products alone (bf16 torch.matmul) "
         f"{products_ms:.3f} ms = {flops / products_ms / 1e9:.1f} TFLOP/s"
     )
+
+
+def _bwd_split(torch, fn, calls: int = 3):
+    """Device ms and launches a call of the backward's two kernels (the
+    cotangent chain, one launch, and the weight-gradient products, one per
+    weight), by kernel name under torch.profiler over `calls` warm calls.
+    The profiler can drop a kernel's record (PERF.md §7), so a kernel's time
+    a call is its mean time a recorded launch times its launches a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    per_call = {"chain": 1, "wgrad": 2 + 2 * N_BLOCKS + min(COMBINE, N_BLOCKS)}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = "chain" if "bwd_chain_kernel" in e.key else "wgrad" if "wgrad_kernel" in e.key else None
+        if part:
+            total[part][0] += e.self_device_time_total / 1e3
+            total[part][1] += e.count
+    if not all(0 < n <= calls * per_call[k] for k, (_, n) in total.items()):
+        raise AssertionError(f"the backward's kernels under the profiler: {total}")
+    return {k: [ms / n * per_call[k], per_call[k]] for k, (ms, n) in total.items()}
+
+
+def _bwd_products_ms(torch, dev, g, sb, ns, b, d_in_pad, d_latent):
+    """Yardsticks, timed only and never on the port's path: the backward
+    chain's matrix products alone (per block G1 @ W1^T and G0 @ W0^T, then
+    g_z as one K = n_inj * H product and dxin) and the weight-gradient
+    products (act^T @ G for each of the 15 weights), as bf16 torch.matmul
+    at the kernels' shapes."""
+    n_inj = min(COMBINE, N_BLOCKS)
+    k = n_inj if ns > 1 else 0
+    pre, post = sb * ns * b, sb * b
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w, wz, w_in = r(HIDDEN, HIDDEN), r(n_inj * HIDDEN, d_latent), r(HIDDEN, d_in_pad)
+    act, z, xin, gout = r(pre, HIDDEN), r(pre, d_latent), r(pre, d_in_pad), r(post, 16)
+    gcat = r(pre, n_inj * HIDDEN)
+
+    def chain():
+        for i in range(N_BLOCKS):
+            a = act if i < k else act[:post]
+            a @ w
+            a @ w
+        gcat @ wz
+        act @ w_in
+
+    def wgrad():
+        for i in range(N_BLOCKS):
+            a = act if i < k else act[:post]
+            a.t() @ a
+            a.t() @ a
+        for _ in range(n_inj):
+            z.t() @ act
+        xin.t() @ act
+        act[:post].t() @ gout
+
+    return _time_ms(torch, chain, 1, 3), _time_ms(torch, wgrad, 1, 3)
+
+
+def _bwd_lines(name, per, split, bwd_flops, chain_bytes, wgrad_bytes, products):
+    """The backward's two kernels on their own: ms, launches, TFLOP/s and
+    bytes of a step, bound and products yardstick each."""
+    res = {}
+    for part, nbytes, prod in (("chain", chain_bytes, products[0]), ("wgrad", wgrad_bytes, products[1])):
+        ms, launches = split[part]
+        bound_ms, bound_by = _bound(bwd_flops, PEAK_BF16_FLOPS, nbytes)
+        print(
+            f"{name} {part}: {ms:.3f} ms {per}, {launches:g} launches, "
+            f"{bwd_flops / ms / 1e9:.1f} TFLOP/s, {nbytes / 1e9:.3f} GB moved "
+            f"({nbytes / ms / 1e6:.1f} GB/s), bound {bound_ms:.3f} ms ({bound_by}), products alone "
+            f"(bf16 torch.matmul) {prod:.3f} ms"
+        )
+        res.update({f"{part}_ms": ms, f"{part}_launches": launches, f"{part}_bound_ms": bound_ms,
+                    f"{part}_products_ms": prod})
+    return res
 
 
 def _look_at(np, eye):
@@ -435,6 +529,9 @@ def check_field_vjp(torch, np, dev):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     fwd, bwd = ({k: 0.0 for k in keys} for _ in range(2))
     fwd["products_ms"], fwd_flops = 0.0, 0.0
+    split = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
+    chain_bytes = wgrad_bytes = 0.0
+    products = [0.0, 0.0]
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in FIELD_CALLS.items():
         b = TRAIN_RAYS * k
@@ -490,6 +587,22 @@ def check_field_vjp(torch, np, dev):
             2 * flops, PEAK_BF16_FLOPS,
             grid.numel() * 4 + xin.numel() * 2 + out_bytes + stash_bytes + wbytes + grad_bytes,
         )[0]
+        # the chain reads g, the grid, the activation stash and the weights
+        # and writes dxin, the f32 level gradients and the cotangents; the
+        # products read the stash (z-stash too), xin and the cotangents and
+        # write the f32 weight gradients
+        for part, (ms, n) in _bwd_split(
+            torch, lambda: pyramid_field_fused_bwd(grid, xin, gout, zs, spre, spost, w, *args, LEVELS)
+        ).items():
+            split[part][0] += ms
+            split[part][1] += n
+        act_bytes = sum(t.numel() * 2 for t in (spre, spost) if t is not None)
+        cot_bytes = act_bytes - SB * b * HIDDEN * 2 + SB * ns * b * HIDDEN * 2 + SB * b * 16 * 2
+        chain_bytes += (out_bytes + grid.numel() * 4 + act_bytes + wbytes + cot_bytes
+                        + xin.numel() * 2 + feat_bytes * 2)
+        wgrad_bytes += stash_bytes + xin.numel() * 2 + cot_bytes + sum(t.numel() * 4 for t in w)
+        pm = _bwd_products_ms(torch, dev, g, SB, ns, b, D_IN_PAD, dl)
+        products = [products[0] + pm[0], products[1] + pm[1]]
         del grid, xin, gout, zs, spre, spost
         torch.cuda.empty_cache()
     _chain_line("pyramid_field_fused_fwd_stash", fwd_flops, fwd["ms"], fwd["products_ms"], ns,
@@ -499,6 +612,8 @@ def check_field_vjp(torch, np, dev):
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms (operations), per fused train step"
         )
+    bwd.update(_bwd_lines("pyramid_field_fused_bwd", "a fused train step", split, fwd_flops,
+                          chain_bytes, wgrad_bytes, products))
     rep = "pixelnerf_tpu/ops/field_pallas.py"
     return [
         _record("pyramid_field_fused_fwd_stash", "cuda", "pixelnerf_tpu_torch/csrc/field_fwd.cu",
@@ -677,7 +792,8 @@ def check_resnetfc(torch, np, dev):
     and dz, dxin and every weight gradient from the same stash."""
     from pixelnerf_tpu_torch.ops.field import FieldWeights, field_flops
     from pixelnerf_tpu_torch.ops.resnetfc import (
-        resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+        launch_bwd, resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd,
+        resnetfc_fwd_plain, resnetfc_fwd_stash,
     )
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -689,6 +805,9 @@ def check_resnetfc(torch, np, dev):
     fwd, stash, bwd = ({k: 0.0 for k in keys} for _ in range(3))
     fwd["products_ms"] = stash["products_ms"] = 0.0
     total_flops = 0.0
+    split = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
+    chain_bytes = wgrad_bytes = 0.0
+    products = [0.0, 0.0]
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in MLP_CALLS.items():
         b = TRAIN_RAYS * k
@@ -725,9 +844,16 @@ def check_resnetfc(torch, np, dev):
         pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
             (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields
         ]
+        # the bf16 cotangents the chain hands the weight-gradient products
+        cots = launch_bwd(z, xin, gout, spre, spost, w, *args, cotangents=True)[3]
+        torch.cuda.synchronize()
+        wcots = resnetfc_cotangents_plain(gout, spre, spost, w, *args)
+        pairs += [(n, a, b_) for n, a, b_ in zip(("gpre", "gpost", "gin", "gout"), cots, wcots)
+                  if a is not None]
         worst = _check_grads(torch, f"resnetfc_bwd {call}", pairs, call == "coarse")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], worst)
-        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want, pairs
+        cot_bytes = sum(t.numel() * 2 for t in cots if t is not None)
+        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want, pairs, cots, wcots
 
         fwd["ms"] += _time_ms(torch, lambda: resnetfc_fwd(z, xin, w, *args), 1, 3)
         fwd["plain_ms"] += _time_ms(torch, lambda: resnetfc_fwd_plain(z, xin, w, *args), 1, 2)
@@ -745,6 +871,18 @@ def check_resnetfc(torch, np, dev):
         bwd["bound_ms"] += _bound(
             2 * flops, PEAK_BF16_FLOPS, in_bytes + out_bytes + stash_bytes + grad_bytes
         )[0]
+        # the chain reads g, the stash and the weights and writes dz, dxin and
+        # the cotangents; the products read the stash, z, xin and the
+        # cotangents and write the f32 weight gradients
+        for part, (ms, n) in _bwd_split(
+            torch, lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args)
+        ).items():
+            split[part][0] += ms
+            split[part][1] += n
+        chain_bytes += out_bytes + stash_bytes + cot_bytes + in_bytes
+        wgrad_bytes += stash_bytes + in_bytes - wbytes + cot_bytes + sum(t.numel() * 4 for t in w)
+        pm = _bwd_products_ms(torch, dev, g, SB, ns, b, D_IN_PAD, dl)
+        products = [products[0] + pm[0], products[1] + pm[1]]
         del z, xin, gout, spre, spost
         torch.cuda.empty_cache()
     mats = sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1))
@@ -770,6 +908,8 @@ def check_resnetfc(torch, np, dev):
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms (operations), per train step"
         )
+    bwd.update(_bwd_lines("resnetfc_bwd", "a cached or nearest train step", split, total_flops,
+                          chain_bytes, wgrad_bytes, products))
     rep = "pixelnerf_tpu/ops/resnetfc_pallas.py"
     return [
         _record("resnetfc_fwd", "cuda", "pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu", f"{rep}:529", fwd, "operations", None),
@@ -921,6 +1061,39 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False):
     )
     if not rel <= tol["loss"]:
         raise AssertionError(f"{label}: card vs CPU {dtype_name} step: losses disagree")
+    return grads_d, grads_c
+
+
+def trunk_precision(torch, grads, label):
+    """Fault 2, the bf16 trunk's parameter gradients: each side's bf16 step
+    against the float32 step on the same side (card with card, CPU with CPU,
+    the same parameters and rays), layer by layer. Rounding shows as errors
+    of one size on both sides; a fault in the card's encoder backward as
+    card errors beyond the CPU's."""
+    (bf_d, bf_c), (f32_d, f32_c) = grads["bfloat16"], grads["float32"]
+    rel = lambda a, b: ((a - b).norm() / (b.norm() + 1e-30)).item()
+    worst = {"card": (0.0, ""), "CPU": (0.0, "")}
+    ratio = (0.0, "")
+    for n in f32_c:
+        if not n.startswith("encoder.") or not f32_c[n].norm() > 0:
+            continue
+        card, cpu = rel(bf_d[n], f32_d[n]), rel(bf_c[n], f32_c[n])
+        if not (math.isfinite(card) and math.isfinite(cpu)):
+            raise AssertionError(f"{label}: non-finite trunk gradient error at {n}")
+        print(f"{label} trunk bf16 vs float32 {n}: card {card:.3e} CPU {cpu:.3e}")
+        if card > TRUNK_RATIO * cpu:
+            raise AssertionError(
+                f"{label}: the card's bf16 trunk gradient {n} is {card:.3e} from its float32 step, "
+                f"more than {TRUNK_RATIO}x the CPU's {cpu:.3e}"
+            )
+        worst["card"] = max(worst["card"], (card, n))
+        worst["CPU"] = max(worst["CPU"], (cpu, n))
+        ratio = max(ratio, (card / max(cpu, 1e-30), n))
+    print(
+        f"{label}: trunk bf16 vs float32, worst relative gradient error: card "
+        f"{worst['card'][0]:.3e} ({worst['card'][1]}), CPU {worst['CPU'][0]:.3e} "
+        f"({worst['CPU'][1]}); largest card / CPU ratio {ratio[0]:.3f} ({ratio[1]})"
+    )
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
@@ -978,8 +1151,13 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     del model, stepped, optimizer, step, eval_step
     torch.cuda.empty_cache()
 
-    for dtype in cmp_dtypes:
-        compare_step(torch, np, conf, rcfg.replace(perturb=0.0, noise_std=0.0), dev, dtype, label, fusion)
+    grads = {
+        dtype: compare_step(torch, np, conf, rcfg.replace(perturb=0.0, noise_std=0.0), dev, dtype,
+                            label, fusion)
+        for dtype in cmp_dtypes
+    }
+    if set(grads) == {"bfloat16", "float32"}:
+        trunk_precision(torch, grads, label)
     return [train_launches, eval_launches]
 
 

@@ -47,9 +47,10 @@
 // - The A operands are bf16 tiles in shared memory, K-major with the
 //   128-byte swizzle, written by the consumer threads (generic stores,
 //   then fence.proxy.async): the xin tile, the z tile (resident across the
-//   injections), relu(x) (64 x H), and h in chunks of 256 columns (64 at
-//   H = 64) into one buffer: each warpgroup computes half a chunk,
-//   h = relu(relu(x) @ W0[:, chunk] + b0) (wgmma n128), writes it, and
+//   injections), relu(x) (64 x H), and h in chunks of min(H, 256) columns
+//   into one buffer: each warpgroup computes half a chunk,
+//   h = relu(relu(x) @ W0[:, chunk] + b0) (wgmma n128, or n64 / n32 at
+//   hidden 128 / 64), writes it, and
 //   both then add chunk @ W1[chunk, :] to their x columns.
 // - Stash rows are copied from the same shared-memory operand tiles (16
 //   bytes a thread, rows past B skipped) by three copier warps of the
@@ -98,7 +99,8 @@ struct ChainMaps {
 // Widths the chain is built for (`hidden`, at compile time).
 template <int H>
 struct ChainShape {
-  static_assert(H == 64 || H == 512, "the chain is built for hidden 64 and 512");
+  static_assert(H == 64 || H == 128 || H == 256 || H == 512,
+                "the chain is built for hidden 64, 128, 256 and 512");
   static constexpr int NX = H / 2;              // x columns of one warpgroup
   static constexpr int SWE = NX >= 64 ? 64 : 32;  // B column block: 128- or 64-byte swizzle
   static constexpr int NH = NX >= 128 ? 128 : NX;  // h columns of one warpgroup a chunk
@@ -107,7 +109,12 @@ struct ChainShape {
   static constexpr int KS3 = FWD_STAGE_BYTES / (HC * 2) < H ? FWD_STAGE_BYTES / (HC * 2) : H;
 };
 
-static inline bool chain_width_ok(int hidden) { return hidden == 64 || hidden == 512; }
+// the powers of two that split into whole wgmma N per warpgroup and whole
+// swizzle blocks: a multiple of 64 such as 192 or 384 would need n96 or
+// ragged h chunks
+static inline bool chain_width_ok(int hidden) {
+  return hidden == 64 || hidden == 128 || hidden == 256 || hidden == 512;
+}
 
 static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 1; }
 
@@ -132,7 +139,7 @@ static inline int chain_setup(ChainParams* p, ChainMaps* m, const void* xin, con
                               int ns, int b, int d_latent, int d_in, int d_in_pad, int hidden,
                               int d_out, int n_blocks, int combine_layer) {
   if (!chain_width_ok(hidden) || d_latent % 64 || d_in % 2 || d_in_pad % 16 ||
-      d_in_pad > hidden || d_out > 16 || ns < 1)
+      d_in_pad > hidden || d_out > 16 || ns < 1 || ns > FWD_ROWS)
     return (int)cudaErrorInvalidValue;
   p->xin = static_cast<const bf16*>(xin);
   p->b_in = static_cast<const float*>(b_in);
@@ -210,12 +217,14 @@ __device__ __forceinline__ void chain_produce(const ChainParams& p, const ChainM
   }
 }
 
-template <int N, int R>
+// D (64 x N) += A @ B, B MN-major (TB = 1) or K-major (TB = 0)
+template <int N, int TB = 1, int R>
 __device__ __forceinline__ void wgmma_n(float (&d)[R], uint64_t da, uint64_t db) {
   static_assert(R == N / 2, "accumulator size");
-  if constexpr (N == 256) wgmma_n256(d, da, db);
-  else if constexpr (N == 128) wgmma_n128(d, da, db);
-  else wgmma_n32(d, da, db);
+  if constexpr (N == 256) wgmma_n256<TB>(d, da, db);
+  else if constexpr (N == 128) wgmma_n128<TB>(d, da, db);
+  else if constexpr (N == 64) wgmma_n64<TB>(d, da, db);
+  else wgmma_n32<TB>(d, da, db);
 }
 
 // The consumers' view of the ring: stage and phase walk in lockstep with

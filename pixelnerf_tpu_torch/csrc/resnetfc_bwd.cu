@@ -9,15 +9,8 @@
 //
 // What it computes (row-wise over the points; `bf(.)` rounds to bf16, the
 // casts of the TPU kernel's `_dot_t` and `_dot_g`; masks are stash > 0):
-//   gx         = bf(g) @ W_out^T * (relu(x_final) > 0)
-//   block i, from the last:  G1_i = gx (the cotangent at its output)
-//              gh1  = bf(gx) @ W1_i^T * (relu(h1_i) > 0)     G0_i = gh1
-//              gx  += bf(gh1) @ W0_i^T * (relu(block_in_i) > 0)
-//              i < n_inj: gz += bf(gx) @ Wz_i^T; Gin_i = gx
-//              i == combine_layer, NS > 1: gx = broadcast(gx) / NS
-//   dxin = bf(gx) @ W_in^T,  dz = gz (f32, then cast to bf16)
-//   db = column sums of the f32 cotangents (db1_i of G1_i, db0_i of G0_i,
-//        dbz_i of Gin_i, db_in of gx, db_out of g)
+//   the cotangent chain, dxin, dz (or the field's level gradients) and the
+//   bias gradients: bwd_chain.cuh;
 //   dW = act^T @ bf(G): dw1_i = relu(h1_i)^T G1_i, dw0_i = relu(bin_i)^T
 //        G0_i, dwz_i = z^T Gin_i, dw_in = xin^T gx, dw_out = relu(xf)^T g
 //
@@ -33,258 +26,40 @@
 // NS=2) against ~17 KB of stash read a point; the field's scatter adds
 // bytes, not operations worth counting.
 //
-// Design, simple first: the TPU kernel sums weight gradients across its
-// sequential grid, which Hopper's concurrent CTAs cannot do. So two kernels:
-// 1. `chain`: one CTA per point tile (the forward's tiling) walks the
-//    blocks backward with wmma (weights read transposed as col-major
-//    fragments from L2), keeps gx and gz in f32 shared memory, writes the
-//    bf16 cotangents G1, G0, Gin and bf(g) to device memory in the stash's
-//    layout, writes dz (or, for the field, scatters it from shared memory,
-//    one warp per row, lanes over channels) and dxin, and adds each tile's
-//    f32 column sums to the bias gradients with one f32 atomic per column.
+// Design: the TPU kernel sums weight gradients across its sequential grid,
+// which Hopper's concurrent CTAs cannot do. So two kernels:
+// 1. `chain`: one CTA per point tile (the forward's 64-row tiling) walks the
+//    blocks backward with wgmma on TMA-fed weight tiles (bwd_chain.cuh),
+//    writing the bf16 cotangents G1, G0, Gin and bf(g) to device memory in
+//    the stash's layout.
 // 2. `wgrad`: a split-K wmma product act^T @ G over all points for each
 //    weight gradient: 64x64 output tiles, the point axis cut into slices,
 //    f32 atomics into the result.
 
-#include "tile_common.cuh"
+#include "bwd_chain.cuh"
 
 #define WG_BM 32   // points a step of the weight-gradient product
 #define WG_BK 64   // rows of act^T (the weight's input side) per CTA
 #define WG_BN 64   // columns of G per CTA
 #define WG_LD 72   // padded shared-memory row (bf16 elements)
 #define WG_THREADS 128
-#define GOUT_LD 16 // columns of the bf16 copy of g (d_out <= 16)
 
-struct BwdParams {
-  const bf16* z;      // (SB, NS, B, DL)
-  const bf16* xin;    // (SB, NS, B, d_in)
-  const float* g;     // (SB, B, d_out)
-  const bf16* spre;   // (2k, SB, NS, B, H)
-  const bf16* spost;  // (2m+1, SB, B, H)
-  const bf16* w_in;   // (d_in_pad, H)
-  const bf16* wz;     // (n_inj, DL, H)
-  const bf16* w0;     // (n_blocks, H, H)
-  const bf16* w1;
-  const bf16* w_out;  // (H, d_out)
-  bf16* gpre;         // (2k, SB, NS, B, H): [G1 | G0] of the pre-pool blocks
-  bf16* gpost;        // (2m, SB, B, H): [G1 | G0] of the others
-  bf16* gin;          // (SB, NS, B, H): cotangent at block 0's input
-  bf16* gout;         // (SB, B, GOUT_LD): bf(g), zero past d_out
-  bf16* dz;           // (SB, NS, B, DL); null for the field
-  bf16* dxin;         // (SB, NS, B, d_in)
-  float* grads[MAX_LEVELS];  // the field's level gradients (SB*NS, H_l, W_l, C_l)
-  int lh[MAX_LEVELS], lw[MAX_LEVELS], lc[MAX_LEVELS], lc0[MAX_LEVELS];
-  int nlev;           // 0: no levels, write dz
-  const float* grid;  // (SB, NS, B, 2) normalized fine-grid coords
-  float* db_in;       // (H)
-  float* dbz;         // (n_inj, H)
-  float* db0;         // (n_blocks, H)
-  float* db1;
-  float* db_out;      // (d_out)
-  int sb, ns, b, tb, rows_pad, d_in, d_in_pad, hidden, d_latent, d_out,
-      n_blocks, combine_layer, k;
-};
-
-// global row of tile row r, or -1 past the points: pre-pool rows r = v * tb
-// + pt index (SB, NS, B) arrays, post-pool rows r = pt index (SB, B) ones
-__device__ __forceinline__ long long tile_row(const BwdParams& p, bool pre, int s,
-                                              int p0, int r) {
-  const int tb = p.tb;
-  if (pre) {
-    if (r >= p.ns * tb || p0 + r % tb >= p.b) return -1;
-    return ((long long)s * p.ns + r / tb) * p.b + p0 + r % tb;
-  }
-  if (r >= tb || p0 + r >= p.b) return -1;
-  return (long long)s * p.b + p0 + r;
+template <int H>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    resnetfc_bwd_chain_kernel(const __grid_constant__ BwdParams p,
+                              const __grid_constant__ BwdMaps maps) {
+  run_bwd_chain<H>(p, maps);
 }
 
-// element (r, c) of a stash (or cotangent) slot: a slot of a pre-pool
-// array holds SB*NS*B rows, of a post-pool one SB*B
-__device__ __forceinline__ size_t slot_rows(const BwdParams& p, bool pre) {
-  return (size_t)p.sb * (pre ? p.ns : 1) * p.b;
-}
-
-// rows [0, nrows) of a bf16 tile (stride ld, H wide) to their global rows
-// of a cotangent slot
-__device__ void store_rows(const BwdParams& p, const bf16* tile, int ld, bool pre,
-                           bf16* slot, int s, int p0, int nrows) {
-  const int H = p.hidden, chunks = H / 8;
-  for (int e = threadIdx.x; e < nrows * chunks; e += THREADS) {
-    const int r = e / chunks, c8 = (e % chunks) * 8;
-    const long long row = tile_row(p, pre, s, p0, r);
-    if (row < 0) continue;
-    *reinterpret_cast<uint4*>(slot + row * H + c8) =
-        *reinterpret_cast<const uint4*>(tile + r * ld + c8);
-  }
-}
-
-// Gb = bf(GX) over rows [0, nrows), and the f32 column sums of GX added to
-// db (one atomic per column); ends with __syncthreads
-__device__ void round_and_sum(const float* GX, bf16* Gb, int H, int nrows, float* db) {
-  for (int e = threadIdx.x; e < nrows * H; e += THREADS) Gb[e] = __float2bfloat16(GX[e]);
-  for (int c = threadIdx.x; c < H; c += THREADS) {
-    float sum = 0.f;
-    for (int r = 0; r < nrows; r++) sum += GX[r * H + c];
-    atomicAdd(db + c, sum);
-  }
-  __syncthreads();
-}
-
-// the field's epilogue: each pre-pool row's bf16 gz times its composed
-// taps, added into the level gradients of its map (s, v)
-__device__ void scatter_gz(const BwdParams& p, const float* GZ, int s, int p0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tb = p.tb, DL = p.d_latent, hf = p.lh[0], wf = p.lw[0];
-  for (int r = warp; r < p.ns * tb; r += WARPS) {
-    const int v = r / tb, pt = p0 + r % tb;
-    if (pt >= p.b) continue;
-    const size_t map = (size_t)s * p.ns + v;
-    float fx, fy;
-    fine_coords(p.grid + (map * p.b + pt) * 2, hf, wf, &fx, &fy);
-    for (int l = 0; l < p.nlev; l++) {
-      const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
-      int bx, by;
-      float w[3][3];
-      level_taps(fx, fy, hn, wn, hf, wf, &bx, &by, w);
-      float* grad = p.grads[l] + map * hn * wn * C;
-      const float* g = GZ + r * DL + p.lc0[l];
-      for (int c = lane; c < C; c += 32) {
-        const float gv = round_bf16(g[c]);
-#pragma unroll
-        for (int ty = 0; ty < 3; ty++) {
-          if (by + ty >= hn) continue;
-#pragma unroll
-          for (int tx = 0; tx < 3; tx++) {
-            if (bx + tx >= wn || w[ty][tx] == 0.f) continue;
-            atomicAdd(grad + ((size_t)(by + ty) * wn + bx + tx) * C + c, w[ty][tx] * gv);
-          }
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 1) resnetfc_bwd_chain_kernel(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.hidden, DL = p.d_latent, RP = p.rows_pad;
-  float* GX = reinterpret_cast<float*>(smem);  // RP x H
-  float* GZ = GX + RP * H;                     // RP x DL
-  float* csum = GZ + RP * DL;                  // H
-  float* gsm = csum + H;                       // RP x GOUT_LD: g, f32
-  float* stage = gsm + RP * GOUT_LD + (threadIdx.x / 32) * 256;
-  bf16* Gb = reinterpret_cast<bf16*>(gsm + RP * GOUT_LD + WARPS * 256);  // RP x H
-  bf16* Hb = Gb + RP * H;                                               // RP x H
-
-  const int s = blockIdx.y, tb = p.tb, ns = p.ns;
-  const int p0 = blockIdx.x * tb;
-  const int k = p.k, m = p.n_blocks - p.k;
-  const int n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
-  const int cur_post = (tb + 15) / 16 * 16;
-  const size_t pre_rows = slot_rows(p, true), post_rows = slot_rows(p, false);
-
-  // 1. g for the tile's points (zero past B), its bf16 copy, db_out
-  for (int e = threadIdx.x; e < RP * GOUT_LD; e += THREADS) {
-    const int r = e / GOUT_LD, o = e % GOUT_LD;
-    const long long row = tile_row(p, false, s, p0, r);
-    const float v = (row >= 0 && o < p.d_out) ? p.g[row * p.d_out + o] : 0.f;
-    gsm[e] = v;
-    if (row >= 0) p.gout[row * GOUT_LD + o] = __float2bfloat16(v);
-  }
-  for (int e = threadIdx.x; e < RP * DL; e += THREADS) GZ[e] = 0.f;
-  __syncthreads();
-  for (int o = threadIdx.x; o < p.d_out; o += THREADS) {
-    float sum = 0.f;
-    for (int r = 0; r < tb; r++) sum += gsm[r * GOUT_LD + o];
-    atomicAdd(p.db_out + o, sum);
-  }
-  // gx = bf(g) @ W_out^T * (relu(x_final) > 0), post-pool rows
-  const bf16* sxf = p.spost + 2 * m * post_rows * H;
-  for (int e = threadIdx.x; e < RP * H; e += THREADS) {
-    const int r = e / H, c = e % H;
-    const long long row = tile_row(p, false, s, p0, r);
-    float v = 0.f;
-    if (row >= 0 && __bfloat162float(sxf[row * H + c]) > 0.f)
-      for (int o = 0; o < p.d_out; o++)
-        v += __bfloat162float(__float2bfloat16(gsm[r * GOUT_LD + o])) *
-             __bfloat162float(p.w_out[c * p.d_out + o]);
-    GX[e] = v;
-  }
-  __syncthreads();
-
-  // 2. the blocks, from the last
-  for (int blk = p.n_blocks - 1; blk >= 0; blk--) {
-    const bool pre = blk < k;
-    const int cur = pre ? RP : cur_post;
-    const size_t nrow = pre ? pre_rows : post_rows;
-    const bf16* rx = pre ? p.spre + (size_t)blk * nrow * H : p.spost + (size_t)(blk - k) * nrow * H;
-    const bf16* rh = pre ? p.spre + (size_t)(k + blk) * nrow * H
-                         : p.spost + (size_t)(m + blk - k) * nrow * H;
-    bf16* g1 = pre ? p.gpre + (size_t)blk * nrow * H : p.gpost + (size_t)(blk - k) * nrow * H;
-    bf16* g0 = pre ? p.gpre + (size_t)(k + blk) * nrow * H
-                   : p.gpost + (size_t)(m + blk - k) * nrow * H;
-
-    round_and_sum(GX, Gb, H, cur, p.db1 + (size_t)blk * H);
-    store_rows(p, Gb, H, pre, g1, s, p0, cur);
-    for (int c = threadIdx.x; c < H; c += THREADS) csum[c] = 0.f;
-    __syncthreads();
-    // gh1 = bf(gx) @ W1^T * mask(relu(h1)), kept as bf16 (G0) and summed
-    tile_mm<true>(Gb, H, H, cur / 16, p.w1 + (size_t)blk * H * H, H, H, stage,
-                  [&](int r, int c, float v) {
-                    const long long row = tile_row(p, pre, s, p0, r);
-                    const float gv =
-                        (row >= 0 && __bfloat162float(rh[row * H + c]) > 0.f) ? v : 0.f;
-                    Hb[r * H + c] = __float2bfloat16(gv);
-                    atomicAdd(csum + c, gv);
-                  });
-    __syncthreads();
-    for (int c = threadIdx.x; c < H; c += THREADS) atomicAdd(p.db0 + (size_t)blk * H + c, csum[c]);
-    store_rows(p, Hb, H, pre, g0, s, p0, cur);
-    // gx += bf(gh1) @ W0^T * mask(relu(block_in))
-    tile_mm<true>(Hb, H, H, cur / 16, p.w0 + (size_t)blk * H * H, H, H, stage,
-                  [&](int r, int c, float v) {
-                    const long long row = tile_row(p, pre, s, p0, r);
-                    if (row >= 0 && __bfloat162float(rx[row * H + c]) > 0.f) GX[r * H + c] += v;
-                  });
-    __syncthreads();
-    if (blk < n_inj) {
-      // gz += bf(gx) @ Wz^T; dbz from the same f32 cotangent
-      round_and_sum(GX, Gb, H, cur, p.dbz + (size_t)blk * H);
-      tile_mm<true>(Gb, H, H, cur / 16, p.wz + (size_t)blk * DL * H, H, DL, stage,
-                    [&](int r, int c, float v) { GZ[r * DL + c] += v; });
-      __syncthreads();
-    }
-    if (blk == p.combine_layer && ns > 1) {
-      // un-pool the view average: each view row gets gx / NS
-      for (int e = threadIdx.x; e < tb * H; e += THREADS) {
-        const int pt = e / H, c = e % H;
-        const float v = GX[pt * H + c] / (float)ns;
-        for (int vv = 0; vv < ns; vv++) GX[(vv * tb + pt) * H + c] = v;
-      }
-      for (int e = ns * tb * H + threadIdx.x; e < RP * H; e += THREADS) GX[e] = 0.f;
-      __syncthreads();
-    }
-  }
-
-  // 3. block 0's input: Gin, db_in, dxin = bf(gx) @ W_in^T; dz = gz
-  const bool pre0 = k > 0;
-  const int cur0 = pre0 ? RP : cur_post;
-  round_and_sum(GX, Gb, H, cur0, p.db_in);
-  // for NS == 1 the (SB, 1, B) rows of gin, dz and dxin are the post rows
-  store_rows(p, Gb, H, pre0, p.gin, s, p0, cur0);
-  tile_mm<true>(Gb, H, H, cur0 / 16, p.w_in, H, p.d_in_pad, stage,
-                [&](int r, int c, float v) {
-                  const long long row = tile_row(p, pre0, s, p0, r);
-                  if (row >= 0 && c < p.d_in) p.dxin[row * p.d_in + c] = __float2bfloat16(v);
-                });
-  if (p.nlev > 0) {
-    scatter_gz(p, GZ, s, p0);
-    return;
-  }
-  for (int e = threadIdx.x; e < cur0 * DL; e += THREADS) {
-    const int r = e / DL, c = e % DL;
-    const long long row = tile_row(p, pre0, s, p0, r);
-    if (row >= 0) p.dz[row * DL + c] = __float2bfloat16(GZ[e]);
-  }
+template <int H>
+static int launch_chain(const BwdParams& p, const BwdMaps& maps, size_t smem,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_chain_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_dim((p.b + p.pts - 1) / p.pts, p.sb);
+  resnetfc_bwd_chain_kernel<H><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps);
+  return (int)cudaGetLastError();
 }
 
 struct WgParams {
@@ -380,9 +155,7 @@ static int launch_wgrad(const bf16* a, int lda, const bf16* g, int ldg, float* c
 extern "C" {
 
 size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
-  const size_t rp = tile_rows_padded(ns);
-  return rp * hidden * 4 + rp * d_latent * 4 + hidden * 4 + rp * GOUT_LD * 4 +
-         (size_t)WARPS * 256 * 4 + 2 * rp * hidden * 2;
+  return bwd_smem_bytes(hidden, d_latent, ns);
 }
 
 // ptrs, in order: z, xin, g, spre, spost, w_in, wz, w0, w1, w_out, gpre,
@@ -447,18 +220,27 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   p.nlev = nlev;
   p.grid = static_cast<const float*>(grid);
   if (nlev > 0 && c0 != p.d_latent) return (int)cudaErrorInvalidValue;
-  p.tb = tile_points(p.ns);
-  p.rows_pad = tile_rows_padded(p.ns);
-  p.k = p.ns > 1 ? (p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks) : 0;
-  if (p.d_out > GOUT_LD) return (int)cudaErrorInvalidValue;
-
-  const size_t smem = pnt_resnetfc_bwd_smem_bytes(p.hidden, p.d_latent, p.ns);
-  cudaError_t err = cudaFuncSetAttribute(
-      resnetfc_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_dim((p.b + p.tb - 1) / p.tb, p.sb);
-  resnetfc_bwd_chain_kernel<<<grid_dim, THREADS, smem, stream>>>(p);
-  int rc = (int)cudaGetLastError();
+  p.pts = chain_points(p.ns);
+  p.n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
+  p.k = p.ns > 1 ? p.n_inj : 0;
+  // the widths and views of the forward chain (fwd_chain.cuh: chain_setup)
+  if (!chain_width_ok(p.hidden) || p.d_latent % 64 || p.d_in % 2 || p.d_in_pad % 16 ||
+      p.d_in_pad > p.hidden || p.d_out > GOUT_LD || p.ns < 1 || p.ns > FWD_ROWS || p.n_inj < 1)
+    return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  const int nh = bwd_nh(p.hidden);
+  int rc = weight_map(&maps.w1, p.w1, p.n_blocks * p.hidden, p.hidden, BWD_KW, nh, 1);
+  if (!rc) rc = weight_map(&maps.w0, p.w0, p.n_blocks * p.hidden, p.hidden, BWD_KW, nh, 1);
+  if (!rc) rc = weight_map(&maps.w_in, p.w_in, p.d_in_pad, p.hidden, BWD_KS, BWD_IW, 1);
+  if (!rc) rc = weight_map(&maps.wz, p.wz, p.n_inj * p.d_latent, p.hidden, BWD_KS, BWD_ZW, 1);
+  if (rc) return rc;
+  const size_t smem = bwd_smem_bytes(p.hidden, p.d_latent, p.ns);
+  switch (p.hidden) {
+    case 512: rc = launch_chain<512>(p, maps, smem, stream); break;
+    case 256: rc = launch_chain<256>(p, maps, smem, stream); break;
+    case 128: rc = launch_chain<128>(p, maps, smem, stream); break;
+    default: rc = launch_chain<64>(p, maps, smem, stream);
+  }
   if (rc) return rc;
 
   const int H = p.hidden, DL = p.d_latent, k = p.k, m = p.n_blocks - p.k;

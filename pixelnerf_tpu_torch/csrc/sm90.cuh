@@ -1,4 +1,4 @@
-// Hopper (sm_90a) primitives of the forward block chain (fwd_chain.cuh):
+// Hopper (sm_90a) primitives of the block chains (fwd_chain.cuh, bwd_chain.cuh):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors, the wgmma
 // products it issues, and the driver's tensor-map encoder, fetched through
 // the runtime so that the libraries need no link to the driver library.
@@ -150,21 +150,44 @@ static inline int weight_map(CUtensorMap* map, const void* base, int rows, int c
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// wgmma products, A and B from shared memory, B MN-major (transposed):
-// D (64 x 32, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 32, smem, MN-major)
+// wgmma products, A and B from shared memory. The forward chain reads its
+// weights as MN-major B (TB = 1), the backward chain as K-major B (TB = 0).
+// D (64 x 32, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 32, smem),
+// B MN-major (transposed) when TB = 1, K-major when TB = 0
+template <int TB>
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// D (64 x 128, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 128, smem, MN-major)
+// D (64 x 64, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 64, smem),
+// B MN-major (transposed) when TB = 1, K-major when TB = 0
+template <int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D (64 x 128, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 128, smem),
+// B MN-major (transposed) when TB = 1, K-major when TB = 0
+template <int TB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -174,7 +197,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -183,10 +206,12 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// D (64 x 256, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 256, smem, MN-major)
+// D (64 x 256, f32, registers) += A (64 x 16, smem, K-major) @ B (16 x 256, smem),
+// B MN-major (transposed) when TB = 1, K-major when TB = 0
+template <int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -200,7 +225,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -217,6 +242,5 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
-

@@ -1,7 +1,7 @@
 // Device code shared by the package's CUDA sources: the composed
 // native-pyramid taps (pyramid_pallas.py:_axis_pairs), rounded as the TPU
-// kernels round them, and the wmma tile product of the ResnetFC backward
-// chain (resnetfc_bwd.cu), whose callers give the epilogue.
+// kernels round them, and the wmma header of the weight-gradient products
+// (resnetfc_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,16 +9,12 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 #define MAX_LEVELS 4
 #define WARPS 8
 #define THREADS (WARPS * 32)
-#define TILE_ROWS 32  // NS * TB rows of one CTA before the view pooling
-#define NFW 4    // 16-wide column strips per warp per pass
 
 // Composed taps on one native axis of size wn for a fine coordinate cf in
 // [0, wf-1]: weights of native indices base, base+1, base+2. Coincident
@@ -86,62 +82,6 @@ __device__ __forceinline__ void level_taps(float fx, float fy, int hn, int wn, i
                       ? round_bf16(round_bf16(wy[ty]) * round_bf16(wx[tx]))
                       : 0.f;
 }
-
-// C (16*mtiles x ncols) = A (16*mtiles x K, bf16, smem, row-major) @ B, with
-// B (K x ncols) read from W as col-major (B(kk, n) = W[n * ldw + kk], i.e.
-// W^T for a row-major (ncols x K) weight) when BT, else row-major; each
-// result element goes to epi(r, c, value) through a per-warp staging tile
-template <bool BT, class Epi>
-__device__ void tile_mm(const bf16* A, int lda, int K, int mtiles, const bf16* W,
-                        int ldw, int ncols, float* stage, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nfrag = ncols / 16;
-  typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type BL;
-  for (int nf0 = warp * NFW; nf0 < nfrag; nf0 += WARPS * NFW)
-    for (int m0 = 0; m0 < mtiles; m0 += 2) {
-      const int mt = mtiles - m0 < 2 ? mtiles - m0 : 2;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NFW];
-#pragma unroll
-      for (int m = 0; m < 2; m++)
-#pragma unroll
-        for (int j = 0; j < NFW; j++) wmma::fill_fragment(acc[m][j], 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-        for (int m = 0; m < 2; m++)
-          if (m < mt) wmma::load_matrix_sync(a[m], A + (m0 + m) * 16 * lda + kk, lda);
-#pragma unroll
-        for (int j = 0; j < NFW; j++) {
-          if (nf0 + j < nfrag) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BL> bfr;
-            const bf16* src = BT ? W + (size_t)(nf0 + j) * 16 * ldw + kk
-                                 : W + (size_t)kk * ldw + (nf0 + j) * 16;
-            wmma::load_matrix_sync(bfr, src, ldw);
-#pragma unroll
-            for (int m = 0; m < 2; m++)
-              if (m < mt) wmma::mma_sync(acc[m][j], a[m], bfr, acc[m][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NFW; j++) {
-        if (nf0 + j >= nfrag) continue;
-#pragma unroll
-        for (int m = 0; m < 2; m++) {
-          if (m >= mt) continue;
-          wmma::store_matrix_sync(stage, acc[m][j], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32)
-            epi((m0 + m) * 16 + e / 16, (nf0 + j) * 16 + e % 16, stage[e]);
-          __syncwarp();
-        }
-      }
-    }
-}
-
-static inline int tile_points(int ns) { return ns < TILE_ROWS ? TILE_ROWS / ns : 1; }
-
-static inline int tile_rows_padded(int ns) { return (ns * tile_points(ns) + 15) / 16 * 16; }
 
 extern "C" const char* pnt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

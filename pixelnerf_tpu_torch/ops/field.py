@@ -10,7 +10,8 @@ pyramid_field_fused` and its custom VJP:
   make it also write the bf16 z-stash (SB, NS, B, d_latent) and the
   activation stash in `ops/resnetfc.py:stash_layout`'s layout;
 - the backward (`_field_vjp_bwd`, `_field_bwd_kernel`) by
-  `csrc/resnetfc_bwd.cu`'s chain kernel with the field's epilogue, which
+  `csrc/resnetfc_bwd.cu`'s chain kernel (`csrc/bwd_chain.cuh`) with the
+  field's epilogue, which
   rounds the latent cotangent to bf16 once and scatters it onto the native
   levels in float32 (the (M, d_latent) cotangent never reaches device
   memory), and its weight-gradient products, with the z-stash as the
@@ -18,9 +19,9 @@ pyramid_field_fused` and its custom VJP:
 
 Their header notes give the bound on the H100 (operations: ~11.6 MFLOP of
 bf16 products per point at NS=2 forward, about twice that backward) and
-the design. The forward takes hidden 64 or 512 (every config under
-`conf/` is 512 wide) and up to 64 views, whose rows fit one 64-row tile;
-beyond, the wrappers raise.
+the design. Forward and backward take hidden 64, 128, 256 or 512 (every
+config under `conf/` is 512 wide) and up to 64 views, whose rows fit one
+64-row tile; beyond, the wrappers raise.
 
 `pyramid_field_fused` is the entry point: with autograd recording and an
 input or weight that needs a gradient it runs the stash forward and, on

@@ -5,8 +5,10 @@ Replaces the TPU kernels of `pixelnerf_tpu/ops/resnetfc_pallas.py`:
 writes the bf16 relu'd activations for the backward) and `_bwd_kernel`
 (dz, dxin and every weight gradient from that stash, with no forward
 recomputation). The CUDA C++ kernels are `csrc/resnetfc_fwd.cu` (one
-kernel; null stash pointers make it the primal) and `csrc/resnetfc_bwd.cu`;
-their header notes give the bound on the H100 (operations) and the design.
+kernel over `csrc/fwd_chain.cuh`; null stash pointers make it the primal)
+and `csrc/resnetfc_bwd.cu` (the cotangent chain of `csrc/bwd_chain.cuh`,
+then the weight-gradient products); their header notes give the bound on
+the H100 (operations) and the design.
 
 The cast points are the TPU kernel's (`_dot`, `_dot_t`, `_dot_g`): every
 matmul operand is bf16, both operands of the weight-gradient products
@@ -46,12 +48,13 @@ __all__ = [
     "resnetfc_bwd",
     "resnetfc_fwd_plain",
     "resnetfc_bwd_plain",
+    "resnetfc_cotangents_plain",
     "supported_config",
     "stash_layout",
     "check_chain_widths",
 ]
 
-_GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/resnetfc_bwd.cu)
+_GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/bwd_chain.cuh)
 
 _BF = torch.bfloat16
 
@@ -175,6 +178,33 @@ def resnetfc_fwd_plain(
     return out, spre, spost
 
 
+def _chain_plain(g, stash_pre, stash_post, w, n_blocks, combine_layer, ns, sb, b):
+    """The cotangent chain of the plain backward: float32 (gx at every
+    block's output G1, gh1 G0, each injection's cotangent, gx at block 0's
+    input)."""
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    n_inj = min(combine_layer, n_blocks)
+
+    def act(blk, h1):
+        if blk < k:
+            return stash_pre[k * h1 + blk]
+        return stash_post[m * h1 + blk - k]
+
+    gx = _dot_t(g, w.w_out) * (stash_post[2 * m] > 0)
+    g1s, g0s, g_inj = [None] * n_blocks, [None] * n_blocks, [None] * n_inj
+    for blk in reversed(range(n_blocks)):
+        rx, rh = act(blk, 0), act(blk, 1)
+        g1s[blk] = gx
+        gh1 = _dot_t(gx, w.w1[blk]) * (rh > 0)
+        g0s[blk] = gh1
+        gx = gx + _dot_t(gh1, w.w0[blk]) * (rx > 0)
+        if blk < n_inj:
+            g_inj[blk] = gx
+        if blk == combine_layer and ns > 1:
+            gx = (gx / float(ns))[:, None].expand(sb, ns, b, gx.shape[-1])
+    return g1s, g0s, g_inj, gx
+
+
 def resnetfc_bwd_plain(
     z: torch.Tensor, xin: torch.Tensor, g: torch.Tensor,
     stash_pre: Optional[torch.Tensor], stash_post: torch.Tensor,
@@ -196,20 +226,8 @@ def resnetfc_bwd_plain(
 
     g = g.float()
     rxf = stash_post[2 * m]
-    db_out, dw_out = _rows(g), _dot_g(rxf, g)
-    gx = _dot_t(g, w.w_out) * (rxf > 0)
-    dw0, db0, dw1, db1 = [None] * n_blocks, [None] * n_blocks, [None] * n_blocks, [None] * n_blocks
-    g_inj = [None] * n_inj
-    for blk in reversed(range(n_blocks)):
-        rx, rh = act(blk, 0), act(blk, 1)
-        db1[blk], dw1[blk] = _rows(gx), _dot_g(rh, gx)
-        gh1 = _dot_t(gx, w.w1[blk]) * (rh > 0)
-        db0[blk], dw0[blk] = _rows(gh1), _dot_g(rx, gh1)
-        gx = gx + _dot_t(gh1, w.w0[blk]) * (rx > 0)
-        if blk < n_inj:
-            g_inj[blk] = gx
-        if blk == combine_layer and ns > 1:
-            gx = (gx / float(ns))[:, None].expand(sb, ns, b, gx.shape[-1])
+    g1s, g0s, g_inj, gx = _chain_plain(g, stash_pre, stash_post, w, n_blocks, combine_layer,
+                                       ns, sb, b)
     gz = sum(_dot_t(g_inj[i], w.wz[i]) for i in range(n_inj))
     dxin = _dot_t(gx, w.w_in[:d_in])
     if ns == 1:
@@ -218,10 +236,35 @@ def resnetfc_bwd_plain(
         w_in=_dot_g(xx, gx), b_in=_rows(gx),
         wz=torch.stack([_dot_g(zz, gi) for gi in g_inj]),
         bz=torch.stack([_rows(gi) for gi in g_inj]),
-        w0=torch.stack(dw0), b0=torch.stack(db0), w1=torch.stack(dw1), b1=torch.stack(db1),
-        w_out=dw_out, b_out=db_out,
+        w0=torch.stack([_dot_g(act(i, 0), g0s[i]) for i in range(n_blocks)]),
+        b0=torch.stack([_rows(t) for t in g0s]),
+        w1=torch.stack([_dot_g(act(i, 1), g1s[i]) for i in range(n_blocks)]),
+        b1=torch.stack([_rows(t) for t in g1s]),
+        w_out=_dot_g(rxf, g), b_out=_rows(g),
     )
     return gz.to(z.dtype), dxin.to(xin.dtype), dw
+
+
+def resnetfc_cotangents_plain(
+    g: torch.Tensor, stash_pre: Optional[torch.Tensor], stash_post: torch.Tensor,
+    w: FieldWeights, n_blocks: int, combine_layer: int, ns: int,
+):
+    """The bf16 cotangents the backward kernel's chain hands its
+    weight-gradient products, in its layout: (gpre (2k, SB, NS, B, H) or
+    None, gpost (2m, SB, B, H), gin (SB, NS, B, H), gout (SB, B, 16) with
+    bf(g) zero past d_out). `_dot_g` of each with its activation gives the
+    plain backward's weight gradients."""
+    sb, b, d_out = g.shape
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    g = g.float()
+    g1s, g0s, _, gx = _chain_plain(g, stash_pre, stash_post, w, n_blocks, combine_layer, ns, sb, b)
+    bf = lambda ts: torch.stack(ts).to(_BF)
+    gpre = bf(g1s[:k] + g0s[:k]) if k else None
+    gpost = bf(g1s[k:] + g0s[k:])
+    gin = (gx[:, None] if ns == 1 else gx).to(_BF)
+    gout = torch.zeros((sb, b, _GOUT_LD), dtype=_BF, device=g.device)
+    gout[..., :d_out] = g.to(_BF)
+    return gpre, gpost, gin, gout
 
 
 def _check(z, xin, w, n_blocks, combine_layer, ns):
@@ -240,20 +283,25 @@ def _check(z, xin, w, n_blocks, combine_layer, ns):
         )
 
 
-CHAIN_HIDDEN = (64, 512)  # widths csrc/fwd_chain.cuh is compiled for
+# widths the chains (csrc/fwd_chain.cuh, csrc/bwd_chain.cuh) are compiled
+# for: the powers of two that split into whole wgmma widths per warpgroup
+CHAIN_HIDDEN = (64, 128, 256, 512)
 
 
 def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int) -> None:
-    """Raise unless the forward chain (`csrc/fwd_chain.cuh`, shared by the
-    ResnetFC and field forward kernels) takes these widths: hidden 64 or
-    512, d_latent a multiple of 64 (its 128-byte swizzled operand tiles),
-    an even d_in whose padding to 16 is at most hidden (it shares the
-    relu(x) tile) and at most 16 outputs."""
+    """Raise unless the block chains (`csrc/fwd_chain.cuh` and
+    `csrc/bwd_chain.cuh`, shared by the ResnetFC and field kernels, forward
+    and backward) take these widths: hidden 64, 128, 256 or 512, d_latent a
+    multiple of 64 (their 128-byte swizzled operand tiles), an even d_in
+    whose padding to 16 is at most hidden (it shares the relu(x) tile) and
+    at most 16 outputs. Past 64 views a tile no longer fits one 64-row
+    product: the kernels' shared-memory size grows and their launch
+    refuses it."""
     if hidden not in CHAIN_HIDDEN:
-        raise ValueError(f"the forward kernels take d_hidden in {CHAIN_HIDDEN}, got {hidden}")
+        raise ValueError(f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, got {hidden}")
     if d_latent % 64 or d_in % 2 or _pad16(d_in) > hidden or d_out > 16:
         raise ValueError(
-            f"the forward kernels take d_latent a multiple of 64, an even d_in <= d_hidden and "
+            f"the chain kernels take d_latent a multiple of 64, an even d_in <= d_hidden and "
             f"d_out <= 16, got d_latent={d_latent} d_in={d_in} d_out={d_out}"
         )
 
@@ -370,11 +418,14 @@ resnetfc_fwd_stash.launches = 0
 def launch_bwd(
     z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int, combine_layer: int,
     ns: int, levels: Sequence[Tuple[int, int, int]] = (), grid: Optional[torch.Tensor] = None,
+    cotangents: bool = False,
 ):
     """Launch `csrc/resnetfc_bwd.cu` on CUDA tensors: (dz, dxin, float32
     FieldWeights gradients); with the field's `levels` ((H_l, W_l, C_l),
     finest first) and forward `grid` (SB, NS, B, 2), the float32 level
-    gradients [(SB*NS, H_l, W_l, C_l)] in place of dz. Counts nothing."""
+    gradients [(SB*NS, H_l, W_l, C_l)] in place of dz; with `cotangents`,
+    also the chain's bf16 cotangents (gpre, gpost, gin, gout) as
+    `resnetfc_cotangents_plain` gives them. Counts nothing."""
     z, xin, wp = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
     d_in = xin.shape[3]
@@ -382,8 +433,7 @@ def launch_bwd(
     d_out = wp.w_out.shape[1]
     k, m = stash_layout(n_blocks, combine_layer, ns)
     n_inj = min(combine_layer, n_blocks)
-    if d_out > _GOUT_LD:
-        raise ValueError(f"d_out must be at most {_GOUT_LD}")
+    check_chain_widths(hidden, dl, d_in, d_out)
     lib = _library("resnetfc_bwd")
     smem = lib.pnt_resnetfc_bwd_smem_bytes(hidden, dl, ns)
     if smem > SMEM_LIMIT:
@@ -431,7 +481,8 @@ def launch_bwd(
         ptrs, dims, lptrs, ldims, nlev, ptr(grid), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, lib, "resnetfc_bwd")
-    return (d_feats if levels else dz), dxin, dw
+    res = (d_feats if levels else dz), dxin, dw
+    return res + ((gpre, gpost, gin, gout),) if cotangents else res
 
 
 def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,

@@ -17,7 +17,13 @@ relative plus 1e-5 (float32 atomics add in any order). The bilerp gather
 and scatter as the pyramid's. The field's stash forward: its output as the
 field's, its z-stash one bf16 ulp of the plain gather; its backward, from
 the kernel's own stash, every gradient as the ResnetFC backward's, the
-bf16 level gradients one more bf16 ulp.
+bf16 level gradients one more bf16 ulp. The backward chain
+(`csrc/bwd_chain.cuh`) at each width it is built for: every gradient and
+every bf16 cotangent it hands the weight-gradient products within
+chip_smoke.py's GRAD_MAX (5e-2 of the largest magnitude) and GRAD_FRO (2e-2
+Frobenius) of the plain backward from the same stash: its f32 sums run in
+another order (g_z as one product after the chain, the bias sums as
+shuffle trees) through five blocks.
 """
 
 import numpy as np
@@ -33,7 +39,8 @@ from pixelnerf_tpu_torch.ops.pyramid import (
     pyramid_gather, pyramid_gather_plain, pyramid_scatter_add, pyramid_scatter_add_plain,
 )
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+    resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd, resnetfc_fwd_plain,
+    resnetfc_fwd_stash, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter import (
     bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
@@ -443,11 +450,168 @@ def test_field_forward_chain_flagship_width(cuda, ns, sb, b):
 
 
 def test_resnetfc_forward_raises_on_widths_the_chain_lacks(cuda):
-    """hidden 256 is not a width the chain is built for: the wrapper raises
+    """hidden 384 is not a width the chain is built for: the wrapper raises
     before launching."""
     rng = np.random.default_rng(5)
-    z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=256, d_latent=64)
+    z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=384, d_latent=64)
     before = resnetfc_fwd.launches
     with pytest.raises(ValueError, match="d_hidden"):
         resnetfc_fwd(z, xin, w, 5, 3, 2)
     assert resnetfc_fwd.launches == before
+
+
+# The chains at every width they are built for. The backward's d_latent is
+# the field's levels' sum: srn.conf's 512 from hidden 128 up, 128 at hidden
+# 64, whose 768-wide cases run g_z in two passes (512 + 256 columns).
+CHAIN_WIDTHS = [64, 128, 256, 512]
+CHAIN_LEVELS = {64: FIELD_SHAPES, 768: [(16, 16, 256), (8, 8, 256), (4, 4, 256)]}
+
+
+def _levels_for(hidden, d_latent=None):
+    if d_latent is not None:
+        return CHAIN_LEVELS[d_latent]
+    return FIELD_SHAPES if hidden == 64 else WIDE_LEVELS
+
+
+def _chain_case(rng, cuda, hidden, ns, sb, b, levels):
+    combine = 3 if ns > 1 else 1000
+    d_latent = sum(c for (_, _, c) in levels)
+    w = _wide_weights(rng, cuda, hidden=hidden, d_latent=d_latent, combine=combine)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    z = t(rng.normal(size=(sb, ns, b, d_latent)), torch.bfloat16)
+    xin = t(rng.normal(size=(sb, ns, b, 42)), torch.bfloat16)
+    g = t(rng.normal(size=(sb, b, 4)))
+    return (5, combine, ns), w, z, xin, g
+
+
+BWD_CASES = [(1, 1, 100), (2, 2, 45), (2, 1, 5), (3, 1, 50), (5, 2, 9)]
+
+
+@pytest.mark.parametrize("hidden", CHAIN_WIDTHS)
+@pytest.mark.parametrize("ns,sb,b", BWD_CASES)
+def test_backward_chain_matches_plain(cuda, hidden, ns, sb, b):
+    """dz, dxin, every weight and bias gradient and the bf16 cotangents
+    (gpre, gpost, gin, gout) that the weight-gradient products read, from
+    the kernel forward's stash; B ragged against the tile's points, or
+    smaller than one tile."""
+    rng = np.random.default_rng(3000 + hidden + ns * 100 + b)
+    args, w, z, xin, g = _chain_case(rng, cuda, hidden, ns, sb, b, _levels_for(hidden))
+    _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    before = resnetfc_bwd.launches
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    torch.cuda.synchronize()
+    assert resnetfc_bwd.launches == before + 1
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+    cots = ops_resnetfc.launch_bwd(z, xin, g, spre, spost, w, *args, cotangents=True)[3]
+    torch.cuda.synchronize()
+    wcots = resnetfc_cotangents_plain(g, spre, spost, w, *args)
+    for got, want in zip(cots, wcots):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got.dtype == torch.bfloat16
+            _grad_within(got, want)
+
+
+@pytest.mark.parametrize("hidden", CHAIN_WIDTHS)
+@pytest.mark.parametrize("ns,sb,b", BWD_CASES)
+def test_backward_chain_level_scatter_matches_plain(cuda, hidden, ns, sb, b):
+    """The field's epilogue: bf(g_z) scattered onto the native levels."""
+    rng = np.random.default_rng(4000 + hidden + ns * 100 + b)
+    levels = _levels_for(hidden)
+    args, w, _, xin, g = _chain_case(rng, cuda, hidden, ns, sb, b, levels)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    _, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    before = pyramid_field_fused_bwd.launches
+    d_feats, dxin, dw = pyramid_field_fused_bwd(grid, xin, g, zs, spre, spost, w, *args, levels)
+    torch.cuda.synchronize()
+    assert pyramid_field_fused_bwd.launches == before + 1
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs, spre, spost, w, *args, levels)
+    for got, ref in zip(d_feats, wd_feats):
+        _grad_within(got, ref)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+@pytest.mark.parametrize("ns,sb,b", [(1, 1, 70), (2, 2, 45)])
+def test_backward_chain_latent_passes(cuda, ns, sb, b):
+    """d_latent 768 at hidden 64: g_z in two passes, both epilogues."""
+    rng = np.random.default_rng(5000 + ns)
+    levels = _levels_for(64, 768)
+    args, w, z, xin, g = _chain_case(rng, cuda, 64, ns, sb, b, levels)
+    _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    _, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    d_feats = pyramid_field_fused_bwd(grid, xin, g, zs, spre, spost, w, *args, levels)[0]
+    wd_feats = field_bwd_plain(grid, xin, g, zs, spre, spost, w, *args, levels)[0]
+    for got, ref in zip(d_feats, wd_feats):
+        _grad_within(got, ref)
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("ns,sb,b", WIDE_CASES)
+def test_forward_chains_at_hidden_128_and_256(cuda, hidden, ns, sb, b):
+    """The ResnetFC and field forwards (primal and stash) at the widths the
+    chain now takes besides 64 and 512."""
+    rng = np.random.default_rng(6000 + hidden + ns * 100 + b)
+    args, w, z, xin, _ = _chain_case(rng, cuda, hidden, ns, sb, b, WIDE_LEVELS)
+    before = (resnetfc_fwd.launches, pyramid_field_fused.launches)
+    out = resnetfc_fwd(z, xin, w, *args)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
+    assert torch.equal(out, out_s)
+    _out_close(out, want)
+    assert (spre is None) == (wpre is None) and spost.shape == wpost.shape
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in WIDE_LEVELS]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    fout = pyramid_field_fused(feats, grid, xin, w, *args)
+    fout_s = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)[0]
+    torch.cuda.synchronize()
+    assert (resnetfc_fwd.launches, pyramid_field_fused.launches) == tuple(x + 1 for x in before)
+    assert torch.equal(fout, fout_s)
+    _out_close(fout, field_plain(feats, grid, xin, w, *args))
+
+
+def test_resnetfc_backward_raises_on_widths_the_chain_lacks(cuda):
+    """hidden 384: the backward wrapper raises before launching, as the
+    forward's."""
+    rng = np.random.default_rng(6)
+    z, xin, w, g = _mlp_case(rng, cuda, 2, 1, 8, hidden=384, d_latent=64)
+    k, m = stash_layout(5, 3, 2)
+    spre = torch.zeros((2 * k, 1, 2, 8, 384), dtype=torch.bfloat16, device=cuda)
+    spost = torch.zeros((2 * m + 1, 1, 8, 384), dtype=torch.bfloat16, device=cuda)
+    before = resnetfc_bwd.launches
+    with pytest.raises(ValueError, match="d_hidden"):
+        resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 2)
+    assert resnetfc_bwd.launches == before
+
+
+def test_chains_refuse_past_64_views(cuda):
+    """65 views at hidden 64 fit shared memory but not one 64-row tile: both
+    launches are refused, nothing is counted."""
+    rng = np.random.default_rng(7)
+    z, xin, w, g = _mlp_case(rng, cuda, 65, 1, 3)
+    k, m = stash_layout(5, 3, 65)
+    spre = torch.zeros((2 * k, 1, 65, 3, 64), dtype=torch.bfloat16, device=cuda)
+    spost = torch.zeros((2 * m + 1, 1, 3, 64), dtype=torch.bfloat16, device=cuda)
+    before = (resnetfc_fwd.launches, resnetfc_bwd.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        resnetfc_fwd(z, xin, w, 5, 3, 65)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 65)
+    assert (resnetfc_fwd.launches, resnetfc_bwd.launches) == before
