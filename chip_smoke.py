@@ -49,9 +49,10 @@ Phases, each failing loudly (an exception and a non-zero exit):
 For the two backwards (the ResnetFC's and the field's) phase 3 also holds
 the bf16 cotangents the chain hands the weight-gradient products against
 their plain version, and prints the chain (csrc/bwd_chain.cuh) and the
-weight-gradient products on their own: ms and launches by kernel name under
-torch.profiler, TFLOP/s, bytes moved, bound, and each one's products alone
-as bf16 torch.matmul (`chain_*` and `wgrad_*` in their `kernels` records).
+weight-gradient products on their own: launches as the wrapper counted them,
+ms by kernel name under torch.profiler, TFLOP/s, bytes moved, bound, and
+each one's products alone as bf16 torch.matmul (`chain_*` and `wgrad_*` in
+their `kernels` records).
 
 For the four forward-chain kernels (the field and ResnetFC primal and
 stash forwards, csrc/fwd_chain.cuh) phase 3 also prints TFLOP/s, the L2
@@ -247,33 +248,43 @@ def _chain_line(name, flops, ms, products_ms, ns, wbytes, per):
     )
 
 
-def _bwd_split(torch, fn, calls: int = 3):
+def _bwd_split(torch, fn, calls: int = 3, tries: int = 3):
     """Device ms and launches a call of the backward's two kernels (the
-    cotangent chain, one launch, and the weight-gradient products, one per
-    weight), by kernel name under torch.profiler over `calls` warm calls.
-    The profiler can drop a kernel's record (PERF.md §7), so a kernel's time
-    a call is its mean time a recorded launch times its launches a call."""
+    cotangent chain and the weight-gradient products) over `calls` warm
+    calls under torch.profiler. The launches are those the wrapper counted
+    where it launched them (`launch_bwd.chain_launches` and
+    `.wgrad_launches`) over `calls`; the ms are the kernel's recorded
+    device time over `calls`. The profiler can drop a kernel's record
+    (PERF.md §7): a run whose records do not number the counted launches is
+    profiled again, and after `tries` such runs the phase fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    per_call = {"chain": 1, "wgrad": 2 + 2 * N_BLOCKS + min(COMBINE, N_BLOCKS)}
+    from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        part = "chain" if "bwd_chain_kernel" in e.key else "wgrad" if "wgrad_kernel" in e.key else None
-        if part:
-            total[part][0] += e.self_device_time_total / 1e3
-            total[part][1] += e.count
-    if not all(0 < n <= calls * per_call[k] for k, (_, n) in total.items()):
-        raise AssertionError(f"the backward's kernels under the profiler: {total}")
-    return {k: [ms / n * per_call[k], per_call[k]] for k, (ms, n) in total.items()}
+    for _ in range(tries):
+        launch_bwd.chain_launches = launch_bwd.wgrad_launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counted = {"chain": launch_bwd.chain_launches, "wgrad": launch_bwd.wgrad_launches}
+        if counted["chain"] != calls or counted["wgrad"] < calls:
+            raise AssertionError(f"the backward's launches over {calls} calls: {counted}")
+        total = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            part = "chain" if "bwd_chain_kernel" in e.key else "wgrad" if "wgrad_kernel" in e.key else None
+            if part:
+                total[part][0] += e.self_device_time_total / 1e3
+                total[part][1] += e.count
+        if all(total[k][1] == counted[k] for k in total):
+            return {k: [ms / calls, counted[k] / calls] for k, (ms, _) in total.items()}
+        print(f"the backward under the profiler: records {total}, launches {counted}; again")
+    raise AssertionError(f"the profiler dropped the backward's records in {tries} runs")
 
 
 def _bwd_products_ms(torch, dev, g, sb, ns, b, d_in_pad, d_latent):
@@ -845,7 +856,7 @@ def check_resnetfc(torch, np, dev):
             (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields
         ]
         # the bf16 cotangents the chain hands the weight-gradient products
-        cots = launch_bwd(z, xin, gout, spre, spost, w, *args, cotangents=True)[3]
+        cots = launch_bwd(z, xin, gout, spre, spost, w, *args)[3]
         torch.cuda.synchronize()
         wcots = resnetfc_cotangents_plain(gout, spre, spost, w, *args)
         pairs += [(n, a, b_) for n, a, b_ in zip(("gpre", "gpost", "gin", "gout"), cots, wcots)
@@ -971,15 +982,21 @@ def _counters():
 def _counted(torch, fn, expected, label):
     """Run fn with every launch count set to 0 just before and read just
     after; fail unless each kernel launched as often as `expected` says."""
+    from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd
+
     counters = _counters()
     torch.cuda.synchronize()
     for w in counters.values():
         w.launches = 0
+    chain0, wgrad0 = launch_bwd.chain_launches, launch_bwd.wgrad_launches
     res = fn()
     torch.cuda.synchronize()
     got = {name: w.launches for name, w in counters.items()}
-    print(f"{label}: launches {got}")
-    if got != expected:
+    # the backward wrappers launch the cotangent chain and the
+    # weight-gradient products: one chain each
+    parts = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
+    print(f"{label}: launches {got}; backward chain {parts[0]}, wgrad {parts[1]}")
+    if got != expected or parts[0] != got["resnetfc_bwd"] + got["pyramid_field_fused_bwd"]:
         raise AssertionError(f"{label}: launches {got}, expected {expected}")
     return res, got
 

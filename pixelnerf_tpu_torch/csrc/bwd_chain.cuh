@@ -619,6 +619,7 @@ __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m
 
   // 3. Gin = bf(gx) into GB; db_in and dbz_0
   gb_freed();
+  bar_sync(1, FWD_CONSUMERS);  // both warpgroups' W0^T products on GB done
   store_bf16(m.GB, gx, xc0, r0, q);
   part_sums(gx, m.part + cur * 4 * H, H, xc0, warp, lane, q);
   fence_async_smem();

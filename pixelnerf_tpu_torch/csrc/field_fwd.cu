@@ -160,12 +160,8 @@ int pnt_field_fwd(const void* const* feats, const int* dims, int nlev,
   c.zstash = spost != nullptr ? static_cast<bf16*>(zstash) : nullptr;
   const size_t smem = fwd_smem_bytes(hidden, c0, ns);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 512: return launch<512>(c, maps, lv, smem, st);
-    case 256: return launch<256>(c, maps, lv, smem, st);
-    case 128: return launch<128>(c, maps, lv, smem, st);
-    default: return launch<64>(c, maps, lv, smem, st);
-  }
+  return dispatch_hidden(
+      hidden, [&](auto h) { return launch<decltype(h)::value>(c, maps, lv, smem, st); });
 }
 
 }  // extern "C"

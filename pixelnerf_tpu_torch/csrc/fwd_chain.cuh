@@ -64,6 +64,8 @@
 // after the last injection).
 #pragma once
 
+#include <type_traits>
+
 #include "sm90.cuh"
 #include "tile_common.cuh"
 
@@ -109,11 +111,30 @@ struct ChainShape {
   static constexpr int KS3 = FWD_STAGE_BYTES / (HC * 2) < H ? FWD_STAGE_BYTES / (HC * 2) : H;
 };
 
-// the powers of two that split into whole wgmma N per warpgroup and whole
-// swizzle blocks: a multiple of 64 such as 192 or 384 would need n96 or
-// ragged h chunks
-static inline bool chain_width_ok(int hidden) {
-  return hidden == 64 || hidden == 128 || hidden == 256 || hidden == 512;
+// The widths and views both chains take (ops/resnetfc.py
+// check_chain_widths): hidden a power of two from 64 to 512 (whole wgmma N
+// per warpgroup and whole swizzle blocks: a multiple of 64 such as 192 or
+// 384 would need n96 or ragged h chunks), d_latent a multiple of 64, an
+// even d_in padded to 16 within hidden, at most 16 outputs, 1 to 64 views
+// and at least one latent injection.
+static inline bool chain_dims_ok(int hidden, int d_latent, int d_in, int d_in_pad, int d_out,
+                                 int ns, int n_inj) {
+  const bool width = hidden == 64 || hidden == 128 || hidden == 256 || hidden == 512;
+  return width && d_latent % 64 == 0 && d_in % 2 == 0 && d_in_pad % 16 == 0 &&
+         d_in_pad <= hidden && d_out <= 16 && ns >= 1 && ns <= FWD_ROWS && n_inj >= 1;
+}
+
+// launch(std::integral_constant<int, H>()) for the chain's compiled width
+// H == hidden; hidden must have passed chain_dims_ok
+template <class Launch>
+static inline int dispatch_hidden(int hidden, Launch launch) {
+  switch (hidden) {
+    case 512: return launch(std::integral_constant<int, 512>());
+    case 256: return launch(std::integral_constant<int, 256>());
+    case 128: return launch(std::integral_constant<int, 128>());
+    case 64: return launch(std::integral_constant<int, 64>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 1; }
@@ -138,8 +159,8 @@ static inline int chain_setup(ChainParams* p, ChainMaps* m, const void* xin, con
                               const void* b_out, void* out, void* spre, void* spost, int sb,
                               int ns, int b, int d_latent, int d_in, int d_in_pad, int hidden,
                               int d_out, int n_blocks, int combine_layer) {
-  if (!chain_width_ok(hidden) || d_latent % 64 || d_in % 2 || d_in_pad % 16 ||
-      d_in_pad > hidden || d_out > 16 || ns < 1 || ns > FWD_ROWS)
+  if (!chain_dims_ok(hidden, d_latent, d_in, d_in_pad, d_out, ns,
+                     combine_layer < n_blocks ? combine_layer : n_blocks))
     return (int)cudaErrorInvalidValue;
   p->xin = static_cast<const bf16*>(xin);
   p->b_in = static_cast<const float*>(b_in);

@@ -165,10 +165,11 @@ size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
 // `grads` of (H_l, W_l, C_l) `ldims` (finest first) and the `grid` of the
 // forward, and dz is not written; nlev 0 ignores the three. Gradients are
 // added to (the caller zeroes them). Launches the chain kernel and the
-// weight-gradient products on `stream`; returns the first
+// weight-gradient products on `stream`, adding each kernel launched to
+// launched[0] (the chain) or launched[1] (wgrad); returns the first
 // cudaGetLastError() that fails.
 int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
-                     int nlev, const void* grid, void* stream_) {
+                     int nlev, const void* grid, void* stream_, int* launched) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   BwdParams p;
   p.z = static_cast<const bf16*>(ptrs[0]);
@@ -224,8 +225,7 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   p.n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
   p.k = p.ns > 1 ? p.n_inj : 0;
   // the widths and views of the forward chain (fwd_chain.cuh: chain_setup)
-  if (!chain_width_ok(p.hidden) || p.d_latent % 64 || p.d_in % 2 || p.d_in_pad % 16 ||
-      p.d_in_pad > p.hidden || p.d_out > GOUT_LD || p.ns < 1 || p.ns > FWD_ROWS || p.n_inj < 1)
+  if (!chain_dims_ok(p.hidden, p.d_latent, p.d_in, p.d_in_pad, p.d_out, p.ns, p.n_inj))
     return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   const int nh = bwd_nh(p.hidden);
@@ -235,21 +235,24 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   if (!rc) rc = weight_map(&maps.wz, p.wz, p.n_inj * p.d_latent, p.hidden, BWD_KS, BWD_ZW, 1);
   if (rc) return rc;
   const size_t smem = bwd_smem_bytes(p.hidden, p.d_latent, p.ns);
-  switch (p.hidden) {
-    case 512: rc = launch_chain<512>(p, maps, smem, stream); break;
-    case 256: rc = launch_chain<256>(p, maps, smem, stream); break;
-    case 128: rc = launch_chain<128>(p, maps, smem, stream); break;
-    default: rc = launch_chain<64>(p, maps, smem, stream);
-  }
+  rc = dispatch_hidden(
+      p.hidden, [&](auto h) { return launch_chain<decltype(h)::value>(p, maps, smem, stream); });
   if (rc) return rc;
+  launched[0]++;
+  auto wgrad = [&](const bf16* a, int lda, const bf16* g, int ldg, float* c, int ldc, int m,
+                   int ka, int n) {
+    const int err = launch_wgrad(a, lda, g, ldg, c, ldc, m, ka, n, stream);
+    if (!err) launched[1]++;
+    return err;
+  };
 
   const int H = p.hidden, DL = p.d_latent, k = p.k, m = p.n_blocks - p.k;
   const int n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
   const int mpre = p.sb * p.ns * p.b, mpost = p.sb * p.b;
   const size_t hh = (size_t)H * H;
   // dw_out = relu(x_final)^T bf(g)
-  rc = launch_wgrad(p.spost + (size_t)2 * m * mpost * H, H, p.gout, GOUT_LD, dw_out, p.d_out,
-                    mpost, H, p.d_out, stream);
+  rc = wgrad(p.spost + (size_t)2 * m * mpost * H, H, p.gout, GOUT_LD, dw_out, p.d_out, mpost, H,
+             p.d_out);
   for (int blk = 0; blk < p.n_blocks && !rc; blk++) {
     const bool pre = blk < k;
     const int mrows = pre ? mpre : mpost;
@@ -259,8 +262,8 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
     const bf16* g1 = pre ? p.gpre + (size_t)blk * mrows * H : p.gpost + (size_t)(blk - k) * mrows * H;
     const bf16* g0 = pre ? p.gpre + (size_t)(k + blk) * mrows * H
                          : p.gpost + (size_t)(m + blk - k) * mrows * H;
-    rc = launch_wgrad(rh, H, g1, H, dw1 + blk * hh, H, mrows, H, H, stream);
-    if (!rc) rc = launch_wgrad(rx, H, g0, H, dw0 + blk * hh, H, mrows, H, H, stream);
+    rc = wgrad(rh, H, g1, H, dw1 + blk * hh, H, mrows, H, H);
+    if (!rc) rc = wgrad(rx, H, g0, H, dw0 + blk * hh, H, mrows, H, H);
   }
   // dwz_i = z^T Gin_i, with Gin_0 = gin and Gin_i = G1_{i-1} (the
   // cotangent at block i's input is the one at block i-1's output)
@@ -269,9 +272,9 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
     const bf16* gi = blk == 0 ? p.gin
                      : pre    ? p.gpre + (size_t)(blk - 1) * mpre * H
                               : p.gpost + (size_t)(blk - 1 - k) * mpost * H;
-    rc = launch_wgrad(p.z, DL, gi, H, dwz + (size_t)blk * DL * H, H, mpre, DL, H, stream);
+    rc = wgrad(p.z, DL, gi, H, dwz + (size_t)blk * DL * H, H, mpre, DL, H);
   }
-  if (!rc) rc = launch_wgrad(p.xin, p.d_in, p.gin, H, dw_in, H, mpre, p.d_in, H, stream);
+  if (!rc) rc = wgrad(p.xin, p.d_in, p.gin, H, dw_in, H, mpre, p.d_in, H);
   return rc;
 }
 

@@ -85,12 +85,8 @@ int pnt_resnetfc_fwd(const void* z, const void* xin, const void* w_in,
   if (err) return err;
   const size_t smem = fwd_smem_bytes(hidden, d_latent, ns);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 512: return launch<512>(p, maps, z, smem, st);
-    case 256: return launch<256>(p, maps, z, smem, st);
-    case 128: return launch<128>(p, maps, z, smem, st);
-    default: return launch<64>(p, maps, z, smem, st);
-  }
+  return dispatch_hidden(
+      hidden, [&](auto h) { return launch<decltype(h)::value>(p, maps, z, smem, st); });
 }
 
 }  // extern "C"

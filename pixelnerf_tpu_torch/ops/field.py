@@ -265,7 +265,7 @@ def pyramid_field_fused_bwd(
         )
     if any(c % 2 for _, _, c in levels):
         raise ValueError("level channel counts must be even")
-    d_feats, dxin, dw = launch_bwd(
+    d_feats, dxin, dw, _ = launch_bwd(
         zstash, xin, g, stash_pre, stash_post, weights, n_blocks, combine_layer, ns,
         levels=levels, grid=grid,
     )

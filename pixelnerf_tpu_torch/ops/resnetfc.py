@@ -346,7 +346,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.pnt_resnetfc_bwd.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
     return lib
 
@@ -418,14 +418,15 @@ resnetfc_fwd_stash.launches = 0
 def launch_bwd(
     z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int, combine_layer: int,
     ns: int, levels: Sequence[Tuple[int, int, int]] = (), grid: Optional[torch.Tensor] = None,
-    cotangents: bool = False,
 ):
     """Launch `csrc/resnetfc_bwd.cu` on CUDA tensors: (dz, dxin, float32
-    FieldWeights gradients); with the field's `levels` ((H_l, W_l, C_l),
-    finest first) and forward `grid` (SB, NS, B, 2), the float32 level
-    gradients [(SB*NS, H_l, W_l, C_l)] in place of dz; with `cotangents`,
-    also the chain's bf16 cotangents (gpre, gpost, gin, gout) as
-    `resnetfc_cotangents_plain` gives them. Counts nothing."""
+    FieldWeights gradients, the chain's bf16 cotangents (gpre, gpost, gin,
+    gout) as `resnetfc_cotangents_plain` gives them); with the field's
+    `levels` ((H_l, W_l, C_l), finest first) and forward `grid` (SB, NS,
+    B, 2), the float32 level gradients [(SB*NS, H_l, W_l, C_l)] in place of
+    dz. Counts the kernels it launches in `launch_bwd.chain_launches` (the
+    cotangent chain) and `launch_bwd.wgrad_launches` (the weight-gradient
+    products), not the wrappers' `.launches`."""
     z, xin, wp = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
     d_in = xin.shape[3]
@@ -477,12 +478,19 @@ def launch_bwd(
     nlev = len(levels)
     lptrs = (ctypes.c_void_p * max(nlev, 1))(*[t.data_ptr() for t in d_feats])
     ldims = (ctypes.c_int * max(3 * nlev, 1))(*[d for hwc in levels for d in hwc])
+    launched = (ctypes.c_int * 2)(0, 0)
     err = lib.pnt_resnetfc_bwd(
         ptrs, dims, lptrs, ldims, nlev, ptr(grid), torch.cuda.current_stream(dev).cuda_stream,
+        launched,
     )
+    launch_bwd.chain_launches += launched[0]
+    launch_bwd.wgrad_launches += launched[1]
     _raise_on(err, lib, "resnetfc_bwd")
-    res = (d_feats if levels else dz), dxin, dw
-    return res + ((gpre, gpost, gin, gout),) if cotangents else res
+    return (d_feats if levels else dz), dxin, dw, (gpre, gpost, gin, gout)
+
+
+launch_bwd.chain_launches = 0
+launch_bwd.wgrad_launches = 0
 
 
 def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,
@@ -493,7 +501,7 @@ def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: in
     _check(z, xin, w, n_blocks, combine_layer, ns)
     if _device_of(z, "resnetfc_bwd") == "cpu":
         return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
-    res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+    res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)[:3]
     resnetfc_bwd.launches += 1
     return res
 

@@ -6,21 +6,32 @@ Two facts the kernel's design rests on, held here on the CPU:
 - every weight and bias gradient of the plain backward is `act^T @ G` (or a
   column sum) of these bf16 cotangents with the stash, in the layout the
   kernel writes (so the card tests can hold the kernel's cotangents to
-  them);
-- the cotangent at injection i's point is, bit for bit, Gin for i = 0 and
-  G1 of block i - 1 otherwise, so the kernel's one g_z product after the
-  chain reads tiles it has already written.
-The comparisons are exact or within float32 summation order (1e-6
-relative): both sides are the same plain arithmetic.
+  them), and those gradients are the Pallas kernel's;
+- the cotangent at injection i's point is Gin for i = 0 and G1 of block
+  i - 1 otherwise, so the kernel's one g_z product after the chain reads
+  tiles it has already written: the latent weight and bias gradients taken
+  from those written slots are the Pallas backward's (`_fused_bwd_impl`,
+  which computes each injection's cotangent in its own tile), and dz from
+  them is the Pallas kernel's dz.
+Against the plain backward the comparisons are exact or within float32
+summation order (1e-6 relative): both sides are the same plain arithmetic.
+Against the Pallas VJP (interpret mode) they take the tolerances of
+tests/test_torch_resnetfc.py: bf16 roundings of other summation orders
+travel through the blocks, 2e-2 of the largest magnitude at worst and a
+relative Frobenius error of 1e-2 (dz one bf16 ulp more).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pixelnerf_tpu.ops.resnetfc_pallas import ResnetFCWeights
+from pixelnerf_tpu.ops.resnetfc_pallas import resnetfc_fused as j_fused
+
 from pixelnerf_tpu_torch.ops.field import FieldWeights
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    _chain_plain, _dot_g, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd_plain,
+    _dot_g, _dot_t, _rows, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd_plain,
     stash_layout,
 )
 
@@ -42,6 +53,32 @@ def _case(ns, sb, b, seed):
     g = t(sb, b, D_OUT, scale=1.0)
     _, spre, spost = resnetfc_fwd_plain(z, xin, w, N_BLOCKS, combine, ns, stash=True)
     return combine, w, z, xin, g, spre, spost
+
+
+def _pallas_grads(w, z, xin, g, combine, ns):
+    """dz and the weight gradients of the Pallas kernel's VJP (interpret
+    mode) on the same inputs."""
+    import jax
+
+    jw = ResnetFCWeights(**{
+        k: jnp.asarray(v.numpy()[None] if k in ("b_in", "b_out") else v.numpy())
+        for k, v in w._asdict().items()
+    })
+    jz = jnp.asarray(z.float().numpy(), jnp.bfloat16)
+    jx = jnp.asarray(xin.float().numpy(), jnp.bfloat16)
+    jfn = lambda zz, ww: j_fused(zz, jx, ww, N_BLOCKS, combine, ns, True)
+    _, vjp = jax.vjp(jfn, jz, jw)
+    jdz, jdw = vjp(jnp.asarray(g.numpy()))
+    return np.asarray(jdz.astype(jnp.float32)), jdw
+
+
+def _pallas_close(got, want, extra_ulp=False):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32).reshape(got.shape)
+    scale = np.abs(want).max() + 1e-12
+    tol = 2e-2 * scale + (2.0 ** -7 * np.abs(want) if extra_ulp else 0.0)
+    assert np.all(np.abs(got - want) <= tol)
+    assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want) + 1e-12
 
 
 @pytest.mark.parametrize("ns,sb,b", [(1, 2, 37), (2, 2, 19), (3, 1, 22), (5, 1, 7)])
@@ -72,13 +109,32 @@ def test_cotangents_give_the_weight_gradients(ns, sb, b):
     for i in range(n_inj):
         cot = gi if i == 0 else slot(i - 1, 0, stash=False)
         close(dw.wz[i], _dot_g(zz, cot))
+    # and those gradients are the Pallas kernel's
+    _, jdw = _pallas_grads(w, z, xin, g, combine, ns)
+    for blk in range(N_BLOCKS):
+        _pallas_close(_dot_g(slot(blk, 1), slot(blk, 0, stash=False)), jdw.w1[blk])
+        _pallas_close(_dot_g(slot(blk, 0), slot(blk, 1, stash=False)), jdw.w0[blk])
+        _pallas_close(_rows(slot(blk, 0, stash=False).float()), jdw.b1[blk])
+        _pallas_close(_rows(slot(blk, 1, stash=False).float()), jdw.b0[blk])
+    _pallas_close(_dot_g(xx, gi), jdw.w_in)
+    _pallas_close(_dot_g(spost[2 * m], gout[..., :D_OUT]), jdw.w_out)
 
 
 @pytest.mark.parametrize("ns,sb,b", [(1, 1, 30), (2, 2, 19), (3, 1, 22)])
 def test_injection_cotangents_are_written_tiles(ns, sb, b):
     combine, w, z, xin, g, spre, spost = _case(ns, sb, b, 100 + ns)
     args = (N_BLOCKS, combine, ns)
-    g1s, _, g_inj, gx = _chain_plain(g, spre, spost, w, *args, sb, b)
-    assert torch.equal(g_inj[0], gx)
-    for i in range(1, len(g_inj)):
-        assert torch.equal(g_inj[i], g1s[i - 1])
+    gpre, gpost, gin, _ = resnetfc_cotangents_plain(g, spre, spost, w, *args)
+    k, _ = stash_layout(*args)
+    n_inj = min(combine, N_BLOCKS)
+    zz = z[:, 0] if ns == 1 else z
+    gi = gin[:, 0] if ns == 1 else gin
+    # the written slots the kernel's g_z product reads: Gin, then G1 of
+    # block i - 1 (pre-pool rows while i - 1 < k)
+    tiles = [gi] + [gpre[i - 1] if i - 1 < k else gpost[i - 1 - k] for i in range(1, n_inj)]
+    jdz, jdw = _pallas_grads(w, z, xin, g, combine, ns)
+    for i, t in enumerate(tiles):
+        _pallas_close(_dot_g(zz, t), jdw.wz[i])
+        _pallas_close(_rows(t.float()), jdw.bz[i])
+    dz = sum(_dot_t(t, w.wz[i]) for i, t in enumerate(tiles))
+    _pallas_close(dz if ns > 1 else dz[:, None], jdz, extra_ulp=True)

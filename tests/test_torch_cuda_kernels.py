@@ -506,7 +506,7 @@ def test_backward_chain_matches_plain(cuda, hidden, ns, sb, b):
     _grad_within(dxin, wdxin)
     for name in FieldWeights._fields:
         _grad_within(getattr(dw, name), getattr(wdw, name))
-    cots = ops_resnetfc.launch_bwd(z, xin, g, spre, spost, w, *args, cotangents=True)[3]
+    cots = ops_resnetfc.launch_bwd(z, xin, g, spre, spost, w, *args)[3]
     torch.cuda.synchronize()
     wcots = resnetfc_cotangents_plain(g, spre, spost, w, *args)
     for got, want in zip(cots, wcots):
