@@ -48,11 +48,16 @@ Phases, each failing loudly (an exception and a non-zero exit):
 
 For the two backwards (the ResnetFC's and the field's) phase 3 also holds
 the bf16 cotangents the chain hands the weight-gradient products against
-their plain version, and prints the chain (csrc/bwd_chain.cuh) and the
-weight-gradient products on their own: launches as the wrapper counted them,
-ms by kernel name under torch.profiler, TFLOP/s, bytes moved, bound, and
-each one's products alone as bf16 torch.matmul (`chain_*` and `wgrad_*` in
-their `kernels` records).
+their plain version, the weight gradients of the products (csrc/wgrad.cuh)
+against their plain version on the kernel's own stash and cotangents, and
+two runs of each backward to bit-identical weight gradients; it prints the
+chain (csrc/bwd_chain.cuh) and the weight-gradient products on their own:
+launches as the wrapper counted them, ms by kernel name under
+torch.profiler, TFLOP/s, bytes moved, bound, and each one's products alone
+as bf16 torch.matmul (`chain_*` and `wgrad_*` in their `kernels` records;
+for `wgrad`, whose 15 products are each one torch.matmul, that time is also
+its `wgrad_library_ms`), and the products' workspace bytes, units and
+splits.
 
 For the four forward-chain kernels (the field and ResnetFC primal and
 stash forwards, csrc/fwd_chain.cuh) phase 3 also prints TFLOP/s, the L2
@@ -145,6 +150,15 @@ NEAREST_EVAL_LAUNCHES = _launch_table(posenc_concat=2, bilerp_gather=2, resnetfc
 # error <= 5e-2 of the largest magnitude, Frobenius error <= 2e-2 relative
 SCATTER_RTOL, SCATTER_ATOL = 1e-4, 1e-4
 GRAD_MAX, GRAD_FRO = 5e-2, 2e-2
+# the weight-gradient products against their plain version on the same bf16
+# stash and cotangents: both multiply the same bf16 operands exactly, and
+# differ only in the order of their float32 sums over the point axis. At
+# the flagship shapes a split sums up to ~48k points in the tensor cores'
+# accumulators, ~3,000 k16 accumulations: up to ~3,000 x 2^-24 = 1.8e-4
+# relative on a partial (the card tests' few hundred points hold 1e-5)
+WGRAD_MAX, WGRAD_FRO = 2e-3, 2e-4
+WGRAD_WEIGHTS = ("w_in", "wz", "w0", "w1", "w_out")
+WGRAD_LAUNCHES = 2  # a backward call: the grouped products, the reduction
 # card step vs CPU plain step (perturb=0, injected rays, full width): the
 # relative error of the loss, of the gradient at the encoder's output (what
 # the pyramid scatter hands the trunk) and of each parameter gradient
@@ -249,8 +263,8 @@ def _chain_line(name, flops, ms, products_ms, ns, wbytes, per):
 
 
 def _bwd_split(torch, fn, calls: int = 3, tries: int = 3):
-    """Device ms and launches a call of the backward's two kernels (the
-    cotangent chain and the weight-gradient products) over `calls` warm
+    """Device ms and launches a call of the backward's two parts (the
+    cotangent chain; the weight-gradient products and their reduction) over `calls` warm
     calls under torch.profiler. The launches are those the wrapper counted
     where it launched them (`launch_bwd.chain_launches` and
     `.wgrad_launches`) over `calls`; the ms are the kernel's recorded
@@ -271,13 +285,14 @@ def _bwd_split(torch, fn, calls: int = 3, tries: int = 3):
                 fn()
             torch.cuda.synchronize()
         counted = {"chain": launch_bwd.chain_launches, "wgrad": launch_bwd.wgrad_launches}
-        if counted["chain"] != calls or counted["wgrad"] < calls:
+        if counted["chain"] != calls or counted["wgrad"] != WGRAD_LAUNCHES * calls:
             raise AssertionError(f"the backward's launches over {calls} calls: {counted}")
         total = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            part = "chain" if "bwd_chain_kernel" in e.key else "wgrad" if "wgrad_kernel" in e.key else None
+            part = ("chain" if "bwd_chain_kernel" in e.key
+                    else "wgrad" if "wgrad_products" in e.key or "wgrad_reduce" in e.key else None)
             if part:
                 total[part][0] += e.self_device_time_total / 1e3
                 total[part][1] += e.count
@@ -322,9 +337,10 @@ def _bwd_products_ms(torch, dev, g, sb, ns, b, d_in_pad, d_latent):
     return _time_ms(torch, chain, 1, 3), _time_ms(torch, wgrad, 1, 3)
 
 
-def _bwd_lines(name, per, split, bwd_flops, chain_bytes, wgrad_bytes, products):
-    """The backward's two kernels on their own: ms, launches, TFLOP/s and
-    bytes of a step, bound and products yardstick each."""
+def _bwd_lines(name, per, split, bwd_flops, chain_bytes, wgrad_bytes, products, plans):
+    """The backward's two parts on their own: ms, launches, TFLOP/s and
+    bytes of a step, bound and products yardstick each; the weight-gradient
+    products' workspace, units and splits of each call (`plans`)."""
     res = {}
     for part, nbytes, prod in (("chain", chain_bytes, products[0]), ("wgrad", wgrad_bytes, products[1])):
         ms, launches = split[part]
@@ -337,6 +353,15 @@ def _bwd_lines(name, per, split, bwd_flops, chain_bytes, wgrad_bytes, products):
         )
         res.update({f"{part}_ms": ms, f"{part}_launches": launches, f"{part}_bound_ms": bound_ms,
                     f"{part}_products_ms": prod})
+    for call, plan in plans.items():
+        print(f"{name} wgrad plan {call}: workspace {plan['workspace_bytes']} bytes, "
+              f"{plan['units']} units, splits {plan['splits'][0]} (pre-pool) to {plan['splits'][1]}, "
+              f"TMA boxes {plan['box_bytes'] / 1e9:.3f} GB")
+    boxes = sum(p["box_bytes"] for p in plans.values())
+    print(f"{name} wgrad: TMA boxes {boxes / 1e9:.3f} GB {per} read from L2, "
+          f"{boxes / split['wgrad'][0] / 1e9:.3f} TB/s")
+    res["wgrad_library_ms"] = products[1]
+    res["wgrad_workspace_bytes"] = max(p["workspace_bytes"] for p in plans.values())
     return res
 
 
@@ -392,6 +417,26 @@ def _check_grads(torch, label, pairs, verbose):
             print(f"{label} {name}: max_abs_err={mx:.3e} max/scale={mrel:.3e} frobenius={fro:.3e}")
     print(f"{label}: every gradient within {GRAD_MAX} of its scale and {GRAD_FRO} Frobenius")
     return worst
+
+
+def _check_wgrad(torch, label, dw, again, want):
+    """The weight-gradient products (csrc/wgrad.cuh) of one backward within
+    WGRAD_MAX of each gradient's scale and WGRAD_FRO Frobenius of their
+    plain version on the kernel's own stash and cotangents (`want`), and
+    bit-identical to a second run's (`again`)."""
+    bad = []
+    for name in WGRAD_WEIGHTS:
+        got = getattr(dw, name)
+        same = torch.equal(got, getattr(again, name))
+        mx, mrel, fro = _grad_err(got, want[name])
+        print(f"{label} wgrad d{name}: max_abs_err={mx:.3e} max/scale={mrel:.3e} "
+              f"frobenius={fro:.3e}; second run bit-identical: {same}")
+        if not (torch.isfinite(got).all() and mrel <= WGRAD_MAX and fro <= WGRAD_FRO and same):
+            bad.append(f"d{name}")
+    if bad:
+        raise AssertionError(f"{label} wgrad: {bad} beyond the bounds or not bit-identical")
+    print(f"{label} wgrad: every weight gradient within {WGRAD_MAX} of its scale and {WGRAD_FRO} "
+          f"Frobenius of the plain products, two runs bit-identical")
 
 
 def _random_weights(torch, g, dev, d_latent):
@@ -530,6 +575,7 @@ def check_field_vjp(torch, np, dev):
         FieldWeights, field_bwd_plain, field_flops, field_plain, pyramid_field_fused_bwd,
         pyramid_field_fused_fwd_stash,
     )
+    from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd, resnetfc_wgrad_plain
 
     g = torch.Generator(device=dev).manual_seed(9)
     ns, dl = TRAIN_NS, sum(c for _, _, c in LEVELS)
@@ -543,6 +589,7 @@ def check_field_vjp(torch, np, dev):
     split = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
     chain_bytes = wgrad_bytes = 0.0
     products = [0.0, 0.0]
+    plans = {}
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in FIELD_CALLS.items():
         b = TRAIN_RAYS * k
@@ -578,7 +625,14 @@ def check_field_vjp(torch, np, dev):
         pairs += [("dxin", dxin, wdxin)] + [(f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields]
         worst = _check_grads(torch, f"pyramid_field_fused_bwd {call}", pairs, call == "coarse")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], worst)
-        del d_feats, dxin, dw, wd_feats, wdxin, wdw, pairs
+        # the weight-gradient products on the kernel's own cotangents, and a
+        # second run of the backward
+        again, cots = launch_bwd(zs, xin, gout, spre, spost, w, *args, levels=LEVELS, grid=grid)[2:]
+        torch.cuda.synchronize()
+        plans[call] = dict(launch_bwd.wgrad_plan)
+        _check_wgrad(torch, f"pyramid_field_fused_bwd {call}", dw, again,
+                     resnetfc_wgrad_plain(zs, xin, spre, spost, *cots, *args, D_OUT))
+        del d_feats, dxin, dw, wd_feats, wdxin, wdw, pairs, again, cots
 
         fwd["ms"] += _time_ms(torch, lambda: pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args), 1, 3)
         fwd["plain_ms"] += _time_ms(torch, lambda: field_plain(feats, grid, xin, w, *args, stash=True), 1, 2)
@@ -624,7 +678,7 @@ def check_field_vjp(torch, np, dev):
             f"{r['bound_ms']:.3f} ms (operations), per fused train step"
         )
     bwd.update(_bwd_lines("pyramid_field_fused_bwd", "a fused train step", split, fwd_flops,
-                          chain_bytes, wgrad_bytes, products))
+                          chain_bytes, wgrad_bytes, products, plans))
     rep = "pixelnerf_tpu/ops/field_pallas.py"
     return [
         _record("pyramid_field_fused_fwd_stash", "cuda", "pixelnerf_tpu_torch/csrc/field_fwd.cu",
@@ -804,7 +858,7 @@ def check_resnetfc(torch, np, dev):
     from pixelnerf_tpu_torch.ops.field import FieldWeights, field_flops
     from pixelnerf_tpu_torch.ops.resnetfc import (
         launch_bwd, resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd,
-        resnetfc_fwd_plain, resnetfc_fwd_stash,
+        resnetfc_fwd_plain, resnetfc_fwd_stash, resnetfc_wgrad_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -819,6 +873,7 @@ def check_resnetfc(torch, np, dev):
     split = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
     chain_bytes = wgrad_bytes = 0.0
     products = [0.0, 0.0]
+    plans = {}
     args = (N_BLOCKS, COMBINE, ns)
     for call, k in MLP_CALLS.items():
         b = TRAIN_RAYS * k
@@ -855,16 +910,20 @@ def check_resnetfc(torch, np, dev):
         pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
             (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields
         ]
-        # the bf16 cotangents the chain hands the weight-gradient products
-        cots = launch_bwd(z, xin, gout, spre, spost, w, *args)[3]
+        # the bf16 cotangents the chain hands the weight-gradient products,
+        # the products on them, and a second run of the backward
+        again, cots = launch_bwd(z, xin, gout, spre, spost, w, *args)[2:]
         torch.cuda.synchronize()
+        plans[call] = dict(launch_bwd.wgrad_plan)
+        _check_wgrad(torch, f"resnetfc_bwd {call}", dw, again,
+                     resnetfc_wgrad_plain(z, xin, spre, spost, *cots, *args, D_OUT))
         wcots = resnetfc_cotangents_plain(gout, spre, spost, w, *args)
         pairs += [(n, a, b_) for n, a, b_ in zip(("gpre", "gpost", "gin", "gout"), cots, wcots)
                   if a is not None]
         worst = _check_grads(torch, f"resnetfc_bwd {call}", pairs, call == "coarse")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], worst)
         cot_bytes = sum(t.numel() * 2 for t in cots if t is not None)
-        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want, pairs, cots, wcots
+        del dz, dxin, dw, wdz, wdxin, wdw, wpre, wpost, want, pairs, cots, wcots, again
 
         fwd["ms"] += _time_ms(torch, lambda: resnetfc_fwd(z, xin, w, *args), 1, 3)
         fwd["plain_ms"] += _time_ms(torch, lambda: resnetfc_fwd_plain(z, xin, w, *args), 1, 2)
@@ -920,7 +979,7 @@ def check_resnetfc(torch, np, dev):
             f"{r['bound_ms']:.3f} ms (operations), per train step"
         )
     bwd.update(_bwd_lines("resnetfc_bwd", "a cached or nearest train step", split, total_flops,
-                          chain_bytes, wgrad_bytes, products))
+                          chain_bytes, wgrad_bytes, products, plans))
     rep = "pixelnerf_tpu/ops/resnetfc_pallas.py"
     return [
         _record("resnetfc_fwd", "cuda", "pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu", f"{rep}:529", fwd, "operations", None),
@@ -996,7 +1055,8 @@ def _counted(torch, fn, expected, label):
     # weight-gradient products: one chain each
     parts = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
     print(f"{label}: launches {got}; backward chain {parts[0]}, wgrad {parts[1]}")
-    if got != expected or parts[0] != got["resnetfc_bwd"] + got["pyramid_field_fused_bwd"]:
+    bwd_calls = got["resnetfc_bwd"] + got["pyramid_field_fused_bwd"]
+    if got != expected or parts != (bwd_calls, WGRAD_LAUNCHES * bwd_calls):
         raise AssertionError(f"{label}: launches {got}, expected {expected}")
     return res, got
 

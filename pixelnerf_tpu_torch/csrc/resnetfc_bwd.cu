@@ -27,22 +27,18 @@
 // bytes, not operations worth counting.
 //
 // Design: the TPU kernel sums weight gradients across its sequential grid,
-// which Hopper's concurrent CTAs cannot do. So two kernels:
+// which Hopper's concurrent CTAs cannot do. So three kernels:
 // 1. `chain`: one CTA per point tile (the forward's 64-row tiling) walks the
 //    blocks backward with wgmma on TMA-fed weight tiles (bwd_chain.cuh),
 //    writing the bf16 cotangents G1, G0, Gin and bf(g) to device memory in
 //    the stash's layout.
-// 2. `wgrad`: a split-K wmma product act^T @ G over all points for each
-//    weight gradient: 64x64 output tiles, the point axis cut into slices,
-//    f32 atomics into the result.
+// 2. `wgrad_products`: every weight gradient act^T @ G over all points in
+//    one grouped launch, TMA-fed wgmma on 128 x 256 output tiles over
+//    splits of the point axis, each split's partial tile stored apart.
+// 3. `wgrad_reduce`: the splits summed in a fixed order into the gradients
+//    (wgrad.cuh), so the weight gradients are the same from run to run.
 
-#include "bwd_chain.cuh"
-
-#define WG_BM 32   // points a step of the weight-gradient product
-#define WG_BK 64   // rows of act^T (the weight's input side) per CTA
-#define WG_BN 64   // columns of G per CTA
-#define WG_LD 72   // padded shared-memory row (bf16 elements)
-#define WG_THREADS 128
+#include "wgrad.cuh"
 
 template <int H>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
@@ -62,94 +58,22 @@ static int launch_chain(const BwdParams& p, const BwdMaps& maps, size_t smem,
   return (int)cudaGetLastError();
 }
 
-struct WgParams {
-  const bf16* a;  // (M, ka), row stride lda
-  const bf16* g;  // (M, n), row stride ldg
-  float* c;       // (ka, n), row stride ldc; added to
-  int m, ka, n, lda, ldg, ldc, rows_per_split;
-};
-
-// rows [m0, m0 + WG_BM) x columns [c0, c0 + 64) of a (M, cols) bf16 matrix
-// into a shared-memory tile, zero past the edges
-__device__ __forceinline__ void load_tile(bf16 (*dst)[WG_LD], const bf16* src, int ld,
-                                          int m0, int mend, int c0, int cols) {
-  for (int e = threadIdx.x; e < WG_BM * 8; e += WG_THREADS) {
-    const int r = e / 8, c8 = (e % 8) * 8;
-    const int mr = m0 + r, cc = c0 + c8;
-    bf16* d = &dst[r][c8];
-    const bf16* sp = src + (size_t)mr * ld + cc;
-    if (mr < mend && cc + 8 <= cols && ld % 8 == 0) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(sp);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; i++)
-        d[i] = (mr < mend && cc + i < cols) ? sp[i] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgParams p) {
-  __shared__ __align__(32) bf16 As[WG_BM][WG_LD];
-  __shared__ __align__(32) bf16 Gs[WG_BM][WG_LD];
-  __shared__ __align__(32) float stage[4][256];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / 2, wc = warp % 2;
-  const int ka0 = blockIdx.x * WG_BK, n0 = blockIdx.y * WG_BN;
-  const int mbeg = blockIdx.z * p.rows_per_split;
-  const int mend = min(p.m, mbeg + p.rows_per_split);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; i++)
-#pragma unroll
-    for (int j = 0; j < 2; j++) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int m0 = mbeg; m0 < mend; m0 += WG_BM) {
-    load_tile(As, p.a, p.lda, m0, mend, ka0, p.ka);
-    load_tile(Gs, p.g, p.ldg, m0, mend, n0, p.n);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WG_BM; kk += 16) {
-      // act^T (ka x points): the point axis runs down the shared tile's rows
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; i++) {
-        wmma::load_matrix_sync(a[i], &As[kk][wr * 32 + i * 16], WG_LD);
-        wmma::load_matrix_sync(b[i], &Gs[kk][wc * 32 + i * 16], WG_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; i++)
-#pragma unroll
-        for (int j = 0; j < 2; j++) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; i++)
-#pragma unroll
-    for (int j = 0; j < 2; j++) {
-      wmma::store_matrix_sync(stage[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = ka0 + wr * 32 + i * 16 + e / 16, c = n0 + wc * 32 + j * 16 + e % 16;
-        if (r < p.ka && c < p.n) atomicAdd(p.c + (size_t)r * p.ldc + c, stage[warp][e]);
-      }
-      __syncwarp();
-    }
-}
-
-static int launch_wgrad(const bf16* a, int lda, const bf16* g, int ldg, float* c, int ldc,
-                        int m, int ka, int n, cudaStream_t stream) {
-  WgParams p = {a, g, c, m, ka, n, lda, ldg, ldc, 0};
-  const int tiles = ((ka + WG_BK - 1) / WG_BK) * ((n + WG_BN - 1) / WG_BN);
-  int splits = (4 * 132 + tiles - 1) / tiles;
-  const int max_splits = (m + 127) / 128;  // at least 128 points a slice
-  if (splits > max_splits) splits = max_splits;
-  if (splits < 1) splits = 1;
-  p.rows_per_split = ((m + splits - 1) / splits + WG_BM - 1) / WG_BM * WG_BM;
-  splits = (m + p.rows_per_split - 1) / p.rows_per_split;
-  dim3 grid((ka + WG_BK - 1) / WG_BK, (n + WG_BN - 1) / WG_BN, splits > 0 ? splits : 1);
-  wgrad_kernel<<<grid, WG_THREADS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+// The widths of a call (dims: sb, ns, b, d_latent, d_in, d_in_pad, hidden,
+// d_out, n_blocks, combine_layer) and what follows from them.
+static void bwd_dims(BwdParams* p, const int* dims) {
+  p->sb = dims[0];
+  p->ns = dims[1];
+  p->b = dims[2];
+  p->d_latent = dims[3];
+  p->d_in = dims[4];
+  p->d_in_pad = dims[5];
+  p->hidden = dims[6];
+  p->d_out = dims[7];
+  p->n_blocks = dims[8];
+  p->combine_layer = dims[9];
+  p->pts = chain_points(p->ns);
+  p->n_inj = p->combine_layer < p->n_blocks ? p->combine_layer : p->n_blocks;
+  p->k = p->ns > 1 ? p->n_inj : 0;
 }
 
 extern "C" {
@@ -158,20 +82,52 @@ size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
   return bwd_smem_bytes(hidden, d_latent, ns);
 }
 
+// The weight-gradient workspace of a call with these dims (as
+// pnt_resnetfc_bwd's), in floats, on the current device; info gets the
+// units of the products' launch, the most and fewest splits of a product
+// and the bytes of the TMA boxes the launch loads. -1 if the call has more
+// blocks than the products take.
+long long pnt_wgrad_workspace(const int* dims, long long* info) {
+  BwdParams p = {};
+  bwd_dims(&p, dims);
+  int sms = 0;
+  if (wgrad_sms(&sms)) return -1;
+  WgradParams w;
+  const long long ws = wgrad_plan(&w, p, nullptr, nullptr, nullptr, nullptr, nullptr, sms);
+  if (ws < 0) return -1;
+  info[0] = w.units;
+  info[1] = info[2] = w.prod[0].splits;
+  info[3] = 0;
+  for (int i = 0; i < w.n_prod; i++) {
+    const WgProduct& q = w.prod[i];
+    info[1] = q.splits > info[1] ? q.splits : info[1];
+    info[2] = q.splits < info[2] ? q.splits : info[2];
+    // every tile loads its A boxes and G boxes once a 64-point step
+    long long boxes = 0;
+    for (int ka0 = 0; ka0 < q.ka; ka0 += WG_BK)
+      for (int n0 = 0; n0 < q.n; n0 += WG_BN)
+        boxes += (ka0 + 64 < q.ka ? 2 : 1) + (q.n - n0 >= WG_BN ? 4 : (q.n - n0 + 63) / 64);
+    info[3] += boxes * ((q.m + WG_PTS - 1) / WG_PTS) * WG_BOX;
+  }
+  return ws;
+}
+
 // ptrs, in order: z, xin, g, spre, spost, w_in, wz, w0, w1, w_out, gpre,
 // gpost, gin, gout, dz, dxin, dw_in, db_in, dwz, dbz, dw0, db0, dw1, db1,
-// dw_out, db_out. dims: sb, ns, b, d_latent, d_in, d_in_pad, hidden,
-// d_out, n_blocks, combine_layer. For the field, nlev > 0 level gradients
-// `grads` of (H_l, W_l, C_l) `ldims` (finest first) and the `grid` of the
-// forward, and dz is not written; nlev 0 ignores the three. Gradients are
-// added to (the caller zeroes them). Launches the chain kernel and the
-// weight-gradient products on `stream`, adding each kernel launched to
-// launched[0] (the chain) or launched[1] (wgrad); returns the first
-// cudaGetLastError() that fails.
+// dw_out, db_out, xin_pad (xin's columns zero-padded to d_in_pad), ws (the
+// f32 workspace of pnt_wgrad_workspace's floats). dims: as bwd_dims. For
+// the field, nlev > 0 level gradients `grads` of (H_l, W_l, C_l) `ldims`
+// (finest first) and the `grid` of the forward, and dz is not written; nlev
+// 0 ignores the three. Gradients are added to (the caller zeroes them).
+// Launches the chain kernel, the weight-gradient products and their
+// reduction on `stream`, adding each kernel launched to launched[0] (the
+// chain) or launched[1] (wgrad: products and reduction); returns the first
+// error.
 int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
                      int nlev, const void* grid, void* stream_, int* launched) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   BwdParams p;
+  bwd_dims(&p, dims);
   p.z = static_cast<const bf16*>(ptrs[0]);
   p.xin = static_cast<const bf16*>(ptrs[1]);
   p.g = static_cast<const float*>(ptrs[2]);
@@ -198,16 +154,6 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   p.db1 = static_cast<float*>(ptrs[23]);
   float* dw_out = static_cast<float*>(ptrs[24]);
   p.db_out = static_cast<float*>(ptrs[25]);
-  p.sb = dims[0];
-  p.ns = dims[1];
-  p.b = dims[2];
-  p.d_latent = dims[3];
-  p.d_in = dims[4];
-  p.d_in_pad = dims[5];
-  p.hidden = dims[6];
-  p.d_out = dims[7];
-  p.n_blocks = dims[8];
-  p.combine_layer = dims[9];
   int c0 = 0;
   for (int l = 0; l < MAX_LEVELS; l++) {
     const bool on = l < nlev;
@@ -221,9 +167,6 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   p.nlev = nlev;
   p.grid = static_cast<const float*>(grid);
   if (nlev > 0 && c0 != p.d_latent) return (int)cudaErrorInvalidValue;
-  p.pts = chain_points(p.ns);
-  p.n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
-  p.k = p.ns > 1 ? p.n_inj : 0;
   // the widths and views of the forward chain (fwd_chain.cuh: chain_setup)
   if (!chain_dims_ok(p.hidden, p.d_latent, p.d_in, p.d_in_pad, p.d_out, p.ns, p.n_inj))
     return (int)cudaErrorInvalidValue;
@@ -239,43 +182,8 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
       p.hidden, [&](auto h) { return launch_chain<decltype(h)::value>(p, maps, smem, stream); });
   if (rc) return rc;
   launched[0]++;
-  auto wgrad = [&](const bf16* a, int lda, const bf16* g, int ldg, float* c, int ldc, int m,
-                   int ka, int n) {
-    const int err = launch_wgrad(a, lda, g, ldg, c, ldc, m, ka, n, stream);
-    if (!err) launched[1]++;
-    return err;
-  };
-
-  const int H = p.hidden, DL = p.d_latent, k = p.k, m = p.n_blocks - p.k;
-  const int n_inj = p.combine_layer < p.n_blocks ? p.combine_layer : p.n_blocks;
-  const int mpre = p.sb * p.ns * p.b, mpost = p.sb * p.b;
-  const size_t hh = (size_t)H * H;
-  // dw_out = relu(x_final)^T bf(g)
-  rc = wgrad(p.spost + (size_t)2 * m * mpost * H, H, p.gout, GOUT_LD, dw_out, p.d_out, mpost, H,
-             p.d_out);
-  for (int blk = 0; blk < p.n_blocks && !rc; blk++) {
-    const bool pre = blk < k;
-    const int mrows = pre ? mpre : mpost;
-    const bf16* rx = pre ? p.spre + (size_t)blk * mrows * H : p.spost + (size_t)(blk - k) * mrows * H;
-    const bf16* rh = pre ? p.spre + (size_t)(k + blk) * mrows * H
-                         : p.spost + (size_t)(m + blk - k) * mrows * H;
-    const bf16* g1 = pre ? p.gpre + (size_t)blk * mrows * H : p.gpost + (size_t)(blk - k) * mrows * H;
-    const bf16* g0 = pre ? p.gpre + (size_t)(k + blk) * mrows * H
-                         : p.gpost + (size_t)(m + blk - k) * mrows * H;
-    rc = wgrad(rh, H, g1, H, dw1 + blk * hh, H, mrows, H, H);
-    if (!rc) rc = wgrad(rx, H, g0, H, dw0 + blk * hh, H, mrows, H, H);
-  }
-  // dwz_i = z^T Gin_i, with Gin_0 = gin and Gin_i = G1_{i-1} (the
-  // cotangent at block i's input is the one at block i-1's output)
-  for (int blk = 0; blk < n_inj && !rc; blk++) {
-    const bool pre = blk - 1 < k;
-    const bf16* gi = blk == 0 ? p.gin
-                     : pre    ? p.gpre + (size_t)(blk - 1) * mpre * H
-                              : p.gpost + (size_t)(blk - 1 - k) * mpost * H;
-    rc = wgrad(p.z, DL, gi, H, dwz + (size_t)blk * DL * H, H, mpre, DL, H);
-  }
-  if (!rc) rc = wgrad(p.xin, p.d_in, p.gin, H, dw_in, H, mpre, p.d_in, H);
-  return rc;
+  return wgrad_launch(p, static_cast<const bf16*>(ptrs[26]), static_cast<float*>(ptrs[27]), dw_in,
+                      dwz, dw0, dw1, dw_out, stream, &launched[1]);
 }
 
 }  // extern "C"

@@ -1,15 +1,12 @@
 // Device code shared by the package's CUDA sources: the composed
 // native-pyramid taps (pyramid_pallas.py:_axis_pairs), rounded as the TPU
-// kernels round them, and the wmma header of the weight-gradient products
-// (resnetfc_bwd.cu).
+// kernels round them.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 #define MAX_LEVELS 4

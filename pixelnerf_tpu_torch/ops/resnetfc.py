@@ -7,8 +7,9 @@ writes the bf16 relu'd activations for the backward) and `_bwd_kernel`
 recomputation). The CUDA C++ kernels are `csrc/resnetfc_fwd.cu` (one
 kernel over `csrc/fwd_chain.cuh`; null stash pointers make it the primal)
 and `csrc/resnetfc_bwd.cu` (the cotangent chain of `csrc/bwd_chain.cuh`,
-then the weight-gradient products); their header notes give the bound on
-the H100 (operations) and the design.
+then the weight-gradient products of `csrc/wgrad.cuh` in one grouped
+launch and their fixed-order reduction); their header notes give the bound
+on the H100 (operations) and the design.
 
 The cast points are the TPU kernel's (`_dot`, `_dot_t`, `_dot_g`): every
 matmul operand is bf16, both operands of the weight-gradient products
@@ -49,6 +50,7 @@ __all__ = [
     "resnetfc_fwd_plain",
     "resnetfc_bwd_plain",
     "resnetfc_cotangents_plain",
+    "resnetfc_wgrad_plain",
     "supported_config",
     "stash_layout",
     "check_chain_widths",
@@ -267,6 +269,40 @@ def resnetfc_cotangents_plain(
     return gpre, gpost, gin, gout
 
 
+def resnetfc_wgrad_plain(
+    z: torch.Tensor, xin: torch.Tensor, stash_pre: Optional[torch.Tensor],
+    stash_post: torch.Tensor, gpre: Optional[torch.Tensor], gpost: torch.Tensor,
+    gin: torch.Tensor, gout: torch.Tensor, n_blocks: int, combine_layer: int, ns: int,
+    d_out: int,
+) -> dict:
+    """The plain version of the weight-gradient kernel (`csrc/wgrad.cuh`):
+    from the stash and the bf16 cotangents in the layout
+    `resnetfc_cotangents_plain` gives, the float32 weight gradients by
+    FieldWeights name (w_in (d_in, H), wz, w0, w1, w_out), each `_dot_g` of
+    an activation and a cotangent; wz as one packed product of z with the
+    injection cotangents side by side, [Gin | G1_0 | ... | G1_{n_inj-2}], as
+    the kernel and the TPU kernel compute it."""
+    k, m = stash_layout(n_blocks, combine_layer, ns)
+    n_inj = min(combine_layer, n_blocks)
+    dl, hidden = z.shape[-1], gin.shape[-1]
+
+    def act(blk, h1):
+        return stash_pre[k * h1 + blk] if blk < k else stash_post[m * h1 + blk - k]
+
+    def cot(blk, g0):
+        return gpre[k * g0 + blk] if blk < k else gpost[m * g0 + blk - k]
+
+    zz, xx, gi = (z[:, 0], xin[:, 0], gin[:, 0]) if ns == 1 else (z, xin, gin)
+    packed = torch.cat([gi] + [cot(i - 1, 0) for i in range(1, n_inj)], dim=-1)
+    dwz = _dot_g(zz, packed).reshape(dl, n_inj, hidden).permute(1, 0, 2).contiguous()
+    return dict(
+        w_in=_dot_g(xx, gi), wz=dwz,
+        w0=torch.stack([_dot_g(act(i, 0), cot(i, 1)) for i in range(n_blocks)]),
+        w1=torch.stack([_dot_g(act(i, 1), cot(i, 0)) for i in range(n_blocks)]),
+        w_out=_dot_g(stash_post[2 * m], gout[..., :d_out]),
+    )
+
+
 def _check(z, xin, w, n_blocks, combine_layer, ns):
     if z.ndim != 4 or z.shape[1] != ns:
         raise ValueError(f"z must be (SB, {ns}, B, d_latent), got {tuple(z.shape)}")
@@ -348,6 +384,10 @@ def _library(name: str) -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
+        lib.pnt_wgrad_workspace.restype = ctypes.c_longlong
+        lib.pnt_wgrad_workspace.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+        ]
     return lib
 
 
@@ -426,7 +466,10 @@ def launch_bwd(
     B, 2), the float32 level gradients [(SB*NS, H_l, W_l, C_l)] in place of
     dz. Counts the kernels it launches in `launch_bwd.chain_launches` (the
     cotangent chain) and `launch_bwd.wgrad_launches` (the weight-gradient
-    products), not the wrappers' `.launches`."""
+    products and their reduction: 2 a call), not the wrappers' `.launches`;
+    `launch_bwd.wgrad_plan` holds the last call's workspace bytes, units,
+    the most and fewest splits of a product and the bytes of the boxes
+    its TMA loads read from L2."""
     z, xin, wp = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
     d_in = xin.shape[3]
@@ -467,14 +510,25 @@ def launch_bwd(
     if (stash_pre is None) != (k == 0) or stash_post.shape != (2 * m + 1, sb, b, hidden):
         raise ValueError("the stash does not match this configuration")
     ptr = lambda t: 0 if t is None else t.data_ptr()
+    dims = (ctypes.c_int * 10)(sb, ns, b, dl, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer)
+    # the products' TMA maps need rows of a multiple of 16 bytes: xin's
+    # columns zero-padded to d_in_pad; their split partials go to `ws`
+    xin_pad = torch.nn.functional.pad(xin, (0, d_in_pad - d_in)) if d_in_pad != d_in else xin
+    info = (ctypes.c_longlong * 4)()
+    ws_floats = lib.pnt_wgrad_workspace(dims, info)
+    if ws_floats < 0:
+        raise ValueError(f"the weight-gradient products take at most 14 blocks, got {n_blocks}")
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev)
+    launch_bwd.wgrad_plan = dict(
+        workspace_bytes=4 * ws_floats, units=info[0], splits=(info[1], info[2]), box_bytes=info[3],
+    )
     tensors = [
         z, xin, g, stash_pre, stash_post, wp.w_in, wp.wz, wp.w0, wp.w1, wp.w_out,
         gpre, gpost, gin, gout, dz, dxin, dw.w_in, dw.b_in, dw.wz, dw.bz, dw.w0,
-        dw.b0, dw.w1, dw.b1, dw.w_out, dw.b_out,
+        dw.b0, dw.w1, dw.b1, dw.w_out, dw.b_out, xin_pad, ws,
     ]
     tensors = [None if t is None else t.contiguous() for t in tensors]
     ptrs = (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
-    dims = (ctypes.c_int * 10)(sb, ns, b, dl, d_in, d_in_pad, hidden, d_out, n_blocks, combine_layer)
     nlev = len(levels)
     lptrs = (ctypes.c_void_p * max(nlev, 1))(*[t.data_ptr() for t in d_feats])
     ldims = (ctypes.c_int * max(3 * nlev, 1))(*[d for hwc in levels for d in hwc])
@@ -491,6 +545,7 @@ def launch_bwd(
 
 launch_bwd.chain_launches = 0
 launch_bwd.wgrad_launches = 0
+launch_bwd.wgrad_plan = None
 
 
 def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,

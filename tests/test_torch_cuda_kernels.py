@@ -23,7 +23,12 @@ every bf16 cotangent it hands the weight-gradient products within
 chip_smoke.py's GRAD_MAX (5e-2 of the largest magnitude) and GRAD_FRO (2e-2
 Frobenius) of the plain backward from the same stash: its f32 sums run in
 another order (g_z as one product after the chain, the bias sums as
-shuffle trees) through five blocks.
+shuffle trees) through five blocks. The weight-gradient products
+(`csrc/wgrad.cuh`) against their plain version on the kernel's own stash
+and bf16 cotangents: both sides multiply the same bf16 operands exactly and
+differ only in the order of their float32 sums, so within 1e-4 of each
+gradient's largest magnitude and 1e-5 relative in Frobenius norm; and two
+runs of the backward give bit-identical weight gradients.
 """
 
 import numpy as np
@@ -40,7 +45,7 @@ from pixelnerf_tpu_torch.ops.pyramid import (
 )
 from pixelnerf_tpu_torch.ops.resnetfc import (
     resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd, resnetfc_fwd_plain,
-    resnetfc_fwd_stash, stash_layout,
+    resnetfc_fwd_stash, resnetfc_wgrad_plain, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter import (
     bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
@@ -537,6 +542,63 @@ def test_backward_chain_level_scatter_matches_plain(cuda, hidden, ns, sb, b):
     _grad_within(dxin, wdxin)
     for name in FieldWeights._fields:
         _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+WGRAD_WEIGHTS = ("w_in", "wz", "w0", "w1", "w_out")
+
+
+def _wgrad_run(rng, cuda, hidden, ns, sb, b, field):
+    """One backward through `launch_bwd` (with the field's level epilogue
+    when `field`): its weight gradients and the plain version's on the
+    kernel's own stash and cotangents."""
+    levels = _levels_for(hidden)
+    args, w, z, xin, g = _chain_case(rng, cuda, hidden, ns, sb, b, levels)
+    if field:
+        t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+        feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
+        grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+        _, z, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+        run = lambda: ops_resnetfc.launch_bwd(z, xin, g, spre, spost, w, *args, levels=levels, grid=grid)
+    else:
+        _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+        run = lambda: ops_resnetfc.launch_bwd(z, xin, g, spre, spost, w, *args)
+    before = ops_resnetfc.launch_bwd.wgrad_launches
+    _, _, dw, cots = run()
+    torch.cuda.synchronize()
+    assert ops_resnetfc.launch_bwd.wgrad_launches == before + 2
+    want = resnetfc_wgrad_plain(z, xin, spre, spost, *cots, *args, g.shape[-1])
+    return dw, want, run
+
+
+@pytest.mark.parametrize("field", [False, True])
+@pytest.mark.parametrize("hidden", CHAIN_WIDTHS)
+@pytest.mark.parametrize("ns,sb,b", BWD_CASES)
+def test_wgrad_matches_plain_on_its_own_cotangents(cuda, hidden, ns, sb, b, field):
+    """Every weight gradient of the grouped products and their reduction
+    against `resnetfc_wgrad_plain` on the same bf16 stash and cotangents, at
+    every chain width, B ragged or below one tile, with and without the
+    field's epilogue; two launches (products, reduction) a call."""
+    rng = np.random.default_rng(7000 + hidden + ns * 100 + b + 50 * field)
+    dw, want, _ = _wgrad_run(rng, cuda, hidden, ns, sb, b, field)
+    for name in WGRAD_WEIGHTS:
+        got, ref = getattr(dw, name).cpu(), want[name].cpu()
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max() + 1e-30, name
+        assert (got - ref).norm() <= 1e-5 * ref.norm() + 1e-30, name
+
+
+@pytest.mark.parametrize("field", [False, True])
+def test_wgrad_is_deterministic(cuda, field):
+    """Enough points for several splits a product: two runs of the backward
+    give bit-identical weight gradients (each split's partial stored apart,
+    summed in a fixed order)."""
+    rng = np.random.default_rng(7500 + field)
+    dw, _, run = _wgrad_run(rng, cuda, 512, 2, 2, 3000, field)
+    assert ops_resnetfc.launch_bwd.wgrad_plan["splits"][0] > 1
+    again = run()[2]
+    torch.cuda.synchronize()
+    for name in WGRAD_WEIGHTS:
+        assert torch.equal(getattr(dw, name), getattr(again, name)), name
 
 
 @pytest.mark.parametrize("ns,sb,b", [(1, 1, 70), (2, 2, 45)])
