@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py          (from the repository root)
+    python3 chip_smoke.py                  (from the repository root)
+    python3 chip_smoke.py --baseline DIR   (also time the scatter kernels of
+                                            an earlier tree of the repository)
 
 Phases, each failing loudly (an exception and a non-zero exit):
 
@@ -17,7 +19,13 @@ Phases, each failing loudly (an exception and a non-zero exit):
    train step's (64 coarse and all 96 fine samples a ray through the
    field); the bilerp gather and scatter at the nearest-upsampling step's
    (8 composed 64x64x512 maps, 65,536 and 32,768 points a map); every
-   gradient of the backwards and of the scatters included;
+   gradient of the backwards and of the scatters included. The two
+   scatters run after the train step of their path (phases 5 and 7): on
+   random uv as before, then again on the uv and cotangents that the
+   step's counted run handed them (`step_uv_ms`), each call with its
+   unit plan and the reductions into device memory it makes, counted
+   from the plan and the taps; with `--baseline`, the earlier tree's
+   scatters timed beside them on both, in turns;
 4. the serving slice: the flagship srn.conf model in bf16 with seeded
    random weights (non-zero fc_1) encodes two synthetic 128x128 views and
    renders one full 128x128 target view through `render_full`; launch
@@ -178,6 +186,7 @@ CMP_TOL = {
     "float32": {"loss": 1e-4, "latent": 1e-2, "head": 1e-2, "encoder": 3e-2},
 }
 TRUNK_RATIO = 1.5
+PROFILE_WATCH = ("pyramid_", "bilerp_")  # kernel names profile_view always prints
 
 
 def _card_line() -> str:
@@ -688,11 +697,156 @@ def check_field_vjp(torch, np, dev):
     ]
 
 
-def check_pyramid(torch, np, dev):
+def _kept_calls(module, name, calls):
+    """A context in which `module.name` is wrapped so that each call's
+    arguments are kept, their tensors copied to the host (so that they add
+    nothing to the device's peak memory); the wrapped function runs as
+    before and counts its own launches."""
+    import contextlib
+    import inspect
+
+    real = getattr(module, name)
+    sig = inspect.signature(real)
+
+    def keep(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        calls.append({k: v.cpu() if hasattr(v, "cpu") else v for k, v in bound.arguments.items()})
+        return real(*args, **kwargs)
+
+    # the wrapper counts its launches (and keeps its plan) on the function
+    # its module names, which is `keep` while patched: share its attributes
+    keep.__dict__ = real.__dict__
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(module, name, keep)
+        try:
+            yield
+        finally:
+            setattr(module, name, real)
+
+    return patched()
+
+
+def _baseline_build(path):
+    """Start building an earlier tree's scatter kernels (`--baseline`):
+    `csrc/pyramid.cu` and `csrc/bilerp.cu` under `path`, one nvcc each,
+    into build/baseline; returns the running builds."""
+    from pixelnerf_tpu_torch.ops.cuda_build import nvcc_command
+
+    src = Path(path).resolve() / "pixelnerf_tpu_torch" / "csrc"
+    out = Path(__file__).resolve().parent / "build" / "baseline"
+    out.mkdir(parents=True, exist_ok=True)
+    return {
+        name: (subprocess.Popen(nvcc_command(src / f"{name}.cu", out / f"lib{name}.so"),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+               out / f"lib{name}.so")
+        for name in ("pyramid", "bilerp")
+    }
+
+
+def _baseline_kernels(torch, builds):
+    """The earlier tree's scatters as functions of the port's wrappers'
+    arguments, through its C interface (PRs 2-7: one f32 atomic a channel
+    and tap, no plan)."""
+    import ctypes
+
+    from pixelnerf_tpu_torch.ops.pyramid import _level_args
+
+    libs = {}
+    for name, (proc, lib) in builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"baseline nvcc failed for {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fp = libs["pyramid"].pnt_pyramid_scatter
+    fp.restype, fp.argtypes = i, [ctypes.POINTER(vp), ctypes.POINTER(i), i] + [vp] * 3 + [i] * 4 + [vp]
+    fb = libs["bilerp"].pnt_bilerp_scatter
+    fb.restype, fb.argtypes = i, [vp] * 3 + [i] * 5 + [vp]
+    stream = lambda t: torch.cuda.current_stream(t.device).cuda_stream
+
+    def pyramid(uv, dz, csizes, hws, fine_hw, dz2=None):
+        b, n, csum = dz.shape
+        grads = [torch.zeros((b, h, w, c), device=uv.device) for c, (h, w) in zip(csizes, hws)]
+        ptrs, dims, nlev = _level_args(grads, [(h, w, c) for c, (h, w) in zip(csizes, hws)])
+        err = fp(ptrs, dims, nlev, uv.data_ptr(), dz.data_ptr(), 0 if dz2 is None else dz2.data_ptr(),
+                 b, n, csum, int(dz2 is not None), stream(uv))
+        if err:
+            raise RuntimeError(f"baseline pyramid scatter failed: {err}")
+        return grads
+
+    def bilerp(uv, dz, hl, wl):
+        b, n, c = dz.shape
+        grad = torch.zeros((b, hl, wl, c), device=uv.device)
+        err = fb(uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, hl, wl, c, stream(uv))
+        if err:
+            raise RuntimeError(f"baseline bilerp scatter failed: {err}")
+        return grad
+
+    return {"pyramid_scatter_add": pyramid, "bilerp_scatter_add": bilerp}
+
+
+def _time_ab(torch, run, base):
+    """The kernel's ms; with a baseline, both timed in turns (baseline,
+    kernel, kernel, baseline) and each the mean of its two."""
+    if base is None:
+        return _time_ms(torch, run, 3, 20), None
+    b0, k0, k1, b1 = (_time_ms(torch, f, 3, 20) for f in (base, run, run, base))
+    return (k0 + k1) / 2, (b0 + b1) / 2
+
+
+def _scatter_check(torch, name, got, want):
+    """A scatter's gradients against its plain version's: each element
+    within SCATTER_RTOL of its own magnitude plus SCATTER_ATOL of the map's
+    largest; returns the largest absolute error."""
+    err = 0.0
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        err = max(err, d.max().item())
+        if not bool((d <= SCATTER_ATOL * b.abs().max() + SCATTER_RTOL * b.abs()).all()):
+            raise AssertionError(f"{name} disagrees with its plain version (max abs err {err:.3e})")
+    return err
+
+
+def _scatter_plan_line(name, plan, maps, red):
+    """The plan of a launch and the reductions it makes, counted from the
+    plan and the points' taps (ops/scatter_plan.py:count_reductions)."""
+    segs = "; ".join(
+        f"map {s.map} {'x'.join(map(str, maps[s.map]))}: {'shared' if s.smem else 'global'} "
+        f"{s.units} units (slice {s.slice}, chunk {s.chunk}, vec {s.vec}"
+        f"{f', {s.smem_bytes} B' if s.smem else ''})" for s in plan.segments
+    )
+    return (
+        f"{name} plan: {plan.units} units, {plan.smem_bytes} B of shared memory a block; {segs}; "
+        f"reductions into device memory: scalar design {red['scalar']}, now {red['vector']} vector "
+        f"+ {red['flush']} flush; shared-memory atomics {red['shared']}"
+    )
+
+
+def _scatter_totals(name, where, acc):
+    print(
+        f"{name} on {where}: kernel {acc['ms']:.3f} ms"
+        + (f", baseline {acc['base_ms']:.3f} ms" if acc["base_ms"] is not None else "")
+        + f"; reductions into device memory {acc['red']['scalar']} scalar (one a channel and tap) -> "
+        f"{acc['red']['vector']} vector + {acc['red']['flush']} flush, shared-memory atomics "
+        f"{acc['red']['shared']}, per train step"
+    )
+
+
+def _add_red(total, red):
+    for k, v in red.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
     """The gather and the scatter at the train step's two lookups (the
     coarse one dual, the fine pass's new samples single), against their
     plain versions and against grid_sample (and its backward) on the
-    pre-composed 64x64 map, which the port never calls."""
+    pre-composed 64x64 map, which the port never calls; the scatter again on
+    the uv and cotangents that one counted train step passed to it
+    (`step_calls`), with its plan and the reductions it makes; with
+    `baseline`, an earlier tree's scatter timed beside it on both."""
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.models.encoder import compose_pyramid
@@ -700,6 +854,31 @@ def check_pyramid(torch, np, dev):
         _level_taps, pyramid_gather, pyramid_gather_plain, pyramid_scatter_add,
         pyramid_scatter_add_plain,
     )
+    from pixelnerf_tpu_torch.ops.scatter_plan import count_reductions
+
+    def scatter(label, uv, dz, dz2, csizes, hws, acc):
+        run = lambda: pyramid_scatter_add(uv, dz, csizes, hws, hws[0], dz2=dz2)
+        got = run()
+        torch.cuda.synchronize()
+        want = pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=dz2)
+        err = _scatter_check(torch, "pyramid_scatter_add", got, want)
+        del got, want
+        maps = [(h, w, c) for c, (h, w) in zip(csizes, hws)]
+        taps = [_level_taps(uv, h, w, *hws[0], torch.bfloat16) for h, w, _ in maps]
+        red = count_reductions(pyramid_scatter_add.plan, maps, taps)
+        base = None if baseline is None else (
+            lambda: baseline["pyramid_scatter_add"](uv, dz, csizes, hws, hws[0], dz2=dz2))
+        ms, base_ms = _time_ab(torch, run, base)
+        acc["ms"] += ms
+        acc["base_ms"] = None if base_ms is None else (acc["base_ms"] or 0.0) + base_ms
+        _add_red(acc["red"], red)
+        print(
+            f"pyramid_scatter_add {label}{' (dual)' if dz2 is not None else ''}: N={uv.shape[1]} "
+            f"max_abs_err={err:.3e} (tolerance {SCATTER_RTOL}*|plain| + {SCATTER_ATOL}*max|plain|), "
+            f"kernel {ms:.3f} ms" + ("" if base_ms is None else f", baseline {base_ms:.3f} ms")
+        )
+        print(_scatter_plan_line("pyramid_scatter_add " + label, pyramid_scatter_add.plan, maps, red))
+        return err, taps
 
     g = torch.Generator(device=dev).manual_seed(5)
     maps = SB * TRAIN_NS
@@ -711,13 +890,10 @@ def check_pyramid(torch, np, dev):
     feat_bytes = sum(f.numel() * 2 for f in feats)
     gat = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     sca = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    rnd = dict(ms=0.0, base_ms=None, red={})
     for pass_, k in LOOKUPS.items():
         n = TRAIN_RAYS * k
         uv = torch.rand((maps, n, 2), generator=g, device=dev) * 2.2 - 1.1
-        taps = sum(
-            int((_level_taps(uv, h, w, *hws[0], torch.bfloat16)[1] != 0).sum()) * c
-            for (h, w), c in zip(hws, csizes)
-        )
         got = pyramid_gather(feats, uv)
         torch.cuda.synchronize()
         want = pyramid_gather_plain(feats, uv)
@@ -733,29 +909,14 @@ def check_pyramid(torch, np, dev):
         gat["library_ms"] += _time_ms(torch, lambda: F.grid_sample(
             composed, grid, mode="bilinear", padding_mode="border", align_corners=True), 3, 20)
         out_bytes = maps * n * csum * 2
-        gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat_bytes + uv.numel() * 4 + out_bytes)[0]
 
         dual = pass_ == "coarse"
         dz = (torch.randn((maps, n, csum), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
         dz2 = (torch.randn((maps, n, csum), generator=g, device=dev) * 1e-3).to(torch.bfloat16) if dual else None
-        run = lambda: pyramid_scatter_add(uv, dz, csizes, hws, hws[0], dz2=dz2)
-        got = run()
-        torch.cuda.synchronize()
-        want = pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=dz2)
-        err, ok = 0.0, True
-        for a, b in zip(got, want):
-            d = (a - b).abs()
-            err = max(err, d.max().item())
-            ok = ok and bool((d <= SCATTER_ATOL * b.abs().max() + SCATTER_RTOL * b.abs()).all())
-        print(
-            f"pyramid_scatter_add {pass_}{' (dual)' if dual else ''}: max_abs_err={err:.3e} "
-            f"(tolerance {SCATTER_RTOL}*|plain| + {SCATTER_ATOL}*max|plain|)"
-        )
-        if not ok:
-            raise AssertionError("pyramid_scatter_add disagrees with its plain version")
+        err, tap_list = scatter(f"random uv {pass_}", uv, dz, dz2, csizes, hws, rnd)
+        taps = sum(int((w != 0).sum()) * c for (_, w), c in zip(tap_list, csizes))
+        gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat_bytes + uv.numel() * 4 + out_bytes)[0]
         sca["max_abs_err"] = max(sca["max_abs_err"], err)
-        del got, want
-        sca["ms"] += _time_ms(torch, run, 3, 20)
         sca["plain_ms"] += _time_ms(torch, lambda: pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=dz2), 1, 3)
         gout = (dz.float() + (dz2.float() if dual else 0.0)).to(torch.bfloat16).permute(0, 2, 1)[:, :, None]
         gout = gout.contiguous()  # (maps, 512, 1, N)
@@ -765,13 +926,24 @@ def check_pyramid(torch, np, dev):
         sca["bound_ms"] += _bound(
             2.0 * taps, PEAK_F32_FLOPS, (2 if dual else 1) * out_bytes + uv.numel() * 4 + grad_bytes
         )[0]
-        del dz, dz2, gout
+        del dz, dz2, gout, tap_list
+    sca["ms"] = rnd["ms"]
+    step = dict(ms=0.0, base_ms=None, red={})
+    for i, call in enumerate(step_calls):
+        call = {k: v.to(dev) if hasattr(v, "to") else v for k, v in call.items()}
+        err, _ = scatter(f"step uv call {i}", call["uv"], call["dz"], call.get("dz2"),
+                         call["csizes"], call["hws"], step)
+        sca["max_abs_err"] = max(sca["max_abs_err"], err)
+    sca["step_uv_ms"] = step["ms"] if step_calls else None
     for name, r in (("pyramid_gather", gat), ("pyramid_scatter_add", sca)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
             f"{'backward ' if name.endswith('add') else ''}{r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes), per train step"
         )
+    _scatter_totals("pyramid_scatter_add", "random uv", rnd)
+    if step_calls:
+        _scatter_totals("pyramid_scatter_add", "the counted train step's uv", step)
     src, rep = "pixelnerf_tpu_torch/csrc/pyramid.cu", "pixelnerf_tpu/ops/pyramid_pallas.py"
     return [
         _record("pyramid_gather", "cuda", src, f"{rep}:227", gat, "bytes", gat.pop("library_ms")),
@@ -779,17 +951,45 @@ def check_pyramid(torch, np, dev):
     ]
 
 
-def check_bilerp(torch, np, dev):
+def check_bilerp(torch, np, dev, step_calls=(), baseline=None):
     """The single-map gather and scatter at the nearest-upsampling step's
     two lookups (the coarse one, whose two consumers' cotangents autograd
     adds before the scatter, and the fine pass's new samples), against
     their plain versions and against grid_sample (and its backward) on the
-    same map in NCHW, which the port never calls."""
+    same map in NCHW, which the port never calls; the scatter again on the
+    uv and cotangents that one counted nearest train step passed to it
+    (`step_calls`), with its plan and the reductions it makes; with
+    `baseline`, an earlier tree's scatter timed beside it on both."""
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.ops.scatter import (
         _taps, bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
     )
+    from pixelnerf_tpu_torch.ops.scatter_plan import count_reductions
+
+    def scatter(label, uv, dz, hl, wl, acc):
+        run = lambda: bilerp_scatter_add(uv, dz, hl, wl)
+        got = run()
+        torch.cuda.synchronize()
+        want = bilerp_scatter_add_plain(uv, dz, hl, wl)
+        err = _scatter_check(torch, "bilerp_scatter_add", [got], [want])
+        del got, want
+        maps = [(hl, wl, dz.shape[2])]
+        taps = _taps(uv, hl, wl)
+        red = count_reductions(bilerp_scatter_add.plan, maps, [taps])
+        base = None if baseline is None else (
+            lambda: baseline["bilerp_scatter_add"](uv, dz, hl, wl))
+        ms, base_ms = _time_ab(torch, run, base)
+        acc["ms"] += ms
+        acc["base_ms"] = None if base_ms is None else (acc["base_ms"] or 0.0) + base_ms
+        _add_red(acc["red"], red)
+        print(
+            f"bilerp_scatter_add {label}: N={uv.shape[1]} max_abs_err={err:.3e} "
+            f"(tolerance {SCATTER_RTOL}*|plain| + {SCATTER_ATOL}*max|plain|), kernel {ms:.3f} ms"
+            + ("" if base_ms is None else f", baseline {base_ms:.3f} ms")
+        )
+        print(_scatter_plan_line("bilerp_scatter_add " + label, bilerp_scatter_add.plan, maps, red))
+        return err, taps
 
     g = torch.Generator(device=dev).manual_seed(10)
     maps, (hl, wl, c) = SB * TRAIN_NS, COMPOSED
@@ -797,6 +997,7 @@ def check_bilerp(torch, np, dev):
     nchw = feat.permute(0, 3, 1, 2).contiguous()
     gat = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     sca = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    rnd = dict(ms=0.0, base_ms=None, red={})
     for pass_, k in LOOKUPS.items():
         n = TRAIN_RAYS * k
         uv = torch.rand((maps, n, 2), generator=g, device=dev) * 2.2 - 1.1
@@ -817,19 +1018,8 @@ def check_bilerp(torch, np, dev):
         gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat.numel() * 2 + uv.numel() * 4 + out_bytes)[0]
 
         dz = (torch.randn((maps, n, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
-        got = bilerp_scatter_add(uv, dz, hl, wl)
-        torch.cuda.synchronize()
-        want = bilerp_scatter_add_plain(uv, dz, hl, wl)
-        d = (got - want).abs()
-        print(
-            f"bilerp_scatter_add {pass_}: max_abs_err={d.max().item():.3e} "
-            f"(tolerance {SCATTER_RTOL}*|plain| + {SCATTER_ATOL}*max|plain|)"
-        )
-        if not bool((d <= SCATTER_ATOL * want.abs().max() + SCATTER_RTOL * want.abs()).all()):
-            raise AssertionError("bilerp_scatter_add disagrees with its plain version")
-        sca["max_abs_err"] = max(sca["max_abs_err"], d.max().item())
-        del got, want, d
-        sca["ms"] += _time_ms(torch, lambda: bilerp_scatter_add(uv, dz, hl, wl), 3, 20)
+        err, _ = scatter(f"random uv {pass_}", uv, dz, hl, wl, rnd)
+        sca["max_abs_err"] = max(sca["max_abs_err"], err)
         sca["plain_ms"] += _time_ms(torch, lambda: bilerp_scatter_add_plain(uv, dz, hl, wl), 1, 3)
         gout = dz.permute(0, 2, 1)[:, :, None].contiguous()  # (maps, C, 1, N)
         sca["library_ms"] += _time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
@@ -838,12 +1028,22 @@ def check_bilerp(torch, np, dev):
             2.0 * taps, PEAK_F32_FLOPS, out_bytes + uv.numel() * 4 + feat.numel() * 4
         )[0]
         del dz, gout
+    sca["ms"] = rnd["ms"]
+    step = dict(ms=0.0, base_ms=None, red={})
+    for i, call in enumerate(step_calls):
+        call = {k: v.to(dev) if hasattr(v, "to") else v for k, v in call.items()}
+        err, _ = scatter(f"step uv call {i}", call["uv"], call["dz"], call["hl"], call["wl"], step)
+        sca["max_abs_err"] = max(sca["max_abs_err"], err)
+    sca["step_uv_ms"] = step["ms"] if step_calls else None
     for name, r in (("bilerp_gather", gat), ("bilerp_scatter_add", sca)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
             f"{'backward ' if name.endswith('add') else ''}{r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes), per nearest train step"
         )
+    _scatter_totals("bilerp_scatter_add", "random uv", rnd)
+    if step_calls:
+        _scatter_totals("bilerp_scatter_add", "the counted nearest train step's uv", step)
     src, rep = "pixelnerf_tpu_torch/csrc/bilerp.cu", "pixelnerf_tpu/ops/scatter_pallas.py"
     return [
         _record("bilerp_gather", "cuda", src, f"{rep}:110", gat, "bytes", gat.pop("library_ms")),
@@ -1027,8 +1227,11 @@ def profile_view(torch, view, label="one view"):
         f"profile: {label} {wall_ms:.1f} ms wall under the profiler, kernels "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%} busy)"
     )
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
-        print(f"profile: {e.self_device_time_total / 1e3:10.3f} ms x{e.count:<4d} {e.key[:100]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the 14 longest, and every kernel of the port's lookups
+    for i, e in enumerate(ranked):
+        if i < 14 or any(w in e.key for w in PROFILE_WATCH):
+            print(f"profile: {e.self_device_time_total / 1e3:10.3f} ms x{e.count:<4d} {e.key[:100]}")
 
 
 def _counters():
@@ -1174,10 +1377,12 @@ def trunk_precision(torch, grads, label):
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
-              fusion=False, cmp_dtypes=("bfloat16",)):
+              fusion=False, cmp_dtypes=("bfloat16",), keep=None):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
-    Returns the counted runs' launches."""
+    With `keep` = (module, function name, list), the counted train step
+    appends each call's arguments of that function to the list. Returns the
+    counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
@@ -1200,7 +1405,13 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
         f"{rcfg.n_coarse} coarse + {rcfg.n_fine} fine samples, Adam"
     )
 
-    aux, train_launches = _counted(torch, lambda: step(batch, gen), train_expected, f"{label} step")
+    def counted_step():
+        if keep is None:
+            return step(batch, gen)
+        with _kept_calls(*keep):
+            return step(batch, gen)
+
+    aux, train_launches = _counted(torch, counted_step, train_expected, f"{label} step")
     if not all(torch.isfinite(v).all() for v in aux.values()):
         raise AssertionError(f"{label}: non-finite train loss {aux}")
     eaux, eval_launches = _counted(torch, lambda: eval_step(batch, gen), eval_expected, f"{label} eval step")
@@ -1329,6 +1540,14 @@ def run_view(torch, np, dev, conf, card, label, expected):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--baseline", metavar="DIR",
+        help="an earlier tree of the repository: time its scatter kernels beside the port's",
+    )
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1338,6 +1557,7 @@ def main() -> int:
 
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    from pixelnerf_tpu_torch.ops import pyramid, scatter
     from pixelnerf_tpu_torch.ops.cuda_build import SOURCES, build_libraries
     from pixelnerf_tpu_torch.utils import hocon
 
@@ -1348,6 +1568,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    base_builds = None if args.baseline is None else _baseline_build(args.baseline)
     logs = build_libraries(SOURCES)
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for name, log in logs.items():
@@ -1356,21 +1577,30 @@ def main() -> int:
             if any(w in line for w in ("Used", "spill", "smem")) and "C7519" not in line:
                 print(f"build: {name}: {line.strip()}")
 
+    baseline = None if base_builds is None else _baseline_kernels(torch, base_builds)
+
     kernels = [check_posenc(torch, dev), check_field(torch, np, dev)]
-    kernels += check_field_vjp(torch, np, dev) + check_pyramid(torch, np, dev)
-    kernels += check_resnetfc(torch, np, dev) + check_bilerp(torch, np, dev)
+    kernels += check_field_vjp(torch, np, dev) + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
 
+    # the scatters are checked and timed after the counted train step whose
+    # lookups' uv and cotangents they are given again
     conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
     nearest = _nearest(conf)
+    step_calls = {"pyramid": [], "bilerp": []}
     runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES)
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
-                      cmp_dtypes=tuple(CMP_TOL))
+                      cmp_dtypes=tuple(CMP_TOL),
+                      keep=(pyramid, "pyramid_scatter_add", step_calls["pyramid"]))
+    kernels += check_pyramid(torch, np, dev, step_calls.pop("pyramid"), baseline)
+    torch.cuda.empty_cache()
     runs += run_train(torch, np, dev, conf, card, "fused train", FUSED_TRAIN_LAUNCHES,
                       FUSED_EVAL_LAUNCHES, fusion=True)
     runs += run_view(torch, np, dev, nearest, card, "nearest slice", NEAREST_VIEW_LAUNCHES)
     runs += run_train(torch, np, dev, nearest, card, "nearest train", NEAREST_TRAIN_LAUNCHES,
-                      NEAREST_EVAL_LAUNCHES)
+                      NEAREST_EVAL_LAUNCHES,
+                      keep=(scatter, "bilerp_scatter_add", step_calls["bilerp"]))
+    kernels += check_bilerp(torch, np, dev, step_calls.pop("bilerp"), baseline)
     if sorted(k["name"] for k in kernels) != sorted(KERNELS):
         raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:

@@ -21,31 +21,36 @@
 // far below the ~295 flop/byte ridge. The map (4 MB for 8 views of
 // 64x64x512 bf16) stays in L2.
 //
-// Design, simple first (pyramid.cu's): one warp per point, its lanes over
-// channel pairs (bf16x2), so a warp's loads of a tap row, of the cotangent
-// row and its stores are contiguous; the TPU kernels' (TN, P) one-hot
-// matrices on the MXU are gone. The scatter adds into the
-// channel-contiguous (B, hl, wl, C) f32 gradient with f32 atomics.
+// The gather (pyramid.cu's design): one warp per point, its lanes over
+// channel pairs (bf16x2), so a warp's loads of a tap row and its stores
+// are contiguous; the TPU kernels' (TN, P) one-hot matrices on the MXU are
+// gone.
+//
+// The scatter is held back not by bytes but by its reductions into device
+// memory: one f32 atomic a channel and tap is ~1.5 G atomics a nearest
+// train step. It runs the units of scatter_accum.cuh, one launch a call:
+// the flagship's 64x64x512 map (8 MB a map in f32) takes vector reductions
+// of 4 floats, one a lane and tap for each run of consecutive points whose
+// tap corner does not change; a map whose f32 (hl, wl, slice) block fits a
+// unit's shared memory is accumulated there and flushed once a unit.
 
-#include "tile_common.cuh"
+#include "scatter_accum.cuh"
 
 #define PTS_PER_BLOCK WARPS
 
 struct BilerpParams {
   const float* uv;   // (B, N, 2)
-  const bf16* feat;  // (B, hl, wl, C), gather
-  bf16* out;         // (B, N, C), gather
-  const bf16* dz;    // (B, N, C), scatter
-  float* grad;       // (B, hl, wl, C), scatter
+  const bf16* feat;  // (B, hl, wl, C)
+  bf16* out;         // (B, N, C)
   int n, hl, wl, c;
 };
 
-// the 2x2 taps of one point: corner (x0, y0) and weights, zero for a tap
-// past the map's edge
-__device__ __forceinline__ void bilerp_taps(const BilerpParams& p, int b, int n, int* x0,
-                                            int* y0, float w[2][2]) {
+// the 2x2 taps of a point at normalized (u, v): corner (x0, y0) and
+// weights, zero for a tap past the map's edge
+__device__ __forceinline__ void bilerp_taps(float u, float v, int hl, int wl, int* x0, int* y0,
+                                            float w[2][2]) {
   float x, y;
-  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.hl, p.wl, &x, &y);
+  fine_coords(u, v, hl, wl, &x, &y);
   const float x0f = floorf(x), y0f = floorf(y);
   const float fx = __fsub_rn(x, x0f), fy = __fsub_rn(y, y0f);
   const float ax[2] = {__fsub_rn(1.f, fx), fx}, ay[2] = {__fsub_rn(1.f, fy), fy};
@@ -55,8 +60,7 @@ __device__ __forceinline__ void bilerp_taps(const BilerpParams& p, int b, int n,
   for (int ty = 0; ty < 2; ty++)
 #pragma unroll
     for (int tx = 0; tx < 2; tx++)
-      w[ty][tx] = (*y0 + ty < p.hl && *x0 + tx < p.wl) ? round_bf16(__fmul_rn(ay[ty], ax[tx]))
-                                                       : 0.f;
+      w[ty][tx] = (*y0 + ty < hl && *x0 + tx < wl) ? round_bf16(__fmul_rn(ay[ty], ax[tx])) : 0.f;
 }
 
 __global__ void __launch_bounds__(THREADS) bilerp_gather_kernel(BilerpParams p) {
@@ -66,7 +70,8 @@ __global__ void __launch_bounds__(THREADS) bilerp_gather_kernel(BilerpParams p) 
   if (n >= p.n) return;
   int x0, y0;
   float w[2][2];
-  bilerp_taps(p, b, n, &x0, &y0, w);
+  const float* g = p.uv + ((size_t)b * p.n + n) * 2;
+  bilerp_taps(g[0], g[1], p.hl, p.wl, &x0, &y0, w);
   const bf16* f = p.feat + (size_t)b * p.hl * p.wl * p.c;
   bf16* out = p.out + ((size_t)b * p.n + n) * p.c;
   for (int c = 2 * lane; c < p.c; c += 64) {
@@ -87,35 +92,15 @@ __global__ void __launch_bounds__(THREADS) bilerp_gather_kernel(BilerpParams p) 
   }
 }
 
-__global__ void __launch_bounds__(THREADS) bilerp_scatter_kernel(BilerpParams p) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
-  if (n >= p.n) return;
-  int x0, y0;
-  float w[2][2];
-  bilerp_taps(p, b, n, &x0, &y0, w);
-  float* grad = p.grad + (size_t)b * p.hl * p.wl * p.c;
-  const bf16* dz = p.dz + ((size_t)b * p.n + n) * p.c;
-  for (int c = 2 * lane; c < p.c; c += 64) {
-    const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dz + c));
-#pragma unroll
-    for (int ty = 0; ty < 2; ty++) {
-      if (y0 + ty >= p.hl) continue;
-#pragma unroll
-      for (int tx = 0; tx < 2; tx++) {
-        if (x0 + tx >= p.wl || w[ty][tx] == 0.f) continue;
-        float* dst = grad + ((size_t)(y0 + ty) * p.wl + x0 + tx) * p.c + c;
-        atomicAdd(dst, w[ty][tx] * g.x);
-        atomicAdd(dst + 1, w[ty][tx] * g.y);
-      }
-    }
-  }
+__global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) bilerp_scatter_kernel(ScatterPlan p) {
+  scatter_block<2>(p, [](const ScatterSeg& s, float u, float v, int* x0, int* y0, float w[2][2]) {
+    bilerp_taps(u, v, s.h, s.w, x0, y0, w);
+  });
 }
 
 extern "C" {
 
-// Launch on `stream`; each returns cudaGetLastError().
+// Launch on `stream`; each returns cudaGetLastError() (or a refusal).
 int pnt_bilerp_gather(const void* feat, const void* uv, void* out, int b, int n, int hl, int wl,
                       int c, void* stream) {
   BilerpParams p = {};
@@ -131,19 +116,23 @@ int pnt_bilerp_gather(const void* feat, const void* uv, void* out, int b, int n,
   return (int)cudaGetLastError();
 }
 
-int pnt_bilerp_scatter(const void* uv, const void* dz, void* grad, int b, int n, int hl, int wl,
-                       int c, void* stream) {
-  BilerpParams p = {};
+// `plan`: ops/scatter_plan.py's ScatterPlan.as_ints for one (hl, wl, c)
+// map, b maps and n points.
+int pnt_bilerp_scatter(const int* plan, const void* uv, const void* dz, void* grad, int b, int n,
+                       int hl, int wl, int c, void* stream) {
+  ScatterPlan p = {};
+  const int dims[3] = {hl, wl, c}, c0 = 0;
+  float* grads[1] = {static_cast<float*>(grad)};
+  int units = 0, smem = 0;
+  int rc = scatter_plan(&p, plan, grads, dims, &c0, 1, b, n, 2, &units, &smem);
+  if (rc) return rc;
+  p.n = n;
+  p.csum = c;
+  p.hf = hl;
+  p.wf = wl;
   p.uv = static_cast<const float*>(uv);
   p.dz = static_cast<const bf16*>(dz);
-  p.grad = static_cast<float*>(grad);
-  p.n = n;
-  p.hl = hl;
-  p.wl = wl;
-  p.c = c;
-  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
-  bilerp_scatter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return scatter_launch(bilerp_scatter_kernel, p, units, smem, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

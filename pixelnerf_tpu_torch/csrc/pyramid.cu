@@ -20,27 +20,37 @@
 // channel: far below the ~295 flop/byte ridge. The levels themselves are
 // small (9 MB for 8 views at the flagship) and stay in L2.
 //
-// Design, simple first: one warp per point, its lanes over channel pairs
-// (bf16x2), so a warp's loads of a tap row, of the cotangent row and its
-// stores are contiguous. The TPU kernels' one-hot matrices on the MXU are
-// gone: each lane reads its <=9 taps directly. The scatter adds into
-// channel-contiguous (B, H_l, W_l, C_l) f32 gradients with f32 atomics, so
-// a warp's atomics fall on neighbouring addresses; the TPU's (C, P)
-// accumulator layout was an artifact of its sequential grid.
+// The gather: one warp per point, its lanes over channel pairs (bf16x2),
+// so a warp's loads of a tap row and its stores are contiguous; the TPU
+// kernels' one-hot matrices on the MXU are gone: each lane reads its <=9
+// taps directly.
+//
+// The scatter is held back not by bytes but by its reductions into device
+// memory: one f32 atomic a channel and tap is ~1.5 G atomics a train step
+// at the flagship, and the two small levels' 16x16 and 8x8 pixels receive
+// thousands each. So it runs the units of scatter_accum.cuh, one launch a
+// call: a level whose f32 (H, W, slice) block fits a unit's shared memory
+// (16x16x128 and 8x8x256 at the flagship) is accumulated there and flushed
+// once a unit; the fine level (64x64x128, 2 MB a map) takes vector
+// reductions of 4 floats, one a lane and tap for each run of consecutive
+// points whose tap base does not change.
 
-#include "tile_common.cuh"
+#include "scatter_accum.cuh"
 
 #define PTS_PER_BLOCK WARPS
 
+// The gather's parameter block. The two `unused` fields keep its size and
+// layout: without them ptxas copies the level arrays, which the gather
+// indexes by a runtime level, to local memory (a 152-byte stack frame in
+// place of 24) and the gather runs slower.
 struct PyrParams {
   const bf16* feats[MAX_LEVELS];
-  float* grads[MAX_LEVELS];
+  const void* unused_mid[MAX_LEVELS];
   int lh[MAX_LEVELS], lw[MAX_LEVELS], lc[MAX_LEVELS], lc0[MAX_LEVELS];
   int nlev, n, csum;
   const float* uv;  // (B, N, 2)
   bf16* out;        // (B, N, csum)
-  const bf16* dz;   // (B, N, csum)
-  const bf16* dz2;  // (B, N, csum) or null
+  const void* unused_tail[2];
 };
 
 __global__ void __launch_bounds__(THREADS) pyramid_gather_kernel(PyrParams p) {
@@ -76,44 +86,14 @@ __global__ void __launch_bounds__(THREADS) pyramid_gather_kernel(PyrParams p) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) pyramid_scatter_kernel(PyrParams p) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
-  if (n >= p.n) return;
-  float fx, fy;
-  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.lh[0], p.lw[0], &fx, &fy);
-  const size_t row = ((size_t)b * p.n + n) * p.csum;
-  for (int l = 0; l < p.nlev; l++) {
-    const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
-    int bx, by;
-    float w[3][3];
-    level_taps(fx, fy, hn, wn, p.lh[0], p.lw[0], &bx, &by, w);
-    float* grad = p.grads[l] + (size_t)b * hn * wn * C;
-    for (int c = 2 * lane; c < C; c += 64) {
-      float2 g = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.dz + row + p.lc0[l] + c));
-      if (p.dz2 != nullptr) {
-        // the two cotangents summed in registers, rounded to bf16 as the
-        // TPU kernel's bf16 add
-        const float2 g2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p.dz2 + row + p.lc0[l] + c));
-        g.x = round_bf16(g.x + g2.x);
-        g.y = round_bf16(g.y + g2.y);
-      }
-#pragma unroll
-      for (int ty = 0; ty < 3; ty++) {
-        if (by + ty >= hn) continue;
-#pragma unroll
-        for (int tx = 0; tx < 3; tx++) {
-          if (bx + tx >= wn || w[ty][tx] == 0.f) continue;
-          float* dst = grad + ((size_t)(by + ty) * wn + bx + tx) * C + c;
-          atomicAdd(dst, w[ty][tx] * g.x);
-          atomicAdd(dst + 1, w[ty][tx] * g.y);
-        }
-      }
-    }
-  }
+__global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) pyramid_scatter_kernel(ScatterPlan p) {
+  const int hf = p.hf, wf = p.wf;
+  scatter_block<3>(p, [hf, wf](const ScatterSeg& s, float u, float v, int* bx, int* by,
+                               float w[3][3]) {
+    float fx, fy;
+    fine_coords(u, v, hf, wf, &fx, &fy);
+    level_taps(fx, fy, s.h, s.w, hf, wf, bx, by, w);
+  });
 }
 
 static PyrParams level_params(const int* dims, int nlev, int n) {
@@ -135,7 +115,7 @@ static PyrParams level_params(const int* dims, int nlev, int n) {
 
 extern "C" {
 
-// Launch on `stream`; each returns cudaGetLastError().
+// Launch on `stream`; each returns cudaGetLastError() (or a refusal).
 int pnt_pyramid_gather(const void* const* feats, const int* dims, int nlev,
                        const void* uv, void* out, int b, int n, void* stream) {
   PyrParams p = level_params(dims, nlev, n);
@@ -147,18 +127,31 @@ int pnt_pyramid_gather(const void* const* feats, const int* dims, int nlev,
   return (int)cudaGetLastError();
 }
 
-int pnt_pyramid_scatter(void* const* grads, const int* dims, int nlev,
-                        const void* uv, const void* dz, const void* dz2, int b,
-                        int n, int csum, int dual, void* stream) {
-  PyrParams p = level_params(dims, nlev, n);
-  if (p.csum != csum) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < nlev; l++) p.grads[l] = static_cast<float*>(grads[l]);
+// `plan`: ops/scatter_plan.py's ScatterPlan.as_ints for these levels, b
+// maps and n points; dz2 null unless dual.
+int pnt_pyramid_scatter(void* const* grads, const int* dims, int nlev, const int* plan,
+                        const void* uv, const void* dz, const void* dz2, int b, int n,
+                        int csum, void* stream) {
+  if (nlev < 1 || nlev > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  int c0[MAX_LEVELS], sum = 0;
+  for (int l = 0; l < nlev; l++) {
+    c0[l] = sum;
+    sum += dims[3 * l + 2];
+  }
+  if (sum != csum) return (int)cudaErrorInvalidValue;
+  ScatterPlan p = {};
+  int units = 0, smem = 0;
+  int rc = scatter_plan(&p, plan, reinterpret_cast<float* const*>(grads), dims, c0, nlev, b, n,
+                        3, &units, &smem);
+  if (rc) return rc;
+  p.n = n;
+  p.csum = csum;
+  p.hf = dims[0];
+  p.wf = dims[1];
   p.uv = static_cast<const float*>(uv);
   p.dz = static_cast<const bf16*>(dz);
-  p.dz2 = dual ? static_cast<const bf16*>(dz2) : nullptr;
-  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
-  pyramid_scatter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.dz2 = static_cast<const bf16*>(dz2);
+  return scatter_launch(pyramid_scatter_kernel, p, units, smem, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

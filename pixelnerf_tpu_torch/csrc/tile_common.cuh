@@ -56,10 +56,15 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // Clipped fine pixel coordinates of a normalized [-1, 1] point on an
 // (hf, wf) grid (align_corners, border padding).
+__device__ __forceinline__ void fine_coords(float u, float v, int hf, int wf, float* fx,
+                                            float* fy) {
+  *fx = fminf(fmaxf((u + 1.f) * 0.5f * (float)(wf - 1), 0.f), (float)(wf - 1));
+  *fy = fminf(fmaxf((v + 1.f) * 0.5f * (float)(hf - 1), 0.f), (float)(hf - 1));
+}
+
 __device__ __forceinline__ void fine_coords(const float* g, int hf, int wf, float* fx,
                                             float* fy) {
-  *fx = fminf(fmaxf((g[0] + 1.f) * 0.5f * (float)(wf - 1), 0.f), (float)(wf - 1));
-  *fy = fminf(fmaxf((g[1] + 1.f) * 0.5f * (float)(hf - 1), 0.f), (float)(hf - 1));
+  fine_coords(g[0], g[1], hf, wf, fx, fy);
 }
 
 // The <=3x3 composed taps of one native (hn, wn) level under the (hf, wf)

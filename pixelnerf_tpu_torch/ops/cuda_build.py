@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build_libraries", "load_library", "SOURCES", "SMEM_LIMIT"]
+__all__ = ["build_libraries", "load_library", "nvcc_command", "SOURCES", "SMEM_LIMIT"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
@@ -48,11 +48,12 @@ def _lib_path(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _command(name: str, out: Path) -> list:
+def nvcc_command(source: Path, out: Path) -> list:
+    """The nvcc command that builds one source into a shared library."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(_SRC_DIR / f"{name}.cu"),
+        "-o", str(out), str(source),
     ]
 
 
@@ -69,7 +70,7 @@ def build_libraries(names) -> dict:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            nvcc_command(_SRC_DIR / f"{name}.cu", tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         started[name] = (proc, tmp, out)
     logs, failed = {name: "" for name in names}, []

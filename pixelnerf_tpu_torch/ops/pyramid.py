@@ -21,7 +21,9 @@ gradient to its level's dtype. The gradient for uv is zero by contract
 
 `pyramid_gather` and `pyramid_scatter_add` launch their kernels on CUDA
 tensors and count each launch (`.launches`); CPU tensors take the plain
-versions `pyramid_gather_plain` and `pyramid_scatter_add_plain`.
+versions `pyramid_gather_plain` and `pyramid_scatter_add_plain`. The
+scatter's units are planned on the host (`ops/scatter_plan.py`);
+`pyramid_scatter_add.plan` holds the last launch's plan.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import load_library
+from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
 
 __all__ = [
     "pyramid_gather",
@@ -165,9 +168,9 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.pnt_pyramid_scatter.restype = ctypes.c_int
-    lib.pnt_pyramid_scatter.argtypes = head + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    lib.pnt_pyramid_scatter.argtypes = head + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_void_p
-    ]
+    ] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
 
 
@@ -248,21 +251,32 @@ def pyramid_scatter_add(
         return pyramid_scatter_add_plain(uv, dz, csizes, hws, fine_hw, dz2)
     if uv.device.type != "cuda":
         raise ValueError(f"pyramid_scatter_add runs on CUDA or CPU tensors, got {uv.device}")
-    dz = dz.contiguous()
-    dz2 = None if dz2 is None else dz2.contiguous()
+    dz = aligned(dz.contiguous(), 4)
+    dz2 = None if dz2 is None else aligned(dz2.contiguous(), 4)
     _cuda_checks(uv, [dz] + ([] if dz2 is None else [dz2]), torch.bfloat16)
     if any(c % 2 for c in csizes) or tuple(fine_hw) != hws[0]:
         raise ValueError("even channel counts, and level 0 must be the fine grid")
-    uv = uv.contiguous()
+    uv = aligned(uv.contiguous(), 8)
     b, n, _ = uv.shape
     grads = [
         torch.zeros((b, h, w, c), dtype=torch.float32, device=uv.device)
         for c, (h, w) in zip(csizes, hws)
     ]
-    ptrs, dims, nlev = _level_args(grads, [(h, w, c) for c, (h, w) in zip(csizes, hws)])
+    csum = sum(csizes)
+    rows8 = csum % 4 == 0 and all(t.data_ptr() % 8 == 0 for t in (dz, dz2) if t is not None)
+    offsets = [sum(csizes[:i]) for i in range(len(csizes))]
+    maps = [(h, w, c) for c, (h, w) in zip(csizes, hws)]
+    plan = plan_scatter(
+        maps, b, n, [rows8 and o % 4 == 0 for o in offsets], device_sms(uv.device), 3
+    )
+    pyramid_scatter_add.plan = plan
+    if plan.units == 0:
+        return grads
+    ptrs, dims, nlev = _level_args(grads, maps)
+    ints = plan.as_ints()
     err = _library().pnt_pyramid_scatter(
-        ptrs, dims, nlev, uv.data_ptr(), dz.data_ptr(),
-        0 if dz2 is None else dz2.data_ptr(), b, n, sum(csizes), int(dz2 is not None),
+        ptrs, dims, nlev, (ctypes.c_int * len(ints))(*ints), uv.data_ptr(), dz.data_ptr(),
+        0 if dz2 is None else dz2.data_ptr(), b, n, csum,
         torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "pyramid_scatter_add")
@@ -271,6 +285,7 @@ def pyramid_scatter_add(
 
 
 pyramid_scatter_add.launches = 0
+pyramid_scatter_add.plan = None
 
 
 def _scatter_back(ctx, g1, g2):

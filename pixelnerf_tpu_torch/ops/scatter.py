@@ -22,7 +22,9 @@ float32 one (`_fwd_gather`, `scatter_pallas.py:219-227`), and whose
 backward is the scatter, cast to the map's dtype, with a zero gradient for
 the points (`scatter_pallas.py:250-254`). `bilerp_gather` and
 `bilerp_scatter_add` launch their kernels on CUDA tensors and count each
-launch (`.launches`); CPU tensors take the plain versions.
+launch (`.launches`); CPU tensors take the plain versions. The scatter's
+units are planned on the host (`ops/scatter_plan.py`, shared with the
+pyramid's); `bilerp_scatter_add.plan` holds the last launch's plan.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import load_library
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
+from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
 
 __all__ = [
     "bilerp_gather",
@@ -102,9 +105,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("bilerp")
     lib.pnt_error_string.restype = ctypes.c_char_p
     lib.pnt_error_string.argtypes = [ctypes.c_int]
-    for fn in (lib.pnt_bilerp_gather, lib.pnt_bilerp_scatter):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    tail = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.pnt_bilerp_gather.restype = lib.pnt_bilerp_scatter.restype = ctypes.c_int
+    lib.pnt_bilerp_gather.argtypes = tail
+    lib.pnt_bilerp_scatter.argtypes = [ctypes.POINTER(ctypes.c_int)] + tail
     return lib
 
 
@@ -159,12 +163,20 @@ def bilerp_scatter_add(uv: torch.Tensor, dz: torch.Tensor, hl: int, wl: int) -> 
     if _device_of(uv, "bilerp_scatter_add") == "cpu":
         return bilerp_scatter_add_plain(uv, dz, hl, wl)
     b, n, c = dz.shape
-    dz = dz.to(torch.bfloat16).contiguous()
+    dz = aligned(dz.to(torch.bfloat16).contiguous(), 4)
     _cuda_checks(uv, dz, c)
+    uv = aligned(uv, 8)
     grad = torch.zeros((b, hl, wl, c), dtype=torch.float32, device=uv.device)
+    plan = plan_scatter(
+        [(hl, wl, c)], b, n, [dz.data_ptr() % 8 == 0], device_sms(uv.device), 2
+    )
+    bilerp_scatter_add.plan = plan
+    if plan.units == 0:
+        return grad
+    ints = plan.as_ints()
     err = _library().pnt_bilerp_scatter(
-        uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, int(hl), int(wl), c,
-        torch.cuda.current_stream(uv.device).cuda_stream,
+        (ctypes.c_int * len(ints))(*ints), uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n,
+        int(hl), int(wl), c, torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "bilerp_scatter_add")
     bilerp_scatter_add.launches += 1
@@ -172,6 +184,7 @@ def bilerp_scatter_add(uv: torch.Tensor, dz: torch.Tensor, hl: int, wl: int) -> 
 
 
 bilerp_scatter_add.launches = 0
+bilerp_scatter_add.plan = None
 
 
 class _GridSampleBorderTrain(torch.autograd.Function):

@@ -13,8 +13,12 @@ and carry that through the blocks; every ResnetFC gradient, 2e-2 of its
 largest magnitude at worst and 1e-2 relative in Frobenius norm (bf16 dz
 and dxin one bf16 ulp more). The pyramid gather: one bf16 ulp plus 1e-6
 (the same exact products summed in another order); the scatter: 1e-4
-relative plus 1e-5 (float32 atomics add in any order). The bilerp gather
-and scatter as the pyramid's. The field's stash forward: its output as the
+relative plus 1e-5 (the same exact products, float32 sums in another
+order: in shared memory, in registers along a run of points, and in
+vector reductions in any order), and with every point at one uv (thousands
+of terms a sum, cancelling) 1e-4 relative plus 1e-4 of the map's largest
+magnitude, as chip_smoke.py holds the flagship. The bilerp gather and
+scatter as the pyramid's. The field's stash forward: its output as the
 field's, its z-stash one bf16 ulp of the plain gather; its backward, from
 the kernel's own stash, every gradient as the ResnetFC backward's, the
 bf16 level gradients one more bf16 ulp. The backward chain
@@ -52,6 +56,7 @@ from pixelnerf_tpu_torch.ops.scatter import (
 )
 from pixelnerf_tpu_torch.utils.hocon import loads
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
+from tests.scatter_uv import ray_uv
 
 pytestmark = pytest.mark.cuda
 
@@ -203,17 +208,52 @@ def test_query_three_views_launches_the_field_kernel(cuda):
 
 
 PYR_SHAPES = [(16, 16, 64), (4, 4, 64), (2, 2, 128)]
+FLAG_LEVELS = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
 
 
-@pytest.mark.parametrize("ns", [1, 2, 3, 5])
-def test_pyramid_kernels_match_plain(cuda, ns):
-    rng = np.random.default_rng(ns)
-    b, n = 2 * ns, 1000 + ns
-    csizes = [c for (_, _, c) in PYR_SHAPES]
-    hws = [(h, w) for (h, w, _) in PYR_SHAPES]
+def _scatter_uv(rng, kind, b, n, fine_hw):
+    """random points; `rays`, runs of samples along rays about half a fine
+    pixel apart (as a train step's lookups), straddling the kernels' run
+    and chunk boundaries; `one`, every point at one uv (the most points on
+    one pixel)."""
+    if kind == "rays":
+        return ray_uv(rng, b, n, 1.0 / max(fine_hw))
+    if kind == "one":
+        return np.broadcast_to(np.float32([0.137, -0.42]), (b, n, 2)).copy()
+    return rng.uniform(-1.2, 1.2, size=(b, n, 2))
+
+
+def _scatter_close(got, want, kind):
+    """The scatters' tolerance, 1e-4 relative plus 1e-5; with every point at
+    one uv (thousands of terms a sum, cancelling), chip_smoke.py's: 1e-4
+    relative plus 1e-4 of the map's largest magnitude."""
+    atol = 1e-4 * want.abs().max().item() if kind == "one" else 1e-5
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+# the four view counts of the train step (b = 2 NS maps); then the design's
+# cases: ray-coherent and single-point uv at the flagship's levels (a global
+# fine level, two shared-memory ones), channel counts that take 8-byte
+# vectors (6, 10, 130), a 64x128 fine grid (the path's limit) with four
+# levels over both paths, and one point
+PYR_CASES = [(PYR_SHAPES, 2 * ns, 1000 + ns, "random") for ns in (1, 2, 3, 5)] + [
+    (FLAG_LEVELS, 2, 5000, "rays"),
+    (FLAG_LEVELS, 2, 4096, "one"),
+    ([(16, 16, 6), (8, 8, 10), (4, 4, 130)], 2, 777, "random"),
+    ([(64, 64, 130), (16, 16, 10), (8, 8, 6)], 2, 999, "rays"),
+    ([(64, 128, 16), (32, 64, 16), (16, 32, 32), (8, 16, 64)], 2, 3001, "rays"),
+    (FLAG_LEVELS, 3, 1, "random"),
+]
+
+
+@pytest.mark.parametrize("levels,b,n,kind", PYR_CASES)
+def test_pyramid_kernels_match_plain(cuda, levels, b, n, kind):
+    rng = np.random.default_rng(b + n)
+    csizes = [c for (_, _, c) in levels]
+    hws = [(h, w) for (h, w, _) in levels]
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
-    feats = [t(rng.normal(size=(b, h, w, c)), torch.bfloat16) for (h, w, c) in PYR_SHAPES]
-    uv = t(rng.uniform(-1.2, 1.2, size=(b, n, 2)))
+    feats = [t(rng.normal(size=(b, h, w, c)), torch.bfloat16) for (h, w, c) in levels]
+    uv = t(_scatter_uv(rng, kind, b, n, hws[0]))
     before = pyramid_gather.launches
     got = pyramid_gather(feats, uv)
     torch.cuda.synchronize()
@@ -230,7 +270,7 @@ def test_pyramid_kernels_match_plain(cuda, ns):
         assert pyramid_scatter_add.launches == before + 1
         want = pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=second)
         for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+            _scatter_close(g, w, kind)
 
 
 def _mlp_case(rng, cuda, ns, sb, b, hidden=64, d_latent=64, n_blocks=5, combine=3):
@@ -336,13 +376,23 @@ def test_field_vjp_kernels_match_plain(cuda, ns, sb, b):
         _grad_close(getattr(dw, name), getattr(wdw, name))
 
 
-@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 64, 64, 64, 1001), (1, 8, 8, 512, 513)])
-def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n):
+# random points with the corners and far edges; then ray-coherent and
+# single-point uv on the flagship's 64x64 map, channel counts that take
+# 8-byte vectors, the largest map of the path (64x128) and one point
+BILERP_CASES = [(2, 5, 7, 8, 33, "random"), (3, 64, 64, 64, 1001, "random"), (1, 8, 8, 512, 513, "random"),
+                (2, 64, 64, 512, 3000, "rays"), (1, 64, 64, 128, 4096, "one"), (2, 16, 16, 6, 777, "rays"),
+                (2, 64, 64, 10, 1000, "random"), (2, 64, 64, 130, 999, "rays"), (2, 64, 128, 64, 3001, "rays"),
+                (1, 64, 64, 512, 1, "random")]
+
+
+@pytest.mark.parametrize("b,hl,wl,c,n,kind", BILERP_CASES)
+def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n, kind):
     rng = np.random.default_rng(n)
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
     feat = t(rng.normal(size=(b, hl, wl, c)), torch.bfloat16)
-    uv = rng.uniform(-1.3, 1.3, size=(b, n, 2))
-    uv[:, :4] = [[1.0, 1.0], [-1.0, -1.0], [1.0, -0.3], [-0.5, 1.0]]
+    uv = _scatter_uv(rng, kind, b, n, (hl, wl)) if kind != "random" else rng.uniform(-1.3, 1.3, size=(b, n, 2))
+    if kind == "random":
+        uv[:, :4] = [[1.0, 1.0], [-1.0, -1.0], [1.0, -0.3], [-0.5, 1.0]][: min(n, 4)]
     uv = t(uv)
     before = bilerp_gather.launches
     got = bilerp_gather(feat, uv)
@@ -356,7 +406,27 @@ def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n):
     got = bilerp_scatter_add(uv, dz, hl, wl)
     torch.cuda.synchronize()
     assert bilerp_scatter_add.launches == before + 1
+    _scatter_close(got, bilerp_scatter_add_plain(uv, dz, hl, wl), kind)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_scatters_take_cotangents_off_vector_alignment(cuda, offset):
+    """Cotangents that start 2 or 4 bytes past an 8-byte boundary (views
+    into a larger buffer): the wrappers copy the first (then 16-byte
+    vectors) and plan 8-byte vectors for the second; both agree with the
+    plain versions."""
+    rng = np.random.default_rng(40 + offset)
+    b, n, hl, wl, c = 2, 700, 64, 64, 128
+    uv = torch.from_numpy(ray_uv(rng, b, n, 1.0 / 64)).to(cuda)
+    flat = torch.from_numpy(rng.normal(size=b * n * c + offset).astype(np.float32)).to(cuda, torch.bfloat16)
+    dz = flat[offset:].view(b, n, c)
+    assert dz.data_ptr() % 8 == 2 * offset
+    got = bilerp_scatter_add(uv, dz, hl, wl)
+    assert bilerp_scatter_add.plan.segments[0].vec == (4 if offset == 1 else 2)
     torch.testing.assert_close(got, bilerp_scatter_add_plain(uv, dz, hl, wl), rtol=1e-4, atol=1e-5)
+    got = pyramid_scatter_add(uv, dz, [c], [(hl, wl)], (hl, wl))
+    want = pyramid_scatter_add_plain(uv, dz, [c], [(hl, wl)], (hl, wl))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
 
 
 # The wgmma forward chain (csrc/fwd_chain.cuh) at the flagship width: hidden

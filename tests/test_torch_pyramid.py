@@ -39,6 +39,7 @@ from pixelnerf_tpu_torch.ops.pyramid import (
     pyramid_scatter_add,
     pyramid_supported,
 )
+from tests.scatter_uv import ray_uv
 
 SHAPES = [(16, 16, 8), (5, 5, 8), (4, 4, 16)]
 CSUM = sum(c for (_, _, c) in SHAPES)
@@ -105,11 +106,16 @@ def _product_bound(uv, g):
     return [BF16_ULP * m.numpy() + 1e-5 for m in mag]
 
 
-@pytest.mark.parametrize("b,n", [(2, 37), (3, 515)])
+# random points, and ray-coherent ones (runs of samples along rays, about
+# half a fine pixel apart, as a train step's lookups see them)
+@pytest.mark.parametrize("b,n,rays", [
+    pytest.param(2, 37, False, id="2-37"), pytest.param(3, 515, False, id="3-515"),
+    pytest.param(2, 515, True, id="2-515-rays"),
+])
 @pytest.mark.parametrize("dual", [False, True])
-def test_scatter_matches_pallas(b, n, dual):
-    rng = np.random.default_rng(7 * b + n)
-    uv = _uv(rng, b, n)
+def test_scatter_matches_pallas(b, n, rays, dual):
+    rng = np.random.default_rng(7 * b + n + rays)
+    uv = ray_uv(rng, b, n, 1.0 / 15) if rays else _uv(rng, b, n)
     dz = rng.normal(size=(b, n, CSUM)).astype(np.float32)
     dz2 = rng.normal(size=(b, n, CSUM)).astype(np.float32)
     want = j_scatter(

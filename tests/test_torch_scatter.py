@@ -38,9 +38,14 @@ from pixelnerf_tpu.ops.scatter_pallas import (
 from pixelnerf_tpu_torch.models import encoder as tenc
 from pixelnerf_tpu_torch.ops.interpolate import resize_nearest
 from pixelnerf_tpu_torch.ops.scatter import (
-    bilerp_gather, bilerp_scatter_add, bilerp_scatter_add_plain, fused_supported,
+    _taps, bilerp_gather, bilerp_scatter_add, bilerp_scatter_add_plain, fused_supported,
     grid_sample_border_train,
 )
+from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT
+from pixelnerf_tpu_torch.ops.scatter_plan import (
+    RUN, SLICE_MAX, SLICE_MIN, STAGE, THREADS, WARPS, count_reductions, plan_scatter,
+)
+from tests.scatter_uv import ray_uv
 
 BF16_ULP = 2.0 ** -7
 
@@ -80,10 +85,16 @@ def test_gather_matches_pallas(b, hl, wl, c, n):
     assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6)
 
 
-@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 8, 8, 16, 515)])
-def test_scatter_matches_pallas(b, hl, wl, c, n):
-    rng = np.random.default_rng(b * 10 + n)
-    uv = _uv(rng, b, n)
+# random points, and ray-coherent ones (runs of samples along rays, about
+# half a pixel apart, as a train step's lookups see them)
+@pytest.mark.parametrize("b,hl,wl,c,n,rays", [
+    pytest.param(2, 5, 7, 8, 33, False, id="2-5-7-8-33"),
+    pytest.param(3, 8, 8, 16, 515, False, id="3-8-8-16-515"),
+    pytest.param(2, 8, 8, 16, 515, True, id="2-8-8-16-515-rays"),
+])
+def test_scatter_matches_pallas(b, hl, wl, c, n, rays):
+    rng = np.random.default_rng(b * 10 + n + rays)
+    uv = ray_uv(rng, b, n, 1.0 / 7) if rays else _uv(rng, b, n)
     dz = rng.normal(size=(b, n, c)).astype(np.float32)
     want = np.asarray(j_scatter(jnp.asarray(uv), jnp.asarray(dz), hl, wl, interpret=True))
     before = bilerp_scatter_add.launches
@@ -181,3 +192,116 @@ def test_index_features_routes_single_maps(monkeypatch):
         assert out.shape == (2, 9, 4) and bool(calls) == taken
     pair = tenc.index_features(torch.randn(2, 8, 8, 4).to(torch.bfloat16), scale, uv, size, dual=True)
     assert pair[0] is pair[1]
+
+
+def _interval(k, size, total):
+    return k * size, min((k + 1) * size, total)
+
+
+def _decoded_units(plan):
+    """Each block of the launch as `csrc/scatter_accum.cuh:scatter_block`
+    decodes its index: (map, b, channel interval, point interval)."""
+    units = []
+    for u in range(plan.units):
+        seg = [s for s in plan.segments if s.first <= u][-1]
+        k = u - seg.first
+        chunk, k = k % seg.nchunks, k // seg.nchunks
+        units.append((seg.map, k // seg.nslices, seg.slice * (k % seg.nslices), seg.chunk * chunk))
+    return units
+
+
+def _tiles(starts, size, total):
+    """The intervals of `size` from `starts` tile [0, total) once."""
+    ends = [min(s + size, total) for s in starts]
+    return sorted(starts) == list(range(0, total, size)) and max(ends) == total
+
+
+# the plans of the flagship's lookups (8 maps; 65,536 coarse and 32,768 new
+# fine points a map; srn.conf's three packed levels with 3x3 taps, or one
+# composed 64x64x512 map with 2x2) and of the card tests' shapes
+# (tests/test_torch_cuda_kernels.py)
+PLAN_CASES = [
+    ([(64, 64, 128), (16, 16, 128), (8, 8, 256)], 8, 65536, 3),
+    ([(64, 64, 128), (16, 16, 128), (8, 8, 256)], 8, 32768, 3),
+    ([(64, 64, 512)], 8, 65536, 2),
+    ([(64, 64, 512)], 8, 32768, 2),
+    ([(16, 16, 64), (4, 4, 64), (2, 2, 128)], 6, 1003, 3),
+    ([(64, 128, 16), (32, 64, 16), (16, 32, 32), (8, 16, 64)], 2, 3001, 3),
+    ([(16, 16, 6), (8, 8, 10), (4, 4, 130)], 2, 777, 3),
+    ([(64, 64, 130), (16, 16, 10), (8, 8, 6)], 1, 1, 3),
+    ([(5, 7, 8)], 2, 33, 2),
+    ([(8, 8, 512)], 1, 513, 2),
+    ([(64, 64, 10)], 2, 1000, 2),
+]
+
+
+@pytest.mark.parametrize("maps,nb,n,taps", PLAN_CASES)
+def test_scatter_plan_covers_each_map_channel_and_point_once(maps, nb, n, taps):
+    """Every (map, b, channel, point) in exactly one unit of the launch, the
+    shared-memory segments first, every unit's block and tap table within a
+    Hopper block's shared memory and a 16-byte vector only where the
+    channels allow it."""
+    plan = plan_scatter(maps, nb, n, [True] * len(maps), 132, taps)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert [s.first for s in plan.segments] == sorted(s.first for s in plan.segments)
+    assert [s.smem for s in plan.segments] == sorted((s.smem for s in plan.segments), reverse=True)
+    assert sorted(s.map for s in plan.segments) == list(range(len(maps)))
+    assert sum(s.units for s in plan.segments) == plan.units
+    units = _decoded_units(plan)
+    assert len(set(units)) == len(units) == plan.units
+    for seg in plan.segments:
+        h, w, c = maps[seg.map]
+        assert c % seg.vec == 0 and seg.slice % seg.vec == 0 and (seg.vec == 2 or c % 4 == 0)
+        if seg.smem:
+            assert min(c, SLICE_MIN) <= seg.slice <= SLICE_MAX
+            pts = min(THREADS, max(32, STAGE // (2 * seg.slice) // 32 * 32))
+            # taps, bf16 stage, the warps' lists
+            batch = pts * (16 * -(-(taps * taps + 3) // 4) + 2 * seg.slice) + 4 * WARPS + 2 * WARPS * pts
+            assert seg.smem_bytes == 16 * -(-(h * w * seg.slice) // 4) + batch <= plan.smem_bytes
+        else:
+            assert (seg.slice, seg.nslices, seg.chunk) == (c, 1, WARPS * RUN)
+        mine = [u for u in units if u[0] == seg.map]
+        assert sorted({u[1] for u in mine}) == list(range(nb))
+        for b in range(nb):
+            cs = {u[2] for u in mine if u[1] == b}
+            ps = {u[3] for u in mine if u[1] == b}
+            assert _tiles(cs, seg.slice, c) and _tiles(ps, seg.chunk, n)
+            assert len([u for u in mine if u[1] == b]) == len(cs) * len(ps)
+
+
+def test_scatter_plan_keeps_the_flagship_small_levels_in_shared_memory():
+    """srn.conf's 16x16x128 and 8x8x256 levels take shared-memory units of
+    64 and 256 channels; its fine level and the composed map do not fit."""
+    plan = plan_scatter([(64, 64, 128), (16, 16, 128), (8, 8, 256)], 8, 65536, [True] * 3, 132, 3)
+    got = {s.map: (s.smem, s.slice, s.vec) for s in plan.segments}
+    assert got == {0: (False, 128, 4), 1: (True, 64, 4), 2: (True, 256, 4)}
+    # the f32 block, then a batch of 256 (level 1) points' taps, bf16
+    # cotangents and the warps' lists
+    assert plan.smem_bytes == 64 * 1024 + 256 * (48 + 128) + 4 * 8 + 2 * 8 * 256
+    (seg,) = plan_scatter([(64, 64, 512)], 8, 65536, [True], 132, 2).segments
+    assert not seg.smem and seg.vec == 4
+    (seg,) = plan_scatter([(64, 64, 512)], 8, 65536, [False], 132, 2).segments
+    assert seg.vec == 2  # rows not 8-byte aligned: 8-byte vectors
+
+
+@pytest.mark.parametrize("maps,n", [([(64, 64, 130)], 100), ([(16, 16, 6)], 1000)])
+def test_count_reductions_at_one_point(maps, n):
+    """Every point at one uv: a global map's warps make one reduction a
+    lane and tap a run; a shared-memory map's units one flush vector a lane
+    and tapped pixel; the scalar design one atomic a channel and tap a
+    point."""
+    (h, w, c), nb = maps[0], 2
+    uv = torch.full((nb, n, 2), 0.3)
+    idx, wt = _taps(uv, h, w)
+    plan = plan_scatter(maps, nb, n, [True], 132, 2)
+    got = count_reductions(plan, maps, [(idx, wt)])
+    (seg,) = plan.segments
+    taps = int((wt[0, 0] != 0).sum())
+    assert got["scalar"] == nb * n * taps * c
+    lanes = -(-c // seg.vec)
+    if seg.smem:
+        assert got["vector"] == 0 and got["shared"] == got["scalar"]
+        assert got["flush"] == nb * seg.nchunks * taps * lanes
+    else:
+        assert got["flush"] == got["shared"] == 0
+        assert got["vector"] == nb * -(-n // RUN) * taps * lanes
