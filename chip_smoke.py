@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                  (from the repository root)
-    python3 chip_smoke.py --baseline DIR   (also time the scatter kernels of
-                                            an earlier tree of the repository)
+    python3 chip_smoke.py --baseline DIR   (also time the gather and scatter
+                                            kernels of an earlier tree of the
+                                            repository)
 
 Phases, each failing loudly (an exception and a non-zero exit):
 
@@ -20,12 +21,15 @@ Phases, each failing loudly (an exception and a non-zero exit):
    field); the bilerp gather and scatter at the nearest-upsampling step's
    (8 composed 64x64x512 maps, 65,536 and 32,768 points a map); every
    gradient of the backwards and of the scatters included. The two
-   scatters run after the train step of their path (phases 5 and 7): on
-   random uv as before, then again on the uv and cotangents that the
-   step's counted run handed them (`step_uv_ms`), each call with its
-   unit plan and the reductions into device memory it makes, counted
-   from the plan and the taps; with `--baseline`, the earlier tree's
-   scatters timed beside them on both, in turns;
+   gathers and the two scatters run after the train step of their path
+   (phases 5 and 7): on random uv as before, then again on the uv (and
+   cotangents) that the step's counted run handed them (`step_uv_ms`),
+   the bilerp gather also on the maps and uv of the counted nearest view
+   (`view_uv_ms`, with its bound `view_uv_bound_ms`); each gather call
+   with its unit plan and the tap-row bytes it reads, each scatter call
+   with its unit plan and the reductions into device memory it makes,
+   both counted from the plan and the taps; with `--baseline`, the
+   earlier tree's kernels timed beside them on each, in turns;
 4. the serving slice: the flagship srn.conf model in bf16 with seeded
    random weights (non-zero fc_1) encodes two synthetic 128x128 views and
    renders one full 128x128 target view through `render_full`; launch
@@ -697,41 +701,55 @@ def check_field_vjp(torch, np, dev):
     ]
 
 
-def _kept_calls(module, name, calls):
-    """A context in which `module.name` is wrapped so that each call's
-    arguments are kept, their tensors copied to the host (so that they add
-    nothing to the device's peak memory); the wrapped function runs as
-    before and counts its own launches."""
+def _kept_calls(keep):
+    """A context in which each `module.name` of `keep` ((module, name, list)
+    triples) is wrapped so that each call's arguments are appended to its
+    list, their tensors copied to the host (so that they add nothing to the
+    device's peak memory); the wrapped function runs as before and counts
+    its own launches."""
     import contextlib
     import inspect
 
-    real = getattr(module, name)
-    sig = inspect.signature(real)
+    def wrap(real, calls):
+        sig = inspect.signature(real)
 
-    def keep(*args, **kwargs):
-        bound = sig.bind(*args, **kwargs)
-        calls.append({k: v.cpu() if hasattr(v, "cpu") else v for k, v in bound.arguments.items()})
-        return real(*args, **kwargs)
+        def keep_call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            host = lambda v: v.cpu() if hasattr(v, "cpu") else v
+            calls.append({  # a sequence of levels: each level copied
+                k: tuple(map(host, v)) if isinstance(v, (tuple, list)) else host(v)
+                for k, v in bound.arguments.items()
+            })
+            return real(*args, **kwargs)
 
-    # the wrapper counts its launches (and keeps its plan) on the function
-    # its module names, which is `keep` while patched: share its attributes
-    keep.__dict__ = real.__dict__
+        # the wrapper counts its launches (and keeps its plan) on the function
+        # its module names, which is `keep_call` while patched: share its
+        # attributes
+        keep_call.__dict__ = real.__dict__
+        return keep_call
 
     @contextlib.contextmanager
     def patched():
-        setattr(module, name, keep)
+        reals = [(module, name, getattr(module, name)) for module, name, _ in keep]
+        for (module, name, real), (_, _, calls) in zip(reals, keep):
+            setattr(module, name, wrap(real, calls))
         try:
             yield
         finally:
-            setattr(module, name, real)
+            for module, name, real in reals:
+                setattr(module, name, real)
 
     return patched()
 
 
+BASELINE_SOURCES = ("pyramid", "bilerp")
+
+
 def _baseline_build(path):
-    """Start building an earlier tree's scatter kernels (`--baseline`):
+    """Start building an earlier tree's lookup kernels (`--baseline`):
     `csrc/pyramid.cu` and `csrc/bilerp.cu` under `path`, one nvcc each,
-    into build/baseline; returns the running builds."""
+    into build/baseline; returns the running builds and each source's
+    text."""
     from pixelnerf_tpu_torch.ops.cuda_build import nvcc_command
 
     src = Path(path).resolve() / "pixelnerf_tpu_torch" / "csrc"
@@ -740,51 +758,100 @@ def _baseline_build(path):
     return {
         name: (subprocess.Popen(nvcc_command(src / f"{name}.cu", out / f"lib{name}.so"),
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-               out / f"lib{name}.so")
-        for name in ("pyramid", "bilerp")
+               out / f"lib{name}.so", (src / f"{name}.cu").read_text())
+        for name in BASELINE_SOURCES
     }
 
 
 def _baseline_kernels(torch, builds):
-    """The earlier tree's scatters as functions of the port's wrappers'
-    arguments, through its C interface (PRs 2-7: one f32 atomic a channel
-    and tap, no plan)."""
+    """The earlier tree's gathers and scatters as functions of the port's
+    wrappers' arguments, through its C interface: for the scatters, one f32
+    atomic a channel and tap (no plan) or units planned by the port's
+    ops/scatter_plan.py; for the gathers, one warp a point (no plan) or
+    units planned by the port's ops/gather_plan.py. Which one, each
+    source's includes say."""
     import ctypes
 
+    from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
+    from pixelnerf_tpu_torch.ops.gather_plan import plan_gather
     from pixelnerf_tpu_torch.ops.pyramid import _level_args
+    from pixelnerf_tpu_torch.ops.scatter_plan import device_sms, plan_scatter
 
-    libs = {}
-    for name, (proc, lib) in builds.items():
+    libs, planned = {}, {}
+    for name, (proc, lib, text) in builds.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"baseline nvcc failed for {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fp = libs["pyramid"].pnt_pyramid_scatter
-    fp.restype, fp.argtypes = i, [ctypes.POINTER(vp), ctypes.POINTER(i), i] + [vp] * 3 + [i] * 4 + [vp]
-    fb = libs["bilerp"].pnt_bilerp_scatter
-    fb.restype, fb.argtypes = i, [vp] * 3 + [i] * 5 + [vp]
+        planned[name] = ("scatter_accum.cuh" in text, "gather_tile.cuh" in text)
+    vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
+    sms = lambda t: device_sms(t.device)
     stream = lambda t: torch.cuda.current_stream(t.device).cuda_stream
+    pyr_sc, pyr_ga = planned["pyramid"]
+    bil_sc, bil_ga = planned["bilerp"]
+    fps, fbs = libs["pyramid"].pnt_pyramid_scatter, libs["bilerp"].pnt_bilerp_scatter
+    fpg, fbg = libs["pyramid"].pnt_pyramid_gather, libs["bilerp"].pnt_bilerp_gather
+    for f in (fps, fbs, fpg, fbg):
+        f.restype = i
+    head = [ctypes.POINTER(vp), ip, i]
+    fps.argtypes = head + ([ip] if pyr_sc else []) + [vp] * 3 + [i] * (3 if pyr_sc else 4) + [vp]
+    fbs.argtypes = ([ip] if bil_sc else []) + [vp] * 3 + [i] * 5 + [vp]
+    fpg.argtypes = head + ([ip] if pyr_ga else []) + [vp] * 2 + [i] * 2 + [vp]
+    fbg.argtypes = ([ip] if bil_ga else []) + [vp] * 3 + [i] * 5 + [vp]
 
-    def pyramid(uv, dz, csizes, hws, fine_hw, dz2=None):
-        b, n, csum = dz.shape
-        grads = [torch.zeros((b, h, w, c), device=uv.device) for c, (h, w) in zip(csizes, hws)]
-        ptrs, dims, nlev = _level_args(grads, [(h, w, c) for c, (h, w) in zip(csizes, hws)])
-        err = fp(ptrs, dims, nlev, uv.data_ptr(), dz.data_ptr(), 0 if dz2 is None else dz2.data_ptr(),
-                 b, n, csum, int(dz2 is not None), stream(uv))
+    def check(err, what):
         if err:
-            raise RuntimeError(f"baseline pyramid scatter failed: {err}")
+            raise RuntimeError(f"baseline {what} failed: {err}")
+
+    def pyramid_scatter(uv, dz, csizes, hws, fine_hw, dz2=None):
+        b, n, csum = dz.shape
+        maps = [(h, w, c) for c, (h, w) in zip(csizes, hws)]
+        grads = [torch.zeros((b, h, w, c), device=uv.device) for h, w, c in maps]
+        ptrs, dims, nlev = _level_args(grads, maps)
+        second = 0 if dz2 is None else dz2.data_ptr()
+        if pyr_sc:
+            plan = plan_scatter(maps, b, n, [True] * len(maps), sms(uv), 3).as_ints()
+            err = fps(ptrs, dims, nlev, ints(plan), uv.data_ptr(), dz.data_ptr(), second, b, n,
+                      csum, stream(uv))
+        else:
+            err = fps(ptrs, dims, nlev, uv.data_ptr(), dz.data_ptr(), second, b, n, csum,
+                      int(dz2 is not None), stream(uv))
+        check(err, "pyramid scatter")
         return grads
 
-    def bilerp(uv, dz, hl, wl):
+    def bilerp_scatter(uv, dz, hl, wl):
         b, n, c = dz.shape
         grad = torch.zeros((b, hl, wl, c), device=uv.device)
-        err = fb(uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, hl, wl, c, stream(uv))
-        if err:
-            raise RuntimeError(f"baseline bilerp scatter failed: {err}")
+        args = (uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, hl, wl, c, stream(uv))
+        plan = plan_scatter([(hl, wl, c)], b, n, [True], sms(uv), 2).as_ints()
+        check(fbs(ints(plan), *args) if bil_sc else fbs(*args), "bilerp scatter")
         return grad
 
-    return {"pyramid_scatter_add": pyramid, "bilerp_scatter_add": bilerp}
+    def pyramid_gather(feats, uv):
+        b, n, _ = uv.shape
+        maps = [tuple(f.shape[1:]) for f in feats]
+        out = torch.empty((b, n, sum(c for _, _, c in maps)), dtype=torch.bfloat16, device=uv.device)
+        ptrs, dims, nlev = _level_args(feats, maps)
+        if pyr_ga:
+            plan = plan_gather(maps, b, n, sms(uv), pyr.LANES, pyr.ROWS, True).as_ints()
+            err = fpg(ptrs, dims, nlev, ints(plan), uv.data_ptr(), out.data_ptr(), b, n, stream(uv))
+        else:
+            err = fpg(ptrs, dims, nlev, uv.data_ptr(), out.data_ptr(), b, n, stream(uv))
+        check(err, "pyramid gather")
+        return out
+
+    def bilerp_gather(feat, uv):
+        b, hl, wl, c = feat.shape
+        n = uv.shape[1]
+        out = torch.empty((b, n, c), dtype=torch.bfloat16, device=uv.device)
+        args = (feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, hl, wl, c, stream(uv))
+        plan = plan_gather([(hl, wl, c)], b, n, sms(uv), bil.LANES, bil.ROWS, True).as_ints()
+        check(fbg(ints(plan), *args) if bil_ga else fbg(*args), "bilerp gather")
+        return out
+
+    return {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
+            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather}
 
 
 def _time_ab(torch, run, base):
@@ -839,14 +906,139 @@ def _add_red(total, red):
         total[k] = total.get(k, 0) + v
 
 
-def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
+def _gather_plan_line(name, plan, maps, tb):
+    """The plan of a gather launch and the tap-row bytes it reads, counted
+    from the plan and the points' taps (ops/gather_plan.py:count_tap_bytes)."""
+    staged = [f"map {i} {'x'.join(map(str, maps[i]))}" for i, o in enumerate(plan.soff) if o >= 0]
+    return (
+        f"{name} plan: {plan.units} units of {plan.chunk} points, {plan.smem_bytes} B of shared "
+        f"memory a block, {plan.vec} channels a lane, map 0 cached {plan.cached}, staged "
+        f"{', '.join(staged) or 'none'}; {_tap_bytes(tb)}"
+    )
+
+
+def _tap_bytes(tb):
+    return (
+        f"tap-row bytes: window {tb['window']} (every K x K tap), nonzero {tb['nonzero']}, of which "
+        f"{tb['shared']} from shared memory and {tb['device']} from device memory (L2) after the "
+        f"fine map's register cache; {tb['staged']} staged"
+    )
+
+
+def _gather_totals(name, where, acc):
+    leads = ", ".join(f"without the {k} {v:.3f} ms" for k, v in acc["leads"].items())
+    print(
+        f"{name} on {where}: kernel {acc['ms']:.3f} ms"
+        + (f", baseline {acc['base_ms']:.3f} ms" if acc["base_ms"] is not None else "")
+        + (f" ({leads})" if leads else "")
+        + f", bound {acc['bound_ms']:.4f} ms; {_tap_bytes(acc['bytes'])}"
+    )
+
+
+GATHER_LEADS = ("register cache", "staging")
+
+
+def _gather_lead_off(torch, name, args, lead):
+    """A launch of the port's gather `name` on `args` through its own
+    library, with one lead of its plan switched off: the `register cache`
+    (map 0's rows loaded at every point) or `staging` (every map read from
+    device memory); None where the plan does not use it. Timed only."""
+    import ctypes
+
+    from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
+    from pixelnerf_tpu_torch.ops.gather_plan import plan_gather, table_bytes
+    from pixelnerf_tpu_torch.ops.scatter_plan import device_sms
+
+    mod = pyr if name == "pyramid_gather" else bil
+    feats, uv = (args[0], args[1]) if mod is pyr else ((args[0],), args[1])
+    maps = [tuple(f.shape[1:]) for f in feats]
+    b, n, _ = uv.shape
+    plan = plan_gather(maps, b, n, device_sms(uv.device), mod.LANES, mod.ROWS, True)
+    if lead == "register cache" and plan.cached:
+        plan = plan._replace(cached=False)
+    elif lead == "staging" and max(plan.soff) >= 0:
+        plan = plan._replace(soff=(-1,) * len(maps), smem_bytes=table_bytes(len(maps)))
+    else:
+        return None
+    ints = plan.as_ints()
+    arr = (ctypes.c_int * len(ints))(*ints)
+    out = torch.empty((b, n, sum(c for *_, c in maps)), dtype=torch.bfloat16, device=uv.device)
+    stream = torch.cuda.current_stream(uv.device).cuda_stream
+    if mod is pyr:
+        ptrs, dims, nlev = pyr._level_args(feats, maps)
+        call = lambda: mod._library().pnt_pyramid_gather(
+            ptrs, dims, nlev, arr, uv.data_ptr(), out.data_ptr(), b, n, stream)
+    else:
+        call = lambda: mod._library().pnt_bilerp_gather(
+            arr, feats[0].data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, *maps[0], stream)
+
+    def run():
+        err = call()
+        if err:
+            raise RuntimeError(f"{name} without its {lead} failed: {err}")
+        return out
+
+    return run
+
+
+def _timed_gather(torch, name, args, base, acc, label, maps, taps, bound):
+    """One call of the gather `name` on `args`: held within one bf16 ulp of
+    its plain version, its tap-row bytes counted, timed (with `base`, beside
+    the earlier tree's, in turns), and timed with each lead of its plan
+    switched off (the same result, bit for bit); adds to `acc`."""
+    from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
+    from pixelnerf_tpu_torch.ops.gather_plan import count_tap_bytes
+
+    mod = pyr if name == "pyramid_gather" else bil
+    fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    run = lambda: fn(*args)
+    got = run()
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = _ulp_check(torch, name, got, want)
+    del want
+    plan = fn.plan
+    tb = count_tap_bytes(plan, maps, taps)
+    ms, base_ms = _time_ab(torch, run, base)
+    leads = {}
+    for lead in GATHER_LEADS:
+        off = _gather_lead_off(torch, name, args, lead)
+        if off is not None:
+            if not torch.equal(off(), got):
+                raise AssertionError(f"{name} without its {lead} changed its result")
+            leads[lead] = _time_ms(torch, off, 3, 20)
+            acc["leads"][lead] = acc["leads"].get(lead, 0.0) + leads[lead]
+    shape = tuple(got.shape)
+    del got
+    acc["ms"] += ms
+    acc["base_ms"] = None if base_ms is None else (acc["base_ms"] or 0.0) + base_ms
+    acc["bound_ms"] += bound
+    acc["max_abs_err"] = max(acc["max_abs_err"], err)
+    _add_red(acc["bytes"], tb)
+    print(
+        f"{name} {label}: out {shape} max_abs_err={err:.3e} (tolerance one bf16 ulp + 1e-6), "
+        f"kernel {ms:.3f} ms" + ("" if base_ms is None else f", baseline {base_ms:.3f} ms")
+        + "".join(f", without the {k} {v:.3f} ms" for k, v in leads.items())
+        + f", bound {bound:.4f} ms"
+    )
+    print(_gather_plan_line(f"{name} {label}", plan, maps, tb))
+    return err
+
+
+def _yardstick():
+    return dict(ms=0.0, base_ms=None, bound_ms=0.0, max_abs_err=0.0, bytes={}, leads={})
+
+
+def check_pyramid(torch, np, dev, step_calls=None, baseline=None):
     """The gather and the scatter at the train step's two lookups (the
     coarse one dual, the fine pass's new samples single), against their
     plain versions and against grid_sample (and its backward) on the
-    pre-composed 64x64 map, which the port never calls; the scatter again on
-    the uv and cotangents that one counted train step passed to it
-    (`step_calls`), with its plan and the reductions it makes; with
-    `baseline`, an earlier tree's scatter timed beside it on both."""
+    pre-composed 64x64 map, which the port never calls; both again on the
+    uv (and for the scatter the cotangents) that one counted train step
+    passed to them (`step_calls`, each function's calls by name), the
+    gather with its plan and the tap-row bytes it reads, the scatter with
+    its plan and the reductions it makes; with `baseline`, an earlier
+    tree's kernels timed beside them on both."""
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.models.encoder import compose_pyramid
@@ -888,21 +1080,26 @@ def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
     csum = sum(csizes)
     composed = compose_pyramid(feats).permute(0, 3, 1, 2).contiguous()  # (maps, 512, 64, 64)
     feat_bytes = sum(f.numel() * 2 for f in feats)
+    def gather(label, feats, uv, acc):
+        b, n, _ = uv.shape
+        levels = [tuple(f.shape[1:]) for f in feats]
+        taps = [_level_taps(uv, h, w, *levels[0][:2], torch.bfloat16) for h, w, _ in levels]
+        nz = sum(int((w != 0).sum()) * c for (_, w), (_, _, c) in zip(taps, levels))
+        nbytes = sum(f.numel() * 2 for f in feats) + uv.numel() * 4 + b * n * csum * 2
+        base = None if baseline is None else (lambda: baseline["pyramid_gather"](feats, uv))
+        return _timed_gather(torch, "pyramid_gather", (feats, uv), base, acc, label, levels, taps,
+                             _bound(2.0 * nz, PEAK_F32_FLOPS, nbytes)[0])
+
+    step_calls = step_calls or {}
     gat = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     sca = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     rnd = dict(ms=0.0, base_ms=None, red={})
+    grnd = _yardstick()
     for pass_, k in LOOKUPS.items():
         n = TRAIN_RAYS * k
         uv = torch.rand((maps, n, 2), generator=g, device=dev) * 2.2 - 1.1
-        got = pyramid_gather(feats, uv)
-        torch.cuda.synchronize()
-        want = pyramid_gather_plain(feats, uv)
-        err = _ulp_check(torch, "pyramid_gather", got, want)
-        print(f"pyramid_gather {pass_}: maps={maps} N={n} max_abs_err={err:.3e} (tolerance one bf16 ulp)")
-        gat["max_abs_err"] = max(gat["max_abs_err"], err)
-        del got, want
+        gather(f"random uv {pass_}", feats, uv, grnd)
         grid = uv[:, None]  # (maps, 1, N, 2)
-        gat["ms"] += _time_ms(torch, lambda: pyramid_gather(feats, uv), 3, 20)
         gat["plain_ms"] += _time_ms(torch, lambda: pyramid_gather_plain(feats, uv), 1, 3)
         # grid_sample takes its grid in the map's dtype
         grid = grid.to(torch.bfloat16)
@@ -915,7 +1112,6 @@ def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
         dz2 = (torch.randn((maps, n, csum), generator=g, device=dev) * 1e-3).to(torch.bfloat16) if dual else None
         err, tap_list = scatter(f"random uv {pass_}", uv, dz, dz2, csizes, hws, rnd)
         taps = sum(int((w != 0).sum()) * c for (_, w), c in zip(tap_list, csizes))
-        gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat_bytes + uv.numel() * 4 + out_bytes)[0]
         sca["max_abs_err"] = max(sca["max_abs_err"], err)
         sca["plain_ms"] += _time_ms(torch, lambda: pyramid_scatter_add_plain(uv, dz, csizes, hws, hws[0], dz2=dz2), 1, 3)
         gout = (dz.float() + (dz2.float() if dual else 0.0)).to(torch.bfloat16).permute(0, 2, 1)[:, :, None]
@@ -928,21 +1124,31 @@ def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
         )[0]
         del dz, dz2, gout, tap_list
     sca["ms"] = rnd["ms"]
+    gat.update(ms=grnd["ms"], bound_ms=grnd["bound_ms"], max_abs_err=grnd["max_abs_err"])
+    gstep = _yardstick()
+    for i, call in enumerate(step_calls.get("pyramid_gather", ())):
+        gather(f"step uv call {i}", [f.to(dev) for f in call["feats"]], call["uv"].to(dev), gstep)
+        gat["max_abs_err"] = max(gat["max_abs_err"], gstep["max_abs_err"])
+    gat["step_uv_ms"] = gstep["ms"] if gstep["bytes"] else None
     step = dict(ms=0.0, base_ms=None, red={})
-    for i, call in enumerate(step_calls):
+    scatter_calls = step_calls.get("pyramid_scatter_add", ())
+    for i, call in enumerate(scatter_calls):
         call = {k: v.to(dev) if hasattr(v, "to") else v for k, v in call.items()}
         err, _ = scatter(f"step uv call {i}", call["uv"], call["dz"], call.get("dz2"),
                          call["csizes"], call["hws"], step)
         sca["max_abs_err"] = max(sca["max_abs_err"], err)
-    sca["step_uv_ms"] = step["ms"] if step_calls else None
+    sca["step_uv_ms"] = step["ms"] if scatter_calls else None
     for name, r in (("pyramid_gather", gat), ("pyramid_scatter_add", sca)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
             f"{'backward ' if name.endswith('add') else ''}{r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes), per train step"
         )
+    _gather_totals("pyramid_gather", "random uv", grnd)
+    if gstep["bytes"]:
+        _gather_totals("pyramid_gather", "the counted train step's uv", gstep)
     _scatter_totals("pyramid_scatter_add", "random uv", rnd)
-    if step_calls:
+    if scatter_calls:
         _scatter_totals("pyramid_scatter_add", "the counted train step's uv", step)
     src, rep = "pixelnerf_tpu_torch/csrc/pyramid.cu", "pixelnerf_tpu/ops/pyramid_pallas.py"
     return [
@@ -951,15 +1157,18 @@ def check_pyramid(torch, np, dev, step_calls=(), baseline=None):
     ]
 
 
-def check_bilerp(torch, np, dev, step_calls=(), baseline=None):
+def check_bilerp(torch, np, dev, step_calls=None, view_calls=(), baseline=None):
     """The single-map gather and scatter at the nearest-upsampling step's
     two lookups (the coarse one, whose two consumers' cotangents autograd
     adds before the scatter, and the fine pass's new samples), against
     their plain versions and against grid_sample (and its backward) on the
-    same map in NCHW, which the port never calls; the scatter again on the
-    uv and cotangents that one counted nearest train step passed to it
-    (`step_calls`), with its plan and the reductions it makes; with
-    `baseline`, an earlier tree's scatter timed beside it on both."""
+    same map in NCHW, which the port never calls; both again on the uv (and
+    for the scatter the cotangents) that one counted nearest train step
+    passed to them (`step_calls`, each function's calls by name), the
+    gather also on the maps and uv of the counted nearest view's calls
+    (`view_calls`), the gather with its plan and the tap-row bytes it
+    reads, the scatter with its plan and the reductions it makes; with
+    `baseline`, an earlier tree's kernels timed beside them."""
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.ops.scatter import (
@@ -991,6 +1200,16 @@ def check_bilerp(torch, np, dev, step_calls=(), baseline=None):
         print(_scatter_plan_line("bilerp_scatter_add " + label, bilerp_scatter_add.plan, maps, red))
         return err, taps
 
+    def gather(label, feat, uv, acc):
+        b, h, w, c = feat.shape
+        taps = _taps(uv, h, w)
+        nz = int((taps[1] != 0).sum()) * c
+        nbytes = feat.numel() * 2 + uv.numel() * 4 + b * uv.shape[1] * c * 2
+        base = None if baseline is None else (lambda: baseline["bilerp_gather"](feat, uv))
+        return _timed_gather(torch, "bilerp_gather", (feat, uv), base, acc, label, [(h, w, c)],
+                             [taps], _bound(2.0 * nz, PEAK_F32_FLOPS, nbytes)[0])
+
+    step_calls = step_calls or {}
     g = torch.Generator(device=dev).manual_seed(10)
     maps, (hl, wl, c) = SB * TRAIN_NS, COMPOSED
     feat = torch.randn((maps, hl, wl, c), generator=g, device=dev).to(torch.bfloat16)
@@ -998,24 +1217,17 @@ def check_bilerp(torch, np, dev, step_calls=(), baseline=None):
     gat = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     sca = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     rnd = dict(ms=0.0, base_ms=None, red={})
+    grnd = _yardstick()
     for pass_, k in LOOKUPS.items():
         n = TRAIN_RAYS * k
         uv = torch.rand((maps, n, 2), generator=g, device=dev) * 2.2 - 1.1
         taps = int((_taps(uv, hl, wl)[1] != 0).sum()) * c
-        got = bilerp_gather(feat, uv)
-        torch.cuda.synchronize()
-        want = bilerp_gather_plain(feat, uv)
-        err = _ulp_check(torch, "bilerp_gather", got, want)
-        print(f"bilerp_gather {pass_}: maps={maps} {hl}x{wl}x{c} N={n} max_abs_err={err:.3e} (tolerance one bf16 ulp)")
-        gat["max_abs_err"] = max(gat["max_abs_err"], err)
-        del got, want
-        gat["ms"] += _time_ms(torch, lambda: bilerp_gather(feat, uv), 3, 20)
+        gather(f"random uv {pass_}", feat, uv, grnd)
         gat["plain_ms"] += _time_ms(torch, lambda: bilerp_gather_plain(feat, uv), 1, 3)
         grid = uv[:, None].to(torch.bfloat16)  # grid_sample takes the map's dtype
         gat["library_ms"] += _time_ms(torch, lambda: F.grid_sample(
             nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), 3, 20)
         out_bytes = maps * n * c * 2
-        gat["bound_ms"] += _bound(2.0 * taps, PEAK_F32_FLOPS, feat.numel() * 2 + uv.numel() * 4 + out_bytes)[0]
 
         dz = (torch.randn((maps, n, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
         err, _ = scatter(f"random uv {pass_}", uv, dz, hl, wl, rnd)
@@ -1029,20 +1241,36 @@ def check_bilerp(torch, np, dev, step_calls=(), baseline=None):
         )[0]
         del dz, gout
     sca["ms"] = rnd["ms"]
+    gat.update(ms=grnd["ms"], bound_ms=grnd["bound_ms"], max_abs_err=grnd["max_abs_err"])
+    gstep, gview = _yardstick(), _yardstick()
+    for acc, calls, where in ((gstep, step_calls.get("bilerp_gather", ()), "step"),
+                              (gview, view_calls, "view")):
+        for i, call in enumerate(calls):
+            gather(f"{where} uv call {i}", call["feat"].to(dev), call["uv"].to(dev), acc)
+        gat["max_abs_err"] = max(gat["max_abs_err"], acc["max_abs_err"])
+    gat["step_uv_ms"] = gstep["ms"] if gstep["bytes"] else None
+    gat["view_uv_ms"] = gview["ms"] if gview["bytes"] else None
+    gat["view_uv_bound_ms"] = gview["bound_ms"] if gview["bytes"] else None
     step = dict(ms=0.0, base_ms=None, red={})
-    for i, call in enumerate(step_calls):
+    scatter_calls = step_calls.get("bilerp_scatter_add", ())
+    for i, call in enumerate(scatter_calls):
         call = {k: v.to(dev) if hasattr(v, "to") else v for k, v in call.items()}
         err, _ = scatter(f"step uv call {i}", call["uv"], call["dz"], call["hl"], call["wl"], step)
         sca["max_abs_err"] = max(sca["max_abs_err"], err)
-    sca["step_uv_ms"] = step["ms"] if step_calls else None
+    sca["step_uv_ms"] = step["ms"] if scatter_calls else None
     for name, r in (("bilerp_gather", gat), ("bilerp_scatter_add", sca)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
             f"{'backward ' if name.endswith('add') else ''}{r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes), per nearest train step"
         )
+    _gather_totals("bilerp_gather", "random uv", grnd)
+    if gstep["bytes"]:
+        _gather_totals("bilerp_gather", "the counted nearest train step's uv", gstep)
+    if gview["bytes"]:
+        _gather_totals("bilerp_gather", "the counted nearest view's uv (one view)", gview)
     _scatter_totals("bilerp_scatter_add", "random uv", rnd)
-    if step_calls:
+    if scatter_calls:
         _scatter_totals("bilerp_scatter_add", "the counted nearest train step's uv", step)
     src, rep = "pixelnerf_tpu_torch/csrc/bilerp.cu", "pixelnerf_tpu/ops/scatter_pallas.py"
     return [
@@ -1377,12 +1605,12 @@ def trunk_precision(torch, grads, label):
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
-              fusion=False, cmp_dtypes=("bfloat16",), keep=None):
+              fusion=False, cmp_dtypes=("bfloat16",), keep=()):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
-    With `keep` = (module, function name, list), the counted train step
-    appends each call's arguments of that function to the list. Returns the
-    counted runs' launches."""
+    With `keep`, (module, function name, list) triples, the counted train
+    step appends each call's arguments of each function to its list.
+    Returns the counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
@@ -1406,9 +1634,7 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     )
 
     def counted_step():
-        if keep is None:
-            return step(batch, gen)
-        with _kept_calls(*keep):
+        with _kept_calls(keep):
             return step(batch, gen)
 
     aux, train_launches = _counted(torch, counted_step, train_expected, f"{label} step")
@@ -1449,10 +1675,11 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     return [train_launches, eval_launches]
 
 
-def run_view(torch, np, dev, conf, card, label, expected):
+def run_view(torch, np, dev, conf, card, label, expected, keep=()):
     """One full 128x128 view of the bf16 model through `render_full`,
     counted, timed warm, profiled, and its first rays against the CPU plain
-    render. Returns the counted run's launches."""
+    render; the counted view keeps the arguments of `keep`'s functions as
+    `run_train` does. Returns the counted run's launches."""
     from pixelnerf_tpu_torch.eval.common import encode_views
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
@@ -1482,8 +1709,12 @@ def run_view(torch, np, dev, conf, card, label, expected):
         enc = encode_views(model, images, poses, focal)
         return enc, render_full(model, enc, rays, rcfg)
 
+    def counted_view():
+        with _kept_calls(keep):
+            return view()
+
     t0 = time.perf_counter()
-    (enc, out), launches = _counted(torch, view, expected, label)
+    (enc, out), launches = _counted(torch, counted_view, expected, label)
     first_s = time.perf_counter() - t0
     for head in ("coarse", "fine"):
         for k, v in out[head].items():
@@ -1545,7 +1776,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--baseline", metavar="DIR",
-        help="an earlier tree of the repository: time its scatter kernels beside the port's",
+        help="an earlier tree of the repository: time its lookup kernels beside the port's",
     )
     args = parser.parse_args()
     import torch
@@ -1572,10 +1803,13 @@ def main() -> int:
     logs = build_libraries(SOURCES)
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
             # C7519: ptxas's note on each wgmma accumulator fence it adds
-            if any(w in line for w in ("Used", "spill", "smem")) and "C7519" not in line:
-                print(f"build: {name}: {line.strip()}")
+            elif any(w in line for w in ("Used", "spill", "smem")) and "C7519" not in line:
+                print(f"build: {name}: {fn}: {line.strip()}")
 
     baseline = None if base_builds is None else _baseline_kernels(torch, base_builds)
 
@@ -1583,24 +1817,30 @@ def main() -> int:
     kernels += check_field_vjp(torch, np, dev) + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
 
-    # the scatters are checked and timed after the counted train step whose
-    # lookups' uv and cotangents they are given again
+    # the lookups are checked and timed after the counted train step (and
+    # the bilerp gather after the counted nearest view) whose uv and
+    # cotangents they are given again
     conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
     nearest = _nearest(conf)
-    step_calls = {"pyramid": [], "bilerp": []}
+    kept = {name: [] for name in ("pyramid_gather", "pyramid_scatter_add", "bilerp_gather",
+                                  "bilerp_scatter_add")}
+    view_calls = []
     runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES)
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
                       cmp_dtypes=tuple(CMP_TOL),
-                      keep=(pyramid, "pyramid_scatter_add", step_calls["pyramid"]))
-    kernels += check_pyramid(torch, np, dev, step_calls.pop("pyramid"), baseline)
+                      keep=[(pyramid, name, kept[name])
+                            for name in ("pyramid_gather", "pyramid_scatter_add")])
+    kernels += check_pyramid(torch, np, dev, kept, baseline)
     torch.cuda.empty_cache()
     runs += run_train(torch, np, dev, conf, card, "fused train", FUSED_TRAIN_LAUNCHES,
                       FUSED_EVAL_LAUNCHES, fusion=True)
-    runs += run_view(torch, np, dev, nearest, card, "nearest slice", NEAREST_VIEW_LAUNCHES)
+    runs += run_view(torch, np, dev, nearest, card, "nearest slice", NEAREST_VIEW_LAUNCHES,
+                     keep=[(scatter, "bilerp_gather", view_calls)])
     runs += run_train(torch, np, dev, nearest, card, "nearest train", NEAREST_TRAIN_LAUNCHES,
                       NEAREST_EVAL_LAUNCHES,
-                      keep=(scatter, "bilerp_scatter_add", step_calls["bilerp"]))
-    kernels += check_bilerp(torch, np, dev, step_calls.pop("bilerp"), baseline)
+                      keep=[(scatter, name, kept[name])
+                            for name in ("bilerp_gather", "bilerp_scatter_add")])
+    kernels += check_bilerp(torch, np, dev, kept, view_calls, baseline)
     if sorted(k["name"] for k in kernels) != sorted(KERNELS):
         raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:

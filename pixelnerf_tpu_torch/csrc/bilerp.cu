@@ -21,10 +21,12 @@
 // far below the ~295 flop/byte ridge. The map (4 MB for 8 views of
 // 64x64x512 bf16) stays in L2.
 //
-// The gather (pyramid.cu's design): one warp per point, its lanes over
-// channel pairs (bf16x2), so a warp's loads of a tap row and its stores
-// are contiguous; the TPU kernels' (TN, P) one-hot matrices on the MXU are
-// gone.
+// The gather runs gather_tile.cuh (pyramid.cu's design): only the nonzero
+// taps, 16-byte lane loads, one point a warp walking a stream of
+// consecutive points with the map's tap rows kept in registers while the
+// tap corner holds; a map whose bf16 block fits shared memory is staged
+// there once a unit. The TPU kernels' (TN, P) one-hot matrices on the MXU
+// are gone.
 //
 // The scatter is held back not by bytes but by its reductions into device
 // memory: one f32 atomic a channel and tap is ~1.5 G atomics a nearest
@@ -34,16 +36,11 @@
 // tap corner does not change; a map whose f32 (hl, wl, slice) block fits a
 // unit's shared memory is accumulated there and flushed once a unit.
 
+#include "gather_tile.cuh"
 #include "scatter_accum.cuh"
 
-#define PTS_PER_BLOCK WARPS
-
-struct BilerpParams {
-  const float* uv;   // (B, N, 2)
-  const bf16* feat;  // (B, hl, wl, C)
-  bf16* out;         // (B, N, C)
-  int n, hl, wl, c;
-};
+#define BIL_LANES 32  // lanes a point: one point a warp
+#define BIL_ROWS 2    // channel groups a lane caches: C <= 512 at V = 8
 
 // the 2x2 taps of a point at normalized (u, v): corner (x0, y0) and
 // weights, zero for a tap past the map's edge
@@ -63,33 +60,15 @@ __device__ __forceinline__ void bilerp_taps(float u, float v, int hl, int wl, in
       w[ty][tx] = (*y0 + ty < hl && *x0 + tx < wl) ? round_bf16(__fmul_rn(ay[ty], ax[tx])) : 0.f;
 }
 
-__global__ void __launch_bounds__(THREADS) bilerp_gather_kernel(BilerpParams p) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
-  if (n >= p.n) return;
-  int x0, y0;
-  float w[2][2];
-  const float* g = p.uv + ((size_t)b * p.n + n) * 2;
-  bilerp_taps(g[0], g[1], p.hl, p.wl, &x0, &y0, w);
-  const bf16* f = p.feat + (size_t)b * p.hl * p.wl * p.c;
-  bf16* out = p.out + ((size_t)b * p.n + n) * p.c;
-  for (int c = 2 * lane; c < p.c; c += 64) {
-    float a0 = 0.f, a1 = 0.f;
+template <int V>
+__global__ void __launch_bounds__(THREADS, GT_MIN_BLOCKS) bilerp_gather_kernel(GatherParams p) {
+  gather_block<1, V, BIL_LANES, BIL_ROWS>(
+      p, [](const GatherMap& m, float u, float v, int* x0, int* y0, float w[3][3]) {
+        float w2[2][2];
+        bilerp_taps(u, v, m.h, m.w, x0, y0, w2);
 #pragma unroll
-    for (int ty = 0; ty < 2; ty++) {
-      if (y0 + ty >= p.hl) continue;
-#pragma unroll
-      for (int tx = 0; tx < 2; tx++) {
-        if (x0 + tx >= p.wl) continue;
-        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            f + ((size_t)(y0 + ty) * p.wl + x0 + tx) * p.c + c));
-        a0 += w[ty][tx] * v.x;
-        a1 += w[ty][tx] * v.y;
-      }
-    }
-    *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(a0, a1);
-  }
+        for (int i = 0; i < 4; i++) w[i / 2][i % 2] = w2[i / 2][i % 2];
+      });
 }
 
 __global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) bilerp_scatter_kernel(ScatterPlan p) {
@@ -101,19 +80,23 @@ __global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) bilerp_scatter_kernel(
 extern "C" {
 
 // Launch on `stream`; each returns cudaGetLastError() (or a refusal).
-int pnt_bilerp_gather(const void* feat, const void* uv, void* out, int b, int n, int hl, int wl,
-                      int c, void* stream) {
-  BilerpParams p = {};
+// `plan`: ops/gather_plan.py's GatherPlan.as_ints for one (hl, wl, c) map,
+// b maps and n points.
+int pnt_bilerp_gather(const int* plan, const void* feat, const void* uv, void* out, int b, int n,
+                      int hl, int wl, int c, void* stream) {
+  GatherParams p = {};
+  const int dims[3] = {hl, wl, c};
+  const void* feats[1] = {feat};
+  int units = 0, smem = 0, vec = 0;
+  int rc = gather_plan(&p, plan, feats, dims, 1, b, n, BIL_LANES, BIL_ROWS, &units, &smem, &vec);
+  if (rc) return rc;
+  p.hf = hl;
+  p.wf = wl;
   p.uv = static_cast<const float*>(uv);
-  p.feat = static_cast<const bf16*>(feat);
   p.out = static_cast<bf16*>(out);
-  p.n = n;
-  p.hl = hl;
-  p.wl = wl;
-  p.c = c;
-  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
-  bilerp_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec == 8 ? gather_launch(bilerp_gather_kernel<8>, p, units, smem, s)
+                  : gather_launch(bilerp_gather_kernel<2>, p, units, smem, s);
 }
 
 // `plan`: ops/scatter_plan.py's ScatterPlan.as_ints for one (hl, wl, c)

@@ -20,10 +20,12 @@
 // channel: far below the ~295 flop/byte ridge. The levels themselves are
 // small (9 MB for 8 views at the flagship) and stay in L2.
 //
-// The gather: one warp per point, its lanes over channel pairs (bf16x2),
-// so a warp's loads of a tap row and its stores are contiguous; the TPU
-// kernels' one-hot matrices on the MXU are gone: each lane reads its <=9
-// taps directly.
+// The gather runs gather_tile.cuh: only the nonzero taps, 16-byte lane
+// loads, two points a warp walking streams of consecutive points with the
+// fine level's tap rows kept in registers while the tap base holds, and the
+// levels whose bf16 block fits shared memory (16x16x128 and 8x8x256 at the
+// flagship) staged there once a unit; the TPU kernels' one-hot matrices on
+// the MXU are gone.
 //
 // The scatter is held back not by bytes but by its reductions into device
 // memory: one f32 atomic a channel and tap is ~1.5 G atomics a train step
@@ -35,55 +37,21 @@
 // reductions of 4 floats, one a lane and tap for each run of consecutive
 // points whose tap base does not change.
 
+#include "gather_tile.cuh"
 #include "scatter_accum.cuh"
 
-#define PTS_PER_BLOCK WARPS
+#define PYR_LANES 16  // lanes a point: two points a warp
+#define PYR_ROWS 1    // the fine level's channel groups a lane caches: C_0 <= 128 at V = 8
 
-// The gather's parameter block. The two `unused` fields keep its size and
-// layout: without them ptxas copies the level arrays, which the gather
-// indexes by a runtime level, to local memory (a 152-byte stack frame in
-// place of 24) and the gather runs slower.
-struct PyrParams {
-  const bf16* feats[MAX_LEVELS];
-  const void* unused_mid[MAX_LEVELS];
-  int lh[MAX_LEVELS], lw[MAX_LEVELS], lc[MAX_LEVELS], lc0[MAX_LEVELS];
-  int nlev, n, csum;
-  const float* uv;  // (B, N, 2)
-  bf16* out;        // (B, N, csum)
-  const void* unused_tail[2];
-};
-
-__global__ void __launch_bounds__(THREADS) pyramid_gather_kernel(PyrParams p) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * PTS_PER_BLOCK + threadIdx.x / 32;
-  if (n >= p.n) return;
-  float fx, fy;
-  fine_coords(p.uv + ((size_t)b * p.n + n) * 2, p.lh[0], p.lw[0], &fx, &fy);
-  bf16* out = p.out + ((size_t)b * p.n + n) * p.csum;
-  for (int l = 0; l < p.nlev; l++) {
-    const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
-    int bx, by;
-    float w[3][3];
-    level_taps(fx, fy, hn, wn, p.lh[0], p.lw[0], &bx, &by, w);
-    const bf16* f = p.feats[l] + (size_t)b * hn * wn * C;
-    for (int c = 2 * lane; c < C; c += 64) {
-      float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-      for (int ty = 0; ty < 3; ty++) {
-        if (by + ty >= hn) continue;
-#pragma unroll
-        for (int tx = 0; tx < 3; tx++) {
-          if (bx + tx >= wn) continue;
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              f + ((size_t)(by + ty) * wn + bx + tx) * C + c));
-          a0 += w[ty][tx] * v.x;
-          a1 += w[ty][tx] * v.y;
-        }
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + p.lc0[l] + c) = __floats2bfloat162_rn(a0, a1);
-    }
-  }
+template <int NLEV, int V>
+__global__ void __launch_bounds__(THREADS, GT_MIN_BLOCKS) pyramid_gather_kernel(GatherParams p) {
+  const int hf = p.hf, wf = p.wf;
+  gather_block<NLEV, V, PYR_LANES, PYR_ROWS>(
+      p, [hf, wf](const GatherMap& m, float u, float v, int* bx, int* by, float w[3][3]) {
+        float fx, fy;
+        fine_coords(u, v, hf, wf, &fx, &fy);
+        level_taps(fx, fy, m.h, m.w, hf, wf, bx, by, w);
+      });
 }
 
 __global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) pyramid_scatter_kernel(ScatterPlan p) {
@@ -96,35 +64,35 @@ __global__ void __launch_bounds__(THREADS, SC_MIN_BLOCKS) pyramid_scatter_kernel
   });
 }
 
-static PyrParams level_params(const int* dims, int nlev, int n) {
-  PyrParams p = {};
-  int c0 = 0;
-  for (int l = 0; l < MAX_LEVELS; l++) {
-    const bool on = l < nlev;
-    p.lh[l] = on ? dims[3 * l] : 0;
-    p.lw[l] = on ? dims[3 * l + 1] : 0;
-    p.lc[l] = on ? dims[3 * l + 2] : 0;
-    p.lc0[l] = c0;
-    c0 += p.lc[l];
+template <int V>
+static int pyramid_gather_launch(const GatherParams& p, int nlev, int units, int smem,
+                                 cudaStream_t stream) {
+  switch (nlev) {
+    case 1: return gather_launch(pyramid_gather_kernel<1, V>, p, units, smem, stream);
+    case 2: return gather_launch(pyramid_gather_kernel<2, V>, p, units, smem, stream);
+    case 3: return gather_launch(pyramid_gather_kernel<3, V>, p, units, smem, stream);
+    default: return gather_launch(pyramid_gather_kernel<4, V>, p, units, smem, stream);
   }
-  p.nlev = nlev;
-  p.n = n;
-  p.csum = c0;
-  return p;
 }
 
 extern "C" {
 
 // Launch on `stream`; each returns cudaGetLastError() (or a refusal).
-int pnt_pyramid_gather(const void* const* feats, const int* dims, int nlev,
+// `plan`: ops/gather_plan.py's GatherPlan.as_ints for these levels, b
+// maps and n points.
+int pnt_pyramid_gather(const void* const* feats, const int* dims, int nlev, const int* plan,
                        const void* uv, void* out, int b, int n, void* stream) {
-  PyrParams p = level_params(dims, nlev, n);
-  for (int l = 0; l < nlev; l++) p.feats[l] = static_cast<const bf16*>(feats[l]);
+  GatherParams p = {};
+  int units = 0, smem = 0, vec = 0;
+  int rc = gather_plan(&p, plan, feats, dims, nlev, b, n, PYR_LANES, PYR_ROWS, &units, &smem, &vec);
+  if (rc) return rc;
+  p.hf = dims[0];
+  p.wf = dims[1];
   p.uv = static_cast<const float*>(uv);
   p.out = static_cast<bf16*>(out);
-  dim3 grid((n + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, b);
-  pyramid_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec == 8 ? pyramid_gather_launch<8>(p, nlev, units, smem, s)
+                  : pyramid_gather_launch<2>(p, nlev, units, smem, s);
 }
 
 // `plan`: ops/scatter_plan.py's ScatterPlan.as_ints for these levels, b

@@ -40,14 +40,20 @@ __device__ __forceinline__ void axis_taps(float cf, int wn, int wf, int* base,
   float irf = fminf(floorf(xr), wn - 1.0f);
   float fl = __fsub_rn(xl, ilf);
   float fr = __fsub_rn(xr, irf);
-  int il = (int)ilf;
-  int d = (int)irf - il;  // 0 or 1: r <= 1
   const float u = __fsub_rn(1.f, t);
-  *base = il;
+  *base = (int)ilf;
   w[0] = __fmul_rn(u, __fsub_rn(1.f, fl));
   w[1] = __fmul_rn(u, fl);
-  w[d] = __fadd_rn(w[d], __fmul_rn(t, __fsub_rn(1.f, fr)));
-  w[d + 1] = __fadd_rn(w[d + 1], __fmul_rn(t, fr));
+  // the right pair lands on taps d, d + 1 with d = irf - ilf, 0 or 1 (r <= 1);
+  // chosen by a branch, not a runtime index, which would put w in local memory
+  const float a = __fmul_rn(t, __fsub_rn(1.f, fr)), c = __fmul_rn(t, fr);
+  if (irf == ilf) {
+    w[0] = __fadd_rn(w[0], a);
+    w[1] = __fadd_rn(w[1], c);
+  } else {
+    w[1] = __fadd_rn(w[1], a);
+    w[2] = __fadd_rn(w[2], c);  // 0 + c: c
+  }
 }
 
 __device__ __forceinline__ float round_bf16(float v) {

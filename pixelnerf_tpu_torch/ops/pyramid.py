@@ -21,9 +21,9 @@ gradient to its level's dtype. The gradient for uv is zero by contract
 
 `pyramid_gather` and `pyramid_scatter_add` launch their kernels on CUDA
 tensors and count each launch (`.launches`); CPU tensors take the plain
-versions `pyramid_gather_plain` and `pyramid_scatter_add_plain`. The
-scatter's units are planned on the host (`ops/scatter_plan.py`);
-`pyramid_scatter_add.plan` holds the last launch's plan.
+versions `pyramid_gather_plain` and `pyramid_scatter_add_plain`. Both
+kernels' units are planned on the host (`ops/gather_plan.py`,
+`ops/scatter_plan.py`); `.plan` holds each one's last launch's plan.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import load_library
+from pixelnerf_tpu_torch.ops.gather_plan import plan_gather
 from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
 
 __all__ = [
@@ -49,6 +50,7 @@ __all__ = [
 
 _MAX_FINE_PIXELS = 8192  # the JAX package's limit for this path
 _MAX_LEVELS = 4
+LANES, ROWS = 16, 1  # csrc/pyramid.cu: PYR_LANES, PYR_ROWS
 
 
 def pyramid_supported(fine_hw: Tuple[int, int]) -> bool:
@@ -164,9 +166,9 @@ def _library() -> ctypes.CDLL:
     lib.pnt_error_string.argtypes = [ctypes.c_int]
     head = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.pnt_pyramid_gather.restype = ctypes.c_int
-    lib.pnt_pyramid_gather.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+    lib.pnt_pyramid_gather.argtypes = head + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_void_p
-    ]
+    ] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.pnt_pyramid_scatter.restype = ctypes.c_int
     lib.pnt_pyramid_scatter.argtypes = head + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_void_p
@@ -211,12 +213,19 @@ def pyramid_gather(feats: Sequence[torch.Tensor], uv: torch.Tensor) -> torch.Ten
     if uv.device.type != "cuda":
         raise ValueError(f"pyramid_gather runs on CUDA or CPU tensors, got {uv.device}")
     _cuda_checks(uv, feats, torch.bfloat16)
-    uv = uv.contiguous()
+    uv = aligned(uv.contiguous(), 8)
     b, n, _ = uv.shape
     out = torch.empty((b, n, sum(f.shape[3] for f in feats)), dtype=torch.bfloat16, device=uv.device)
-    ptrs, dims, nlev = _level_args(feats, [tuple(f.shape[1:]) for f in feats])
+    maps = [tuple(f.shape[1:]) for f in feats]
+    plan = plan_gather(maps, b, n, device_sms(uv.device), LANES, ROWS,
+                       all(f.data_ptr() % 16 == 0 for f in feats))
+    pyramid_gather.plan = plan
+    if plan.units == 0:
+        return out
+    ptrs, dims, nlev = _level_args(feats, maps)
+    ints = plan.as_ints()
     err = _library().pnt_pyramid_gather(
-        ptrs, dims, nlev, uv.data_ptr(), out.data_ptr(), b, n,
+        ptrs, dims, nlev, (ctypes.c_int * len(ints))(*ints), uv.data_ptr(), out.data_ptr(), b, n,
         torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "pyramid_gather")
@@ -225,6 +234,7 @@ def pyramid_gather(feats: Sequence[torch.Tensor], uv: torch.Tensor) -> torch.Ten
 
 
 pyramid_gather.launches = 0
+pyramid_gather.plan = None
 
 
 def pyramid_scatter_add(

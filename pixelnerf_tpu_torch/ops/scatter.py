@@ -22,9 +22,9 @@ float32 one (`_fwd_gather`, `scatter_pallas.py:219-227`), and whose
 backward is the scatter, cast to the map's dtype, with a zero gradient for
 the points (`scatter_pallas.py:250-254`). `bilerp_gather` and
 `bilerp_scatter_add` launch their kernels on CUDA tensors and count each
-launch (`.launches`); CPU tensors take the plain versions. The scatter's
-units are planned on the host (`ops/scatter_plan.py`, shared with the
-pyramid's); `bilerp_scatter_add.plan` holds the last launch's plan.
+launch (`.launches`); CPU tensors take the plain versions. Both kernels'
+units are planned on the host (`ops/gather_plan.py`, `ops/scatter_plan.py`,
+shared with the pyramid's); `.plan` holds each one's last launch's plan.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import functools
 import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import load_library
+from pixelnerf_tpu_torch.ops.gather_plan import plan_gather
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
 from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
 
@@ -48,6 +49,7 @@ __all__ = [
 ]
 
 _MAX_PIXELS = 8192  # the JAX package's limit for this path
+LANES, ROWS = 32, 2  # csrc/bilerp.cu: BIL_LANES, BIL_ROWS
 
 
 def fused_supported(hl: int, wl: int) -> bool:
@@ -107,8 +109,9 @@ def _library() -> ctypes.CDLL:
     lib.pnt_error_string.argtypes = [ctypes.c_int]
     tail = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.pnt_bilerp_gather.restype = lib.pnt_bilerp_scatter.restype = ctypes.c_int
-    lib.pnt_bilerp_gather.argtypes = tail
-    lib.pnt_bilerp_scatter.argtypes = [ctypes.POINTER(ctypes.c_int)] + tail
+    lib.pnt_bilerp_gather.argtypes = lib.pnt_bilerp_scatter.argtypes = [
+        ctypes.POINTER(ctypes.c_int)
+    ] + tail
     return lib
 
 
@@ -142,10 +145,17 @@ def bilerp_gather(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     b, hl, wl, c = feat.shape
     n = uv.shape[1]
     _cuda_checks(uv, feat, c)
+    uv = aligned(uv, 8)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=uv.device)
+    plan = plan_gather([(hl, wl, c)], b, n, device_sms(uv.device), LANES, ROWS,
+                       feat.data_ptr() % 16 == 0)
+    bilerp_gather.plan = plan
+    if plan.units == 0:
+        return out
+    ints = plan.as_ints()
     err = _library().pnt_bilerp_gather(
-        feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, hl, wl, c,
-        torch.cuda.current_stream(uv.device).cuda_stream,
+        (ctypes.c_int * len(ints))(*ints), feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n,
+        hl, wl, c, torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "bilerp_gather")
     bilerp_gather.launches += 1
@@ -153,6 +163,7 @@ def bilerp_gather(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 bilerp_gather.launches = 0
+bilerp_gather.plan = None
 
 
 def bilerp_scatter_add(uv: torch.Tensor, dz: torch.Tensor, hl: int, wl: int) -> torch.Tensor:

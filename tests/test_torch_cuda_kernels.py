@@ -409,6 +409,99 @@ def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n, kind):
     _scatter_close(got, bilerp_scatter_add_plain(uv, dz, hl, wl), kind)
 
 
+def _on_centres(rng, b, n, hw):
+    """Normalized points whose clipped pixel coordinates on an (h, w) grid
+    are whole numbers in float32 (every tap but the first of an axis has a
+    zero weight), a third of them on the last row or column. Not every
+    pixel has such a float32 point near -1: those that do are drawn."""
+    def axis(size, k):
+        x = lambda u: (u + np.float32(1)) * np.float32(0.5) * np.float32(size - 1)
+        idx = np.arange(size)
+        u0 = (2.0 * idx / (size - 1) - 1.0).astype(np.float32)
+        found = np.full(size, np.nan, np.float32)
+        for step in (np.float32(2), np.float32(-2)):
+            u = u0.copy()
+            for _ in range(64):  # float32 neighbours, outwards
+                found = np.where(np.isnan(found) & (x(u) == idx), u, found)
+                u = np.nextafter(u, step)
+        whole = np.flatnonzero(~np.isnan(found))
+        assert whole[-1] == size - 1
+        pick = whole[rng.integers(0, whole.size, k.shape)]
+        pick[k] = size - 1
+        return found[pick]
+    h, w = hw
+    last = np.zeros((b, n), bool)
+    return np.stack([axis(w, last | (np.arange(n) % 3 == 0)), axis(h, last | (np.arange(n) % 3 == 1))], -1)
+
+
+def _gather_uv(rng, kind, b, n, hw):
+    if kind == "centres":
+        return _on_centres(rng, b, n, hw)
+    return _scatter_uv(rng, kind, b, n, hw)
+
+
+def _unaligned(t):
+    """t's values in a view that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[2 : 2 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+# the gathers' design cases (csrc/gather_tile.cuh), each against the plain
+# version within one bf16 ulp plus 1e-6: points on pixel centres and on the
+# last row and column (zero-weight and dropped taps); channel counts that
+# are not multiples of 8 and maps off 16-byte alignment (4-byte lanes); one
+# point and N just past a chunk; a level just too large for shared memory
+# (16x16x136 beside the table and the staged 8x8x256: device memory, where
+# the flagship's 16x16x128 would fit); the 64x128
+# four-level pyramid; ray-coherent runs across streams and chunks, at the
+# flagship's size too. (kind, maps, b, n, uv, unaligned)
+GATHER_CASES = [
+    ("pyramid", FLAG_LEVELS, 2, 3000, "centres", False),
+    ("pyramid", [(64, 64, 128), (8, 8, 256), (16, 16, 136)], 2, 3000, "rays", False),
+    ("pyramid", FLAG_LEVELS, 1, 257, "rays", False),
+    ("pyramid", FLAG_LEVELS, 3, 1, "random", False),
+    ("pyramid", [(16, 16, 6), (8, 8, 10), (4, 4, 130)], 2, 777, "centres", False),
+    ("pyramid", FLAG_LEVELS, 2, 1000, "random", True),
+    ("pyramid", [(64, 128, 16), (32, 64, 16), (16, 32, 32), (8, 16, 64)], 2, 3001, "centres", False),
+    ("pyramid", FLAG_LEVELS, 8, 65536, "rays", False),
+    ("bilerp", [(64, 64, 512)], 2, 3000, "centres", False),
+    ("bilerp", [(64, 64, 512)], 1, 257, "rays", False),
+    ("bilerp", [(64, 64, 130)], 2, 999, "centres", False),
+    ("bilerp", [(8, 8, 512)], 2, 513, "rays", False),
+    ("bilerp", [(64, 64, 512)], 1, 1000, "rays", True),
+    ("bilerp", [(64, 128, 64)], 2, 3001, "centres", False),
+    ("bilerp", [(64, 64, 512)], 8, 65536, "rays", False),
+]
+
+
+@pytest.mark.parametrize("kind,maps,b,n,uvs,unaligned", GATHER_CASES)
+def test_gathers_match_plain(cuda, kind, maps, b, n, uvs, unaligned):
+    rng = np.random.default_rng(b + n + len(maps))
+    feats = [torch.from_numpy(rng.normal(size=(b,) + m).astype(np.float32)).to(cuda, torch.bfloat16)
+             for m in maps]
+    if unaligned:
+        feats = [_unaligned(f) for f in feats]
+    uv = torch.from_numpy(np.asarray(_gather_uv(rng, uvs, b, n, maps[0][:2]), np.float32)).to(cuda)
+    fn, plain = (pyramid_gather, pyramid_gather_plain) if kind == "pyramid" else (
+        bilerp_gather, bilerp_gather_plain)
+    args = (feats, uv) if kind == "pyramid" else (feats[0], uv)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    assert got.shape == want.shape == (b, n, sum(c for _, _, c in maps))
+    assert got.dtype == torch.bfloat16
+    assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-6).all()
+    plan = fn.plan
+    assert plan.vec == (2 if unaligned or any(c % 8 for _, _, c in maps) else 8)
+    if maps[-1] == (16, 16, 136):
+        assert plan.soff[1] >= 0 and plan.soff[2] == -1
+
+
 @pytest.mark.parametrize("offset", [1, 2])
 def test_scatters_take_cotangents_off_vector_alignment(cuda, offset):
     """Cotangents that start 2 or 4 bytes past an 8-byte boundary (views

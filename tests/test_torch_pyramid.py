@@ -75,12 +75,18 @@ def _close_ulp(got, want):
     assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6)
 
 
-# b = SB * NS maps: NS = 1, 2 and 3 source views
-@pytest.mark.parametrize("b,n", [(2, 37), (4, 130), (3, 515)])
+# b = SB * NS maps: NS = 1, 2 and 3 source views; then ray-coherent points
+# (runs of samples along rays, about half a fine pixel apart, as a train
+# step's lookups see them)
+@pytest.mark.parametrize("b,n,rays", [
+    pytest.param(2, 37, False, id="2-37"), pytest.param(4, 130, False, id="4-130"),
+    pytest.param(3, 515, False, id="3-515"), pytest.param(2, 515, True, id="2-515-rays"),
+])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_gather_matches_pallas(b, n, dtype):
-    rng = np.random.default_rng(b * 1000 + n)
-    feats, uv = _feats(rng, b), _uv(rng, b, n)
+def test_gather_matches_pallas(b, n, rays, dtype):
+    rng = np.random.default_rng(b * 1000 + n + rays)
+    feats = _feats(rng, b)
+    uv = ray_uv(rng, b, n, 1.0 / 15) if rays else _uv(rng, b, n)
     want = np.asarray(
         j_gather([_j(f, getattr(jnp, dtype)) for f in feats], jnp.asarray(uv), interpret=True)
         .astype(jnp.float32)

@@ -42,6 +42,9 @@ from pixelnerf_tpu_torch.ops.scatter import (
     grid_sample_border_train,
 )
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT
+from pixelnerf_tpu_torch.ops.gather_plan import (
+    BLOCKS_PER_SM, STAGE_BYTES, count_tap_bytes, plan_gather, table_bytes,
+)
 from pixelnerf_tpu_torch.ops.scatter_plan import (
     RUN, SLICE_MAX, SLICE_MIN, STAGE, THREADS, WARPS, count_reductions, plan_scatter,
 )
@@ -69,11 +72,16 @@ def _bound(uv, g, hl, wl):
     return BF16_ULP * mag.numpy() + 1e-6
 
 
-@pytest.mark.parametrize("b,hl,wl,c,n", [(2, 5, 7, 8, 33), (3, 8, 8, 16, 515)])
-def test_gather_matches_pallas(b, hl, wl, c, n):
-    rng = np.random.default_rng(b * 100 + n)
+# random points with the corners and far edges; then ray-coherent ones
+@pytest.mark.parametrize("b,hl,wl,c,n,rays", [
+    pytest.param(2, 5, 7, 8, 33, False, id="2-5-7-8-33"),
+    pytest.param(3, 8, 8, 16, 515, False, id="3-8-8-16-515"),
+    pytest.param(2, 8, 8, 16, 515, True, id="2-8-8-16-515-rays"),
+])
+def test_gather_matches_pallas(b, hl, wl, c, n, rays):
+    rng = np.random.default_rng(b * 100 + n + rays)
     feat = rng.normal(size=(b, hl, wl, c)).astype(np.float32)
-    uv = _uv(rng, b, n)
+    uv = ray_uv(rng, b, n, 1.0 / 7) if rays else _uv(rng, b, n)
     want = np.asarray(
         j_gather(jnp.asarray(feat, jnp.bfloat16), jnp.asarray(uv), interpret=True).astype(jnp.float32)
     )
@@ -305,3 +313,104 @@ def test_count_reductions_at_one_point(maps, n):
     else:
         assert got["flush"] == got["shared"] == 0
         assert got["vector"] == nb * -(-n // RUN) * taps * lanes
+
+
+def _brute_tap_bytes(plan, maps, taps):
+    """count_tap_bytes as the kernels walk their points: each unit's streams
+    in order, map 0's cache holding the rows it loaded while the tap base
+    holds."""
+    out = dict(window=0, nonzero=0, shared=0, device=0, staged=0)
+    for i, ((h, w, c), (idx, wt)) in enumerate(zip(maps, taps)):
+        idx, wt = idx.numpy(), wt.numpy()
+        b, n, t = wt.shape
+        nz = int((wt != 0).sum()) * 2 * c
+        out["window"] += b * n * t * 2 * c
+        out["nonzero"] += nz
+        if plan.soff[i] >= 0:
+            out["shared"] += nz
+            out["staged"] += plan.units * h * w * 2 * c
+        elif i > 0 or not plan.cached:
+            out["device"] += nz
+        else:
+            for bb in range(b):
+                for p0 in range(0, n, plan.chunk):
+                    p1 = min(n, p0 + plan.chunk)
+                    slen = -(-(p1 - p0) // plan.streams)
+                    for s in range(plan.streams):
+                        key, have = -1, set()
+                        for q in range(p0 + s * slen, min(p1, p0 + (s + 1) * slen)):
+                            if idx[bb, q, 0] != key:
+                                key, have = idx[bb, q, 0], set()
+                            for k in range(t):
+                                if wt[bb, q, k] != 0 and k not in have:
+                                    have.add(k)
+                                    out["device"] += 2 * c
+    return out
+
+
+# the pyramid's lookup (16 lanes a point, map 0 cached when not staged) and
+# the bilerp map's (32 lanes), on random and ray-coherent points; few SMs,
+# so that the units are long and the streams cross tap bases
+TAP_CASES = [
+    ("pyramid", [(32, 32, 8), (8, 8, 8), (4, 4, 16)], 2, 700, "rays", 4),
+    ("pyramid", [(32, 32, 8), (8, 8, 8), (4, 4, 16)], 3, 515, "random", 4),
+    ("pyramid", [(16, 16, 8), (5, 5, 8), (4, 4, 16)], 2, 600, "rays", 1),
+    ("pyramid", [(32, 32, 130), (8, 8, 6)], 1, 333, "rays", 2),
+    ("bilerp", [(24, 24, 16)], 2, 1000, "rays", 2),
+    ("bilerp", [(9, 7, 8)], 3, 257, "random", 1),
+]
+
+
+@pytest.mark.parametrize("kind,maps,b,n,uvs,sms", TAP_CASES)
+def test_count_tap_bytes_matches_the_kernels_walk(kind, maps, b, n, uvs, sms):
+    from pixelnerf_tpu_torch.ops.pyramid import _level_taps
+
+    rng = np.random.default_rng(n + b)
+    hf, wf = maps[0][:2]
+    uv = torch.from_numpy(
+        ray_uv(rng, b, n, 0.4 / wf) if uvs == "rays"
+        else rng.uniform(-1.2, 1.2, size=(b, n, 2)).astype(np.float32)
+    )
+    lanes, rows = (16, 1) if kind == "pyramid" else (32, 2)
+    plan = plan_gather(maps, b, n, sms, lanes, rows, True)
+    if kind == "pyramid":
+        taps = [_level_taps(uv, h, w, hf, wf, torch.bfloat16) for h, w, _ in maps]
+    else:
+        taps = [_taps(uv, hf, wf)]
+    got = count_tap_bytes(plan, maps, taps)
+    assert got == _brute_tap_bytes(plan, maps, taps)
+    assert got["nonzero"] == got["shared"] + sum(
+        int((t[1] != 0).sum()) * 2 * c for i, (t, (_, _, c)) in enumerate(zip(taps, maps))
+        if plan.soff[i] < 0
+    )
+    assert got["device"] <= got["nonzero"] - got["shared"] < got["window"]
+
+
+def test_gather_plan_stages_the_flagship_small_levels():
+    """srn.conf's 16x16x128 and 8x8x256 levels go to shared memory, the
+    fine level to the register cache; a map just past the budget, a call of
+    fewer points than a map's pixels, and the composed 64x64x512 map stay
+    in device memory."""
+    levels = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
+    plan = plan_gather(levels, 8, 65536, 132, 16, 1, True)
+    table = table_bytes(3)  # 15 words a thread
+    assert table == 15 * 4 * 256
+    assert plan.soff == (-1, table + 32768, table)
+    assert plan.smem_bytes == table + 98304 <= STAGE_BYTES
+    assert plan.cached and plan.vec == 8 and plan.units == 8 * plan.nchunks
+    assert plan.chunk * plan.nchunks >= 65536 and plan.units <= BLOCKS_PER_SM * 132
+    # 16 x 16 x c bf16 beside two maps' table: c = 200 fits the budget, 208 not
+    fits = plan_gather([(64, 64, 128), (16, 16, 200)], 8, 65536, 132, 16, 1, True)
+    assert fits.soff == (-1, table_bytes(2)) and fits.smem_bytes <= STAGE_BYTES
+    assert plan_gather([(64, 64, 128), (16, 16, 208)], 8, 65536, 132, 16, 1, True).soff == (-1, -1)
+    one = plan_gather(levels, 3, 1, 132, 16, 1, True)
+    assert one.soff == (-1, -1, -1) and one.smem_bytes == table and (one.chunk, one.units) == (1, 3)
+    few = plan_gather(levels, 2, 200, 132, 16, 1, True)  # fewer points than 16x16 pixels
+    assert few.soff == (-1, -1, table)
+    odd = plan_gather([(64, 64, 130), (16, 16, 10), (8, 8, 6)], 2, 999, 132, 16, 1, True)
+    assert odd.vec == 2 and not odd.cached  # 130 channels: 8 groups of 2 a lane
+    (soff,) = plan_gather([(64, 64, 512)], 8, 65536, 132, 32, 2, True).soff
+    bil = plan_gather([(64, 64, 512)], 8, 65536, 132, 32, 2, True)
+    assert soff == -1 and bil.cached and bil.vec == 8
+    assert not plan_gather([(64, 64, 512)], 8, 65536, 132, 32, 2, False).cached  # 4-byte loads
+    assert plan_gather([(8, 8, 512)], 1, 513, 132, 32, 2, True).soff == (table_bytes(1),)
