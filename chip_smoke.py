@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                  (from the repository root)
-    python3 chip_smoke.py --baseline DIR   (also time the gather and scatter
-                                            kernels of an earlier tree of the
+    python3 chip_smoke.py --baseline DIR   (also time the lookup kernels,
+                                            posenc and the field's backward
+                                            of an earlier tree of the
                                             repository)
 
 Phases, each failing loudly (an exception and a non-zero exit):
@@ -12,24 +13,35 @@ Phases, each failing loudly (an exception and a non-zero exit):
 2. build the package's CUDA sources (`csrc/*.cu`), one nvcc each, at once;
 3. hold each of the eleven hand-written kernels against its plain PyTorch
    version on the card at the shapes its path gives it, and time both with
-   CUDA events: posenc and the field at the render's two chunk shapes
-   (coarse, fine); the pyramid gather and scatter and the ResnetFC
-   forward, forward with stash and backward at the train step's shapes
-   (bench.py's: 4 objects x 1024 rays, 2 source views, 64 coarse + 32
-   fine samples); the field's stash forward and backward at the fused
-   train step's (64 coarse and all 96 fine samples a ray through the
-   field); the bilerp gather and scatter at the nearest-upsampling step's
-   (8 composed 64x64x512 maps, 65,536 and 32,768 points a map); every
-   gradient of the backwards and of the scatters included. The two
-   gathers and the two scatters run after the train step of their path
-   (phases 5 and 7): on random uv as before, then again on the uv (and
-   cotangents) that the step's counted run handed them (`step_uv_ms`),
-   the bilerp gather also on the maps and uv of the counted nearest view
-   (`view_uv_ms`, with its bound `view_uv_bound_ms`); each gather call
-   with its unit plan and the tap-row bytes it reads, each scatter call
-   with its unit plan and the reductions into device memory it makes,
-   both counted from the plan and the taps; with `--baseline`, the
-   earlier tree's kernels timed beside them on each, in turns;
+   CUDA events: the field at the render's two chunk shapes (coarse, fine);
+   the ResnetFC forward, forward with stash and backward at the train
+   step's shapes (bench.py's: 4 objects x 1024 rays, 2 source views, 64
+   coarse + 32 fine samples); every gradient of the backwards included.
+   posenc, the lookups and the field's VJP run after the path that hands
+   them their arguments: posenc after the counted view of phase 4 (at the
+   render's two chunk shapes on random points, then on the points and
+   directions the view handed it, `view_ms`, with the count of entries
+   that differ from the plain version); the pyramid gather and scatter
+   after phase 5, the field's stash forward and backward after phase 6 (at
+   the fused train step's shapes: 64 coarse and all 96 fine samples a ray
+   through the field), the bilerp gather and scatter after phase 7 (8
+   composed 64x64x512 maps, 65,536 and 32,768 points a map): on random
+   uv or a random grid as before, then again on the uv (and cotangents)
+   that the step's counted run handed them (`step_uv_ms`), the bilerp
+   gather also on the maps and uv of the counted nearest view
+   (`view_uv_ms`, with its bound `view_uv_bound_ms`); each gather call with
+   its unit plan and the tap-row bytes it reads, each scatter call with its
+   unit plan and the reductions into device memory it makes, both counted
+   from the plan and the taps. The field's backward also has its level
+   scatter measured on its own, on the random grid and on the grid and
+   output cotangent the counted fused step handed it: the chain kernel
+   with the level scatter (1) and without levels, writing dz (2), whose
+   difference is the scatter's share, and (3) 2 followed by
+   `pyramid_scatter_add` of that dz, the split design, with the level
+   gradients of both held to the float32 sum's bound against a float64
+   scatter of the chain's own bf16 cotangent, and the reductions into
+   device memory each design makes. With `--baseline`, the earlier tree's
+   kernels are timed beside them on each, in turns;
 4. the serving slice: the flagship srn.conf model in bf16 with seeded
    random weights (non-zero fc_1) encodes two synthetic 128x128 views and
    renders one full 128x128 target view through `render_full`; launch
@@ -96,6 +108,14 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# instructions one precise sinf issues on its fast path (|x| < 105615, every
+# argument here), counted in `cuobjdump -sass` of csrc/posenc.cu's kernel as
+# ops/cuda_build.py builds it for sm_90a: 10 for the Cody-Waite reduction
+# and its range branch, 16 for the polynomial and the quadrant's selects.
+# The FP32 pipe issues one a lane and clock, half the published f32 rate
+# (which counts an FMA as two operations).
+SIN_INSTRUCTIONS = 26
+PEAK_F32_ISSUE = PEAK_F32_FLOPS / 2
 
 POSENC_TOL = 2.0 ** -6  # one bf16 ulp at the largest |value| (< 4)
 FIELD_ATOL, FIELD_RTOL = 3e-2, 3e-2  # bf16 operands, f32 sums in other orders
@@ -467,36 +487,76 @@ def _random_weights(torch, g, dev, d_latent):
     )
 
 
-def check_posenc(torch, dev):
+def check_posenc(torch, dev, view_calls=(), baseline=None):
+    """posenc at the render's two chunk shapes (random points), then on the
+    base points and view directions that the counted view handed it
+    (`view_calls`, `view_ms`): every entry against the plain version (the
+    count of entries that differ is printed), the kernel timed with CUDA
+    events over back-to-back launches (with `baseline`, beside the earlier
+    tree's posenc in turns)."""
     from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
 
+    def one(label, base, vd, nf, ff, acc):
+        m = base.shape[0]
+        got = posenc_concat(base, vd, nf, ff)
+        torch.cuda.synchronize()
+        want = posenc_concat_plain(base, vd, nf, ff)
+        err = (got.float() - want.float()).abs().max().item()
+        differ = int((got != want).sum())
+        print(f"posenc {label}: M={m} max_abs_err={err:.3e} (tolerance {POSENC_TOL:.3e}), "
+              f"{differ} of {got.numel()} entries differ from the plain version")
+        if not err <= POSENC_TOL:
+            raise AssertionError(f"posenc kernel disagrees with its plain version: {err}")
+        del got, want
+        run = lambda: posenc_concat(base, vd, nf, ff)
+        if baseline is None:
+            ms, base_ms = _device_ms(torch, run, 100), None
+        else:
+            old = lambda: baseline["posenc_concat"](base, vd, nf, ff)
+            b0, k0, k1, b1 = (_device_ms(torch, f, 100) for f in (old, run, run, old))
+            ms, base_ms = (k0 + k1) / 2, (b0 + b1) / 2
+        # bytes: base and viewdirs read, the bf16 rows written; operations:
+        # the precise sines' instructions at the FP32 pipe's issue rate
+        nbytes = m * (3 * 4 + 3 * 4) + m * (6 * nf + 6) * 2
+        bound_ms, bound_by = _bound(m * 6 * nf * SIN_INSTRUCTIONS, PEAK_F32_ISSUE, nbytes)
+        print(f"posenc {label}: kernel {ms:.4f} ms" + ("" if base_ms is None else f", baseline {base_ms:.4f} ms")
+              + f", bound {bound_ms:.4f} ms ({bound_by}; bytes {nbytes / PEAK_BYTES * 1e3:.4f} ms, sines "
+              f"{m * 6 * nf * SIN_INSTRUCTIONS / PEAK_F32_ISSUE * 1e3:.4f} ms)")
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["differ"] = acc.get("differ", 0) + differ
+        acc["ms"] += ms
+        acc["base_ms"] = None if base_ms is None else (acc["base_ms"] or 0.0) + base_ms
+        acc["bound_ms"] += bound_ms
+        return bound_by
+
     g = torch.Generator(device=dev).manual_seed(1)
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    res = dict(max_abs_err=0.0, ms=0.0, base_ms=None, plain_ms=0.0, bound_ms=0.0)
     for chunk, k in CHUNK_SAMPLES.items():
         m = NS * CHUNK_RAYS * k
         base = torch.randn((m, 3), generator=g, device=dev) * 0.5
         vd = torch.nn.functional.normalize(torch.randn((m, 3), generator=g, device=dev), dim=-1)
-        got = posenc_concat(base, vd, 6, 1.5)
-        torch.cuda.synchronize()
-        want = posenc_concat_plain(base, vd, 6, 1.5)
-        err = (got.float() - want.float()).abs().max().item()
-        print(f"posenc {chunk}: M={m} max_abs_err={err:.3e} (tolerance {POSENC_TOL:.3e})")
-        if not err <= POSENC_TOL:
-            raise AssertionError(f"posenc kernel disagrees with its plain version: {err}")
-        ms = _time_ms(torch, lambda: posenc_concat(base, vd, 6, 1.5), 5, 100)
-        plain_ms = _time_ms(torch, lambda: posenc_concat_plain(base, vd, 6, 1.5), 3, 20)
-        nbytes = m * (3 * 4 + 3 * 4) + m * 42 * 2
-        bound_ms, bound_by = _bound(m * 36 * 2.0, PEAK_F32_FLOPS, nbytes)
-        print(
-            f"posenc {chunk}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})"
-        )
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        res["ms"] += ms
-        res["plain_ms"] += plain_ms
-        res["bound_ms"] += bound_ms
+        bound_by = one(chunk, base, vd, 6, 1.5, res)
+        res["plain_ms"] += _time_ms(torch, lambda: posenc_concat_plain(base, vd, 6, 1.5), 3, 20)
+    view = dict(max_abs_err=0.0, ms=0.0, base_ms=None, bound_ms=0.0)
+    for i, call in enumerate(view_calls):
+        if call["out_dtype"] != torch.bfloat16:
+            raise AssertionError(f"the view's posenc call {i} writes {call['out_dtype']}")
+        one(f"view call {i}", call["base"].to(dev), call["viewdirs"].to(dev), call["num_freqs"],
+            call["freq_factor"], view)
+    res["max_abs_err"] = max(res["max_abs_err"], view["max_abs_err"])
+    res["differ"] = res.get("differ", 0) + view.get("differ", 0)
+    res.update(view_ms=view["ms"] if view_calls else None, view_base_ms=view["base_ms"],
+               view_bound_ms=view["bound_ms"] if view_calls else None)
+    print(
+        f"posenc_concat: kernel {res['ms']:.4f} ms"
+        + ("" if res["base_ms"] is None else f", baseline {res['base_ms']:.4f} ms")
+        + f", plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({bound_by}), per view; on the "
+        f"counted view's inputs {res['view_ms'] or 0:.4f} ms"
+        + ("" if view["base_ms"] is None else f", baseline {view['base_ms']:.4f} ms")
+        + f"; {res['differ']} entries differ from the plain version in all"
+    )
     return dict(
-        name="posenc_concat", route="triton", source="pixelnerf_tpu_torch/ops/posenc.py",
+        name="posenc_concat", route="cuda", source="pixelnerf_tpu_torch/csrc/posenc.cu",
         replaces="pixelnerf_tpu/ops/posenc_pallas.py:62", **res, bound_by=bound_by,
         library_ms=None,
     )
@@ -579,19 +639,108 @@ def check_field(torch, np, dev):
     )
 
 
-def check_field_vjp(torch, np, dev):
+def _sum_bound_check(torch, name, got, uv, dz, taps):
+    """Level gradients (float32) against the float64 scatter of the bf16
+    cotangent `dz` (B, N, sum C) through `taps`, element by element within
+    the bound of a float32 sum in any order (ops/scatter_plan.py:
+    scatter_reference); returns the largest error over its bound."""
+    from pixelnerf_tpu_torch.ops.scatter_plan import scatter_reference
+
+    worst, c0 = 0.0, 0
+    for i, (grad, (idx, wt)) in enumerate(zip(got, taps)):
+        b, h, w, c = grad.shape
+        want, bound = scatter_reference(idx, wt, dz[..., c0:c0 + c], h * w)
+        c0 += c
+        d = (grad.double().reshape(b, h * w, c) - want).abs()
+        if not bool((d <= bound).all()):
+            k = int((d - bound).argmax())
+            raise AssertionError(
+                f"{name} level {i}: {int((d > bound).sum())} elements beyond the float32 sum's bound, "
+                f"worst {d.flatten()[k].item():.3e} against {bound.flatten()[k].item():.3e}")
+        worst = max(worst, (d / bound.clamp_min(1e-300)).max().item())
+        del want, bound, d
+    return worst
+
+
+def _on_library(lib, fn):
+    """fn() with ops/resnetfc.py's built `resnetfc_bwd` replaced by `lib`
+    (an earlier tree's, `--baseline`)."""
+    from pixelnerf_tpu_torch.ops import resnetfc
+
+    real = resnetfc._library
+    resnetfc._library = lambda name: lib if name == "resnetfc_bwd" else real(name)
+    try:
+        return fn()
+    finally:
+        resnetfc._library = real
+
+
+def check_field_vjp(torch, np, dev, step_calls=(), baseline=None):
     """The field's stash forward and backward at the fused train step's two
     field calls (the coarse pass, and the fine pass's 96 samples a ray),
     against their plain versions: the output, the z-stash, and every
-    gradient from the kernel's own stash."""
+    gradient from the kernel's own stash. Then the backward's level scatter
+    at each call on its own, on the random grid and on the grid and output
+    cotangent that the counted fused train step handed the backward
+    (`step_calls`): the level gradients against the float64 scatter of the
+    chain's own bf16 cotangent within the float32 sum's bound, and three
+    yardsticks, each the chain kernel's device time: (1) the chain with the
+    level scatter, (2) the chain without levels (writing dz), (3) 2 and
+    then `pyramid_scatter_add` of that dz (the split design), with the
+    reductions into device memory each design makes; with `baseline`, an
+    earlier tree's backward timed beside it in turns and its 1 and 2."""
     from pixelnerf_tpu_torch.ops.field import (
-        FieldWeights, field_bwd_plain, field_flops, field_plain, pyramid_field_fused_bwd,
-        pyramid_field_fused_fwd_stash,
+        FieldWeights, field_bwd_plain, field_flops, field_plain, level_scatter_plan,
+        pyramid_field_fused_bwd, pyramid_field_fused_fwd_stash,
     )
+    from pixelnerf_tpu_torch.ops.pyramid import _level_taps, pyramid_scatter_add
     from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd, resnetfc_wgrad_plain
+    from pixelnerf_tpu_torch.ops.scatter_plan import count_reductions
 
     g = torch.Generator(device=dev).manual_seed(9)
     ns, dl = TRAIN_NS, sum(c for _, _, c in LEVELS)
+    csizes, hws = [c for *_, c in LEVELS], [(h, ww) for h, ww, _ in LEVELS]
+    base_lib = None if baseline is None else baseline["resnetfc_bwd"]
+
+    def level_scatter(label, grid, gout, xin, zs, spre, spost, acc):
+        b = grid.shape[2]
+        fused = lambda: launch_bwd(zs, xin, gout, spre, spost, w, *args, levels=LEVELS, grid=grid)
+        nolev = lambda: launch_bwd(zs, xin, gout, spre, spost, w, *args)
+        dz = nolev()[0]
+        got = fused()[0]
+        torch.cuda.synchronize()
+        uv, dzf = grid.reshape(SB * ns, b, 2), dz.reshape(SB * ns, b, dl)
+        scatter = lambda: pyramid_scatter_add(uv, dzf, csizes, hws, hws[0])
+        split = scatter()
+        taps = [_level_taps(uv, h, ww, *hws[0], torch.bfloat16) for h, ww in hws]
+        err = _sum_bound_check(torch, f"the chain's level scatter ({label})", got, uv, dzf, taps)
+        split_err = _sum_bound_check(torch, f"the split's scatter ({label})", split, uv, dzf, taps)
+        red = count_reductions(level_scatter_plan(LEVELS, SB * ns, ns, b), LEVELS, taps)
+        split_red = count_reductions(pyramid_scatter_add.plan, LEVELS, taps)
+        del got, split, taps
+        y = {"1": _bwd_split(torch, fused)["chain"][0], "2": _bwd_split(torch, nolev)["chain"][0]}
+        y["scatter"] = _time_ms(torch, scatter, 3, 20)
+        y["3"] = y["2"] + y["scatter"]
+        if base_lib is not None:
+            y["base 1"] = _on_library(base_lib, lambda: _bwd_split(torch, fused)["chain"][0])
+            y["base 2"] = _on_library(base_lib, lambda: _bwd_split(torch, nolev)["chain"][0])
+        print(
+            f"level scatter {label}: B={b}; chain with levels (1) {y['1']:.3f} ms, without (2) "
+            f"{y['2']:.3f} ms, share (1 - 2) {y['1'] - y['2']:.3f} ms; split (3) = 2 + pyramid_scatter_add "
+            f"{y['scatter']:.3f} ms = {y['3']:.3f} ms"
+            + ("" if base_lib is None else f"; baseline (1) {y['base 1']:.3f} (2) {y['base 2']:.3f} ms, "
+               f"share {y['base 1'] - y['base 2']:.3f} ms")
+            + f"; level gradients within {err:.3f} (chain) and {split_err:.3f} (split) of the float32 sum's "
+            f"bound; reductions into device memory: one a channel and tap {red['scalar']}, the chain's "
+            f"epilogue {red['vector']} vector, the split {split_red['vector']} vector + {split_red['flush']} "
+            f"flush"
+        )
+        for k, v in y.items():
+            acc[k] = acc.get(k, 0.0) + v
+        acc["err"] = max(acc.get("err", 0.0), err, split_err)
+        _add_red(acc.setdefault("red", {}), {"scalar": red["scalar"], "epilogue": red["vector"],
+                                             "split": split_red["vector"] + split_red["flush"]})
+        del dz, dzf
     w = _random_weights(torch, g, dev, dl)
     feats = [torch.randn((SB * ns, h, ww, c), generator=g, device=dev).to(torch.bfloat16) for h, ww, c in LEVELS]
     feat_bytes = sum(f.numel() * 2 for f in feats)
@@ -600,6 +749,7 @@ def check_field_vjp(torch, np, dev):
     fwd, bwd = ({k: 0.0 for k in keys} for _ in range(2))
     fwd["products_ms"], fwd_flops = 0.0, 0.0
     split = {"chain": [0.0, 0], "wgrad": [0.0, 0]}
+    rnd, step = {}, {}  # the level scatter's yardsticks a step: random grid, the step's grid
     chain_bytes = wgrad_bytes = 0.0
     products = [0.0, 0.0]
     plans = {}
@@ -681,8 +831,44 @@ def check_field_vjp(torch, np, dev):
         wgrad_bytes += stash_bytes + xin.numel() * 2 + cot_bytes + sum(t.numel() * 4 for t in w)
         pm = _bwd_products_ms(torch, dev, g, SB, ns, b, D_IN_PAD, dl)
         products = [products[0] + pm[0], products[1] + pm[1]]
+        if base_lib is not None:
+            run = lambda: pyramid_field_fused_bwd(grid, xin, gout, zs, spre, spost, w, *args, LEVELS)
+            b0, k0, k1, b1 = (_time_ms(torch, f, 1, 3) for f in (
+                lambda: _on_library(base_lib, run), run, run, lambda: _on_library(base_lib, run)))
+            bwd["base_ms"] = (bwd.get("base_ms") or 0.0) + (b0 + b1) / 2
+            print(f"pyramid_field_fused_bwd {call}: kernel {(k0 + k1) / 2:.3f} ms, baseline "
+                  f"{(b0 + b1) / 2:.3f} ms (in turns)")
+        level_scatter(f"random grid {call}", grid, gout, xin, zs, spre, spost, rnd)
         del grid, xin, gout, zs, spre, spost
         torch.cuda.empty_cache()
+    # the grid and output cotangent of the counted fused step's field calls
+    # (their backward runs the fine call first); the stash from the kernel's
+    # forward on that grid
+    for i, call in enumerate(step_calls):
+        grid, gout = call["grid"].to(dev), call["g"].to(dev)
+        b = grid.shape[2]
+        xin = torch.randn((SB, ns, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+        _, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+        level_scatter(f"step grid call {i}", grid, gout, xin, zs, spre, spost, step)
+        del grid, gout, xin, zs, spre, spost
+        torch.cuda.empty_cache()
+    for where, acc in (("random grid", rnd), ("the counted fused step's grid", step)):
+        if not acc:
+            continue
+        red = acc["red"]
+        print(
+            f"level scatter on {where}, per fused train step: share (1 - 2) {acc['1'] - acc['2']:.3f} ms "
+            f"(chain with levels {acc['1']:.3f}, without {acc['2']:.3f})"
+            + ("" if base_lib is None else f", baseline share {acc['base 1'] - acc['base 2']:.3f} ms "
+               f"(chain with levels {acc['base 1']:.3f}, without {acc['base 2']:.3f})")
+            + f"; the split design (3) {acc['3']:.3f} ms against the chain with levels {acc['1']:.3f} "
+            f"(pyramid_scatter_add {acc['scatter']:.3f}); reductions into device memory: one a channel "
+            f"and tap {red['scalar']}, the chain's epilogue {red['epilogue']}, the split {red['split']}"
+        )
+    bwd["level_scatter"] = {
+        key: {k: v for k, v in acc.items() if k != "red"} | {"reductions": acc["red"]}
+        for key, acc in (("random", rnd), ("step", step)) if acc
+    }
     _chain_line("pyramid_field_fused_fwd_stash", fwd_flops, fwd["ms"], fwd["products_ms"], ns,
                 sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1)), "a fused train step")
     for name, r in (("pyramid_field_fused_fwd_stash", fwd), ("pyramid_field_fused_bwd", bwd)):
@@ -703,14 +889,15 @@ def check_field_vjp(torch, np, dev):
 
 def _kept_calls(keep):
     """A context in which each `module.name` of `keep` ((module, name, list)
-    triples) is wrapped so that each call's arguments are appended to its
-    list, their tensors copied to the host (so that they add nothing to the
-    device's peak memory); the wrapped function runs as before and counts
-    its own launches."""
+    triples, or (module, name, list, argument names) to keep only those) is
+    wrapped so that each call's arguments are appended to its list, their
+    tensors copied to the host (so that they add nothing to the device's
+    peak memory); the wrapped function runs as before and counts its own
+    launches."""
     import contextlib
     import inspect
 
-    def wrap(real, calls):
+    def wrap(real, calls, names):
         sig = inspect.signature(real)
 
         def keep_call(*args, **kwargs):
@@ -718,7 +905,7 @@ def _kept_calls(keep):
             host = lambda v: v.cpu() if hasattr(v, "cpu") else v
             calls.append({  # a sequence of levels: each level copied
                 k: tuple(map(host, v)) if isinstance(v, (tuple, list)) else host(v)
-                for k, v in bound.arguments.items()
+                for k, v in bound.arguments.items() if names is None or k in names
             })
             return real(*args, **kwargs)
 
@@ -730,9 +917,9 @@ def _kept_calls(keep):
 
     @contextlib.contextmanager
     def patched():
-        reals = [(module, name, getattr(module, name)) for module, name, _ in keep]
-        for (module, name, real), (_, _, calls) in zip(reals, keep):
-            setattr(module, name, wrap(real, calls))
+        reals = [(module, name, getattr(module, name)) for module, name, *_ in keep]
+        for (module, name, real), (_, _, calls, *names) in zip(reals, keep):
+            setattr(module, name, wrap(real, calls, names[0] if names else None))
         try:
             yield
         finally:
@@ -742,14 +929,14 @@ def _kept_calls(keep):
     return patched()
 
 
-BASELINE_SOURCES = ("pyramid", "bilerp")
+BASELINE_SOURCES = ("pyramid", "bilerp", "resnetfc_bwd", "posenc")
 
 
 def _baseline_build(path):
-    """Start building an earlier tree's lookup kernels (`--baseline`):
-    `csrc/pyramid.cu` and `csrc/bilerp.cu` under `path`, one nvcc each,
-    into build/baseline; returns the running builds and each source's
-    text."""
+    """Start building an earlier tree's kernels (`--baseline`): its
+    `csrc/pyramid.cu`, `csrc/bilerp.cu`, `csrc/resnetfc_bwd.cu` and, where
+    it has one, `csrc/posenc.cu`, under `path`, one nvcc each, into
+    build/baseline; returns the running builds and each source's text."""
     from pixelnerf_tpu_torch.ops.cuda_build import nvcc_command
 
     src = Path(path).resolve() / "pixelnerf_tpu_torch" / "csrc"
@@ -759,8 +946,45 @@ def _baseline_build(path):
         name: (subprocess.Popen(nvcc_command(src / f"{name}.cu", out / f"lib{name}.so"),
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                out / f"lib{name}.so", (src / f"{name}.cu").read_text())
-        for name in BASELINE_SOURCES
+        for name in BASELINE_SOURCES if (src / f"{name}.cu").exists()
     }
+
+
+def _baseline_posenc(torch, path, builds):
+    """The earlier tree's posenc_concat: its CUDA kernel through its C
+    interface, or, for a tree whose posenc was a Triton kernel, its
+    ops/posenc.py loaded as a module of its own."""
+    import ctypes
+    import importlib.util
+
+    from pixelnerf_tpu_torch.models.code import freq_phase
+
+    if "posenc" not in builds:
+        file = Path(path).resolve() / "pixelnerf_tpu_torch" / "ops" / "posenc.py"
+        spec = importlib.util.spec_from_file_location("baseline_posenc", file)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.posenc_concat
+    proc, lib, _ = builds["posenc"]
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"baseline nvcc failed for posenc.cu:\n{log}")
+    fn = ctypes.CDLL(str(lib)).pnt_posenc
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
+
+    def posenc_concat(base, vd, nf, ff, out_dtype=torch.bfloat16):
+        freqs, phases = freq_phase(nf, ff)
+        out = torch.empty((base.shape[0], 6 * nf + 6), dtype=out_dtype, device=base.device)
+        err = fn(base.data_ptr(), vd.data_ptr(), out.data_ptr(), base.shape[0], nf, float(freqs[0]),
+                 float(phases[1]), int(out_dtype == torch.float32),
+                 torch.cuda.current_stream(base.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline posenc failed: {err}")
+        return out
+
+    return posenc_concat
 
 
 def _baseline_kernels(torch, builds):
@@ -769,7 +993,8 @@ def _baseline_kernels(torch, builds):
     atomic a channel and tap (no plan) or units planned by the port's
     ops/scatter_plan.py; for the gathers, one warp a point (no plan) or
     units planned by the port's ops/gather_plan.py. Which one, each
-    source's includes say."""
+    source's includes say. And its backward's library (`resnetfc_bwd`),
+    bound as the port binds its own."""
     import ctypes
 
     from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
@@ -777,8 +1002,12 @@ def _baseline_kernels(torch, builds):
     from pixelnerf_tpu_torch.ops.pyramid import _level_args
     from pixelnerf_tpu_torch.ops.scatter_plan import device_sms, plan_scatter
 
+    from pixelnerf_tpu_torch.ops.resnetfc import bind_library
+
     libs, planned = {}, {}
     for name, (proc, lib, text) in builds.items():
+        if name == "posenc":
+            continue
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"baseline nvcc failed for {name}.cu:\n{log}")
@@ -851,7 +1080,8 @@ def _baseline_kernels(torch, builds):
         return out
 
     return {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
-            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather}
+            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather,
+            "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd")}
 
 
 def _time_ab(torch, run, base):
@@ -1788,7 +2018,8 @@ def main() -> int:
 
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    from pixelnerf_tpu_torch.ops import pyramid, scatter
+    from pixelnerf_tpu_torch.models import pixelnerf
+    from pixelnerf_tpu_torch.ops import field, pyramid, scatter
     from pixelnerf_tpu_torch.ops.cuda_build import SOURCES, build_libraries
     from pixelnerf_tpu_torch.utils import hocon
 
@@ -1811,21 +2042,26 @@ def main() -> int:
             elif any(w in line for w in ("Used", "spill", "smem")) and "C7519" not in line:
                 print(f"build: {name}: {fn}: {line.strip()}")
 
-    baseline = None if base_builds is None else _baseline_kernels(torch, base_builds)
+    baseline = None
+    if base_builds is not None:
+        baseline = _baseline_kernels(torch, base_builds)
+        baseline["posenc_concat"] = _baseline_posenc(torch, args.baseline, base_builds)
 
-    kernels = [check_posenc(torch, dev), check_field(torch, np, dev)]
-    kernels += check_field_vjp(torch, np, dev) + check_resnetfc(torch, np, dev)
+    kernels = [check_field(torch, np, dev)] + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
 
-    # the lookups are checked and timed after the counted train step (and
-    # the bilerp gather after the counted nearest view) whose uv and
-    # cotangents they are given again
+    # posenc is checked and timed after the counted view, the lookups after
+    # the counted train step (and the bilerp gather after the counted
+    # nearest view), the field's backward after the counted fused step,
+    # whose arguments they are given again
     conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
     nearest = _nearest(conf)
     kept = {name: [] for name in ("pyramid_gather", "pyramid_scatter_add", "bilerp_gather",
-                                  "bilerp_scatter_add")}
+                                  "bilerp_scatter_add", "posenc_concat", "pyramid_field_fused_bwd")}
     view_calls = []
-    runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES)
+    runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES,
+                    keep=[(pixelnerf, "posenc_concat", kept["posenc_concat"])])
+    kernels.append(check_posenc(torch, dev, kept["posenc_concat"], baseline))
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
                       cmp_dtypes=tuple(CMP_TOL),
                       keep=[(pyramid, name, kept[name])
@@ -1833,7 +2069,11 @@ def main() -> int:
     kernels += check_pyramid(torch, np, dev, kept, baseline)
     torch.cuda.empty_cache()
     runs += run_train(torch, np, dev, conf, card, "fused train", FUSED_TRAIN_LAUNCHES,
-                      FUSED_EVAL_LAUNCHES, fusion=True)
+                      FUSED_EVAL_LAUNCHES, fusion=True,
+                      keep=[(field, "pyramid_field_fused_bwd", kept["pyramid_field_fused_bwd"],
+                             ("grid", "g"))])
+    kernels += check_field_vjp(torch, np, dev, kept["pyramid_field_fused_bwd"], baseline)
+    torch.cuda.empty_cache()
     runs += run_view(torch, np, dev, nearest, card, "nearest slice", NEAREST_VIEW_LAUNCHES,
                      keep=[(scatter, "bilerp_gather", view_calls)])
     runs += run_train(torch, np, dev, nearest, card, "nearest train", NEAREST_TRAIN_LAUNCHES,

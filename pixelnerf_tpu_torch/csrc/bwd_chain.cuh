@@ -18,7 +18,7 @@
 //          which is Gin for i = 0 and G1_{i-1} otherwise, bit for bit)
 //   db1_i, db0_i, db_in, dbz_i, db_out: column sums of the f32 cotangents
 // then either dz = bf(gz), or (the field) bf(gz) times the composed taps
-// added into the native level gradients with f32 atomics. G1, G0, Gin and
+// added into the native level gradients with f32 reductions. G1, G0, Gin and
 // bf(g) go to device memory in the stash's layout for the weight-gradient
 // products (resnetfc_bwd.cu `wgrad`).
 //
@@ -57,7 +57,13 @@
 //   accumulators a thread over passes of 512 latent columns. Its A tiles
 //   are Gin (in GB) and G1_0 (still in GA), the others reloaded from their
 //   cotangent slots (L2-hot) by the consumers. bf(gz) is staged in GB for
-//   the dz copy or the level scatter (a warp a row, lanes over channels).
+//   the dz copy or the level scatter. The scatter walks each view's run of
+//   the tile's points (consecutive samples of rays) with a warp an item of
+//   a level's channels, lanes over channel quads: w * g summed in registers
+//   while the points' tap base holds, one 16-byte reduction (8-byte where a
+//   level's channels are not quads) a lane and nonzero tap when it changes,
+//   in place of one f32 atomic a channel and tap. Shared memory is full, so
+//   even the small levels take reductions into device memory.
 // - Bias sums: shuffles within a warp, partial rows in shared memory across
 //   the warpgroup, one f32 atomic per column per CTA.
 // Shared memory at H = d_latent = 512: ring 64 KB, GA 64 KB, GB 64 KB,
@@ -66,6 +72,7 @@
 #pragma once
 
 #include "fwd_chain.cuh"
+#include "scatter_accum.cuh"
 
 #define BWD_KS 32         // K columns of a W_in or Wz box (64-byte swizzle rows)
 #define BWD_KW 64         // K columns of a W0 or W1 box (128-byte swizzle rows)
@@ -400,45 +407,133 @@ __device__ __forceinline__ void load_g_tile(const BwdParams& p, unsigned char* T
   }
 }
 
-// the field's epilogue: each row's bf16 g_z (staged in GB, latent columns
-// [c0, c0 + ncols)) times its composed taps, added into the level gradients
-// of its map (s, v); a warp a row, lanes over channels
-__device__ __forceinline__ void scatter_gz(const BwdParams& p, const unsigned char* GZ, int c0, int ncols, int s,
-                           int p0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int P = p.pts, hf = p.lh[0], wf = p.lw[0];
-  for (int r = warp; r < p.ns * P; r += FWD_CONSUMERS / 32) {
-    const int v = r / P, pt = p0 + r % P;
-    if (pt >= p.b) continue;
-    const size_t map = (size_t)s * p.ns + v;
-    float fx, fy;
-    fine_coords(p.grid + (map * p.b + pt) * 2, hf, wf, &fx, &fy);
-    for (int l = 0; l < p.nlev; l++) {
-      const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
-      const int lo = max(p.lc0[l], c0), hi = min(p.lc0[l] + C, c0 + ncols);
-      if (lo >= hi) continue;
+// V channels of one point's bf16 g_z from the swizzled GB tile (row r,
+// pass column col, a multiple of V: 8 or 4 bytes within one 16-byte chunk)
+template <int V>
+__device__ __forceinline__ void gz_load(const unsigned char* GZ, int r, int col, float* g) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(GZ + sw128_offset(r, col));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    g[0] = a.x;
+    g[1] = a.y;
+    g[2] = b.x;
+    g[3] = b.y;
+  } else {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(GZ + sw128_offset(r, col)));
+    g[0] = a.x;
+    g[1] = a.y;
+  }
+}
+
+// One warp item of the field's epilogue: the tile's nq points of view v
+// (rows v * P + i, consecutive points of map s * ns + v) onto level l, for
+// the 32 x V pass columns [cs, cs + 32 V) within [cs, ce). Lane i computes
+// the taps of point q0 + i once (32 points at a time); the warp walks the
+// points reading them by shuffle, sums w * g in registers while the tap
+// base holds (consecutive samples of a ray) and flushes one reduction of V
+// floats a lane and nonzero tap when it changes (scatter_accum.cuh:
+// flush_run), as the standalone scatter's global units do.
+template <int V>
+__device__ __forceinline__ void level_run(const BwdParams& p, const unsigned char* GZ, int c0, int l, int cs,
+                                          int ce, int v, int s, int p0, int nq) {
+  const int lane = threadIdx.x % 32, P = p.pts, hf = p.lh[0], wf = p.lw[0];
+  const int hn = p.lh[l], wn = p.lw[l], C = p.lc[l];
+  const size_t map = (size_t)s * p.ns + v;
+  const ScatterSeg seg = {p.grads[l] + map * hn * wn * C, hn, wn, C};  // what flush_run reads
+  const int col = cs + lane * V;  // latent column
+  const bool on = col < ce;
+  const int ch = col - p.lc0[l];
+  float acc[9][V];
+#pragma unroll
+  for (int t = 0; t < 9; t++)
+#pragma unroll
+    for (int i = 0; i < V; i++) acc[t][i] = 0.f;
+  unsigned touched = 0;
+  int cur = -1;
+  for (int q0 = 0; q0 < nq; q0 += 32) {
+    const int nb = min(32, nq - q0);
+    int my_base = 0;
+    float my_w[9];
+    {
+      float fx = 0.f, fy = 0.f;
+      if (lane < nb) fine_coords(p.grid + (map * p.b + p0 + q0 + lane) * 2, hf, wf, &fx, &fy);
       int bx, by;
       float w[3][3];
       level_taps(fx, fy, hn, wn, hf, wf, &bx, &by, w);
-      float* grad = p.grads[l] + map * hn * wn * C;
-      for (int c = lo + lane; c < hi; c += 32) {
-        const float gv = __bfloat162float(*reinterpret_cast<const bf16*>(GZ + sw128_offset(r, c - c0)));
-        const int ch = c - p.lc0[l];
+      my_base = by * wn + bx;
 #pragma unroll
-        for (int ty = 0; ty < 3; ty++) {
-          if (by + ty >= hn) continue;
+      for (int t = 0; t < 9; t++) my_w[t] = lane < nb ? w[t / 3][t % 3] : 0.f;
+    }
+    for (int u = 0; u < nb; u += SC_LOADS) {
+      float g[SC_LOADS][V];
 #pragma unroll
-          for (int tx = 0; tx < 3; tx++) {
-            if (bx + tx >= wn || w[ty][tx] == 0.f) continue;
-            atomicAdd(grad + ((size_t)(by + ty) * wn + bx + tx) * C + ch, w[ty][tx] * gv);
-          }
+      for (int k = 0; k < SC_LOADS; k++) {
+        if (u + k < nb && on) {
+          gz_load<V>(GZ, v * P + q0 + u + k, col - c0, g[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; i++) g[k][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SC_LOADS; k++) {
+        if (u + k >= nb) break;  // the same in every lane
+        const int base = __shfl_sync(0xffffffffu, my_base, u + k);
+        if (base != cur) {
+          flush_run<3, V>(seg.grad, seg, cur, ch, on, acc, touched);
+          cur = base;
+        }
+#pragma unroll
+        for (int t = 0; t < 9; t++) {
+          const float wt = __shfl_sync(0xffffffffu, my_w[t], u + k);
+          touched |= (unsigned)(wt != 0.f) << t;
+#pragma unroll
+          for (int i = 0; i < V; i++) acc[t][i] = fmaf(wt, g[k][i], acc[t][i]);  // w * g exact
         }
       }
     }
   }
+  flush_run<3, V>(seg.grad, seg, cur, ch, on, acc, touched);
 }
 
-template <int H>
+// the field's epilogue: each row's bf16 g_z (staged in GB, latent columns
+// [c0, c0 + ncols)) times its composed taps, added into the level gradients
+// of its map (s, v). The warps share the items of every view and level:
+// 32 x 4 columns an item where a level's channel count and offset allow
+// 16-byte reductions, else 32 x 2 (any even count).
+__device__ __forceinline__ void scatter_gz(const BwdParams& p, const unsigned char* GZ, int c0, int ncols, int s,
+                           int p0) {
+  const int warp = threadIdx.x / 32;
+  const int nq = min(p.pts, p.b - p0);  // the points of each view's run
+  int items = 0;  // a view's items
+  for (int l = 0; l < p.nlev; l++) {
+    const int lo = max(p.lc0[l], c0), hi = min(p.lc0[l] + p.lc[l], c0 + ncols);
+    const int V = p.lc[l] % 4 == 0 && p.lc0[l] % 4 == 0 ? 4 : 2;
+    if (lo < hi) items += (hi - lo + 32 * V - 1) / (32 * V);
+  }
+  for (int it = warp; it < p.ns * items; it += FWD_CONSUMERS / 32) {
+    const int v = it / items;
+    int k = it % items;
+    for (int l = 0; l < p.nlev; l++) {
+      const int lo = max(p.lc0[l], c0), hi = min(p.lc0[l] + p.lc[l], c0 + ncols);
+      if (lo >= hi) continue;
+      const bool v4 = p.lc[l] % 4 == 0 && p.lc0[l] % 4 == 0;
+      const int span = v4 ? 128 : 64, groups = (hi - lo + span - 1) / span;
+      if (k < groups) {
+        if (v4) {
+          level_run<4>(p, GZ, c0, l, lo + k * span, hi, v, s, p0, nq);
+        } else {
+          level_run<2>(p, GZ, c0, l, lo + k * span, hi, v, s, p0, nq);
+        }
+        break;
+      }
+      k -= groups;
+    }
+  }
+}
+
+template <int H, bool FIELD>
 __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m) {
   typedef BwdShape<H> S;
   constexpr int NX = S::NX, NH = S::NH, NSUB = S::NSUB;
@@ -679,7 +774,7 @@ __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m
       if (u < nu) store_bf16(m.GB, zacc[u], u * 2 * BWD_ZW + wg * BWD_ZW, r0, q);
     bar_sync(1, FWD_CONSUMERS);
     const int c0 = u0 * 2 * BWD_ZW, ncols = min(DL - c0, nu * 2 * BWD_ZW);
-    if (p.nlev > 0) {
+    if constexpr (FIELD) {
       scatter_gz(p, m.GB, c0, ncols, s, p0);
     } else {
       const int chunks = ncols / 8;
@@ -789,7 +884,7 @@ __device__ __forceinline__ void bwd_copy(const BwdParams& p, const BwdSmem& m) {
 }
 
 // The whole tile: barriers, then the producer, copier and consumer roles.
-template <int H>
+template <int H, bool FIELD>
 __device__ __forceinline__ void run_bwd_chain(const BwdParams& p, const BwdMaps& maps) {
   extern __shared__ __align__(1024) unsigned char bwd_raw[];
   const BwdSmem m = bwd_smem(bwd_raw, H, p.d_latent);
@@ -815,6 +910,6 @@ __device__ __forceinline__ void run_bwd_chain(const BwdParams& p, const BwdMaps&
     if (threadIdx.x >= FWD_THREADS - FWD_COPIERS) bwd_copy<H>(p, m);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-    bwd_consume<H>(p, m);
+    bwd_consume<H, FIELD>(p, m);
   }
 }

@@ -16,7 +16,8 @@
 //
 // The field's backward (levels given): z is the forward's bf16 z-stash, and
 // the chain's epilogue rounds gz to bf16 once and adds w * bf(gz) into
-// per-level f32 gradients (B, H_l, W_l, C_l) with f32 atomics, w the
+// per-level f32 gradients (B, H_l, W_l, C_l) with f32 reductions merged
+// along runs of consecutive points (bwd_chain.cuh: scatter_gz), w the
 // composed taps rounded as the forward's (tile_common.cuh:level_taps),
 // recomputed from the grid: pyramid.cu's scatter of dz, with the (M, DL)
 // cotangent never written to device memory (field_pallas.py:26-30).
@@ -40,21 +41,24 @@
 
 #include "wgrad.cuh"
 
-template <int H>
+// FIELD: the field's epilogue (the level scatter) in place of the dz copy,
+// compiled apart so that the ResnetFC's chain keeps its own register
+// allocation
+template <int H, bool FIELD>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     resnetfc_bwd_chain_kernel(const __grid_constant__ BwdParams p,
                               const __grid_constant__ BwdMaps maps) {
-  run_bwd_chain<H>(p, maps);
+  run_bwd_chain<H, FIELD>(p, maps);
 }
 
-template <int H>
+template <int H, bool FIELD>
 static int launch_chain(const BwdParams& p, const BwdMaps& maps, size_t smem,
                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_chain_kernel<H>,
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_chain_kernel<H, FIELD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_dim((p.b + p.pts - 1) / p.pts, p.sb);
-  resnetfc_bwd_chain_kernel<H><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps);
+  resnetfc_bwd_chain_kernel<H, FIELD><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps);
   return (int)cudaGetLastError();
 }
 
@@ -178,8 +182,10 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   if (!rc) rc = weight_map(&maps.wz, p.wz, p.n_inj * p.d_latent, p.hidden, BWD_KS, BWD_ZW, 1);
   if (rc) return rc;
   const size_t smem = bwd_smem_bytes(p.hidden, p.d_latent, p.ns);
-  rc = dispatch_hidden(
-      p.hidden, [&](auto h) { return launch_chain<decltype(h)::value>(p, maps, smem, stream); });
+  rc = dispatch_hidden(p.hidden, [&](auto h) {
+    return p.nlev > 0 ? launch_chain<decltype(h)::value, true>(p, maps, smem, stream)
+                      : launch_chain<decltype(h)::value, false>(p, maps, smem, stream);
+  });
   if (rc) return rc;
   launched[0]++;
   return wgrad_launch(p, static_cast<const bf16*>(ptrs[26]), static_cast<float*>(ptrs[27]), dw_in,

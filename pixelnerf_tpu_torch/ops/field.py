@@ -55,12 +55,14 @@ from pixelnerf_tpu_torch.ops.resnetfc import (
     FieldWeights, _device_of, _pad16, check_chain_widths, launch_bwd, pack_field_weights,
     resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
 )
+from pixelnerf_tpu_torch.ops.scatter_plan import ScatterPlan, Segment
 
 __all__ = [
     "FieldWeights",
     "pyramid_field_fused",
     "pyramid_field_fused_fwd_stash",
     "pyramid_field_fused_bwd",
+    "level_scatter_plan",
     "field_plain",
     "field_bwd_plain",
     "field_supported",
@@ -125,6 +127,26 @@ def field_bwd_plain(
         [c for _, _, c in levels], hws, hws[0],
     )
     return [d.to(zstash.dtype) for d in d_feats], dxin, dw
+
+
+def level_scatter_plan(levels: Sequence[Tuple[int, int, int]], nb: int, ns: int, n: int) -> ScatterPlan:
+    """The backward chain's level scatter (`csrc/bwd_chain.cuh:scatter_gz`)
+    as a plan of global units of `ops/scatter_plan.py`, for counting its
+    reductions into device memory with `count_reductions`: each of the `nb`
+    = SB * NS maps' `n` points goes in runs of a tile's points (64 // NS,
+    the chain's `chain_points`), one vector reduction of `vec` floats a lane
+    and nonzero tap a run of points with the same tap base; `vec` 4 where a
+    level's channel count and offset in the latent row are multiples of 4,
+    else 2."""
+    run = 64 // ns if ns < 64 else 1
+    segments, c0, first = [], 0, 0
+    for i, (_, _, c) in enumerate(levels):
+        vec = 4 if c % 4 == 0 and c0 % 4 == 0 else 2
+        nchunks = -(-n // run)
+        segments.append(Segment(i, False, c, 1, run, nchunks, vec, first, nb * nchunks, 0))
+        c0 += c
+        first += nb * nchunks
+    return ScatterPlan(tuple(segments), first, 0, run)
 
 
 def _check(feats, grid, xin, w, n_blocks, combine_layer, ns):

@@ -1,46 +1,35 @@
 """Field-input builder: positional code + viewdir concat in one pass.
 
 Replaces the TPU kernel `pixelnerf_tpu/ops/posenc_pallas.py:posenc_concat`
-(`_kernel`, one Pallas pass per 2048-row tile). It emits
+(`_kernel`, one Pallas pass per 2048-row tile) by the CUDA C++ kernel of
+`csrc/posenc.cu`, whose header note gives the bound on the H100 (the bytes,
+24 B read and 84 B written a row at F = 6, or the precise sines' issue,
+whichever is larger) and the design. It emits
 
     x = [base | sin(tile(base, 2F) * ff + pp) | viewdirs]   (M, 3 + 6F + 3)
 
-in the MLP's operand dtype, column order as in the JAX kernel.
-
-Bound on the H100: memory. Each row reads 24 B and writes 84 B (bf16,
-F=6); the 36 sines per row are far below the card's arithmetic rate, so
-the least time is bytes / 3.35 TB/s.
-
-Design: one Triton program per 128-row block lays the 42 output columns
-of each row on one 64-wide column axis; every column picks its source
-(base, code or viewdir) by index arithmetic, so the row is written once
-with no intermediate in device memory, exactly the fusion the TPU kernel
-did in VMEM.
+in the MLP's operand dtype (bf16, or float32), column order as in the JAX
+kernel, each product and sum rounded on its own and the sine the precise
+one, as the plain version's elementwise ops.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from pixelnerf_tpu_torch.models.code import freq_phase
+from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
+from pixelnerf_tpu_torch.ops.scatter_plan import aligned
 
 __all__ = ["posenc_concat", "posenc_concat_plain", "posenc_supported"]
-
-_BLOCK_M = 128
 
 
 def posenc_supported(d_in: int, num_freqs: int, include_input: bool) -> bool:
     """Exactly the layout this kernel emits: [x, code(x), viewdirs]."""
     return include_input and d_in == 3 and num_freqs >= 1
-
-
-def _flat_freq_phase(num_freqs: int, freq_factor: float):
-    """(6F,) float32 frequency and phase for code column f*3 + d."""
-    freqs, phases = freq_phase(num_freqs, freq_factor)
-    return np.repeat(freqs, 3), np.repeat(phases, 3)
 
 
 def posenc_concat_plain(
@@ -57,52 +46,40 @@ def posenc_concat_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def posenc_kernel(
-        base_ptr, vd_ptr, ff_ptr, pp_ptr, out_ptr, M,
-        NCODE: tl.constexpr, D_OUT: tl.constexpr,
-        BLOCK_M: tl.constexpr, BLOCK_D: tl.constexpr,
-    ):
-        rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-        r2 = rows[:, None].to(tl.int64)
-        c2 = tl.arange(0, BLOCK_D)[None, :]
-        inside = (rows[:, None] < M) & (c2 < D_OUT)
-        is_base = c2 < 3
-        is_code = (c2 >= 3) & (c2 < 3 + NCODE)
-        is_vd = (c2 >= 3 + NCODE) & (c2 < D_OUT)
-        k = tl.where(is_code, c2 - 3, 0)  # code column f*3 + d
-        d = tl.where(is_base, c2, tl.where(is_code, k % 3, c2 - 3 - NCODE))
-        b = tl.load(base_ptr + r2 * 3 + d, mask=inside & (is_base | is_code), other=0.0)
-        v = tl.load(vd_ptr + r2 * 3 + d, mask=inside & is_vd, other=0.0)
-        f = tl.load(ff_ptr + k, mask=is_code, other=0.0)
-        p = tl.load(pp_ptr + k, mask=is_code, other=0.0)
-        val = tl.where(is_base, b, tl.where(is_code, tl.sin(b * f + p), v))
-        tl.store(
-            out_ptr + r2 * D_OUT + c2, val.to(out_ptr.dtype.element_ty), mask=inside
-        )
-
-    return posenc_kernel
+def _library() -> ctypes.CDLL:
+    """The built `csrc/posenc.cu`, its C signatures bound once."""
+    lib = load_library("posenc")
+    lib.pnt_error_string.restype = ctypes.c_char_p
+    lib.pnt_error_string.argtypes = [ctypes.c_int]
+    lib.pnt_posenc_smem_bytes.restype = ctypes.c_size_t
+    lib.pnt_posenc_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.pnt_posenc.restype = ctypes.c_int
+    lib.pnt_posenc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_float
+    ] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    return lib
 
 
 def _launch(base, viewdirs, num_freqs, freq_factor, out_dtype):
-    ff, pp = _flat_freq_phase(num_freqs, freq_factor)
-    ff = torch.from_numpy(ff).to(base.device)
-    pp = torch.from_numpy(pp).to(base.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"posenc_concat writes bfloat16 or float32, not {out_dtype}")
+    freqs, phases = freq_phase(num_freqs, freq_factor)
+    lib = _library()
+    out_f32 = int(out_dtype == torch.float32)
+    if lib.pnt_posenc_smem_bytes(num_freqs, out_f32) > SMEM_LIMIT:
+        raise ValueError(f"{num_freqs} frequencies do not fit a block's shared memory")
     m = base.shape[0]
-    ncode = 6 * num_freqs
-    d_out = 3 + ncode + 3
-    out = torch.empty((m, d_out), dtype=out_dtype, device=base.device)
-    block_d = 1 << (d_out - 1).bit_length()
-    grid = ((m + _BLOCK_M - 1) // _BLOCK_M,)
-    _triton_kernel()[grid](
-        base, viewdirs, ff, pp, out, m,
-        NCODE=ncode, D_OUT=d_out, BLOCK_M=_BLOCK_M, BLOCK_D=block_d,
-        num_warps=4,
+    out = torch.empty((m, 6 * num_freqs + 6), dtype=out_dtype, device=base.device)
+    if m == 0:
+        return out
+    base, viewdirs = aligned(base, 16), aligned(viewdirs, 16)
+    err = lib.pnt_posenc(
+        base.data_ptr(), viewdirs.data_ptr(), out.data_ptr(), m, num_freqs,
+        float(freqs[0]), float(phases[1]), out_f32,
+        torch.cuda.current_stream(base.device).cuda_stream,
     )
+    if err != 0:
+        raise RuntimeError(f"posenc_concat launch failed: {lib.pnt_error_string(err).decode()}")
     posenc_concat.launches += 1
     return out
 
@@ -120,8 +97,8 @@ def posenc_concat(
     :param viewdirs (M, 3) float32 rotated view directions
     :return (M, 3 + 6*num_freqs + 3)
 
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel (and count the launch in `posenc_concat.launches`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    `csrc/posenc.cu` (and count the launch in `posenc_concat.launches`).
     """
     if base.ndim != 2 or base.shape[1] != 3 or viewdirs.shape != base.shape:
         raise ValueError(f"need (M, 3) base and viewdirs, got {base.shape}, {viewdirs.shape}")

@@ -365,7 +365,12 @@ def _cuda_inputs(z, xin, w):
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """A built `csrc/<name>.cu`, its C signatures bound once."""
-    lib = load_library(name)
+    return bind_library(load_library(name), name)
+
+
+def bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Bind the C signatures of `csrc/<name>.cu` ("resnetfc_fwd" or
+    "resnetfc_bwd") on a loaded library."""
     lib.pnt_error_string.restype = ctypes.c_char_p
     lib.pnt_error_string.argtypes = [ctypes.c_int]
     if name == "resnetfc_fwd":

@@ -40,6 +40,7 @@ import torch
 
 __all__ = [
     "ScatterPlan", "Segment", "aligned", "count_reductions", "device_sms", "plan_scatter",
+    "scatter_reference",
     "RUN", "SLICE_MAX", "SLICE_MIN", "SMEM_UNIT", "STAGE", "THREADS", "WARPS",
 ]
 
@@ -199,3 +200,29 @@ def count_reductions(plan: ScatterPlan, maps, taps) -> dict:
             merged.scatter_reduce_(0, run_id[:, None].expand(-1, t), nz.reshape(-1, t).long(), "amax")
             out["vector"] += int(merged.sum()) * math.ceil(c / seg.vec)
     return out
+
+
+def scatter_reference(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor, pixels: int):
+    """The scatter of `g` (B, N, C) through the taps (idx, w), each (B, N, T)
+    as `count_reductions` takes them, onto (B, pixels, C), in float64; and,
+    element by element, the bound of any float32 evaluation of that sum:
+    n * 2^-24 * sum |w * g| over its n nonzero terms. Each term, a product of
+    two bf16 values, is exact in float32, and each of the n - 1 additions
+    rounds once, in whatever order (registers, shared memory, reductions
+    into device memory), so a kernel's float32 sums are within the bound
+    and a term dropped or added twice is not. Returns (sum, bound)."""
+    b, n, t = idx.shape
+    c = g.shape[-1]
+    g = g.double()
+    nonzero = (g != 0).double()
+    out = torch.zeros((b * pixels, c), dtype=torch.float64, device=g.device)
+    mag, cnt = torch.zeros_like(out), torch.zeros_like(out)
+    rows = torch.arange(b, device=g.device)[:, None] * pixels
+    for k in range(t):
+        at = (rows + idx[..., k]).reshape(-1)
+        wk = w[..., k, None].double()
+        term = wk * g
+        out.index_add_(0, at, term.reshape(-1, c))
+        mag.index_add_(0, at, term.abs().reshape(-1, c))
+        cnt.index_add_(0, at, ((wk != 0).double() * nonzero).reshape(-1, c))
+    return out.reshape(b, pixels, c), (cnt * 2.0 ** -24 * mag).reshape(b, pixels, c)

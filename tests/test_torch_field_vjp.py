@@ -7,7 +7,8 @@ inputs, at tests/test_field_pallas.py's shapes: bf16 levels 8x8x16,
 4x4x24 and 2x2x32 (composed taps on the coarser ones), grid points on and
 beyond the border, hidden 32, non-zero fc_1, NS = 1, 2 and 3, a point
 count that is not a multiple of the TPU kernel's tile (b=50), and
-combine_layer 1000 with NS=1.
+combine_layer 1000 with NS=1; and a grid of ray-coherent runs of points,
+as a train step's samples along rays.
 
 Tolerances. Both sides gather z with the same rounded tap weights, cast
 every matmul operand to bf16 and sum in float32, in other orders: the
@@ -38,6 +39,7 @@ from pixelnerf_tpu_torch.ops.field import (
 )
 from pixelnerf_tpu_torch.ops.pyramid import pyramid_index_train, pyramid_scatter_add
 from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_fused, stash_layout
+from tests.scatter_uv import ray_uv
 
 SHAPES = [(8, 8, 16), (4, 4, 24), (2, 2, 32)]
 LEVELS = [tuple(s) for s in SHAPES]
@@ -49,14 +51,22 @@ CASES = [  # sb, ns, b, n_blocks, combine_layer
     (1, 1, 32, 3, 1000),  # one view, an injection in every block
     (1, 3, 50, 4, 2),  # 50 points: not a multiple of the tile
 ]
+# the VJP's cases: random grids, and one of ray-coherent runs of points (as
+# a train step's samples along rays), which the level scatter merges
+VJP_CASES = [pytest.param(*case, "random", id="-".join(map(str, case))) for case in CASES] + [
+    pytest.param(2, 2, 96, 5, 3, "rays", id="2-2-96-5-3-rays"),
+]
 
 
-def _inputs(seed, sb, ns, b, n_blocks, combine):
+def _inputs(seed, sb, ns, b, n_blocks, combine, kind="random"):
     rng = np.random.default_rng(seed)
     feats = [rng.normal(size=(sb * ns, h, w, c)).astype(np.float32) for (h, w, c) in SHAPES]
-    grid = rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)).astype(np.float32)
-    grid[:, :, 0] = -1.0
-    grid[:, :, 1] = 1.0
+    if kind == "rays":
+        grid = ray_uv(rng, sb * ns, b, 1.0 / SHAPES[0][1]).reshape(sb, ns, b, 2)
+    else:
+        grid = rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)).astype(np.float32)
+        grid[:, :, 0] = -1.0
+        grid[:, :, 1] = 1.0
     xin = rng.normal(size=(sb, ns, b, D_IN)).astype(np.float32)
     n_inj = min(combine, n_blocks)
 
@@ -87,9 +97,9 @@ def _grad_close(got, want, extra=0.0):
     assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want) + 1e-12
 
 
-@pytest.mark.parametrize("sb,ns,b,n_blocks,combine", CASES)
-def test_field_vjp_matches_pallas(sb, ns, b, n_blocks, combine):
-    feats, grid, xin, w, g = _inputs(sb * 100 + ns * 10 + n_blocks, sb, ns, b, n_blocks, combine)
+@pytest.mark.parametrize("sb,ns,b,n_blocks,combine,kind", VJP_CASES)
+def test_field_vjp_matches_pallas(sb, ns, b, n_blocks, combine, kind):
+    feats, grid, xin, w, g = _inputs(sb * 100 + ns * 10 + n_blocks, sb, ns, b, n_blocks, combine, kind)
     jw = ResnetFCWeights(
         **{k: jnp.asarray(v[None] if k in ("b_in", "b_out") else v) for k, v in w.items()}
     )

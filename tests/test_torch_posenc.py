@@ -45,9 +45,17 @@ def _assert_bf16_close(got, want):
     np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-4)
 
 
-@pytest.mark.parametrize("num_freqs,freq_factor", [(6, 1.5), (4, float(np.pi))])
-def test_posenc_plain_matches_pallas_f32(num_freqs, freq_factor):
-    base, vd = _inputs(1000, 0)
+# 1000 rows at two configurations; then row counts around the CUDA kernel's
+# 128-row block and the Pallas kernel's 2048-row tile, one and six frequencies
+F32_CASES = [
+    pytest.param(1000, 6, 1.5, id="6-1.5"),
+    pytest.param(1000, 4, float(np.pi), id="4-3.141592653589793"),
+] + [pytest.param(m, nf, 1.5, id=f"m{m}-f{nf}") for m in (1, 127, 129, 2049) for nf in (1, 6)]
+
+
+@pytest.mark.parametrize("m,num_freqs,freq_factor", F32_CASES)
+def test_posenc_plain_matches_pallas_f32(m, num_freqs, freq_factor):
+    base, vd = _inputs(m, 0)
     want = j_posenc(
         jnp.asarray(base), jnp.asarray(vd), num_freqs, freq_factor,
         out_dtype=jnp.float32, interpret=True,
@@ -56,7 +64,7 @@ def test_posenc_plain_matches_pallas_f32(num_freqs, freq_factor):
         torch.from_numpy(base), torch.from_numpy(vd), num_freqs, freq_factor,
         out_dtype=torch.float32,
     )
-    assert got.shape == (1000, 3 + 6 * num_freqs + 3)
+    assert got.shape == (m, 3 + 6 * num_freqs + 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_ATOL)
 
 

@@ -42,11 +42,15 @@ from pixelnerf_tpu_torch.ops.scatter import (
     grid_sample_border_train,
 )
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT
+from pixelnerf_tpu_torch.ops.field import level_scatter_plan
 from pixelnerf_tpu_torch.ops.gather_plan import (
     BLOCKS_PER_SM, STAGE_BYTES, count_tap_bytes, plan_gather, table_bytes,
 )
+from pixelnerf_tpu_torch.ops.pyramid import _level_taps
+from pixelnerf_tpu_torch.ops.pyramid import pyramid_scatter_add_plain as tpyr_scatter_plain
 from pixelnerf_tpu_torch.ops.scatter_plan import (
     RUN, SLICE_MAX, SLICE_MIN, STAGE, THREADS, WARPS, count_reductions, plan_scatter,
+    scatter_reference,
 )
 from tests.scatter_uv import ray_uv
 
@@ -414,3 +418,73 @@ def test_gather_plan_stages_the_flagship_small_levels():
     assert soff == -1 and bil.cached and bil.vec == 8
     assert not plan_gather([(64, 64, 512)], 8, 65536, 132, 32, 2, False).cached  # 4-byte loads
     assert plan_gather([(8, 8, 512)], 1, 513, 132, 32, 2, True).soff == (table_bytes(1),)
+
+
+def _brute_level_reductions(levels, uv, ns):
+    """The backward chain's level scatter (csrc/bwd_chain.cuh: scatter_gz)
+    walked point by point: each map's tiles of 64 // NS points, each level
+    in turn; a run of points keeps one tap base, and at each change and at
+    the tile's end its lanes make one reduction a nonzero tap of the run.
+    Returns (one atomic a channel and nonzero tap, the walk's reductions)."""
+    nb, n, _ = uv.shape
+    run, (hf, wf), c0 = 64 // ns, levels[0][:2], 0
+    scalar = vector = 0
+    for h, w, c in levels:
+        lanes = -(-c // (4 if c % 4 == 0 and c0 % 4 == 0 else 2))
+        c0 += c
+        idx, wt = _level_taps(uv, h, w, hf, wf, torch.bfloat16)
+        for m in range(nb):
+            for p0 in range(0, n, run):
+                cur, touched = None, set()
+                for q in range(p0, min(p0 + run, n)):
+                    nz = {t for t in range(9) if wt[m, q, t] != 0}
+                    scalar += len(nz) * c
+                    if int(idx[m, q, 0]) != cur:
+                        vector += len(touched) * lanes
+                        cur, touched = int(idx[m, q, 0]), set()
+                    touched |= nz
+                vector += len(touched) * lanes
+    return scalar, vector
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["rays", "random"])
+def test_level_scatter_reductions_match_the_chains_walk(kind, ns):
+    """`count_reductions` over `level_scatter_plan` against the walk of the
+    chain's epilogue, on levels whose channel counts or offsets are not all
+    quads (8-byte reductions there), tiles of 64, 32 and 21 points."""
+    levels, nb, n = [(16, 16, 62), (8, 8, 66), (4, 4, 128)], 2, 150
+    rng = np.random.default_rng(ns * 10 + len(kind))
+    uv = ray_uv(rng, nb, n, 1.0 / 16) if kind == "rays" else rng.uniform(-1.2, 1.2, (nb, n, 2))
+    uv = torch.from_numpy(np.asarray(uv, np.float32))
+    taps = [_level_taps(uv, h, w, 16, 16, torch.bfloat16) for h, w, _ in levels]
+    plan = level_scatter_plan(levels, nb, ns, n)
+    assert plan.run == 64 // ns and [s.vec for s in plan.segments] == [2, 2, 4]
+    got = count_reductions(plan, levels, taps)
+    scalar, vector = _brute_level_reductions(levels, uv, ns)
+    assert (got["scalar"], got["vector"], got["flush"], got["shared"]) == (scalar, vector, 0, 0)
+    assert vector < scalar
+
+
+@pytest.mark.parametrize("kind", ["rays", "one"])
+def test_scatter_reference_bounds_a_float32_scatter(kind):
+    """The card tests' yardstick (ops/scatter_plan.py:scatter_reference):
+    the plain float32 scatter, summed in its own order, lies within the
+    float32 sum's bound of the float64 one, and the same scatter with one
+    point's contribution dropped does not."""
+    rng = np.random.default_rng(len(kind))
+    nb, n, levels = 2, 400, [(16, 16, 6), (4, 4, 10)]
+    uv = ray_uv(rng, nb, n, 1.0 / 16) if kind == "rays" else np.full((nb, n, 2), 0.3, np.float32)
+    uv = torch.from_numpy(np.asarray(uv, np.float32))
+    dz = torch.from_numpy(rng.normal(size=(nb, n, 16)).astype(np.float32)).to(torch.bfloat16)
+    csizes, hws = [c for *_, c in levels], [(h, w) for h, w, _ in levels]
+    got = tpyr_scatter_plain(uv, dz, csizes, hws, hws[0])
+    dropped = tpyr_scatter_plain(uv[:, 1:], dz[:, 1:], csizes, hws, hws[0])
+    c0 = 0
+    for grad, less, (h, w, c) in zip(got, dropped, levels):
+        idx, wt = _level_taps(uv, h, w, *hws[0], torch.bfloat16)
+        want, bound = scatter_reference(idx, wt, dz[..., c0 : c0 + c], h * w)
+        c0 += c
+        assert bool((bound > 0).any())
+        assert ((grad.double().reshape(want.shape) - want).abs() <= bound).all()
+        assert not ((less.double().reshape(want.shape) - want).abs() <= bound).all()
