@@ -65,7 +65,24 @@ Phases, each failing loudly (an exception and a non-zero exit):
    phase 5's train step (the bilerp gather and scatter and the ResnetFC
    stash forward and backward), its card step held against the CPU plain
    step in bf16;
-8. a `kernels` JSON line, the card line, and the result line. A kernel's
+8. the training CLI, `pixelnerf_tpu_torch.train.train_pixelnerf.main`, as
+   a user runs it: on an SRN-format dataset of simple shapes written to a
+   temporary directory (24 train, 4 val and 4 test objects x 8 views, 128x128
+   PNGs), srn.conf at full width in bf16 with only the train intervals
+   set (print 1, eval, vis and save 2), `-B 4 -V 2 -R 1024` for 2 epochs
+   with --vis_debug, then --resume to a third. Launch counts are set to 0
+   before the first run and read after the second: each of the seven
+   kernels of the path (posenc, the pyramid gather and scatter, the
+   ResnetFC stash forward, backward and primal, the field primal) must
+   have launched. The checkpoint files, `_iter.json` and the vis PNGs must
+   exist, every loss be finite, and the resumed run start at the saved
+   iteration with its model and Adam state equal bit for bit to the
+   files. It prints the median wall time of the iterations that run no
+   eval, vis or save (the batch's load, make_step_batch, the pinned copy
+   and the step) and its rays/s beside phase 5's bare cached step, the
+   host batch preparation's median, the image decoder that ran and the
+   peak device memory;
+9. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
    launches are the most that one counted run of phases 4-7 made.
@@ -1835,11 +1852,12 @@ def trunk_precision(torch, grads, label):
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
-              fusion=False, cmp_dtypes=("bfloat16",), keep=()):
+              fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
     With `keep`, (module, function name, list) triples, the counted train
-    step appends each call's arguments of each function to its list.
+    step appends each call's arguments of each function to its list; with
+    `times`, a dict, the timed steps' mean seconds go to times[label].
     Returns the counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
@@ -1883,6 +1901,8 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
         aux = step(batch, gen)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    if times is not None:
+        times[label] = step_s
     losses = {k: round(v.item(), 6) for k, v in aux.items()}
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{label}: non-finite train loss {losses}")
@@ -2000,6 +2020,194 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=()):
     return [launches]
 
 
+# the training CLI phase: an SRN-format dataset written here (CLI_OBJECTS
+# train objects and CLI_VAL_OBJECTS val and test objects, CLI_VIEWS
+# 128x128 views each), srn.conf at full width with only the train intervals set, and
+# bench.py's -B 4 -V 2 -R 1024 for 2 epochs, then --resume to a third
+CLI_OBJECTS, CLI_VAL_OBJECTS, CLI_VIEWS = 24, 4, 8
+CLI_ARGS = ["-B", str(SB), "-V", str(TRAIN_NS), "-R", str(TRAIN_RAYS)]
+CLI_CONF = """include required("{srn}")
+train {{
+    print_interval = 1
+    eval_interval = 2
+    vis_interval = 2
+    save_interval = 2
+}}
+"""
+# the kernels the CLI's path launches: posenc, the pyramid gather and
+# scatter, the ResnetFC stash forward and backward (train_step), the
+# ResnetFC primal (eval_step, vis_debug) and the field primal (vis_step)
+CLI_KERNELS = (
+    "posenc_concat", "pyramid_gather", "pyramid_scatter_add", "resnetfc_fwd_stash",
+    "resnetfc_bwd", "resnetfc_fwd", "pyramid_field_fused",
+)
+
+
+def _write_srn_dataset(np, root, name="cars"):
+    """An SRN-format dataset of simple shapes: per object a coloured disc
+    and bar on white, moving with the view, `pose/*.txt` cameras on a
+    circle looking at the origin (stored flipped by diag(1, -1, -1, 1), as
+    SRN stores them) and `intrinsics.txt`."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    size, focal = TRAIN_SIZE, 131.25 * TRAIN_SIZE / 128
+    yy, xx = np.mgrid[0:size, 0:size]
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    for stage, n in (("train", CLI_OBJECTS), ("val", CLI_VAL_OBJECTS), ("test", CLI_VAL_OBJECTS)):
+        for obj in range(n):
+            d = Path(root) / name / f"{name}_{stage}" / f"obj{obj:03d}"
+            (d / "rgb").mkdir(parents=True)
+            (d / "pose").mkdir()
+            (d / "intrinsics.txt").write_text(f"{focal} {size / 2} {size / 2} 0.\n0. 0. 0.\n1.\n{size} {size}\n")
+            disc, bar = rng.integers(20, 230, 3), rng.integers(20, 230, 3)
+            for v in range(CLI_VIEWS):
+                theta = 2 * np.pi * v / CLI_VIEWS
+                img = np.full((size, size, 3), 255, np.uint8)
+                cx, cy = size * (0.5 + 0.15 * np.sin(theta)), size * 0.5
+                img[(yy - cy) ** 2 + (xx - cx) ** 2 <= (0.25 * size) ** 2] = disc
+                img[int(0.7 * size):int(0.8 * size), int(0.3 * size):int(0.7 * size)] = bar
+                Image.fromarray(img).save(d / "rgb" / f"{v:06d}.png")
+                eye = [1.3 * np.sin(theta), 0.3, 1.3 * np.cos(theta)]
+                np.savetxt(d / "pose" / f"{v:06d}.txt", (_look_at(np, eye) @ flip).reshape(1, 16))
+    return str(Path(root) / name)
+
+
+def _tree_equal(torch, a, b):
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def run_cli(torch, np, dev, root, card, bare_step_s):
+    """`train_pixelnerf.main` on the card as a user runs it: 2 epochs, then
+    --resume to a third. Every launch count is set to 0 before the first
+    run and read after the second; the files, the losses and the resumed
+    state are checked, and the wall time of each iteration that runs no
+    eval, vis or save is measured (a synchronise at each iteration's end)."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    from pixelnerf_tpu_torch.native import imagecodec
+    from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd
+    from pixelnerf_tpu_torch.train import train_pixelnerf as cli
+    from pixelnerf_tpu_torch.train.trainer import Trainer
+    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
+
+    orig_start, orig_post = Trainer.start, Trainer.post_batch
+    ticks, losses, host_s, resumed = [], [], [], {}
+
+    def start(self):
+        if self.args.resume:
+            cdir = Path(self.args.checkpoints_path) / self.args.name
+            meta = json.loads((cdir / "_iter.json").read_text())
+            resumed["iter"] = (self.start_iter_id, meta["iter"])
+            resumed["model"] = _tree_equal(
+                torch, self.model.state_dict(), ckpt.load_state(str(cdir / "pixel_nerf_latest"), dev))
+            resumed["optimizer"] = _tree_equal(
+                torch, self.optimizer.state_dict(), ckpt.load_state(str(cdir / "_optim"), dev))
+        train_step, eval_step, device_batch = self.train_step, self.eval_step, self._device_batch
+
+        def timed_batch(*a, **k):
+            t0 = time.perf_counter()
+            out = device_batch(*a, **k)
+            host_s.append(time.perf_counter() - t0)
+            return out
+
+        self._device_batch = timed_batch
+        self.train_step = lambda data, global_step: losses.append(train_step(data, global_step)) or losses[-1]
+        self.eval_step = lambda data, global_step: losses.append(eval_step(data, global_step)) or losses[-1]
+        torch.cuda.synchronize()
+        ticks.append((None, time.perf_counter()))
+        orig_start(self)
+
+    def post_batch(self, epoch, batch):
+        torch.cuda.synchronize()
+        ticks.append((batch, time.perf_counter()))
+        orig_post(self, epoch, batch)
+
+    counters = _counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_srn_dataset(np, tmp)
+        conf = Path(tmp) / "cli.conf"
+        conf.write_text(CLI_CONF.format(srn=root / "conf" / "exp" / "srn.conf"))
+        argv = ["-c", str(conf), "-D", datadir, "-n", "cli", "--logs_path", f"{tmp}/logs",
+                "--checkpoints_path", f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"] + CLI_ARGS
+        Trainer.start, Trainer.post_batch = start, post_batch
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        chain0, wgrad0 = launch_bwd.chain_launches, launch_bwd.wgrad_launches
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = (("2 epochs", ["--epochs", "2", "--vis_debug"]),
+                ("--resume to a third", ["--epochs", "3", "--resume"]))
+        t0 = time.perf_counter()
+        try:
+            for label, extra in runs:
+                log = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(log):
+                        cli.main(argv + extra, device=dev)
+                finally:
+                    tail = log.getvalue().strip().splitlines()
+                    print(f"cli ({label}): {len(tail)} lines of output, the last: " + " | ".join(tail[-3:]))
+        finally:
+            Trainer.start, Trainer.post_batch = orig_start, orig_post
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = {name: counters[name].launches for name in KERNELS}
+        parts = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
+        peak = torch.cuda.max_memory_allocated()
+        cdir, vdir = Path(tmp) / "ckpt" / "cli", Path(tmp) / "vis" / "cli"
+        files = sorted(p.name for p in cdir.iterdir())
+        vis = sorted(p.name for p in vdir.glob("*_vis.png"))
+        debug = sorted(p.name for p in (vdir / "vis_debug").glob("*_sigma_z0.png"))
+        meta = json.loads((cdir / "_iter.json").read_text())
+    print(f"cli: launches over both runs {got}; backward chain {parts[0]}, wgrad {parts[1]}")
+    missing = [name for name in CLI_KERNELS if got[name] <= 0]
+    if missing or parts[0] <= 0:
+        raise AssertionError(f"cli: the training CLI never launched {missing or ['the backward chain']}")
+    for name in ("pixel_nerf_latest", "pixel_nerf_backup", "_optim", "_iter.json", "_renderer.json"):
+        if name not in files:
+            raise AssertionError(f"cli: checkpoint file {name} missing ({files})")
+    if not vis or not debug:
+        raise AssertionError(f"cli: vis PNGs missing ({vis}, {debug})")
+    values = [float(v) for aux in losses for v in aux.values()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"cli: non-finite losses {values}")
+    start_iter, saved_iter = resumed.get("iter", (None, None))
+    if start_iter is None or start_iter != saved_iter or not (resumed["model"] and resumed["optimizer"]):
+        raise AssertionError(f"cli: the resumed run does not start from the saved state: {resumed}")
+    # iterations that ran no eval, vis or save (odd batches with the
+    # intervals of 2), timed from the previous iteration's end
+    steps = [t1 - t0 for (_, t0), (b, t1) in zip(ticks, ticks[1:]) if b is not None and b % 2 == 1]
+    med = statistics.median(steps)
+    print(
+        f"cli: srn.conf bf16 at full width, {CLI_OBJECTS} objects x {CLI_VIEWS} views of "
+        f"{TRAIN_SIZE}x{TRAIN_SIZE}, {' '.join(CLI_ARGS)}, {len(ticks) - 2} iterations in "
+        f"{wall_s:.1f} s (2 runs, eval, vis and saves included); resumed at iter {start_iter} "
+        f"with model and Adam state bit-equal to the checkpoint; last iter {meta['iter']}, "
+        f"{len(vis)} vis PNGs, {len(values)} finite losses"
+    )
+    print(
+        f"cli: train step wall time (an iteration without eval/vis/save, the batch's load, "
+        f"make_step_batch, pinned copy and step) median {med * 1e3:.1f} ms over {len(steps)} "
+        f"= {SB * TRAIN_RAYS / med:.1f} rays/s; the bare cached step of the train phase "
+        f"{bare_step_s * 1e3:.1f} ms = {SB * TRAIN_RAYS / bare_step_s:.1f} rays/s; difference "
+        f"{(med - bare_step_s) * 1e3:.1f} ms; host make_step_batch + copy median "
+        f"{statistics.median(host_s) * 1e3:.2f} ms; on {card}"
+    )
+    print(f"cli: image decoder {imagecodec.decoder()}; peak device memory {peak / 2**30:.2f} GiB")
+    return got
+
+
 def main() -> int:
     import argparse
 
@@ -2062,8 +2270,9 @@ def main() -> int:
     runs = run_view(torch, np, dev, conf, card, "slice", VIEW_LAUNCHES,
                     keep=[(pixelnerf, "posenc_concat", kept["posenc_concat"])])
     kernels.append(check_posenc(torch, dev, kept["posenc_concat"], baseline))
+    times = {}
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
-                      cmp_dtypes=tuple(CMP_TOL),
+                      cmp_dtypes=tuple(CMP_TOL), times=times,
                       keep=[(pyramid, name, kept[name])
                             for name in ("pyramid_gather", "pyramid_scatter_add")])
     kernels += check_pyramid(torch, np, dev, kept, baseline)
@@ -2081,6 +2290,8 @@ def main() -> int:
                       keep=[(scatter, name, kept[name])
                             for name in ("bilerp_gather", "bilerp_scatter_add")])
     kernels += check_bilerp(torch, np, dev, kept, view_calls, baseline)
+    torch.cuda.empty_cache()
+    run_cli(torch, np, dev, root, card, times["train"])
     if sorted(k["name"] for k in kernels) != sorted(KERNELS):
         raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:

@@ -208,7 +208,7 @@ def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
             raise ValueError("levels must be contiguous bf16 tensors on the grid's device")
         if f.shape[3] % 2:
             raise ValueError("level channel counts must be even")
-    check_chain_widths(hidden, d_latent, d_in, d_out)
+    check_chain_widths(hidden, d_latent, d_in, d_out, ns)
     if grid.dtype != torch.float32 or xin.dtype != torch.bfloat16:
         raise TypeError("grid must be float32 and xin bf16")
     if any(t.device != device for t in w):

@@ -54,6 +54,7 @@ __all__ = [
     "supported_config",
     "stash_layout",
     "check_chain_widths",
+    "chain_widths_ok",
 ]
 
 _GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/bwd_chain.cuh)
@@ -322,23 +323,36 @@ def _check(z, xin, w, n_blocks, combine_layer, ns):
 # widths the chains (csrc/fwd_chain.cuh, csrc/bwd_chain.cuh) are compiled
 # for: the powers of two that split into whole wgmma widths per warpgroup
 CHAIN_HIDDEN = (64, 128, 256, 512)
+# views one tile pools: a tile is one 64-row product (FWD_ROWS)
+CHAIN_MAX_VIEWS = 64
 
 
-def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int) -> None:
-    """Raise unless the block chains (`csrc/fwd_chain.cuh` and
-    `csrc/bwd_chain.cuh`, shared by the ResnetFC and field kernels, forward
-    and backward) take these widths: hidden 64, 128, 256 or 512, d_latent a
-    multiple of 64 (their 128-byte swizzled operand tiles), an even d_in
-    whose padding to 16 is at most hidden (it shares the relu(x) tile) and
-    at most 16 outputs. Past 64 views a tile no longer fits one 64-row
-    product: the kernels' shared-memory size grows and their launch
-    refuses it."""
-    if hidden not in CHAIN_HIDDEN:
-        raise ValueError(f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, got {hidden}")
-    if d_latent % 64 or d_in % 2 or _pad16(d_in) > hidden or d_out > 16:
+def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) -> bool:
+    """Do the block chains (`csrc/fwd_chain.cuh` and `csrc/bwd_chain.cuh`,
+    shared by the ResnetFC and field kernels, forward and backward) take
+    these widths? hidden 64, 128, 256 or 512, d_latent a multiple of 64
+    (their 128-byte swizzled operand tiles), an even d_in whose padding to
+    16 is at most hidden (it shares the relu(x) tile), at most 16 outputs
+    and 1 to 64 views (past 64 a tile no longer fits one 64-row product)."""
+    return (
+        hidden in CHAIN_HIDDEN
+        and d_latent % 64 == 0
+        and d_in % 2 == 0
+        and _pad16(d_in) <= hidden
+        and d_out <= 16
+        and 1 <= ns <= CHAIN_MAX_VIEWS
+    )
+
+
+def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int = 1) -> None:
+    """Raise unless `chain_widths_ok`: a wrapper called directly with
+    widths its kernel lacks never falls back to its plain version. The
+    wrappers pass their view count; the default checks the widths alone."""
+    if not chain_widths_ok(hidden, d_latent, d_in, d_out, ns):
         raise ValueError(
-            f"the chain kernels take d_latent a multiple of 64, an even d_in <= d_hidden and "
-            f"d_out <= 16, got d_latent={d_latent} d_in={d_in} d_out={d_out}"
+            f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, d_latent a multiple of 64, an "
+            f"even d_in <= d_hidden, d_out <= 16 and 1 to {CHAIN_MAX_VIEWS} views, got "
+            f"d_hidden={hidden} d_latent={d_latent} d_in={d_in} d_out={d_out} views={ns}"
         )
 
 
@@ -407,7 +421,7 @@ def _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
     d_in = xin.shape[3]
     d_in_pad, hidden = w.w_in.shape
     d_out = w.w_out.shape[1]
-    check_chain_widths(hidden, dl, d_in, d_out)
+    check_chain_widths(hidden, dl, d_in, d_out, ns)
     lib = _library("resnetfc_fwd")
     smem = lib.pnt_resnetfc_fwd_smem_bytes(hidden, dl, d_in_pad, ns)
     if smem > SMEM_LIMIT:
@@ -482,7 +496,7 @@ def launch_bwd(
     d_out = wp.w_out.shape[1]
     k, m = stash_layout(n_blocks, combine_layer, ns)
     n_inj = min(combine_layer, n_blocks)
-    check_chain_widths(hidden, dl, d_in, d_out)
+    check_chain_widths(hidden, dl, d_in, d_out, ns)
     lib = _library("resnetfc_bwd")
     smem = lib.pnt_resnetfc_bwd_smem_bytes(hidden, dl, ns)
     if smem > SMEM_LIMIT:

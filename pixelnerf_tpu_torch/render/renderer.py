@@ -45,10 +45,24 @@ class RendererConfig:
     perturb: float = 1.0
     white_bkgd: bool = False
     lindisp: bool = False
+    # sample-count schedule (iters, n_coarse list, n_fine list)
+    sched: tuple = ()
 
     @property
     def using_fine(self) -> bool:
         return self.n_fine > 0
+
+    def at_iteration(self, it: int) -> "RendererConfig":
+        """The counts of the last schedule stage that starts at or before
+        iteration `it` (reference nerf.py:318-338)."""
+        if not self.sched:
+            return self
+        iters, coarse_list, fine_list = self.sched
+        n_coarse, n_fine = self.n_coarse, self.n_fine
+        for i, start in enumerate(iters):
+            if it >= start:
+                n_coarse, n_fine = coarse_list[i], fine_list[i]
+        return self.replace(n_coarse=int(n_coarse), n_fine=int(n_fine))
 
     def replace(self, **kw) -> "RendererConfig":
         return dataclasses.replace(self, **kw)
@@ -57,6 +71,7 @@ class RendererConfig:
     def from_conf(
         cls, conf, white_bkgd: bool = False, lindisp: bool = False
     ) -> "RendererConfig":
+        sched = conf.get_list("sched", None) or ()
         return cls(
             n_coarse=conf.get_int("n_coarse", 128),
             n_fine=conf.get_int("n_fine", 0),
@@ -66,6 +81,7 @@ class RendererConfig:
             white_bkgd=bool(conf.get_float("white_bkgd", white_bkgd)),
             lindisp=lindisp,
             perturb=conf.get_float("perturb", 1.0),
+            sched=tuple(tuple(s) for s in sched),
         )
 
 

@@ -6,7 +6,9 @@ source views in train mode (batch-statistics BatchNorm), renders coarse
 and fine with the query cache, takes lambda_coarse * rgb_loss(coarse) +
 lambda_fine * rgb_loss(fine) (+ an optional opacity loss), runs backward
 and `torch.optim.Adam` (the `optax.adam` update: b1 0.9, b2 0.999, eps
-1e-8, eps_root 0, the same bias correction). Nothing is recomputed in the
+1e-8, eps_root 0, the same bias correction) through `MultiSteps`, which
+gives it optax's gradient accumulation, learning-rate schedule and
+gradients of every parameter. Nothing is recomputed in the
 backward: the fused MLP keeps its bf16 stash as saved tensors, the JAX
 package's `remat="auto"` choice when its fused MLP runs.
 
@@ -22,19 +24,103 @@ Batch (tensors on the model's device):
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from pixelnerf_tpu_torch.models.losses import mse_loss
 from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
 
-__all__ = ["make_optimizer", "make_train_step", "make_eval_step", "sample_rays"]
+__all__ = ["MultiSteps", "make_optimizer", "make_train_step", "make_eval_step", "sample_rays"]
 
 
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
     """Adam with optax.adam's constants."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+class MultiSteps:
+    """`optax.MultiSteps(optax.adam(lr_fn), every_k)` on a torch optimizer.
+
+    `update()` runs after a backward. A parameter whose `.grad` is None
+    (the encoder under `stop_encoder_grad`) gets zeros: JAX differentiates
+    every parameter, and optax.adam keeps decaying those moments under one
+    global count, where torch.optim.Adam would skip the parameter and leave
+    its count behind. The gradients then join the running mean of the
+    window, optax's (g + n * acc) / (n + 1); on every `every_k`-th call the
+    mean goes to one optimizer step at lr_fn(count), `count` being the
+    optimizer steps taken so far (optax's inner count), and a new window
+    starts. Between those calls the parameters do not move. Without
+    `lr_fn` the optimizer keeps its own learning rate.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1,
+                 lr_fn: Optional[Callable[[int], float]] = None):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.optimizer = optimizer
+        self.every_k = every_k
+        self.lr_fn = lr_fn
+        self.count = 0  # optimizer steps taken
+        self.mini_step = 0  # calls in the current window
+        self._acc: Optional[List[torch.Tensor]] = None
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def lr(self) -> float:
+        """The learning rate of the next optimizer step."""
+        if self.lr_fn is None:
+            return self.optimizer.param_groups[0]["lr"]
+        return float(self.lr_fn(self.count))
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def update(self) -> bool:
+        """Apply the gradients in `.grad`; True when the optimizer stepped."""
+        params = self._params()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.every_k > 1:
+            n = self.mini_step
+            if n == 0:
+                self._acc = [p.grad.detach().clone() for p in params]
+            else:
+                for acc, p in zip(self._acc, params):
+                    acc.mul_(n).add_(p.grad).div_(n + 1)
+            self.mini_step = n + 1
+            if self.mini_step < self.every_k:
+                return False
+            for acc, p in zip(self._acc, params):
+                p.grad = acc
+            self._acc, self.mini_step = None, 0
+        if self.lr_fn is not None:
+            lr = self.lr()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        self.optimizer.step()
+        self.count += 1
+        return True
+
+    def state_dict(self) -> dict:
+        """The optimizer's state_dict, the step count and the open window."""
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "count": self.count,
+            "mini_step": self.mini_step,
+            "acc": self._acc,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype) for a, p in zip(acc, self._params())
+        ]
 
 
 def _prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -163,17 +249,30 @@ def make_train_step(
     rgb_fine_loss_fn: Optional[Callable] = None,
     use_bbox: bool = False,
     alpha_loss_fn: Optional[Callable] = None,
+    accu_grad: int = 1,
+    lr_fn: Optional[Callable[[int], float]] = None,
 ) -> Callable:
     """train_step(batch, generator=None) -> aux {'rc', 'rf', ['ra'], 't'}:
     one step that updates `model` (parameters and BatchNorm running
     statistics) and `optimizer` in place. The parameters' `.grad` hold the
     step's gradients afterwards.
 
+    :param optimizer a torch optimizer, or a `MultiSteps` shared by several
+        steps (the training CLI's, whose steps change with the schedules)
     :param alpha_loss_fn fn(alpha (SB, R)) -> scalar opacity loss on the
         finest head's composited alpha, already epoch-gated by the caller
+    :param accu_grad, lr_fn a torch optimizer's `MultiSteps`: the mean of
+        accu_grad calls' gradients makes one optimizer step, at
+        lr_fn(optimizer steps taken); BatchNorm statistics move every call
     """
     rgb_loss_fn = rgb_loss_fn or mse_loss
     rgb_fine_loss_fn = rgb_fine_loss_fn or rgb_loss_fn
+    if isinstance(optimizer, MultiSteps):
+        if accu_grad != 1 or lr_fn is not None:
+            raise ValueError("accu_grad and lr_fn belong to the MultiSteps passed as optimizer")
+        updater = optimizer
+    else:
+        updater = MultiSteps(optimizer, accu_grad, lr_fn)
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
         batch = _prepare_batch(batch)
@@ -193,9 +292,9 @@ def make_train_step(
             loss = loss + loss_a
             aux["ra"] = loss_a
         aux["t"] = loss
-        optimizer.zero_grad(set_to_none=True)
+        updater.zero_grad()
         loss.backward()
-        optimizer.step()
+        updater.update()
         return {k: v.detach() for k, v in aux.items()}
 
     return train_step

@@ -139,11 +139,14 @@ def test_field_kernel_matches_plain(cuda, ns, sb, b):
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
-def test_field_kernel_raises_past_its_shared_memory(cuda):
-    """At the flagship width a tile of 65 views (more rows than the 64-row
-    tile holds) does not fit in shared memory: the wrapper raises instead
-    of launching."""
-    ns, d_in, hidden, d_latent = 65, 42, 512, 512
+def test_field_kernel_raises_past_its_shared_memory(cuda, monkeypatch):
+    """A tile that does not fit the shared memory a block may have: the
+    wrapper raises instead of launching. (65 views, which used to be the
+    case, are now refused by the widths check first, `chain_widths_ok`;
+    here the flagship's widths meet a lowered limit.)"""
+    import pixelnerf_tpu_torch.ops.field as ops_field
+
+    ns, d_in, hidden, d_latent = 2, 42, 512, 512
     z = lambda *shape: torch.zeros(shape, device=cuda)
     w = FieldWeights(
         w_in=z(d_in, hidden), b_in=z(hidden), wz=z(3, d_latent, hidden), bz=z(3, hidden),
@@ -151,6 +154,7 @@ def test_field_kernel_raises_past_its_shared_memory(cuda):
         w_out=z(hidden, 4), b_out=z(4),
     )
     feats = [z(ns, 8, 8, d_latent).to(torch.bfloat16)]
+    monkeypatch.setattr(ops_field, "SMEM_LIMIT", 1024)
     before = pyramid_field_fused.launches
     with pytest.raises(ValueError, match="shared memory"):
         pyramid_field_fused(feats, z(1, ns, 4, 2), z(1, ns, 4, d_in).to(torch.bfloat16), w, 5, 3, ns)
@@ -228,6 +232,75 @@ def test_query_three_views_launches_the_field_kernel(cuda):
         want = model_cpu.query(enc.to("cpu"), xyz, vd, coarse=False)
     assert got.shape == want.shape == (1, 50, 4)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-2)
+
+
+def test_d_in_39_model_trains_and_renders_through_the_per_layer_chain(cuda):
+    """A bf16 model without view directions (d_in 39, which the block
+    chains refuse) takes the per-layer chain on the card: a train step and
+    a render launch no ResnetFC or field kernel, and agree with the same
+    model on the CPU routed as the card routes it (the CPU's exemption
+    dropped: the per-layer bf16 chain in plain PyTorch) at the bf16
+    tolerances of the slice: loss 2e-2 relative, rgb 5e-2 (the model's
+    heads shaped as test_query_three_views_launches_the_field_kernel's, so
+    that its outputs are O(1))."""
+    import copy
+
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops.resnetfc import chain_widths_ok
+    from pixelnerf_tpu_torch.render.renderer import RendererConfig
+    from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step, sample_rays
+    from pixelnerf_tpu_torch.utils.rays import gen_rays
+
+    conf = loads(QUERY_CONF.replace("use_viewdirs = True", "use_viewdirs = False"))
+    model = make_model(conf["model"], device=cuda, seed=0, train=True)
+    assert model.d_in == 39 and not model.mlp_coarse.fused_ok((2, 8))
+    with torch.no_grad():
+        for mlp in (model.mlp_coarse, model.mlp_fine):
+            for i in range(mlp.n_blocks):
+                fc1 = getattr(mlp, f"block_{i}").fc_1.weight
+                fc1.copy_(torch.randn(fc1.shape) * 0.1)
+            w_out = mlp.lin_out.weight
+            w_out.mul_(0.1).sub_(w_out.mean(dim=1, keepdim=True))
+    model_cpu = copy.deepcopy(model).to("cpu")
+    for mlp in (model_cpu.mlp_coarse, model_cpu.mlp_fine):
+        mlp._chain_ok = lambda ns, m=mlp: chain_widths_ok(m.d_hidden, m.d_latent, m.d_in, m.d_out, ns)
+    assert not model_cpu.mlp_coarse.fused_ok((2, 8))
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 32, 32, 3)).astype(np.float32))
+    poses = torch.eye(4).repeat(1, 3, 1, 1)
+    poses[..., 2, 3] = torch.tensor([1.3, 1.4, 1.5])
+    batch = {"images": images, "poses": poses, "focal": torch.full((1, 2), 35.0),
+             "c": torch.full((1, 2), 16.0), "src_images": images[:, :2], "src_poses": poses[:, :2]}
+    pix = torch.from_numpy(2 * 32 * 32 + rng.integers(0, 32 * 32, size=(1, 64)))
+    batch["rays"], batch["rgb_gt"] = sample_rays(
+        images, poses, batch["focal"], batch["c"], 0.8, 1.8, 64, draws={"pix": pix})
+    rcfg = RendererConfig(n_coarse=16, n_fine=8, n_fine_depth=4, perturb=0.0)
+    kernels = (resnetfc_fwd, resnetfc_fwd_stash, resnetfc_bwd, pyramid_field_fused,
+               pyramid_field_fused_fwd_stash, pyramid_field_fused_bwd)
+    before = [k.launches for k in kernels]
+    losses = []
+    for m, dev in ((model, cuda), (model_cpu, torch.device("cpu"))):
+        step = make_train_step(m, rcfg, make_optimizer(m, 1e-4), 64, 0.8, 1.8)
+        aux = step({k: v.to(dev) for k, v in batch.items()})
+        losses.append(aux["t"].item())
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    assert all(np.isfinite(losses)) and abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+
+    rays = gen_rays(poses[0, 2:], 32, 32, 35.0, 0.8, 1.8).reshape(-1, 8)
+    outs = []
+    for m in (model, model_cpu):
+        m.eval()
+        with torch.no_grad():
+            enc = m.encode(images[:, :2], poses[:, :2], 35.0)
+            outs.append(render_full(m, enc, rays, rcfg, chunk=512))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    for head in ("coarse", "fine"):
+        got, want = outs[0][head]["rgb"].cpu(), outs[1][head]["rgb"]
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
 
 
 PYR_SHAPES = [(16, 16, 64), (4, 4, 64), (2, 2, 128)]
@@ -355,11 +428,13 @@ def test_resnetfc_kernels_match_plain(cuda, ns, sb, b):
 
 
 def test_failed_resnetfc_launch_raises(cuda, monkeypatch):
-    """A launch the card refuses (here: more shared memory than a block
-    may have, past the wrapper's own check) raises; nothing is counted."""
+    """A launch the library refuses (here: 65 views, with the wrapper's
+    own widths and shared-memory checks switched off) raises; nothing is
+    counted."""
     rng = np.random.default_rng(0)
     z, xin, w, _ = _mlp_case(rng, cuda, 65, 1, 4, hidden=512, d_latent=512)
     monkeypatch.setattr(ops_resnetfc, "SMEM_LIMIT", 1 << 30)
+    monkeypatch.setattr(ops_resnetfc, "check_chain_widths", lambda *a: None)
     before = resnetfc_fwd.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         resnetfc_fwd(z, xin, w, 5, 3, 65)
@@ -895,15 +970,16 @@ def test_resnetfc_backward_raises_on_widths_the_chain_lacks(cuda):
 
 def test_chains_refuse_past_64_views(cuda):
     """65 views at hidden 64 fit shared memory but not one 64-row tile: both
-    launches are refused, nothing is counted."""
+    wrappers refuse them (`chain_widths_ok`) before a launch, nothing is
+    counted."""
     rng = np.random.default_rng(7)
     z, xin, w, g = _mlp_case(rng, cuda, 65, 1, 3)
     k, m = stash_layout(5, 3, 65)
     spre = torch.zeros((2 * k, 1, 65, 3, 64), dtype=torch.bfloat16, device=cuda)
     spost = torch.zeros((2 * m + 1, 1, 3, 64), dtype=torch.bfloat16, device=cuda)
     before = (resnetfc_fwd.launches, resnetfc_bwd.launches)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="views=65"):
         resnetfc_fwd(z, xin, w, 5, 3, 65)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="views=65"):
         resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 65)
     assert (resnetfc_fwd.launches, resnetfc_bwd.launches) == before

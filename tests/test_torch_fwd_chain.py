@@ -88,10 +88,10 @@ def _reach(name):
 )
 def test_backward_checks_widths_and_views_as_the_forward(monkeypatch, hidden, d_latent, d_in,
                                                         d_out, ns):
-    """The backward wrapper refuses exactly the widths the forward wrapper
-    refuses, with the same error, before either touches its kernel; the
-    view count goes to both kernels' own launch checks (past 64 views a
-    tile needs more than one 64-row product)."""
+    """The backward wrapper refuses exactly the widths and view counts the
+    forward wrapper refuses (`chain_widths_ok`: past 64 views a tile needs
+    more than one 64-row product), with the same error, before either
+    touches its kernel."""
     monkeypatch.setattr(ops_resnetfc, "_library", _reach)
     n_blocks, combine = 5, 3 if ns > 1 else 1000
     n_inj = min(combine, n_blocks)
@@ -118,5 +118,6 @@ def test_backward_checks_widths_and_views_as_the_forward(monkeypatch, hidden, d_
     bwd = outcome(lambda: ops_resnetfc.launch_bwd(
         z, xin, t(1, 3, d_out), spre, spost, w, n_blocks, combine, ns))
     assert fwd == bwd
-    accepted = hidden in (64, 128, 256, 512) and d_latent % 64 == 0 and d_in <= hidden and d_out <= 16
+    accepted = (hidden in (64, 128, 256, 512) and d_latent % 64 == 0 and d_in <= hidden
+                and d_out <= 16 and ns <= 64)
     assert fwd[0] is (_Reached if accepted else ValueError)
