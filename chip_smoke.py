@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                  (from the repository root)
     python3 chip_smoke.py --baseline DIR   (also time the lookup kernels,
-                                            posenc and the field's backward
+                                            posenc, the field's backward
+                                            and the train step's own code
                                             of an earlier tree of the
                                             repository)
 
@@ -55,7 +56,9 @@ Phases, each failing loudly (an exception and a non-zero exit):
    one step under torch.profiler, and one step of the card held against
    the CPU plain step on the same parameters and injected rays (bf16 and
    float32), and each side's bf16 trunk gradients against its own float32
-   step's, layer by layer;
+   step's, layer by layer. With `--baseline`, the earlier tree's
+   `train/step.py` (over this tree's model and renderer) builds a second
+   step whose time is taken beside this tree's, in turns;
 6. path A, training through the fused field: phase 5 for
    `model.with_field_fusion()` (the field's stash forward and backward in
    the train step, its primal in the eval step, no pyramid or ResnetFC
@@ -1852,12 +1855,14 @@ def trunk_precision(torch, grads, label):
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
-              fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None):
+              fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None, base_step=None):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
     With `keep`, (module, function name, list) triples, the counted train
     step appends each call's arguments of each function to its list; with
-    `times`, a dict, the timed steps' mean seconds go to times[label].
+    `times`, a dict, the timed steps' mean seconds go to times[label]; with
+    `base_step`, an earlier tree's `make_train_step`, its step on the same
+    model, batch and a fresh Adam is timed beside this tree's, in turns.
     Returns the counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
@@ -1911,6 +1916,9 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
         f"{SB * TRAIN_RAYS / step_s:.1f} train rays/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, last loss {losses}, on {card}"
     )
+    if base_step is not None:
+        old_step = base_step(stepped, rcfg, make_optimizer(model, 1e-4), TRAIN_RAYS, near, far)
+        _step_ab(torch, label, lambda: step(batch, gen), lambda: old_step(batch, gen), card)
     profile_view(torch, lambda: step(batch, gen), f"one {label} step")
     del model, stepped, optimizer, step, eval_step
     torch.cuda.empty_cache()
@@ -1923,6 +1931,40 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     if set(grads) == {"bfloat16", "float32"}:
         trunk_precision(torch, grads, label)
     return [train_launches, eval_launches]
+
+
+def _step_ab(torch, label, new, old, card):
+    """Time a train step of this tree and of an earlier one in turns
+    (earlier, this, this, earlier), TIMED_STEPS each after WARMUP_STEPS,
+    with a synchronise around each run of steps."""
+    for fn in (old, new):
+        for _ in range(WARMUP_STEPS):
+            fn()
+    ms = {"this tree": [], "baseline": []}
+    for name, fn in (("baseline", old), ("this tree", new), ("this tree", new), ("baseline", old)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+    print(
+        f"{label}: train step in turns (baseline, this tree, this tree, baseline), "
+        f"{TIMED_STEPS} steps each: this tree {ms['this tree'][0]:.1f} {ms['this tree'][1]:.1f} ms, "
+        f"baseline's train/step.py {ms['baseline'][0]:.1f} {ms['baseline'][1]:.1f} ms; on {card}"
+    )
+
+
+def _baseline_step(path):
+    """The earlier tree's `make_train_step`: its `train/step.py` loaded as a
+    module of its own over this tree's renderer and losses."""
+    import importlib.util
+
+    file = Path(path).resolve() / "pixelnerf_tpu_torch" / "train" / "step.py"
+    spec = importlib.util.spec_from_file_location("baseline_step", file)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_train_step
 
 
 def run_view(torch, np, dev, conf, card, label, expected, keep=()):
@@ -2214,7 +2256,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--baseline", metavar="DIR",
-        help="an earlier tree of the repository: time its lookup kernels beside the port's",
+        help="an earlier tree of the repository: time its lookup kernels, posenc, field "
+        "backward and train step beside the port's",
     )
     args = parser.parse_args()
     import torch
@@ -2273,6 +2316,7 @@ def main() -> int:
     times = {}
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
                       cmp_dtypes=tuple(CMP_TOL), times=times,
+                      base_step=None if args.baseline is None else _baseline_step(args.baseline),
                       keep=[(pyramid, name, kept[name])
                             for name in ("pyramid_gather", "pyramid_scatter_add")])
     kernels += check_pyramid(torch, np, dev, kept, baseline)

@@ -23,7 +23,7 @@ from torch import nn
 from pixelnerf_tpu_torch.ops.field import (
     FieldWeights, field_supported, pack_field_weights, pyramid_field_fused,
 )
-from pixelnerf_tpu_torch.ops.resnetfc import chain_widths_ok, resnetfc_fused, supported_config
+from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_fused, supported_config
 from pixelnerf_tpu_torch.utils.rays import combine_interleaved
 
 __all__ = ["ResnetFC", "ResnetBlockFC", "FieldInput"]
@@ -112,29 +112,19 @@ class ResnetFC(nn.Module):
         self.lin_out = _linear(d_hidden, d_out)
         self._field_cache = None  # (parameter key, packed FieldWeights)
 
-    def _chain_ok(self, ns: int) -> bool:
-        """The card's block chains take this module's widths for `ns`
-        views (`chain_widths_ok`). On the CPU the kernels' plain versions
-        take every width, so there it holds for all; on any other device
-        a width the chains lack routes the call to the per-layer chain
-        instead of a wrapper that would refuse it."""
-        if self.lin_in.weight.device.type == "cpu":
-            return True
-        return chain_widths_ok(self.d_hidden, self.d_latent, self.d_in, self.d_out, ns)
-
     def field_path_ok(self, ns: int) -> bool:
         """Can this module consume a FieldInput for `ns` views?"""
         return (
             self.combine_type == "average"
             and self.d_latent > 0
             and field_supported(ns, self.n_blocks, self.combine_layer)
-            and self._chain_ok(ns)
         )
 
     def fused_ok(self, combine_inner_dims) -> bool:
         """Does a (z, x) call take the fused ResnetFC kernels? The TPU
-        kernel's predicate (`_pallas_ok`), for bf16 models (float32 models
-        keep the exact per-layer chain), and the chains' widths."""
+        kernel's predicate (`_pallas_ok`), for bf16 models: float32 models
+        keep the exact per-layer chain. On the card the wrappers raise on
+        widths their chains lack (`check_chain_widths`)."""
         return (
             self.dtype == torch.bfloat16
             and len(combine_inner_dims) == 2
@@ -142,7 +132,6 @@ class ResnetFC(nn.Module):
                 0.0, False, self.combine_type, self.d_latent, self.d_in,
                 self.combine_layer, self.n_blocks, combine_inner_dims[0],
             )
-            and self._chain_ok(combine_inner_dims[0])
         )
 
     def weights(self) -> FieldWeights:

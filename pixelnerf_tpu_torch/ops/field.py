@@ -52,7 +52,7 @@ import torch
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
 from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather_plain, pyramid_scatter_add_plain
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    FieldWeights, _device_of, _pad16, check_chain_widths, launch_bwd, pack_field_weights,
+    FieldWeights, _device_of, _pad16, check_chain_widths, even_d_in, launch_bwd, pack_field_weights,
     resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter_plan import ScatterPlan, Segment
@@ -208,6 +208,8 @@ def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
             raise ValueError("levels must be contiguous bf16 tensors on the grid's device")
         if f.shape[3] % 2:
             raise ValueError("level channel counts must be even")
+    xin = even_d_in(xin)
+    d_in = xin.shape[3]
     check_chain_widths(hidden, d_latent, d_in, d_out, ns)
     if grid.dtype != torch.float32 or xin.dtype != torch.bfloat16:
         raise TypeError("grid must be float32 and xin bf16")

@@ -55,6 +55,7 @@ __all__ = [
     "stash_layout",
     "check_chain_widths",
     "chain_widths_ok",
+    "even_d_in",
 ]
 
 _GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/bwd_chain.cuh)
@@ -332,8 +333,9 @@ def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) 
     shared by the ResnetFC and field kernels, forward and backward) take
     these widths? hidden 64, 128, 256 or 512, d_latent a multiple of 64
     (their 128-byte swizzled operand tiles), an even d_in whose padding to
-    16 is at most hidden (it shares the relu(x) tile), at most 16 outputs
-    and 1 to 64 views (past 64 a tile no longer fits one 64-row product)."""
+    16 is at most hidden (it shares the relu(x) tile; the wrappers give an
+    odd d_in a zero column first, `even_d_in`), at most 16 outputs and 1 to
+    64 views (past 64 a tile no longer fits one 64-row product)."""
     return (
         hidden in CHAIN_HIDDEN
         and d_latent % 64 == 0
@@ -345,15 +347,23 @@ def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) 
 
 
 def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int = 1) -> None:
-    """Raise unless `chain_widths_ok`: a wrapper called directly with
-    widths its kernel lacks never falls back to its plain version. The
-    wrappers pass their view count; the default checks the widths alone."""
+    """Raise unless `chain_widths_ok`: a model or a direct call with widths
+    the kernels lack never falls back to a plain version on the card (the
+    other widths are queued in ROADMAP.md). The wrappers pass their view
+    count; the default checks the widths alone."""
     if not chain_widths_ok(hidden, d_latent, d_in, d_out, ns):
         raise ValueError(
             f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, d_latent a multiple of 64, an "
             f"even d_in <= d_hidden, d_out <= 16 and 1 to {CHAIN_MAX_VIEWS} views, got "
             f"d_hidden={hidden} d_latent={d_latent} d_in={d_in} d_out={d_out} views={ns}"
         )
+
+
+def even_d_in(xin: torch.Tensor) -> torch.Tensor:
+    """xin with an odd d_in given one zero column: the chains read the
+    positional code in bf16 pairs, and w_in's zero-padded row d_in meets
+    the new column, so the product is unchanged."""
+    return torch.nn.functional.pad(xin, (0, 1)) if xin.shape[-1] % 2 else xin
 
 
 def _device_of(z: torch.Tensor, what: str) -> str:
@@ -418,9 +428,10 @@ def _raise_on(err: int, lib, what: str):
 def _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
     z, xin, w = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
-    d_in = xin.shape[3]
     d_in_pad, hidden = w.w_in.shape
     d_out = w.w_out.shape[1]
+    xin = even_d_in(xin)
+    d_in = xin.shape[3]
     check_chain_widths(hidden, dl, d_in, d_out, ns)
     lib = _library("resnetfc_fwd")
     smem = lib.pnt_resnetfc_fwd_smem_bytes(hidden, dl, d_in_pad, ns)
@@ -491,11 +502,13 @@ def launch_bwd(
     its TMA loads read from L2."""
     z, xin, wp = _cuda_inputs(z, xin, w)
     sb, _, b, dl = z.shape
-    d_in = xin.shape[3]
     d_in_pad, hidden = wp.w_in.shape
     d_out = wp.w_out.shape[1]
     k, m = stash_layout(n_blocks, combine_layer, ns)
     n_inj = min(combine_layer, n_blocks)
+    d_in_call = xin.shape[3]
+    xin = even_d_in(xin)
+    d_in = xin.shape[3]
     check_chain_widths(hidden, dl, d_in, d_out, ns)
     lib = _library("resnetfc_bwd")
     smem = lib.pnt_resnetfc_bwd_smem_bytes(hidden, dl, ns)
@@ -559,6 +572,8 @@ def launch_bwd(
     launch_bwd.chain_launches += launched[0]
     launch_bwd.wgrad_launches += launched[1]
     _raise_on(err, lib, "resnetfc_bwd")
+    if d_in != d_in_call:  # the zero column of `even_d_in` has no gradient to return
+        dxin, dw = dxin[..., :d_in_call].contiguous(), dw._replace(w_in=dw.w_in[:d_in_call])
     return (d_feats if levels else dz), dxin, dw, (gpre, gpost, gin, gout)
 
 

@@ -239,7 +239,7 @@ def _render(model, batch, rays, rcfg, generator, train, want_weights=False):
 def make_train_step(
     model,
     rcfg: RendererConfig,
-    optimizer: torch.optim.Optimizer,
+    optimizer,
     num_rays: int,
     z_near: float,
     z_far: float,
@@ -249,30 +249,22 @@ def make_train_step(
     rgb_fine_loss_fn: Optional[Callable] = None,
     use_bbox: bool = False,
     alpha_loss_fn: Optional[Callable] = None,
-    accu_grad: int = 1,
-    lr_fn: Optional[Callable[[int], float]] = None,
 ) -> Callable:
     """train_step(batch, generator=None) -> aux {'rc', 'rf', ['ra'], 't'}:
     one step that updates `model` (parameters and BatchNorm running
     statistics) and `optimizer` in place. The parameters' `.grad` hold the
     step's gradients afterwards.
 
-    :param optimizer a torch optimizer, or a `MultiSteps` shared by several
-        steps (the training CLI's, whose steps change with the schedules)
+    :param optimizer a `MultiSteps` (gradient accumulation and an lr
+        schedule; the training CLI shares one between the steps it builds
+        as its schedules change), or a torch optimizer, which steps once a
+        call at its own lr
     :param alpha_loss_fn fn(alpha (SB, R)) -> scalar opacity loss on the
         finest head's composited alpha, already epoch-gated by the caller
-    :param accu_grad, lr_fn a torch optimizer's `MultiSteps`: the mean of
-        accu_grad calls' gradients makes one optimizer step, at
-        lr_fn(optimizer steps taken); BatchNorm statistics move every call
     """
     rgb_loss_fn = rgb_loss_fn or mse_loss
     rgb_fine_loss_fn = rgb_fine_loss_fn or rgb_loss_fn
-    if isinstance(optimizer, MultiSteps):
-        if accu_grad != 1 or lr_fn is not None:
-            raise ValueError("accu_grad and lr_fn belong to the MultiSteps passed as optimizer")
-        updater = optimizer
-    else:
-        updater = MultiSteps(optimizer, accu_grad, lr_fn)
+    updater = optimizer if isinstance(optimizer, MultiSteps) else MultiSteps(optimizer)
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
         batch = _prepare_batch(batch)

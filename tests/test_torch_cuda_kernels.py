@@ -234,27 +234,31 @@ def test_query_three_views_launches_the_field_kernel(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-2)
 
 
-def test_d_in_39_model_trains_and_renders_through_the_per_layer_chain(cuda):
-    """A bf16 model without view directions (d_in 39, which the block
-    chains refuse) takes the per-layer chain on the card: a train step and
-    a render launch no ResnetFC or field kernel, and agree with the same
-    model on the CPU routed as the card routes it (the CPU's exemption
-    dropped: the per-layer bf16 chain in plain PyTorch) at the bf16
-    tolerances of the slice: loss 2e-2 relative, rgb 5e-2 (the model's
-    heads shaped as test_query_three_views_launches_the_field_kernel's, so
-    that its outputs are O(1))."""
+def test_d_in_39_model_trains_and_renders_through_the_kernels(cuda, monkeypatch):
+    """A bf16 model without view directions (d_in 39) trains and renders
+    on the card through the ResnetFC and field kernels (the wrappers give
+    its positional code a zero column), and agrees with the same model on
+    the card with the wrappers' plain versions (their device test made to
+    answer "cpu"), so that the rest of the step (the encoder's bf16
+    convolutions above all, which round apart on the card and the CPU) is
+    the same on both sides. Tolerances are the slice's bf16 ones
+    (tests/test_torch_train.py): the loss 2e-2 relative, each gradient of
+    the heads 5e-2 and of the encoder 1e-1 in relative Frobenius norm,
+    rgb 5e-2. The heads are shaped as
+    test_query_three_views_launches_the_field_kernel's, so that their
+    outputs are O(1)."""
     import copy
 
+    import pixelnerf_tpu_torch.ops.field as ops_field
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
-    from pixelnerf_tpu_torch.ops.resnetfc import chain_widths_ok
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step, sample_rays
     from pixelnerf_tpu_torch.utils.rays import gen_rays
 
     conf = loads(QUERY_CONF.replace("use_viewdirs = True", "use_viewdirs = False"))
     model = make_model(conf["model"], device=cuda, seed=0, train=True)
-    assert model.d_in == 39 and not model.mlp_coarse.fused_ok((2, 8))
+    assert model.d_in == 39 and model.mlp_coarse.fused_ok((2, 8))
     with torch.no_grad():
         for mlp in (model.mlp_coarse, model.mlp_fine):
             for i in range(mlp.n_blocks):
@@ -262,10 +266,7 @@ def test_d_in_39_model_trains_and_renders_through_the_per_layer_chain(cuda):
                 fc1.copy_(torch.randn(fc1.shape) * 0.1)
             w_out = mlp.lin_out.weight
             w_out.mul_(0.1).sub_(w_out.mean(dim=1, keepdim=True))
-    model_cpu = copy.deepcopy(model).to("cpu")
-    for mlp in (model_cpu.mlp_coarse, model_cpu.mlp_fine):
-        mlp._chain_ok = lambda ns, m=mlp: chain_widths_ok(m.d_hidden, m.d_latent, m.d_in, m.d_out, ns)
-    assert not model_cpu.mlp_coarse.fused_ok((2, 8))
+    model_plain = copy.deepcopy(model)
     rng = np.random.default_rng(9)
     images = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 32, 32, 3)).astype(np.float32))
     poses = torch.eye(4).repeat(1, 3, 1, 1)
@@ -275,32 +276,39 @@ def test_d_in_39_model_trains_and_renders_through_the_per_layer_chain(cuda):
     pix = torch.from_numpy(2 * 32 * 32 + rng.integers(0, 32 * 32, size=(1, 64)))
     batch["rays"], batch["rgb_gt"] = sample_rays(
         images, poses, batch["focal"], batch["c"], 0.8, 1.8, 64, draws={"pix": pix})
-    rcfg = RendererConfig(n_coarse=16, n_fine=8, n_fine_depth=4, perturb=0.0)
-    kernels = (resnetfc_fwd, resnetfc_fwd_stash, resnetfc_bwd, pyramid_field_fused,
-               pyramid_field_fused_fwd_stash, pyramid_field_fused_bwd)
-    before = [k.launches for k in kernels]
-    losses = []
-    for m, dev in ((model, cuda), (model_cpu, torch.device("cpu"))):
-        step = make_train_step(m, rcfg, make_optimizer(m, 1e-4), 64, 0.8, 1.8)
-        aux = step({k: v.to(dev) for k, v in batch.items()})
-        losses.append(aux["t"].item())
-    torch.cuda.synchronize()
-    assert [k.launches for k in kernels] == before
-    assert all(np.isfinite(losses)) and abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
-
+    batch = {k: v.to(cuda) for k, v in batch.items()}
     rays = gen_rays(poses[0, 2:], 32, 32, 35.0, 0.8, 1.8).reshape(-1, 8)
-    outs = []
-    for m in (model, model_cpu):
+    rcfg = RendererConfig(n_coarse=16, n_fine=8, n_fine_depth=4, perturb=0.0)
+    kernels = (resnetfc_fwd_stash, resnetfc_bwd, pyramid_field_fused)
+
+    def run(m):
+        step = make_train_step(m, rcfg, make_optimizer(m, 1e-4), 64, 0.8, 1.8)
+        loss = step(batch)["t"].item()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()}
         m.eval()
         with torch.no_grad():
-            enc = m.encode(images[:, :2], poses[:, :2], 35.0)
-            outs.append(render_full(m, enc, rays, rcfg, chunk=512))
-    torch.cuda.synchronize()
+            enc = m.encode(images[:, :2].to(cuda), poses[:, :2].to(cuda), 35.0)
+            out = render_full(m, enc, rays, rcfg, chunk=512)
+        torch.cuda.synchronize()
+        return loss, grads, out
+
+    before = [k.launches for k in kernels]
+    loss, grads, out = run(model)
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    before = [k.launches for k in kernels]
+    with monkeypatch.context() as mp:
+        for mod in (ops_resnetfc, ops_field):
+            mp.setattr(mod, "_device_of", lambda t, what: "cpu")
+        want_loss, want_grads, want_out = run(model_plain)
     assert [k.launches for k in kernels] == before
+    assert np.isfinite(loss) and abs(loss - want_loss) <= 2e-2 * abs(want_loss)
+    for n, want in want_grads.items():
+        tol = 1e-1 if n.startswith("encoder") else 5e-2
+        assert (grads[n] - want).norm() <= tol * want.norm() + 1e-12, n
     for head in ("coarse", "fine"):
-        got, want = outs[0][head]["rgb"].cpu(), outs[1][head]["rgb"]
+        got = out[head]["rgb"]
         assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+        torch.testing.assert_close(got, want_out[head]["rgb"], rtol=0, atol=5e-2)
 
 
 PYR_SHAPES = [(16, 16, 64), (4, 4, 64), (2, 2, 128)]
@@ -376,8 +384,7 @@ def test_pyramid_kernels_match_plain(cuda, levels, b, n, kind):
         _pyramid_within_sum_bound(got, uv, dz if second is None else dz + second, levels)
 
 
-def _mlp_case(rng, cuda, ns, sb, b, hidden=64, d_latent=64, n_blocks=5, combine=3):
-    d_in = 42
+def _mlp_case(rng, cuda, ns, sb, b, hidden=64, d_latent=64, n_blocks=5, combine=3, d_in=42):
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
     m = lambda *shape: t(rng.normal(size=shape, scale=1.0 / np.sqrt(shape[-2] if len(shape) > 1 else 10)))
     n_inj = min(combine, n_blocks)
@@ -402,9 +409,13 @@ def _grad_close(got, want, extra_ulp=False):
 
 @pytest.mark.parametrize("ns,sb,b", [(1, 2, 50), (2, 2, 37), (3, 1, 45), (5, 2, 13)])
 def test_resnetfc_kernels_match_plain(cuda, ns, sb, b):
+    _resnetfc_kernels_match_plain(cuda, ns, sb, b, d_in=42)
+
+
+def _resnetfc_kernels_match_plain(cuda, ns, sb, b, d_in):
     rng = np.random.default_rng(ns * 100 + b)
     combine = 3 if ns > 1 else 1000
-    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, combine=combine)
+    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, combine=combine, d_in=d_in)
     n_blocks = 5
     before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches)
     out = resnetfc_fwd(z, xin, w, n_blocks, combine, ns)
@@ -448,10 +459,25 @@ FIELD_SHAPES = [(16, 16, 32), (8, 8, 32), (4, 4, 64)]
 def test_field_vjp_kernels_match_plain(cuda, ns, sb, b):
     """The field's stash forward and its backward against their plain
     versions (the backward from the kernel's own stash), every gradient."""
+    _field_vjp_kernels_match_plain(cuda, ns, sb, b, d_in=42)
+
+
+@pytest.mark.parametrize("ns,sb,b", [(1, 2, 50), (2, 2, 37), (3, 1, 45)])
+def test_odd_d_in_kernels_match_plain(cuda, ns, sb, b):
+    """d_in 39 (a bf16 model without view directions): the wrappers give
+    the positional code a zero column (`even_d_in`), and the ResnetFC's
+    and the field's kernels, forward and backward, agree with their plain
+    versions at the d_in-42 tolerances, dxin and the w_in gradient at 39
+    columns."""
+    _resnetfc_kernels_match_plain(cuda, ns, sb, b, d_in=39)
+    _field_vjp_kernels_match_plain(cuda, ns, sb, b, d_in=39)
+
+
+def _field_vjp_kernels_match_plain(cuda, ns, sb, b, d_in):
     rng = np.random.default_rng(ns * 10 + b)
     combine, n_blocks = (3 if ns > 1 else 1000), 5
     d_latent = sum(c for (_, _, c) in FIELD_SHAPES)
-    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, d_latent=d_latent, combine=combine)
+    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, d_latent=d_latent, combine=combine, d_in=d_in)
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
     feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in FIELD_SHAPES]
     grid = rng.uniform(-1.2, 1.2, size=(sb, ns, b, 2))

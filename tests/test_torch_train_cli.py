@@ -225,11 +225,11 @@ def _tiny_step_inputs(stop_encoder_grad=False):
 
 
 def test_train_step_accumulates_every_third_call():
-    """accu_grad=3: the parameters move on every third call only, the
-    BatchNorm statistics on every call."""
+    """A MultiSteps of every_k=3 (train.accu_grad = 3): the parameters move
+    on every third call only, the BatchNorm statistics on every call."""
     conf, model, batch = _tiny_step_inputs()
     step = make_train_step(model, RendererConfig.from_conf(conf["renderer"]),
-                           make_optimizer(model, 1e-3), 16, 0.8, 1.8, accu_grad=3)
+                           MultiSteps(make_optimizer(model, 1e-3), 3), 16, 0.8, 1.8)
     gen = torch.Generator().manual_seed(0)
     for call in range(6):
         params = [p.detach().clone() for p in model.parameters()]
@@ -256,8 +256,6 @@ def test_train_step_gives_the_frozen_encoder_zero_gradients():
     head = model.mlp_coarse.lin_in.weight
     assert head.grad.norm() > 0
     assert int(optimizer.state[enc]["step"]) == int(optimizer.state[head]["step"]) == 2
-    with pytest.raises(ValueError, match="MultiSteps"):
-        make_train_step(model, RendererConfig(), MultiSteps(optimizer), 16, 0.8, 1.8, accu_grad=2)
 
 
 def _state_equal(a, b):
