@@ -85,10 +85,30 @@ Phases, each failing loudly (an exception and a non-zero exit):
    and the step) and its rays/s beside phase 5's bare cached step, the
    host batch preparation's median, the image decoder that ran and the
    peak device memory;
-9. a `kernels` JSON line, the card line, and the result line. A kernel's
+9. the serving CLIs on the trained flagship, as a user runs them: the
+   port reads `artifacts/srn600_bf16.ckpt` itself (put in a checkpoints
+   dir as `pixel_nerf_latest`), conf/exp/srn600.conf at full width in bf16
+   with the renderer's jitter off, on a pollen dataset written to a
+   temporary directory (3 test objects x 24 views of 128x128 with
+   near_far.txt): `eval_approx` (-P "0 12", 3 objects), `gen_video` (40
+   views), `eval_mesh --mode both` (one object, the default 256^3 grid in
+   65,536-point chunks, 22 novel views), `calc_metrics` on its renders and
+   `eval_real` on one written 128x128 image (24 views), each through its
+   `main(argv, device)` with the launch counts set to 0 just before and
+   read just after: posenc and the field primal must launch in each
+   rendering CLI and no plain version may run. Each CLI's wall time, the
+   rays/s of its render_full calls, the grid's points/s, the isosurface's
+   host time and peak memory are printed; 256 rays of the first view of
+   eval_approx (two source views) and of eval_real (one; two image rows
+   each) and the middle 65,536-point slab of the grid are held against the
+   CPU plain run of the same checkpoint and inputs; PSNR and SSIM must be
+   finite, the mesh non-empty and every output file written;
+10. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
-   launches are the most that one counted run of phases 4-7 made.
+   launches are the most that one counted run of phases 4-7 made, and
+   posenc's and the field primal's `serve_launches` those of each CLI of
+   phase 9.
 
 For the two backwards (the ResnetFC's and the field's) phase 3 also holds
 the bf16 cotangents the chain hands the weight-gradient products against
@@ -735,10 +755,14 @@ def check_field_vjp(torch, np, dev, step_calls=(), baseline=None):
         taps = [_level_taps(uv, h, ww, *hws[0], torch.bfloat16) for h, ww in hws]
         err = _sum_bound_check(torch, f"the chain's level scatter ({label})", got, uv, dzf, taps)
         split_err = _sum_bound_check(torch, f"the split's scatter ({label})", split, uv, dzf, taps)
-        red = count_reductions(level_scatter_plan(LEVELS, SB * ns, ns, b), LEVELS, taps)
+        lplan = level_scatter_plan(LEVELS, SB * ns, ns, b)
+        red = count_reductions(lplan, LEVELS, taps)
         split_red = count_reductions(pyramid_scatter_add.plan, LEVELS, taps)
         del got, split, taps
         y = {"1": _bwd_split(torch, fused)["chain"][0], "2": _bwd_split(torch, nolev)["chain"][0]}
+        # the epilogue's bound: its vector reductions' bytes (`vec` floats
+        # each, 4 at the flagship's levels) at the memory rate
+        y["bound"] = red["vector"] * 4 * max(sg.vec for sg in lplan.segments) / PEAK_BYTES * 1e3
         y["scatter"] = _time_ms(torch, scatter, 3, 20)
         y["3"] = y["2"] + y["scatter"]
         if base_lib is not None:
@@ -747,7 +771,8 @@ def check_field_vjp(torch, np, dev, step_calls=(), baseline=None):
         print(
             f"level scatter {label}: B={b}; chain with levels (1) {y['1']:.3f} ms, without (2) "
             f"{y['2']:.3f} ms, share (1 - 2) {y['1'] - y['2']:.3f} ms; split (3) = 2 + pyramid_scatter_add "
-            f"{y['scatter']:.3f} ms = {y['3']:.3f} ms"
+            f"{y['scatter']:.3f} ms = {y['3']:.3f} ms; the epilogue's reductions' bytes at "
+            f"{PEAK_BYTES / 1e12} TB/s {y['bound']:.3f} ms"
             + ("" if base_lib is None else f"; baseline (1) {y['base 1']:.3f} (2) {y['base 2']:.3f} ms, "
                f"share {y['base 1'] - y['base 2']:.3f} ms")
             + f"; level gradients within {err:.3f} (chain) and {split_err:.3f} (split) of the float32 sum's "
@@ -2085,26 +2110,32 @@ CLI_KERNELS = (
 )
 
 
-def _write_srn_dataset(np, root, name="cars"):
+def _write_srn_dataset(np, root, name="cars", stages=None, views=CLI_VIEWS, near_far=None):
     """An SRN-format dataset of simple shapes: per object a coloured disc
     and bar on white, moving with the view, `pose/*.txt` cameras on a
     circle looking at the origin (stored flipped by diag(1, -1, -1, 1), as
-    SRN stores them) and `intrinsics.txt`."""
+    SRN stores them) and `intrinsics.txt`; with `near_far` (near, far) also
+    the `near_far.txt` the pollen format reads. `stages`: (stage, objects)
+    pairs, by default CLI_OBJECTS train and CLI_VAL_OBJECTS val and test."""
     from PIL import Image
 
     rng = np.random.default_rng(11)
     size, focal = TRAIN_SIZE, 131.25 * TRAIN_SIZE / 128
     yy, xx = np.mgrid[0:size, 0:size]
     flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
-    for stage, n in (("train", CLI_OBJECTS), ("val", CLI_VAL_OBJECTS), ("test", CLI_VAL_OBJECTS)):
+    if stages is None:
+        stages = (("train", CLI_OBJECTS), ("val", CLI_VAL_OBJECTS), ("test", CLI_VAL_OBJECTS))
+    for stage, n in stages:
         for obj in range(n):
             d = Path(root) / name / f"{name}_{stage}" / f"obj{obj:03d}"
             (d / "rgb").mkdir(parents=True)
             (d / "pose").mkdir()
             (d / "intrinsics.txt").write_text(f"{focal} {size / 2} {size / 2} 0.\n0. 0. 0.\n1.\n{size} {size}\n")
+            if near_far is not None:
+                (d / "near_far.txt").write_text(f"{near_far[0]} {near_far[1]}\n")
             disc, bar = rng.integers(20, 230, 3), rng.integers(20, 230, 3)
-            for v in range(CLI_VIEWS):
-                theta = 2 * np.pi * v / CLI_VIEWS
+            for v in range(views):
+                theta = 2 * np.pi * v / views
                 img = np.full((size, size, 3), 255, np.uint8)
                 cx, cy = size * (0.5 + 0.15 * np.sin(theta)), size * 0.5
                 img[(yy - cy) ** 2 + (xx - cx) ** 2 <= (0.25 * size) ** 2] = disc
@@ -2250,6 +2281,293 @@ def run_cli(torch, np, dev, root, card, bare_step_s):
     return got
 
 
+# the serving CLIs phase: the trained flagship (artifacts/srn600_bf16.ckpt,
+# read by the port's own reader) on conf/exp/srn600.conf at full width,
+# with the renderer's jitter off (perturb 0) so that the card and the CPU
+# draw the same samples; a pollen dataset of SERVE_OBJECTS test objects x
+# SERVE_VIEWS 128x128 views with near_far.txt written here
+SERVE_OBJECTS, SERVE_VIEWS, SERVE_SOURCE = 3, 24, "0 12"
+SERVE_CONF = """include required("{srn600}")
+renderer {{
+    perturb = 0.0
+}}
+"""
+SERVE_KERNELS = ("posenc_concat", "pyramid_field_fused")
+GRID_RESO, GRID_CHUNK, VIDEO_VIEWS, REAL_VIEWS = 256, 65536, 40, 24
+# sigma of the card's grid against the CPU plain query of the same points,
+# as fractions of the largest sigma of the compared points: bf16 operands
+# on both sides, float32 sums in other orders, an unbounded relu output.
+# Set from a reading on the trained flagship (H100 80GB HBM3, 700 W): max
+# 2.086e-2 and mean 7.725e-5 with a largest sigma of 14.72, i.e. 1.4e-3
+# and 5.2e-6 of it; the limits give the max 7x and the mean 10x that (a
+# wrong tap or row is off by O(1) of the sigma it touches)
+SIGMA_RTOL_MAX, SIGMA_RTOL_MEAN = 1e-2, 5e-5
+# the CLIs whose first render_full is held against the CPU plain render:
+# eval_approx's (two source views) and eval_real's (one view, 393,216 rays
+# in 16,384-ray chunks), two image rows of the first view each (the middle
+# one crosses the object, the one at 3/4 the object or the background)
+SERVE_HELD = ("eval_approx", "eval_real")
+
+
+def run_serving_clis(torch, np, dev, root, card):
+    """The eval CLIs through their `main(argv, device)` on the trained
+    flagship: eval_approx, gen_video, eval_mesh --mode both (the default
+    256^3 grid), calc_metrics on its renders and eval_real on one written
+    image. Each runs with the launch counts set to 0 just before and read
+    just after, and with the plain versions of its kernels counted (none
+    may run). The first render of eval_approx and of eval_real (256 rays on
+    two image rows of the first view each) and the middle slab of
+    eval_mesh's grid (65,536 points) are held against the CPU plain run of
+    the same checkpoint and inputs. Returns each CLI's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from pixelnerf_tpu_torch.eval import calc_metrics, eval_approx, eval_mesh, eval_real, gen_video
+    from pixelnerf_tpu_torch.eval import common, render_utils
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.native import isosurface
+    from pixelnerf_tpu_torch.ops import field, posenc
+    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
+    from pixelnerf_tpu_torch.utils import hocon, recon
+    from pixelnerf_tpu_torch.utils.visualize import write_png
+
+    counters = _counters()
+    plain = {"field_plain": 0, "posenc_concat_plain": 0}
+    # each render_full's (seconds, rays), the running CLI's first one's
+    # arguments and output; each grid's (seconds, volume); the isosurface's
+    # seconds; the encodings `encode_views` gave, by CLI
+    seen = {"renders": [], "first": None, "grids": [], "iso_s": [], "encodings": []}
+
+    def counting(module, name):
+        real = getattr(module, name)
+
+        def fn(*a, **k):
+            plain[name] += 1
+            return real(*a, **k)
+
+        return module, name, fn
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_full(*a, **k)
+        torch.cuda.synchronize()
+        rays = a[2] if len(a) > 2 else k["rays"]
+        seen["renders"].append((time.perf_counter() - t0, rays.reshape(-1, 8).shape[0]))
+        if seen["first"] is None:
+            seen["first"] = (a, k, out)
+        return out
+
+    real_grid, real_iso, real_encode = recon.eval_sigma_grid, isosurface.load_isosurface, common.encode_views
+
+    def timed_grid(query_sigma, reso, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol = real_grid(query_sigma, reso, *a, **k)
+        seen["grids"].append((time.perf_counter() - t0, vol))
+        return vol
+
+    def timed_iso():
+        extract = real_iso()
+
+        def run(vol, iso):
+            t0 = time.perf_counter()
+            res = extract(vol, iso)
+            seen["iso_s"].append(time.perf_counter() - t0)
+            return res
+
+        return run
+
+    def kept_encode(*a, **k):
+        enc = real_encode(*a, **k)
+        seen["encodings"].append(enc)
+        return enc
+
+    patches = [counting(field, "field_plain"), counting(posenc, "posenc_concat_plain"),
+               (render_utils, "render_full", timed_render), (recon, "eval_sigma_grid", timed_grid),
+               (isosurface, "load_isosurface", timed_iso), (common, "encode_views", kept_encode)]
+
+    @contextlib.contextmanager
+    def patched():
+        reals = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        for m, n, f in patches:
+            setattr(m, n, f)
+        try:
+            yield
+        finally:
+            for m, n, f in reals:
+                setattr(m, n, f)
+
+    results, launches, walls = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_srn_dataset(np, tmp, "shapes", stages=(("test", SERVE_OBJECTS),),
+                                     views=SERVE_VIEWS, near_far=(0.8, 1.8))
+        cdir = Path(tmp) / "ckpt" / "srn600"
+        cdir.mkdir(parents=True)
+        (cdir / "pixel_nerf_latest").write_bytes((root / "artifacts" / "srn600_bf16.ckpt").read_bytes())
+        conf_path = Path(tmp) / "srn600_serve.conf"
+        conf_path.write_text(SERVE_CONF.format(srn600=root / "conf" / "exp" / "srn600.conf"))
+        base = ["-n", "srn600", "-c", str(conf_path), "-D", datadir, "--checkpoints_path",
+                f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis", "--image_size", str(TRAIN_SIZE),
+                str(TRAIN_SIZE)]
+        out_root = Path(tmp) / "eval_out"
+        inp = Path(tmp) / "real_in"
+        inp.mkdir()
+        first_view = Path(datadir) / "shapes_test" / "obj000" / "rgb" / "000000.png"
+        from PIL import Image
+
+        write_png(str(inp / "shape_normalize.png"), np.asarray(Image.open(first_view))[..., :3])
+        runs = [
+            ("eval_approx", eval_approx.main,
+             base + ["--split", "test", "-P", SERVE_SOURCE, "--limit", str(SERVE_OBJECTS),
+                     "--seed", "1234"]),
+            ("gen_video", gen_video.main,
+             base + ["--split", "test", "-S", "0", "-P", SERVE_SOURCE, "--num_views",
+                     str(VIDEO_VIEWS)]),
+            ("eval_mesh", eval_mesh.main,
+             base + ["--split", "test", "-P", SERVE_SOURCE, "--mode", "both", "--limit", "1",
+                     "--mesh_reso", str(GRID_RESO), "--mesh_chunk", str(GRID_CHUNK),
+                     "--output", str(out_root)]),
+            ("calc_metrics", calc_metrics.main,
+             ["-D", str(Path(datadir) / "shapes_test"), "-O", str(out_root / "srn600"), "-F", "srn",
+              "-P", SERVE_SOURCE]),
+            ("eval_real", eval_real.main,
+             base + ["-I", str(inp), "-O", f"{tmp}/real_out", "--size", str(TRAIN_SIZE),
+                     "--out_size", str(VIEW_SIZE), "--num_views", str(REAL_VIEWS)]),
+        ]
+        encodings, firsts = {}, {}
+        for name, main, argv in runs:
+            n_renders, n_grids, n_enc = len(seen["renders"]), len(seen["grids"]), len(seen["encodings"])
+            seen["first"] = None
+            torch.cuda.synchronize()
+            for w in counters.values():
+                w.launches = 0
+            for k in plain:
+                plain[k] = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with patched(), contextlib.redirect_stdout(log):
+                    results[name] = main(argv, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                tail = log.getvalue().strip().splitlines()
+                print(f"serve {name}: {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
+            walls[name] = time.perf_counter() - t0
+            encodings[name] = seen["encodings"][n_enc:]
+            firsts[name] = seen["first"]
+            launches[name] = {k: counters[k].launches for k in SERVE_KERNELS}
+            renders = seen["renders"][n_renders:]
+            ray_s = sum(r[0] for r in renders)
+            rays = sum(r[1] for r in renders)
+            print(
+                f"serve {name}: wall {walls[name]:.2f} s; launches {launches[name]}; plain versions "
+                f"{plain}; {len(renders)} render_full calls, {rays} rays in {ray_s:.3f} s"
+                + (f" = {rays / ray_s:.1f} rays/s" if ray_s else "")
+                + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}"
+            )
+            for g_s, vol in seen["grids"][n_grids:]:
+                print(f"serve {name}: sigma grid {vol.shape} ({vol.size} points) in {g_s:.3f} s = "
+                      f"{vol.size / g_s:.1f} points/s; isosurface on the host "
+                      f"{seen['iso_s'][-1]:.3f} s")
+            if any(plain.values()):
+                raise AssertionError(f"serve {name}: a plain version ran on the card: {plain}")
+            if name != "calc_metrics" and not all(launches[name][k] > 0 for k in SERVE_KERNELS):
+                raise AssertionError(f"serve {name}: the kernels did not launch: {launches[name]}")
+
+        # what each CLI wrote
+        vis = Path(tmp) / "vis" / "srn600"
+        obj_out = out_root / "srn600"
+        mesh = obj_out / "obj000.stl"
+        wanted = [vis / "video_test0000_view.jpg", obj_out / "finish.txt", mesh,
+                  obj_out / "obj000" / "metrics.txt", obj_out / "all_metrics.txt"]
+        wanted += [obj_out / "obj000" / f"{v:06d}.png" for v in range(SERVE_VIEWS)
+                   if v not in map(int, SERVE_SOURCE.split())]
+        wanted += [Path(tmp) / "real_out" / "shape_normalize_frames" / f"{k:04d}.png"
+                   for k in range(REAL_VIEWS)]
+        missing = [str(p.relative_to(tmp)) for p in wanted if not p.exists()]
+        videos = [p.name for p in [*vis.glob("video_test0000.*"), *(Path(tmp) / "real_out").glob("*_vid.*")]]
+        if missing or len(videos) != 2:
+            raise AssertionError(f"serve: output files missing: {missing}, videos {videos}")
+        mesh_bytes = mesh.stat().st_size
+
+    psnr, ssim = results["eval_approx"]
+    _, frames = results["gen_video"]
+    (obj, mres), = results["eval_mesh"].items()
+    total = results["calc_metrics"]["total"]
+    print(
+        f"serve: eval_approx psnr {psnr:.4f} ssim {ssim:.4f} over {SERVE_OBJECTS} objects; "
+        f"eval_mesh {obj}: {mres['n_verts']} verts {mres['n_tris']} tris ({mesh_bytes} bytes of STL), "
+        f"nvs psnr {mres['psnr']:.4f} ssim {mres['ssim']:.4f}; calc_metrics total psnr "
+        f"{total['psnr']:.4f} ssim {total['ssim']:.4f} lpips {total['lpips']} n {total['n']}; "
+        f"videos {videos}"
+    )
+    finite = [psnr, ssim, mres["psnr"], mres["ssim"], total["psnr"], total["ssim"]]
+    if not all(math.isfinite(v) for v in finite) or mres["n_tris"] <= 0 or frames.std() <= 0:
+        raise AssertionError(f"serve: metrics {finite}, mesh {mres}, frames std {frames.std()}")
+    (real_frames,) = results["eval_real"].values()
+    if real_frames.shape != (REAL_VIEWS, VIEW_SIZE, VIEW_SIZE, 3):
+        raise AssertionError(f"serve: eval_real frames {real_frames.shape}")
+
+    # the card against the CPU plain run of the same checkpoint and inputs
+    conf = hocon.load(str(root / "conf" / "exp" / "srn600.conf"))
+    model_cpu = make_model(conf["model"], device="cpu")
+    ckpt.load_weights_file(model_cpu, str(root / "artifacts" / "srn600_bf16.ckpt"))
+    # two image rows (CPU_RAYS rays) of each held CLI's first view
+    rows = (VIEW_SIZE // 2, 3 * VIEW_SIZE // 4)
+    idx = torch.tensor([r * VIEW_SIZE + c for r in rows for c in range(VIEW_SIZE)][:CPU_RAYS])
+    for name in SERVE_HELD:
+        args, kw, out = firsts[name]
+        model, enc, rays, rcfg = args[:4]
+        t0 = time.perf_counter()
+        ref = render_full(model_cpu, enc.to("cpu"), rays.reshape(-1, 8)[idx.to(rays.device)].cpu(),
+                          rcfg, seed=kw.get("seed", 0))
+        print(f"serve: CPU plain render of {len(idx)} rays (rows {rows}) of {name}'s first view "
+              f"({enc.num_views} source views, {rays.reshape(-1, 8).shape[0]} rays in "
+              f"chunks of {kw.get('chunk')}) {time.perf_counter() - t0:.1f} s")
+        for head in ("coarse", "fine"):
+            d = (out[head]["rgb"][idx.to(out[head]["rgb"].device)].cpu() - ref[head]["rgb"]).abs()
+            alpha = ref[head]["alpha"].mean().item()
+            rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
+            print(f"serve: {name} {head} rgb vs CPU plain max {d.max().item():.3e} mean "
+                  f"{d.mean().item():.3e} (tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); "
+                  f"compared rays' alpha mean {alpha:.4f}, rgb std {rgb_std:.4f}")
+            if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
+                raise AssertionError(f"serve: {name} {head} render disagrees with the CPU plain render")
+            # rays that see nothing would agree whatever the field did
+            if not (ALPHA_RANGE[0] <= alpha <= ALPHA_RANGE[1] and rgb_std >= RGB_STD_MIN):
+                raise AssertionError(f"serve: {name} {head}: the compared rays show too little "
+                                     "of the field")
+    # eval_mesh's grid: the middle x slab, GRID_CHUNK points, the chunk the
+    # card's query gave, against the CPU plain query (zero view directions)
+    _, vol = seen["grids"][0]
+    (enc_mesh,) = encodings["eval_mesh"]
+    axis = np.linspace(-1.0, 1.0, GRID_RESO, dtype=np.float32)
+    mid = GRID_RESO // 2
+    yz = np.stack(np.meshgrid(axis, axis, indexing="ij"), -1).reshape(-1, 2)
+    pts = torch.from_numpy(np.concatenate([np.full((len(yz), 1), axis[mid], np.float32), yz], 1))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        sig = model_cpu.with_field_fusion().query(
+            enc_mesh.to("cpu"), pts[None], torch.zeros_like(pts)[None], True)[0, :, 3].numpy()
+    got = vol[mid].reshape(-1)
+    d = np.abs(got - sig)
+    scale = float(np.abs(sig).max())
+    print(f"serve: sigma grid slab x={axis[mid]:.4f} ({len(sig)} points) vs CPU plain query "
+          f"({time.perf_counter() - t0:.1f} s): max {d.max():.3e} mean {d.mean():.3e}, largest "
+          f"sigma {scale:.3e} (tolerance {SIGMA_RTOL_MAX} max, {SIGMA_RTOL_MEAN} mean of it = "
+          f"{SIGMA_RTOL_MAX * scale:.3e}, {SIGMA_RTOL_MEAN * scale:.3e}), mean |sigma| "
+          f"{float(np.abs(sig).mean()):.3e}, {int((sig > 10.0).sum())} points above the mesh "
+          "threshold")
+    if not (scale > 0 and d.max() <= SIGMA_RTOL_MAX * scale and d.mean() <= SIGMA_RTOL_MEAN * scale):
+        raise AssertionError("serve: the sigma grid disagrees with the CPU plain query")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2336,6 +2654,11 @@ def main() -> int:
     kernels += check_bilerp(torch, np, dev, kept, view_calls, baseline)
     torch.cuda.empty_cache()
     run_cli(torch, np, dev, root, card, times["train"])
+    torch.cuda.empty_cache()
+    serve = run_serving_clis(torch, np, dev, root, card)
+    for k in kernels:
+        if k["name"] in SERVE_KERNELS:
+            k["serve_launches"] = {cli: n[k["name"]] for cli, n in serve.items()}
     if sorted(k["name"] for k in kernels) != sorted(KERNELS):
         raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:

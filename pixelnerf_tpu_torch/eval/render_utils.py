@@ -36,9 +36,11 @@ def make_chunk_renderer(model, rcfg: RendererConfig):
 
 
 def render_full(
-    model, enc, rays, rcfg: RendererConfig, chunk: int = 16384, seed: int = 0
+    model, enc, rays, rcfg: RendererConfig, chunk: int = 16384, seed: int = 0, renderer=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Render (B, 8) rays in chunks of `chunk` rays on the model's device.
+    """Render (B, 8) rays in chunks of `chunk` rays on the model's device;
+    `renderer` is a `make_chunk_renderer` of this model and `rcfg` that a
+    CLI builds once for all its renders (made here when None).
 
     :return {'coarse': {'rgb' (B,3), 'depth' (B,), 'alpha' (B,)}, 'fine': ...}
         as tensors on the model's device
@@ -49,7 +51,8 @@ def render_full(
     rays = rays.to(device=device, dtype=torch.float32).reshape(-1, 8)
     B = rays.shape[0]
     chunk = min(chunk, max(B, 1))
-    renderer = make_chunk_renderer(model, rcfg)
+    if renderer is None:
+        renderer = make_chunk_renderer(model, rcfg)
     pad = (-B) % chunk
     if pad:
         rays = torch.cat([rays, rays[-1:].expand(pad, 8)], dim=0)

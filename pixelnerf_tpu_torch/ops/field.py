@@ -19,9 +19,11 @@ pyramid_field_fused` and its custom VJP:
 
 Their header notes give the bound on the H100 (operations: ~11.6 MFLOP of
 bf16 products per point at NS=2 forward, about twice that backward) and
-the design. Forward and backward take hidden 64, 128, 256 or 512 (every
+the design. The chains are built for hidden 64, 128, 256 and 512 (every
 config under `conf/` is 512 wide) and up to 64 views, whose rows fit one
-64-row tile; beyond, the wrappers raise.
+64-row tile; the wrappers zero-pad other widths up to 512 and d_latent
+to a multiple of 64, and run more than 16 outputs in groups
+(`ops/resnetfc.py:chain_plan`); past 512 or 64 views they raise.
 
 `pyramid_field_fused` is the entry point: with autograd recording and an
 input or weight that needs a gradient it runs the stash forward and, on
@@ -30,8 +32,8 @@ are the stash; the grid gets a zero gradient, as in
 `field_pallas.py:595-596`); otherwise it runs the primal. The primal
 launches count in `pyramid_field_fused.launches`, the others in
 `pyramid_field_fused_fwd_stash.launches` and
-`pyramid_field_fused_bwd.launches` (the chain and the weight-gradient
-products together count one). CPU tensors take the plain versions: the
+`pyramid_field_fused_bwd.launches`, one a run of the chain (an output
+group; the chain and the weight-gradient products together count one). CPU tensors take the plain versions: the
 composition `pyramid_gather_plain` + `resnetfc_fwd_plain` forward, and
 `resnetfc_bwd_plain` from the stash then `pyramid_scatter_add_plain` of
 the cotangent in the levels' dtype backward, which are the cast points of
@@ -52,8 +54,9 @@ import torch
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
 from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather_plain, pyramid_scatter_add_plain
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    FieldWeights, _device_of, _pad16, check_chain_widths, even_d_in, launch_bwd, pack_field_weights,
-    resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
+    FieldWeights, _device_of, _pad16, _pad_last, chain_plan, check_chain_widths, even_d_in,
+    launch_bwd, out_group, out_groups, pack_field_weights, pad_chain_weights, resnetfc_bwd_plain,
+    resnetfc_fwd_plain, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter_plan import ScatterPlan, Segment
 
@@ -196,10 +199,26 @@ def _library() -> ctypes.CDLL:
 
 def _launch(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
     """(out, zstash, stash_pre, stash_post); the three stash tensors are
-    None without `stash`."""
+    None without `stash`. Widths go through `ops/resnetfc.py:chain_plan`:
+    the kernel reads the levels whole, so a d_latent off 64 gets its zero
+    channels on the last (coarsest, smallest) level, and the z-stash and
+    the stash come back at the chain's widths, as the backward takes them;
+    each group of 16 outputs is a run, the first with the stash."""
+    w = pack_field_weights(w)
+    d_latent = w.wz.shape[1]
+    hidden, dl, groups = chain_plan(w.w_in.shape[1], d_latent, xin.shape[3], w.w_out.shape[1])
+    if dl != d_latent:
+        feats = (*feats[:-1], _pad_last(feats[-1], feats[-1].shape[3] + dl - d_latent))
+    w = pad_chain_weights(w, hidden, dl)
+    runs = [_launch_chain(feats, grid, xin, out_group(w, i), n_blocks, combine_layer, ns,
+                          stash and i == 0) for i in range(groups)]
+    out = runs[0][0] if groups == 1 else torch.cat([r[0] for r in runs], -1)
+    return (out, *runs[0][1:])
+
+
+def _launch_chain(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool):
     device = grid.device
     sb, _, b, d_in = xin.shape
-    w = pack_field_weights(w)
     d_in_pad, hidden = w.w_in.shape
     d_latent = w.wz.shape[1]
     d_out = w.w_out.shape[1]
@@ -258,7 +277,7 @@ def pyramid_field_fused_fwd_stash(
     if _device_of(grid, "pyramid_field_fused_fwd_stash") == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
     res = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
-    pyramid_field_fused_fwd_stash.launches += 1
+    pyramid_field_fused_fwd_stash.launches += out_groups(res[0].shape[-1])
     return res
 
 
@@ -278,7 +297,9 @@ def pyramid_field_fused_bwd(
     :param levels (H_l, W_l, C_l) of each native level, finest first
     """
     levels = [tuple(int(d) for d in hwc) for hwc in levels]
-    if sum(c for _, _, c in levels) != zstash.shape[3] or not 1 <= len(levels) <= _MAX_LEVELS:
+    d_latent = sum(c for _, _, c in levels)
+    # the card's z-stash may come at the chain's d_latent (`_launch`)
+    if zstash.shape[3] not in (d_latent, -(-d_latent // 64) * 64) or not 1 <= len(levels) <= _MAX_LEVELS:
         raise ValueError("levels do not match the z-stash")
     if not field_supported(ns, n_blocks, combine_layer):
         raise ValueError(f"unsupported field config ns={ns} n_blocks={n_blocks}")
@@ -293,7 +314,7 @@ def pyramid_field_fused_bwd(
         zstash, xin, g, stash_pre, stash_post, weights, n_blocks, combine_layer, ns,
         levels=levels, grid=grid,
     )
-    pyramid_field_fused_bwd.launches += 1
+    pyramid_field_fused_bwd.launches += out_groups(g.shape[-1])
     return [d.to(zstash.dtype) for d in d_feats], dxin, dw
 
 
@@ -354,7 +375,7 @@ def pyramid_field_fused(
     if _device_of(grid, "pyramid_field_fused") == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns)
     out = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=False)[0]
-    pyramid_field_fused.launches += 1
+    pyramid_field_fused.launches += out_groups(out.shape[-1])
     return out
 
 

@@ -24,8 +24,9 @@ that needs a gradient it runs the stash forward and, on backward, the
 backward kernel (a `torch.autograd.Function` whose saved tensors are the
 stash); otherwise it runs the stash-free forward. Each of
 `resnetfc_fwd`, `resnetfc_fwd_stash` and `resnetfc_bwd` launches its
-kernel on CUDA tensors and counts the launch (`.launches`); on CPU tensors
-it takes its plain version (`*_plain`). The fused field (ops/field.py)
+kernel on CUDA tensors, once a group of 16 outputs, and counts each
+launch (`.launches`, `out_groups`); on CPU tensors it takes its plain
+version (`*_plain`). The fused field (ops/field.py)
 shares the weights' form (`FieldWeights`, `pack_field_weights`), the plain
 versions and the backward kernel.
 """
@@ -55,6 +56,8 @@ __all__ = [
     "stash_layout",
     "check_chain_widths",
     "chain_widths_ok",
+    "chain_plan",
+    "pad_chain_weights",
     "even_d_in",
 ]
 
@@ -331,11 +334,13 @@ CHAIN_MAX_VIEWS = 64
 def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) -> bool:
     """Do the block chains (`csrc/fwd_chain.cuh` and `csrc/bwd_chain.cuh`,
     shared by the ResnetFC and field kernels, forward and backward) take
-    these widths? hidden 64, 128, 256 or 512, d_latent a multiple of 64
-    (their 128-byte swizzled operand tiles), an even d_in whose padding to
-    16 is at most hidden (it shares the relu(x) tile; the wrappers give an
-    odd d_in a zero column first, `even_d_in`), at most 16 outputs and 1 to
-    64 views (past 64 a tile no longer fits one 64-row product)."""
+    these widths as they are? hidden 64, 128, 256 or 512, d_latent a
+    multiple of 64 (their 128-byte swizzled operand tiles), an even d_in
+    whose padding to 16 is at most hidden (it shares the relu(x) tile), at
+    most 16 outputs and 1 to 64 views (past 64 a tile no longer fits one
+    64-row product). The wrappers first bring a model's widths to these
+    (`chain_plan`, `even_d_in`): what is left to refuse is a hidden width
+    or d_in past 512 and more than 64 views."""
     return (
         hidden in CHAIN_HIDDEN
         and d_latent % 64 == 0
@@ -347,10 +352,10 @@ def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) 
 
 
 def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int = 1) -> None:
-    """Raise unless `chain_widths_ok`: a model or a direct call with widths
-    the kernels lack never falls back to a plain version on the card (the
-    other widths are queued in ROADMAP.md). The wrappers pass their view
-    count; the default checks the widths alone."""
+    """Raise unless `chain_widths_ok`: widths the kernels lack after the
+    wrappers' padding (hidden or d_in past 512, more than 64 views; queued
+    in ROADMAP.md) never fall back to a plain version on the card. The
+    wrappers pass their view count; the default checks the widths alone."""
     if not chain_widths_ok(hidden, d_latent, d_in, d_out, ns):
         raise ValueError(
             f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, d_latent a multiple of 64, an "
@@ -380,10 +385,86 @@ def _cuda_inputs(z, xin, w):
     w = pack_field_weights(w)
     if any(t.device != device for t in w):
         raise ValueError("weights must be on z's device")
-    hidden = w.w_in.shape[1]
-    if hidden % 16 or z.shape[3] % 16:
-        raise ValueError("d_hidden and d_latent must be multiples of 16")
     return z.contiguous(), xin.contiguous(), w
+
+
+def chain_plan(hidden: int, d_latent: int, d_in: int, d_out: int) -> Tuple[int, int, int]:
+    """(hidden, d_latent, output groups) at which the wrappers run a model
+    of these widths on the chains, every one exact:
+
+    - hidden zero-padded to the narrowest of CHAIN_HIDDEN that holds it
+      and the padded positional code. A channel with zero weights in and
+      out and a zero bias stays relu(0) = 0 through every block, the
+      pooling and lin_out, and its weight gradients are zero and cut off.
+      Past 512 it stays as it is, and `check_chain_widths` raises.
+    - d_latent zero-padded to a multiple of 64: zero columns on z, zero
+      rows on wz (for the field, zero channels on the last level).
+    - d_out in ceil(d_out / 16) groups of 16 columns of W_out / b_out, a
+      run of the chain each: the kernels' output layer is one n16
+      product. The backward sums the groups' gradients (the loss is the
+      sum of the groups' losses).
+    """
+    need = max(hidden, _pad16(d_in + d_in % 2))
+    hidden_pad = next((h for h in CHAIN_HIDDEN if h >= need), hidden)
+    return hidden_pad, -(-d_latent // 64) * 64, out_groups(d_out)
+
+
+def out_groups(d_out: int) -> int:
+    """The chain's runs for d_out outputs, one a group of 16 columns: what
+    a wrapper adds to its `.launches` a call."""
+    return max(1, -(-d_out // 16))
+
+
+def _pad_last(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """t with zero columns up to n on its last axis (t itself at n)."""
+    if t is None or t.shape[-1] == n:
+        return t
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+
+
+def pad_chain_weights(w: FieldWeights, hidden: int, d_latent: int) -> FieldWeights:
+    """Packed weights with zero hidden channels up to `hidden` and zero
+    latent rows up to `d_latent` (`chain_plan`); themselves at those
+    widths."""
+    dh, dl = hidden - w.w_in.shape[1], d_latent - w.wz.shape[1]
+    if not dh and not dl:
+        return w
+    pad = torch.nn.functional.pad
+    return FieldWeights(
+        w_in=pad(w.w_in, (0, dh)), b_in=pad(w.b_in, (0, dh)), wz=pad(w.wz, (0, dh, 0, dl)),
+        bz=pad(w.bz, (0, dh)), w0=pad(w.w0, (0, dh, 0, dh)), b0=pad(w.b0, (0, dh)),
+        w1=pad(w.w1, (0, dh, 0, dh)), b1=pad(w.b1, (0, dh)), w_out=pad(w.w_out, (0, 0, 0, dh)),
+        b_out=w.b_out,
+    )
+
+
+def out_group(w: FieldWeights, i: int) -> FieldWeights:
+    """w with the i-th group of 16 output columns of W_out / b_out."""
+    if w.w_out.shape[1] <= 16:
+        return w
+    cols = slice(16 * i, 16 * i + 16)
+    return w._replace(w_out=w.w_out[:, cols].contiguous(), b_out=w.b_out[cols].contiguous())
+
+
+def cut_weight_grads(dw: FieldWeights, d_in: int, hidden: int, d_latent: int) -> FieldWeights:
+    """The weight gradients of a padded run cut back to the caller's
+    widths (the padded rows and columns are zero)."""
+    h, dl = slice(0, hidden), slice(0, d_latent)
+    return FieldWeights(
+        w_in=dw.w_in[:d_in, h], b_in=dw.b_in[h], wz=dw.wz[:, dl, h], bz=dw.bz[:, h],
+        w0=dw.w0[:, h, h], b0=dw.b0[:, h], w1=dw.w1[:, h, h], b1=dw.b1[:, h],
+        w_out=dw.w_out[h], b_out=dw.b_out,
+    )
+
+
+def sum_groups(grads: Sequence[FieldWeights]) -> FieldWeights:
+    """One FieldWeights gradient from the output groups' runs: each group
+    gives W_out / b_out its own columns and adds to every other weight."""
+    if len(grads) == 1:
+        return grads[0]
+    sums = {f: sum(getattr(d, f) for d in grads) for f in FieldWeights._fields[:-2]}
+    return FieldWeights(**sums, w_out=torch.cat([d.w_out for d in grads], 1),
+                        b_out=torch.cat([d.b_out for d in grads]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -426,7 +507,26 @@ def _raise_on(err: int, lib, what: str):
 
 
 def _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
+    """(out, stash_pre, stash_post) of `csrc/resnetfc_fwd.cu` at the
+    caller's widths through `chain_plan`: the stash comes back at the
+    chain's hidden width (its padded channels zero), as the backward takes
+    it; the output groups after the first run without a stash (it is the
+    same for every group)."""
     z, xin, w = _cuda_inputs(z, xin, w)
+    d_out = w.w_out.shape[1]
+    hidden, dl, groups = chain_plan(w.w_in.shape[1], z.shape[3], xin.shape[3], d_out)
+    z, w = _pad_last(z, dl), pad_chain_weights(w, hidden, dl)
+    outs = []
+    for i in range(groups):
+        out, spre_i, spost_i = _launch_fwd_chain(
+            z, xin, out_group(w, i), n_blocks, combine_layer, ns, stash and i == 0)
+        if i == 0:
+            spre, spost = spre_i, spost_i
+        outs.append(out)
+    return (outs[0] if groups == 1 else torch.cat(outs, -1)), spre, spost
+
+
+def _launch_fwd_chain(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
     sb, _, b, dl = z.shape
     d_in_pad, hidden = w.w_in.shape
     d_out = w.w_out.shape[1]
@@ -464,7 +564,7 @@ def resnetfc_fwd(z, xin, w: FieldWeights, n_blocks: int, combine_layer: int, ns:
     if _device_of(z, "resnetfc_fwd") == "cpu":
         return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns)
     out = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=False)[0]
-    resnetfc_fwd.launches += 1
+    resnetfc_fwd.launches += out_groups(out.shape[-1])
     return out
 
 
@@ -478,7 +578,7 @@ def resnetfc_fwd_stash(z, xin, w: FieldWeights, n_blocks: int, combine_layer: in
     if _device_of(z, "resnetfc_fwd_stash") == "cpu":
         return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns, stash=True)
     res = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=True)
-    resnetfc_fwd_stash.launches += 1
+    resnetfc_fwd_stash.launches += out_groups(res[0].shape[-1])
     return res
 
 
@@ -491,22 +591,53 @@ def launch_bwd(
 ):
     """Launch `csrc/resnetfc_bwd.cu` on CUDA tensors: (dz, dxin, float32
     FieldWeights gradients, the chain's bf16 cotangents (gpre, gpost, gin,
-    gout) as `resnetfc_cotangents_plain` gives them); with the field's
-    `levels` ((H_l, W_l, C_l), finest first) and forward `grid` (SB, NS,
-    B, 2), the float32 level gradients [(SB*NS, H_l, W_l, C_l)] in place of
-    dz. Counts the kernels it launches in `launch_bwd.chain_launches` (the
-    cotangent chain) and `launch_bwd.wgrad_launches` (the weight-gradient
-    products and their reduction: 2 a call), not the wrappers' `.launches`;
-    `launch_bwd.wgrad_plan` holds the last call's workspace bytes, units,
+    gout) as `resnetfc_cotangents_plain` gives them, at the chain's widths
+    and of the first output group); with the field's `levels` ((H_l, W_l,
+    C_l), finest first) and forward `grid` (SB, NS, B, 2), the float32
+    level gradients [(SB*NS, H_l, W_l, C_l)] in place of dz. Widths go
+    through `chain_plan`: z (or the z-stash), the weights, the last
+    level's channels and a stash at the caller's hidden width are
+    zero-padded, each output group runs the chain, and the gradients come
+    back summed over the groups at the caller's widths. Counts the kernels
+    it launches in `launch_bwd.chain_launches` (the cotangent chain) and
+    `launch_bwd.wgrad_launches` (the weight-gradient products and their
+    reduction: 2 a run), not the wrappers' `.launches`;
+    `launch_bwd.wgrad_plan` holds the last run's workspace bytes, units,
     the most and fewest splits of a product and the bytes of the boxes
     its TMA loads read from L2."""
     z, xin, wp = _cuda_inputs(z, xin, w)
+    d_in, dl_call, hidden_call = xin.shape[3], z.shape[3], wp.w_in.shape[1]
+    if levels:  # z is the field's z-stash, possibly at the chain's width already
+        dl_call = sum(c for _, _, c in levels)
+    hidden, dl, groups = chain_plan(hidden_call, dl_call, d_in, wp.w_out.shape[1])
+    if levels and dl != dl_call:
+        *finer, (h, wd, c) = levels
+        levels = [*finer, (h, wd, c + dl - dl_call)]
+    z, wp = _pad_last(z, dl), pad_chain_weights(wp, hidden, dl)
+    stash_pre, stash_post = _pad_last(stash_pre, hidden), _pad_last(stash_post, hidden)
+    g = g.to(device=z.device, dtype=torch.float32)
+    runs = [
+        _launch_bwd_chain(z, xin, g[..., 16 * i : 16 * i + 16] if groups > 1 else g, stash_pre,
+                          stash_post, out_group(wp, i), n_blocks, combine_layer, ns, levels, grid)
+        for i in range(groups)
+    ]
+    dz = [sum(ts) for ts in zip(*[r[0] for r in runs])] if levels else sum(r[0] for r in runs)
+    dxin = sum(r[1] for r in runs)
+    dw = cut_weight_grads(sum_groups([r[2] for r in runs]), d_in, hidden_call, dl_call)
+    if levels:
+        dz[-1] = dz[-1][..., : dz[-1].shape[-1] - (dl - dl_call)]
+    else:
+        dz = dz[..., :dl_call]
+    return dz, dxin[..., :d_in], dw, runs[0][3]
+
+
+def _launch_bwd_chain(z, xin, g, stash_pre, stash_post, wp, n_blocks, combine_layer, ns, levels,
+                      grid):
     sb, _, b, dl = z.shape
     d_in_pad, hidden = wp.w_in.shape
     d_out = wp.w_out.shape[1]
     k, m = stash_layout(n_blocks, combine_layer, ns)
     n_inj = min(combine_layer, n_blocks)
-    d_in_call = xin.shape[3]
     xin = even_d_in(xin)
     d_in = xin.shape[3]
     check_chain_widths(hidden, dl, d_in, d_out, ns)
@@ -515,7 +646,7 @@ def launch_bwd(
     if smem > SMEM_LIMIT:
         raise ValueError(f"a ResnetFC backward tile of {ns} views needs {smem} B of shared memory")
     dev = z.device
-    g = g.to(device=dev, dtype=torch.float32).contiguous()
+    g = g.contiguous()
     if g.shape != (sb, b, d_out):
         raise ValueError(f"g must be {(sb, b, d_out)}, got {tuple(g.shape)}")
     empty = lambda *s: torch.empty(s, dtype=_BF, device=dev)
@@ -572,8 +703,6 @@ def launch_bwd(
     launch_bwd.chain_launches += launched[0]
     launch_bwd.wgrad_launches += launched[1]
     _raise_on(err, lib, "resnetfc_bwd")
-    if d_in != d_in_call:  # the zero column of `even_d_in` has no gradient to return
-        dxin, dw = dxin[..., :d_in_call].contiguous(), dw._replace(w_in=dw.w_in[:d_in_call])
     return (d_feats if levels else dz), dxin, dw, (gpre, gpost, gin, gout)
 
 
@@ -591,7 +720,7 @@ def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: in
     if _device_of(z, "resnetfc_bwd") == "cpu":
         return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
     res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)[:3]
-    resnetfc_bwd.launches += 1
+    resnetfc_bwd.launches += out_groups(g.shape[-1])
     return res
 
 

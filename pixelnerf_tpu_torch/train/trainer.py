@@ -85,8 +85,13 @@ class Trainer:
 
     def _resume(self) -> None:
         if os.path.exists(self.optim_state_path):
-            device = next(self.model.parameters()).device
-            self.optimizer.load_state_dict(ckpt.load_state(self.optim_state_path, device))
+            if ckpt.is_flax_checkpoint(self.optim_state_path):
+                # an optax state has no torch.optim counterpart to load into
+                print(f"Not read: {self.optim_state_path} is a JAX (optax) optimizer state; "
+                      "the optimizer starts afresh from the loaded weights")
+            else:
+                device = next(self.model.parameters()).device
+                self.optimizer.load_state_dict(ckpt.load_state(self.optim_state_path, device))
         if os.path.exists(self.iter_state_path + ".json"):
             with open(self.iter_state_path + ".json") as f:
                 meta = json.load(f)

@@ -13,36 +13,173 @@ src/model/models.py:268-316, train/trainlib/trainer.py:67-114, 202-215):
 
 Files are written with `torch.save` to a `.tmp` file and moved into place
 with `os.replace`, and read with `map_location` set to the model's device,
-so a checkpoint written on the card loads on the CPU. The JAX package
-writes flax msgpack files under the same names; reading those is not
-ported yet (ROADMAP queue 1 item 3), and such a file raises
-`JaxCheckpointError` rather than loading as something else.
+so a checkpoint written on the card loads on the CPU.
+
+The JAX package writes flax msgpack files under the same names
+(`pixelnerf_tpu/utils/checkpoint.py:35-44`), and its bf16 artifacts
+(`artifacts/*.ckpt`, `pixelnerf_tpu/tools/export_checkpoint.py`) are the
+same format with bf16 leaves. `read_flax_msgpack` decodes them without
+flax, msgpack or ml_dtypes: a small msgpack reader of its own for maps,
+arrays, strings, binaries, ints, floats and flax's ndarray ext records
+(ext code 1: a packed (shape, dtype name, raw bytes); 3, a numpy scalar),
+and flax's chunked arrays. A bfloat16 leaf becomes float32 by shifting its
+uint16 bits into the top half of a uint32, which is exact. `load_state`
+returns such a file's tree of numpy arrays, and `load_model_weights`
+loads a JAX checkpoint of the model (`{"params", "batch_stats"}`) through
+`convert.state_dict_from_jax`, so a live f32 `pixel_nerf_latest` and a
+bf16 artifact both load directly.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 import zipfile
 from shutil import copyfile
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
-    "JaxCheckpointError",
+    "is_flax_checkpoint",
+    "read_flax_msgpack",
     "save_state",
     "load_state",
+    "load_weights_file",
     "save_model_weights",
     "load_model_weights",
 ]
 
 # first bytes of a msgpack map (fixmap, map16, map32): a flax checkpoint
 _MSGPACK_MAP = set(range(0x80, 0x90)) | {0xDE, 0xDF}
+# flax's msgpack ext codes (flax/serialization.py:_MsgpackExtType)
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
 
-class JaxCheckpointError(ValueError):
-    """A checkpoint of the JAX package (flax msgpack) met where a torch one
-    was expected."""
+class _Reader:
+    """A msgpack decoder over one bytes object (the subset flax writes)."""
+
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos : self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        sized = {  # lead byte: (size format, what follows)
+            0xC4: (">B", "bin"), 0xC5: (">H", "bin"), 0xC6: (">I", "bin"),
+            0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
+            0xDC: (">H", "array"), 0xDD: (">I", "array"),
+            0xDE: (">H", "map"), 0xDF: (">I", "map"),
+            0xC7: (">B", "ext"), 0xC8: (">H", "ext"), 0xC9: (">I", "ext"),
+        }
+        if b in sized:
+            fmt, kind = sized[b]
+            n = self.unpack(fmt)
+            if kind == "bin":
+                return bytes(self.take(n))
+            if kind == "str":
+                return str(self.take(n), "utf-8")
+            if kind == "array":
+                return self.array(n)
+            if kind == "map":
+                return self.map(n)
+            return self.ext(n)
+        if 0xD4 <= b <= 0xD8:  # fixext 1, 2, 4, 8, 16
+            return self.ext(1 << (b - 0xD4))
+        scalars = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+                   0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if b in scalars:
+            return self.unpack(scalars[b])
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def ext(self, n: int):
+        code = self.unpack(">b")
+        data = bytes(self.take(n))
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            arr = _ndarray(data)
+            return arr[()] if code == _EXT_NPSCALAR else arr
+        if code == _EXT_COMPLEX:
+            re, im = _Reader(data).value()
+            return complex(re, im)
+        raise ValueError(f"unsupported msgpack ext code {code}")
+
+
+def _ndarray(data: bytes) -> np.ndarray:
+    """One flax ndarray record: msgpack (shape, dtype name, C-order bytes);
+    bfloat16 as float32, exactly."""
+    shape, name, raw = _Reader(data).value()
+    if isinstance(name, bytes):
+        name = name.decode()
+    if name == "bfloat16":
+        bits = np.frombuffer(raw, dtype="<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(raw, dtype=np.dtype(name).newbyteorder("<")).reshape(shape).copy()
+
+
+def _unchunk(tree):
+    """flax's chunked array leaves (`_chunk`) back into arrays."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        as_tuple = lambda d: tuple(d[str(i)] for i in range(len(d)))
+        return np.concatenate(as_tuple(tree["chunks"])).reshape(as_tuple(tree["shape"]))
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_msgpack(path: str) -> Any:
+    """The tree of a flax msgpack file (`flax.serialization.to_bytes` /
+    `msgpack_serialize`): nested dicts of numpy arrays and Python values,
+    as `flax.serialization.msgpack_restore` gives it, bfloat16 leaves as
+    float32."""
+    with open(path, "rb") as f:
+        reader = _Reader(f.read())
+    tree = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError(f"{path}: trailing bytes after the msgpack tree")
+    return _unchunk(tree)
+
+
+def is_flax_checkpoint(path: str) -> bool:
+    """Is `path` a flax msgpack file (a map), not a torch zip?"""
+    if zipfile.is_zipfile(path):
+        return False
+    with open(path, "rb") as f:
+        head = f.read(1)
+    return bool(head) and head[0] in _MSGPACK_MAP
 
 
 def save_state(path: str, obj: Any) -> None:
@@ -53,17 +190,28 @@ def save_state(path: str, obj: Any) -> None:
 
 
 def load_state(path: str, device=None) -> Any:
-    """torch.load a file `save_state` wrote, tensors mapped to `device`."""
+    """torch.load a file `save_state` wrote, tensors mapped to `device`; a
+    flax msgpack file of the JAX package gives its tree of numpy arrays
+    (`read_flax_msgpack`)."""
+    if is_flax_checkpoint(path):
+        return read_flax_msgpack(path)
     if not zipfile.is_zipfile(path):
-        with open(path, "rb") as f:
-            head = f.read(1)
-        if head and head[0] in _MSGPACK_MAP:
-            raise JaxCheckpointError(
-                f"{path} is a flax msgpack checkpoint of the JAX package; reading those is "
-                "not ported yet (ROADMAP queue 1 item 3)"
-            )
-        raise ValueError(f"{path} is not a torch checkpoint")
+        raise ValueError(f"{path} is neither a torch nor a flax msgpack checkpoint")
     return torch.load(path, map_location=device, weights_only=True)
+
+
+def load_weights_file(model: torch.nn.Module, path: str) -> None:
+    """Load one weights file into `model`: a torch state_dict, or a JAX
+    checkpoint's `{"params", "batch_stats"}` (f32 or a bf16 artifact)
+    through `convert.state_dict_from_jax`, which checks every key and
+    shape against the model."""
+    from pixelnerf_tpu_torch.convert import state_dict_from_jax
+
+    device = next(model.parameters()).device
+    state = load_state(path, device)
+    if is_flax_checkpoint(path):
+        state = state_dict_from_jax(state, model)
+    model.load_state_dict(state)
 
 
 def _ckpt_paths(checkpoints_path: str, name: str, opt_init: bool):
@@ -95,15 +243,15 @@ def load_model_weights(
 ) -> Optional[str]:
     """Load weights into `model` by the reference's rules (models.py:
     268-298): the init checkpoint when not resuming (if present), else the
-    latest. Returns the path loaded, or None (the model keeps its weights)."""
+    latest, a torch or a JAX file (`load_weights_file`). Returns the path
+    loaded, or None (the model keeps its weights)."""
     if opt_init and not resume:
         return None
     ckpt_name = "pixel_nerf_init" if (opt_init or not resume) else "pixel_nerf_latest"
     path = os.path.join(checkpoints_path, name, ckpt_name)
     if os.path.exists(path):
         print("Load", path)
-        device = next(model.parameters()).device
-        model.load_state_dict(load_state(path, device))
+        load_weights_file(model, path)
         return path
     if not opt_init and resume:
         import warnings

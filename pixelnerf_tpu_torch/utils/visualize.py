@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["image_float_to_uint8", "cmap", "hstack_images", "vstack_images", "write_png"]
+__all__ = [
+    "image_float_to_uint8", "cmap", "hstack_images", "vstack_images", "write_png", "write_image",
+    "read_image",
+]
 
 
 def image_float_to_uint8(img: np.ndarray) -> np.ndarray:
@@ -68,3 +71,20 @@ def write_png(path: str, img: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(np.ascontiguousarray(img, dtype=np.uint8)).save(path, format="PNG")
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image in the format its extension names
+    (PNG, JPEG, ...), through Pillow."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(img, dtype=np.uint8)).save(path)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as a uint8 array (H, W, C) through Pillow, as
+    imageio's Pillow plugin reads it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)

@@ -748,10 +748,11 @@ def test_field_forward_chain_flagship_width(cuda, ns, sb, b):
 
 
 def test_resnetfc_forward_raises_on_widths_the_chain_lacks(cuda):
-    """hidden 384 is not a width the chain is built for: the wrapper raises
-    before launching."""
+    """hidden 576 is past the widest chain (512), so no zero padding
+    reaches a width the chain is built for: the wrapper raises before
+    launching."""
     rng = np.random.default_rng(5)
-    z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=384, d_latent=64)
+    z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=576, d_latent=64)
     before = resnetfc_fwd.launches
     with pytest.raises(ValueError, match="d_hidden"):
         resnetfc_fwd(z, xin, w, 5, 3, 2)
@@ -981,13 +982,13 @@ def test_forward_chains_at_hidden_128_and_256(cuda, hidden, ns, sb, b):
 
 
 def test_resnetfc_backward_raises_on_widths_the_chain_lacks(cuda):
-    """hidden 384: the backward wrapper raises before launching, as the
+    """hidden 576: the backward wrapper raises before launching, as the
     forward's."""
     rng = np.random.default_rng(6)
-    z, xin, w, g = _mlp_case(rng, cuda, 2, 1, 8, hidden=384, d_latent=64)
+    z, xin, w, g = _mlp_case(rng, cuda, 2, 1, 8, hidden=576, d_latent=64)
     k, m = stash_layout(5, 3, 2)
-    spre = torch.zeros((2 * k, 1, 2, 8, 384), dtype=torch.bfloat16, device=cuda)
-    spost = torch.zeros((2 * m + 1, 1, 8, 384), dtype=torch.bfloat16, device=cuda)
+    spre = torch.zeros((2 * k, 1, 2, 8, 576), dtype=torch.bfloat16, device=cuda)
+    spost = torch.zeros((2 * m + 1, 1, 8, 576), dtype=torch.bfloat16, device=cuda)
     before = resnetfc_bwd.launches
     with pytest.raises(ValueError, match="d_hidden"):
         resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 2)
@@ -1009,3 +1010,75 @@ def test_chains_refuse_past_64_views(cuda):
     with pytest.raises(ValueError, match="views=65"):
         resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 65)
     assert (resnetfc_fwd.launches, resnetfc_bwd.launches) == before
+
+
+# widths off the chains' that the wrappers zero-pad (ops/resnetfc.py:
+# chain_plan): (hidden, d_latent as levels, d_out)
+PADDED_WIDTHS = {
+    "hidden 16": (16, [(16, 16, 32), (8, 8, 32)], 4),
+    "hidden 32": (32, [(16, 16, 32), (8, 8, 32)], 4),
+    "hidden 192": (192, [(16, 16, 32), (8, 8, 32)], 4),
+    "hidden 384": (384, [(16, 16, 64), (8, 8, 64)], 4),
+    "d_latent 96": (64, [(16, 16, 32), (8, 8, 64)], 4),
+    "d_out 20": (64, [(16, 16, 32), (8, 8, 32)], 20),
+}
+
+
+@pytest.mark.parametrize("hidden,levels,d_out", PADDED_WIDTHS.values(), ids=PADDED_WIDTHS.keys())
+@pytest.mark.parametrize("ns,sb,b", [(1, 2, 50), (2, 2, 37)])
+def test_padded_widths_match_plain(cuda, hidden, levels, d_out, ns, sb, b):
+    """Widths the chains are not built for run on the kernels through the
+    wrappers' zero padding and output groups, and agree with the plain
+    versions at the caller's widths: the ResnetFC's primal, stash forward
+    and backward (its stash at the chain's hidden width, cut back for the
+    plain backward), the field's primal, stash forward and backward (the
+    level gradients at the caller's channels), at the flagship-width
+    tolerances (`_out_close`, `_grad_within`)."""
+    rng = np.random.default_rng(hidden + d_out + ns)
+    combine, n_blocks = (3 if ns > 1 else 1000), 5
+    d_latent = sum(c for *_, c in levels)
+    z, xin, w, _ = _mlp_case(rng, cuda, ns, sb, b, hidden=hidden, d_latent=d_latent,
+                             combine=combine)
+    w = w._replace(w_out=w.w_out.new_tensor(rng.normal(size=(hidden, d_out)) / np.sqrt(hidden)),
+                   b_out=w.b_out.new_tensor(rng.normal(size=(d_out,)) * 0.3))
+    g = torch.from_numpy(rng.normal(size=(sb, b, d_out)).astype(np.float32)).to(cuda)
+    args = (n_blocks, combine, ns)
+    cut = lambda t: None if t is None else t[..., :hidden]
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches)
+    out = resnetfc_fwd(z, xin, w, *args)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    torch.cuda.synchronize()
+    runs = -(-d_out // 16)  # one launch a group of 16 outputs
+    assert (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches) == tuple(
+        x + runs for x in before)
+    assert torch.equal(out, out_s) and out.shape == (sb, b, d_out)
+    if spre is not None:
+        assert not spre[..., hidden:].any()
+    assert not spost[..., hidden:].any()
+    _out_close(out, resnetfc_fwd_plain(z, xin, w, *args))
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, cut(spre), cut(spost), w, *args)
+    for got, want in ((dz, wdz), (dxin, wdxin), *((getattr(dw, n), getattr(wdw, n))
+                                                  for n in FieldWeights._fields)):
+        _grad_within(got, want)
+
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    before = (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches,
+              pyramid_field_fused_bwd.launches)
+    fout = pyramid_field_fused(feats, grid, xin, w, *args)
+    out_s, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    d_feats, dxin, dw = pyramid_field_fused_bwd(grid, xin, g, zs, spre, spost, w, *args, levels)
+    torch.cuda.synchronize()
+    assert (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches,
+            pyramid_field_fused_bwd.launches) == tuple(x + runs for x in before)
+    assert torch.equal(fout, out_s)
+    _out_close(fout, field_plain(feats, grid, xin, w, *args))
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs[..., :d_latent], cut(spre), cut(spost),
+                                           w, *args, levels)
+    for got, want in zip(d_feats, wd_feats):
+        _grad_within(got, want)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))

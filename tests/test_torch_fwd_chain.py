@@ -83,15 +83,17 @@ def _reach(name):
     [
         (512, 512, 42, 4, 2), (256, 512, 42, 4, 3), (128, 128, 42, 4, 1), (64, 64, 64, 16, 5),
         (64, 64, 42, 4, 65), (384, 512, 42, 4, 2), (512, 96, 42, 4, 2), (64, 64, 66, 4, 2),
-        (512, 512, 42, 17, 2),
+        (512, 512, 42, 17, 2), (16, 64, 42, 4, 2), (576, 512, 42, 4, 2), (64, 64, 514, 4, 2),
     ],
 )
 def test_backward_checks_widths_and_views_as_the_forward(monkeypatch, hidden, d_latent, d_in,
                                                         d_out, ns):
     """The backward wrapper refuses exactly the widths and view counts the
-    forward wrapper refuses (`chain_widths_ok`: past 64 views a tile needs
-    more than one 64-row product), with the same error, before either
-    touches its kernel."""
+    forward wrapper refuses, with the same error, before either touches
+    its kernel: after the wrappers' zero padding (`chain_plan`: any hidden
+    and padded d_in up to 512, any d_latent, d_out in groups of 16) only a
+    hidden width or d_in past 512 and more than 64 views (a tile needs
+    more than one 64-row product) are left to refuse."""
     monkeypatch.setattr(ops_resnetfc, "_library", _reach)
     n_blocks, combine = 5, 3 if ns > 1 else 1000
     n_inj = min(combine, n_blocks)
@@ -118,6 +120,5 @@ def test_backward_checks_widths_and_views_as_the_forward(monkeypatch, hidden, d_
     bwd = outcome(lambda: ops_resnetfc.launch_bwd(
         z, xin, t(1, 3, d_out), spre, spost, w, n_blocks, combine, ns))
     assert fwd == bwd
-    accepted = (hidden in (64, 128, 256, 512) and d_latent % 64 == 0 and d_in <= hidden
-                and d_out <= 16 and ns <= 64)
+    accepted = hidden <= 512 and d_in <= 512 and ns <= 64
     assert fwd[0] is (_Reached if accepted else ValueError)

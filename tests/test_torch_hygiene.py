@@ -36,8 +36,44 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {
         "field.py", "posenc.py", "pyramid.py", "resnetfc.py", "pixelnerf.py", "losses.py",
-        "step.py", "convert.py", "chip_smoke.py",
+        "step.py", "convert.py", "chip_smoke.py", "checkpoint.py", "eval_approx.py",
+        "gen_video.py", "eval_mesh.py", "calc_metrics.py", "eval_real.py", "recon.py",
+        "isosurface.py", "cameras.py", "video.py",
     } <= names
+
+
+# a GPU host may lack these: the port reads flax checkpoints with its own
+# decoder and writes videos with Pillow where imageio is missing
+ABSENT_THERE = {"msgpack", "ml_dtypes", "imageio"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_needs_no_package_the_card_lacks(path):
+    """No module of the port imports msgpack or ml_dtypes; imageio only
+    `utils/video.py`, optionally (inside a try, for mp4)."""
+    allowed = {"imageio"} if path.name == "video.py" else set()
+    bad = sorted(set(_imported_roots(path)) & ABSENT_THERE - allowed)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("cli", ["eval_approx", "gen_video", "eval_mesh", "calc_metrics", "eval_real"])
+def test_eval_cli_without_device_raises_when_no_gpu(cli, monkeypatch, tmp_path):
+    """Each eval CLI's `main(argv)` runs on CUDA unless given a device: with
+    no card and no device it raises before touching data (calc_metrics runs
+    on the host and reduces an empty output instead)."""
+    import importlib
+
+    mod = importlib.import_module(f"pixelnerf_tpu_torch.eval.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if cli == "calc_metrics":
+        assert mod.main(["-D", str(tmp_path), "-O", str(tmp_path)])["total"]["n"] == 0
+        return
+    argv = ["-c", str(ROOT / "conf" / "exp" / "srn600.conf"), "-D", str(tmp_path / "none"),
+            "--checkpoints_path", str(tmp_path / "c"), "--visual_path", str(tmp_path / "v")]
+    if cli == "eval_real":
+        argv += ["-I", str(tmp_path / "in"), "-O", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
 
 
 def test_entry_point_without_device_raises_when_no_gpu(monkeypatch):
