@@ -103,12 +103,31 @@ Phases, each failing loudly (an exception and a non-zero exit):
    each) and the middle 65,536-point slab of the grid are held against the
    CPU plain run of the same checkpoint and inputs; PSNR and SSIM must be
    finite, the mesh non-empty and every output file written;
-10. a `kernels` JSON line, the card line, and the result line. A kernel's
+10. the configs off the flagship: conf/exp/dtu.conf uncut (bf16, 3
+   source views) on a DTU-layout dataset written here (4 train, 1 val and
+   1 test scans x 49 views of 300x400, `cameras.npz` with `world_mat_i` and
+   `scale_mat_i`, `new_{train,val,test}.lst`): the training CLI with `-V 3`
+   (2 epochs, then --resume to a third, bit for bit) from a seeded init
+   checkpoint, then `eval_approx -P "25 22 28"` (its first view's middle
+   row held against the CPU plain render) and `gen_video` on the DTU
+   spline; conf/exp/sn64.conf uncut (float32: no kernel may launch) on a
+   64x64 NMR ShapeNet layout through the training CLI (`-V 1`) and
+   `eval_approx`; then srn.conf with a global encoder (d_latent 640), with
+   `num_layers = 5` (d_latent 1024, the fused field) and with `backbone =
+   custom` at 64x64 (the bilerp kernels) through phase 4's view and phase
+   5's train path. Each run prints its wall time, rays/s, peak memory and
+   launches, and counts the kernels' plain versions (none may run). Phase
+   3 also holds the ResnetFC forward, stash forward and backward at
+   d_latent 640 and 1024 (hidden 512, the train step's coarse call)
+   against their plain versions, timed beside d_latent 512;
+11. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
-   launches are the most that one counted run of phases 4-7 made, and
+   launches are the most that one counted run of phases 4-7 made,
    posenc's and the field primal's `serve_launches` those of each CLI of
-   phase 9.
+   phase 9, `config_launches` those of each counted run of phase 10, and
+   the ResnetFC records' `d_latent_640` and `d_latent_1024` phase 3's
+   readings at those widths.
 
 For the two backwards (the ResnetFC's and the field's) phase 3 also holds
 the bf16 cotangents the chain hands the weight-gradient products against
@@ -244,10 +263,15 @@ WGRAD_LAUNCHES = 2  # a backward call: the grouped products, the reduction
 # the CPU (measured 0.53-0.54 on the three paths) and each layer's card
 # error to TRUNK_RATIO times the CPU's; the float32 step (the same path
 # without the bf16 kernels) holds every parameter to 3e-2.
+# A global encoder's trunk (a second ResNet-34, its gradient through the
+# average pool and fc) reads up to 0.786 in bf16 against the CPU (NVIDIA
+# H100 80GB HBM3, 700 W): it is held as trunk_precision holds the flagship's,
+# each side's bf16 against its own float32 step, the card within
+# TRUNK_RATIO of the CPU, and to 3e-2 in float32.
 CMP_SB, CMP_RAYS = 2, 64
 CMP_TOL = {
-    "bfloat16": {"loss": 1e-2, "latent": 1e-1, "head": 5e-2, "encoder": 0.75},
-    "float32": {"loss": 1e-4, "latent": 1e-2, "head": 1e-2, "encoder": 3e-2},
+    "bfloat16": {"loss": 1e-2, "latent": 1e-1, "head": 5e-2, "encoder": 0.75, "global": None},
+    "float32": {"loss": 1e-4, "latent": 1e-2, "head": 1e-2, "encoder": 3e-2, "global": 3e-2},
 }
 TRUNK_RATIO = 1.5
 PROFILE_WATCH = ("pyramid_", "bilerp_")  # kernel names profile_view always prints
@@ -1712,6 +1736,42 @@ def shape_heads(torch, model):
             mlp.lin_out.bias[3] = 2.0
 
 
+def fit_heads(torch, model, render, label):
+    """Bring a model whose latents differ in scale from the flagship's (a
+    global latent, five levels, the conv encoder) to a render that shows the
+    field, as `shape_heads` does for the flagship: unless the held rays
+    (`render()`) already show it in both heads, move each head's sigma
+    offset by bisection until their alpha mean is 0.6, then double the
+    gain of its rgb rows of W_out until their rgb std is twice
+    RGB_STD_MIN. The flagship's models show it as they are and keep
+    `shape_heads`' weights."""
+
+    def shows(out, head):
+        alpha = out[head]["alpha"].mean().item()
+        return (ALPHA_RANGE[0] <= alpha <= ALPHA_RANGE[1]
+                and out[head]["rgb"].std(dim=0).mean().item() >= RGB_STD_MIN)
+
+    with torch.no_grad():
+        out = render()
+        if all(shows(out, head) for head in ("coarse", "fine")):
+            return
+        fitted = []
+        for head, mlp in (("coarse", model.mlp_coarse), ("fine", model.mlp_fine)):
+            lo, hi = -64.0, 64.0
+            for _ in range(16):
+                mlp.lin_out.bias[3] = (lo + hi) / 2
+                if render()[head]["alpha"].mean().item() > 0.6:
+                    hi = (lo + hi) / 2
+                else:
+                    lo = (lo + hi) / 2
+            gain = 1.0
+            while gain < 256 and render()[head]["rgb"].std(dim=0).mean().item() < 2 * RGB_STD_MIN:
+                mlp.lin_out.weight[:3] *= 2
+                gain *= 2
+            fitted.append(f"{head} sigma offset {mlp.lin_out.bias[3].item():.3f}, rgb gain {gain:g}")
+    print(f"{label}: heads fitted to the held rays: " + "; ".join(fitted))
+
+
 def profile_view(torch, view, label="one view"):
     """One warm run under torch.profiler: device time by kernel, and the
     share of the run's wall time in which the card ran a kernel."""
@@ -1774,45 +1834,47 @@ def _nearest(conf):
     return conf
 
 
-def _train_batch(torch, np, dev, sb):
+def _train_batch(torch, np, dev, sb, size=TRAIN_SIZE):
     """bench.py's batch: random images, identity cameras at z = 1.3."""
     rng = np.random.default_rng(0)
     images = torch.from_numpy(
-        rng.uniform(-1, 1, (sb, NV, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32)
+        rng.uniform(-1, 1, (sb, NV, size, size, 3)).astype(np.float32)
     ).to(dev)
     poses = torch.eye(4, device=dev).repeat(sb, NV, 1, 1)
     poses[..., 2, 3] = 1.3
     return {
         "images": images, "poses": poses,
-        "focal": torch.full((sb, 2), float(TRAIN_SIZE), device=dev),
-        "c": torch.full((sb, 2), TRAIN_SIZE / 2.0, device=dev),
+        "focal": torch.full((sb, 2), float(size), device=dev),
+        "c": torch.full((sb, 2), size / 2.0, device=dev),
         "src_images": images[:, :TRAIN_NS], "src_poses": poses[:, :TRAIN_NS],
     }
 
 
-def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False):
+def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False, size=TRAIN_SIZE):
     """One train step on the card against the CPU plain step: the same
     parameters (seeded), injected rays, perturb=0, a small batch; with
-    `fusion`, both steps run the model's fused-field view."""
+    `fusion`, both steps run the model's fused-field view. The encoder's
+    output and a global encoder's parameters count with the trunk's."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step, sample_rays
 
     tol = CMP_TOL[dtype_name]
-    batch = {k: v.cpu() for k, v in _train_batch(torch, np, dev, CMP_SB).items()}
+    batch = {k: v.cpu() for k, v in _train_batch(torch, np, dev, CMP_SB, size).items()}
     rng = np.random.default_rng(8)
-    pix = 2 * TRAIN_SIZE * TRAIN_SIZE + rng.integers(0, TRAIN_SIZE * TRAIN_SIZE, size=(CMP_SB, CMP_RAYS))
+    pix = 2 * size * size + rng.integers(0, size * size, size=(CMP_SB, CMP_RAYS))
     batch["rays"], batch["rgb_gt"] = sample_rays(
         batch["images"], batch["poses"], batch["focal"], batch["c"], 0.8, 1.8, CMP_RAYS,
         draws={"pix": torch.from_numpy(pix)},
     )
     results = []
     for d in (dev, torch.device("cpu")):
-        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name))
+        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name),
+                       image_hw=(size, size))
         shape_heads(torch, m)
         latent = []
 
         def keep(mod, inp, out):
-            for level in out[0]:
+            for level in out[0] if isinstance(out[0], tuple) else (out[0],):
                 level.retain_grad()
                 latent.append(level)
 
@@ -1830,7 +1892,8 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False):
     worst = {}
     for n, gc in grads_c.items():
         err = ((grads_d[n] - gc).norm() / (gc.norm() + 1e-30)).item()
-        part = "latent" if n.startswith("encoder output") else "encoder" if n.startswith("encoder") else "head"
+        part = ("latent" if n.startswith("encoder output") else "encoder" if n.startswith("encoder")
+                else "global" if n.startswith("global_encoder") else "head")
         if err >= worst.get(part, (-1.0, ""))[0]:
             worst[part] = (err, n)
         if not math.isfinite(err) or (tol[part] is not None and err > tol[part]):
@@ -1850,15 +1913,15 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False):
 def trunk_precision(torch, grads, label):
     """Fault 2, the bf16 trunk's parameter gradients: each side's bf16 step
     against the float32 step on the same side (card with card, CPU with CPU,
-    the same parameters and rays), layer by layer. Rounding shows as errors
-    of one size on both sides; a fault in the card's encoder backward as
-    card errors beyond the CPU's."""
+    the same parameters and rays), layer by layer, a global encoder's trunk
+    too. Rounding shows as errors of one size on both sides; a fault in the
+    card's encoder backward as card errors beyond the CPU's."""
     (bf_d, bf_c), (f32_d, f32_c) = grads["bfloat16"], grads["float32"]
     rel = lambda a, b: ((a - b).norm() / (b.norm() + 1e-30)).item()
     worst = {"card": (0.0, ""), "CPU": (0.0, "")}
     ratio = (0.0, "")
     for n in f32_c:
-        if not n.startswith("encoder.") or not f32_c[n].norm() > 0:
+        if not n.startswith(("encoder.", "global_encoder.")) or not f32_c[n].norm() > 0:
             continue
         card, cpu = rel(bf_d[n], f32_d[n]), rel(bf_c[n], f32_c[n])
         if not (math.isfinite(card) and math.isfinite(cpu)):
@@ -1880,7 +1943,8 @@ def trunk_precision(torch, grads, label):
 
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
-              fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None, base_step=None):
+              fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None, base_step=None,
+              size=TRAIN_SIZE, name="srn.conf"):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
     With `keep`, (module, function name, list) triples, the counted train
@@ -1888,6 +1952,7 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     `times`, a dict, the timed steps' mean seconds go to times[label]; with
     `base_step`, an earlier tree's `make_train_step`, its step on the same
     model, batch and a fresh Adam is timed beside this tree's, in turns.
+    `size` is the views' side, `name` the model's name in the output.
     Returns the counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
@@ -1895,19 +1960,19 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
 
     rcfg = RendererConfig.from_conf(conf["renderer"])
     near, far = 0.8, 1.8
-    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    model = make_model(conf["model"], device=dev, seed=0, train=True, image_hw=(size, size))
     shape_heads(torch, model)
     # the fused-field view shares every parameter and the optimizer
     stepped = model.with_field_fusion() if fusion else model
     optimizer = make_optimizer(model, 1e-4)
     step = make_train_step(stepped, rcfg, optimizer, TRAIN_RAYS, near, far)
     eval_step = make_eval_step(stepped, rcfg, TRAIN_RAYS, near, far)
-    batch = _train_batch(torch, np, dev, SB)
+    batch = _train_batch(torch, np, dev, SB, size)
     gen = torch.Generator(device=dev).manual_seed(7)
     print(
-        f"{label}: srn.conf bf16 (upsample {model.encoder.upsample_interp}, field fusion "
+        f"{label}: {name} bf16 (upsample {model.encoder.upsample_interp}, field fusion "
         f"{stepped.use_field_fusion}), {sum(p.numel() for p in model.parameters())} params, SB={SB} "
-        f"NV={NV} NS={TRAIN_NS} {TRAIN_SIZE}x{TRAIN_SIZE}, {TRAIN_RAYS} rays/object, "
+        f"NV={NV} NS={TRAIN_NS} {size}x{size}, {TRAIN_RAYS} rays/object, "
         f"{rcfg.n_coarse} coarse + {rcfg.n_fine} fine samples, Adam"
     )
 
@@ -1950,7 +2015,7 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
 
     grads = {
         dtype: compare_step(torch, np, conf, rcfg.replace(perturb=0.0, noise_std=0.0), dev, dtype,
-                            label, fusion)
+                            label, fusion, size)
         for dtype in cmp_dtypes
     }
     if set(grads) == {"bfloat16", "float32"}:
@@ -1992,35 +2057,40 @@ def _baseline_step(path):
     return mod.make_train_step
 
 
-def run_view(torch, np, dev, conf, card, label, expected, keep=()):
-    """One full 128x128 view of the bf16 model through `render_full`,
-    counted, timed warm, profiled, and its first rays against the CPU plain
-    render; the counted view keeps the arguments of `keep`'s functions as
-    `run_train` does. Returns the counted run's launches."""
+def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZE,
+             name="srn.conf"):
+    """One full size x size (128x128) view of the bf16 model through
+    `render_full`, counted, timed warm, profiled, and its first rays
+    against the CPU plain render; the counted view keeps the arguments of
+    `keep`'s functions as `run_train` does. Returns the counted run's
+    launches."""
     from pixelnerf_tpu_torch.eval.common import encode_views
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.utils.rays import gen_rays
 
-    model = make_model(conf["model"], device=dev, seed=0)
+    model = make_model(conf["model"], device=dev, seed=0, image_hw=(size, size))
     if model.dtype != torch.bfloat16:
-        raise AssertionError("srn.conf should build a bf16 model")
+        raise AssertionError(f"{name} should build a bf16 model")
     shape_heads(torch, model)
 
     rng = np.random.default_rng(4)
-    size, focal, near, far = VIEW_SIZE, 131.25 * VIEW_SIZE / 128, 0.8, 1.8
+    focal, near, far = 131.25 * size / 128, 0.8, 1.8
     images = rng.uniform(-1, 1, size=(2, size, size, 3)).astype(np.float32)
     poses = np.stack([_look_at(np, [1.3, 0.2, 0.1]), _look_at(np, [0.2, 0.3, 1.3])])
     target = torch.from_numpy(_look_at(np, [0.9, 0.4, 0.9])[None]).to(dev)
     rays = gen_rays(target, size, size, focal, near, far).reshape(-1, 8)
     rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0)
     print(
-        f"{label}: srn.conf bf16 (upsample {model.encoder.upsample_interp}), "
+        f"{label}: {name} bf16 (upsample {model.encoder.upsample_interp}), "
         f"{sum(p.numel() for p in model.parameters())} params, "
         f"{rays.shape[0]} rays, {rcfg.n_coarse} coarse + {rcfg.n_fine - rcfg.n_fine_depth} "
         f"importance + {rcfg.n_fine_depth} depth samples, 2 source views"
     )
+    held = encode_views(model, images, poses, focal)
+    fit_heads(torch, model, lambda: render_full(model, held, rays[:CPU_RAYS], rcfg), label)
+    del held
 
     def view():
         enc = encode_views(model, images, poses, focal)
@@ -2568,6 +2638,613 @@ def run_serving_clis(torch, np, dev, root, card):
     return launches
 
 
+# the configs phase: conf/exp/dtu.conf and sn64.conf uncut through the
+# training and serving CLIs on datasets written here, then three bf16
+# models off the flagship (a global encoder, five encoder levels, the
+# custom conv encoder) through a counted view and train steps
+DTU_SCANS = (("train", 4), ("val", 1), ("test", 1))
+DTU_VIEWS, DTU_H, DTU_W, DTU_FOCAL = 49, 300, 400, 723.0  # rs_dtu_4: DTU at 1/4 size
+DTU_SOURCE = "25 22 28"  # the pixelNeRF paper's DTU source views
+DTU_ARGS = ["-V", "3"]  # with the CLI's -B 4 -R 128
+DTU_VIDEO_VIEWS = 5  # gen_video's DTU spline: a frame a key interval, 6 frames
+DTU_HELD_RAYS = 128  # rays of eval_approx's first view on the CPU, strided over the view
+# shape_heads' sigma offset of 2 makes DTU's long 0.1-5.0 depth range
+# opaque at its first samples; 0 leaves the held rays partly transparent
+# (a CPU reading at full width: alpha 0.83 coarse, 0.29 fine), and a gain
+# on the rgb rows of W_out spreads the colours (fine rgb std 0.0089 over
+# the middle row without it on an NVIDIA H100 80GB HBM3 at 700 W)
+DTU_SIGMA_BIAS, DTU_RGB_GAIN = 0.0, 4.0
+SN64_OBJECTS, SN64_VIEWS, SN64_SIZE = (("train", 8), ("val", 2), ("test", 2)), 24, 64
+SN64_ARGS = ["-V", "1"]
+# the train intervals (and DTU's 32 epoch repeats cut to 1: a DTU batch
+# takes its loader ~7 s, the colour jitter of 4 scans x 49 views on the
+# host, 1.64 s a scan on the H100 machine's), and the renderer's jitter off for the
+# eval CLIs, over the shipped conf
+CONFIG_TRAIN_CONF = """include required("{conf}")
+train {{
+    print_interval = 1
+    eval_interval = 2
+    vis_interval = 1000
+    save_interval = 1
+    num_epoch_repeats = 1
+}}
+"""
+CONFIG_SERVE_CONF = """include required("{conf}")
+renderer {{
+    perturb = 0.0
+}}
+"""
+# the d_latent 640 model's view: the field path is off for a global
+# latent, so the pyramid gather (single output) and the ResnetFC primal
+GLOBAL_VIEW_LAUNCHES = _launch_table(posenc_concat=2, pyramid_gather=2, resnetfc_fwd=2)
+DTU_CLI_KERNELS = ("posenc_concat", "resnetfc_fwd_stash", "resnetfc_bwd", "resnetfc_fwd")
+DTU_SERVE_KERNELS = ("posenc_concat", "resnetfc_fwd")
+WIDE_LATENTS = (640, 1024)
+PLAIN_VERSIONS = {
+    "field": ("field_plain", "field_bwd_plain"),
+    "posenc": ("posenc_concat_plain",),
+    "pyramid": ("pyramid_gather_plain", "pyramid_scatter_add_plain"),
+    "resnetfc": ("resnetfc_fwd_plain", "resnetfc_bwd_plain"),
+    "scatter": ("bilerp_gather_plain", "bilerp_scatter_add_plain"),
+}
+
+
+def check_wide_latent(torch, np, dev):
+    """The ResnetFC forward, stash forward and backward at d_latent 640 (a
+    global latent) and 1024 (five encoder levels), hidden 512, at the train
+    step's coarse call (SB x 2 views x 65,536 points), against the plain
+    versions, timed beside the flagship's d_latent 512 at the same shape.
+    Returns {kernel: {"d_latent_640": {...}, "d_latent_1024": {...}}}."""
+    from pixelnerf_tpu_torch.ops.field import FieldWeights, field_flops
+    from pixelnerf_tpu_torch.ops.resnetfc import (
+        resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    ns, b = TRAIN_NS, TRAIN_RAYS * N_COARSE
+    args = (N_BLOCKS, COMBINE, ns)
+    out = {k: {} for k in ("resnetfc_fwd", "resnetfc_fwd_stash", "resnetfc_bwd")}
+    flagship = {}
+    for dl in (512,) + WIDE_LATENTS:
+        w = _random_weights(torch, g, dev, dl)
+        z = (torch.randn((SB, ns, b, dl), generator=g, device=dev)).to(torch.bfloat16)
+        xin = torch.randn((SB, ns, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+        gout = torch.randn((SB, b, D_OUT), generator=g, device=dev) * 1e-3
+        flops = field_flops(ns, D_IN, dl, HIDDEN, D_OUT, N_BLOCKS, COMBINE) * SB * b
+        wbytes = sum(t.numel() * 2 for t in w)
+        in_bytes = z.numel() * 2 + xin.numel() * 2 + wbytes
+        out_bytes = SB * b * D_OUT * 4
+        fwd = lambda: resnetfc_fwd(z, xin, w, *args)
+        stash = lambda: resnetfc_fwd_stash(z, xin, w, *args)
+        ms = {"resnetfc_fwd": _time_ms(torch, fwd, 1, 3), "resnetfc_fwd_stash": _time_ms(torch, stash, 1, 3)}
+        _, spre, spost = stash()
+        bwd = lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args)
+        ms["resnetfc_bwd"] = _time_ms(torch, bwd, 1, 3)
+        if dl == 512:
+            flagship = ms
+            print(f"wide latent: d_latent 512 (the flagship's) at SB={SB} NS={ns} B={b}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+            del z, xin, gout, spre, spost
+            continue
+        got = fwd()
+        got_s, spre2, spost2 = stash()
+        torch.cuda.synchronize()
+        want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
+        diff = (got - want).abs()
+        excess = (diff - (FIELD_ATOL + FIELD_RTOL * want.abs())).max().item()
+        if not (torch.isfinite(got).all() and excess <= 0 and torch.equal(got, got_s)):
+            raise AssertionError(f"wide latent {dl}: the ResnetFC forward disagrees with its plain version")
+        dz, dxin, dw = bwd()
+        torch.cuda.synchronize()
+        wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args)
+        pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
+            (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields]
+        worst = _check_grads(torch, f"wide latent {dl} resnetfc_bwd", pairs, False)
+        stash_bytes = sum(t.numel() * 2 for t in (spre, spost) if t is not None)
+        grad_bytes = in_bytes - wbytes + sum(t.numel() * 4 for t in w)
+        plain = {
+            "resnetfc_fwd": _time_ms(torch, lambda: resnetfc_fwd_plain(z, xin, w, *args), 1, 2),
+            "resnetfc_fwd_stash": _time_ms(
+                torch, lambda: resnetfc_fwd_plain(z, xin, w, *args, stash=True), 1, 2),
+            "resnetfc_bwd": _time_ms(
+                torch, lambda: resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args), 1, 2),
+        }
+        bounds = {
+            "resnetfc_fwd": _bound(flops, PEAK_BF16_FLOPS, in_bytes + out_bytes),
+            "resnetfc_fwd_stash": _bound(flops, PEAK_BF16_FLOPS, in_bytes + out_bytes + stash_bytes),
+            "resnetfc_bwd": _bound(2 * flops, PEAK_BF16_FLOPS,
+                                   in_bytes + out_bytes + stash_bytes + grad_bytes),
+        }
+        errs = {"resnetfc_fwd": diff.max().item(), "resnetfc_fwd_stash": diff.max().item(),
+                "resnetfc_bwd": worst}
+        for k in out:
+            out[k][f"d_latent_{dl}"] = {
+                "shape": f"SB={SB} NS={ns} B={b} hidden {HIDDEN}", "ms": ms[k], "plain_ms": plain[k],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "max_abs_err": errs[k],
+                "flagship_ms": flagship[k],
+            }
+            print(f"wide latent: d_latent {dl} {k}: kernel {ms[k]:.3f} ms ({ms[k] / flagship[k]:.3f}x "
+                  f"the flagship's {flagship[k]:.3f} ms; FLOPs {flops / 1e12:.2f} T = "
+                  f"{flops / ms[k] / 1e9:.1f} TFLOP/s), plain {plain[k]:.3f} ms, bound "
+                  f"{bounds[k][0]:.3f} ms ({bounds[k][1]}), max_abs_err {errs[k]:.3e}")
+        del z, xin, gout, spre, spost, spre2, spost2, got, got_s, want, wpre, wpost, diff
+        del dz, dxin, dw, wdz, wdxin, wdw, pairs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _on_card(args) -> bool:
+    """Does any tensor among `args` (nested in tuples, lists and dicts) lie
+    on the card?"""
+    if hasattr(args, "is_cuda"):
+        return bool(args.is_cuda)
+    if isinstance(args, dict):
+        args = list(args.values())
+    return isinstance(args, (tuple, list)) and any(_on_card(a) for a in args)
+
+
+def _plain_watch():
+    """(patch, counts): a context manager that counts the calls of the
+    kernels' plain versions on the card's tensors (CPU references are
+    theirs to run), and the counts."""
+    import contextlib
+    import importlib
+
+    counts = {name: 0 for names in PLAIN_VERSIONS.values() for name in names}
+
+    @contextlib.contextmanager
+    def watching():
+        reals = []
+        for mod_name, names in PLAIN_VERSIONS.items():
+            mod = importlib.import_module(f"pixelnerf_tpu_torch.ops.{mod_name}")
+            for name in names:
+                real = getattr(mod, name)
+
+                def fn(*a, _real=real, _name=name, **k):
+                    counts[_name] += _on_card((a, k))
+                    return _real(*a, **k)
+
+                reals.append((mod, name, real))
+                setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, real in reals:
+                setattr(mod, name, real)
+
+    return watching, counts
+
+
+def _write_dtu_dataset(np, root):
+    """A DTU-layout dataset (rs_dtu_4: `DTU/scanN/image/*.png` at 300x400,
+    `cameras.npz` with `world_mat_i` = K [R | t] and `scale_mat_i`, and
+    `DTU/new_{train,val,test}.lst`): DTU_VIEWS cameras on an arc looking
+    at the origin, each view a coloured disc and bar on black that move
+    with the view."""
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    cat = Path(root) / "dtu" / "DTU"
+    yy, xx = np.mgrid[0:DTU_H, 0:DTU_W]
+    K = np.array([[DTU_FOCAL, 0, DTU_W / 2], [0, DTU_FOCAL, DTU_H / 2], [0, 0, 1]])
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])  # the loader's OpenCV <-> OpenGL camera flip
+    n = 0
+    for stage, count in DTU_SCANS:
+        names = []
+        for _ in range(count):
+            n += 1
+            d = cat / f"scan{n}"
+            (d / "image").mkdir(parents=True)
+            disc, bar = rng.integers(40, 230, 3), rng.integers(40, 230, 3)
+            cams = {}
+            for v in range(DTU_VIEWS):
+                theta = -0.6 + 1.2 * v / (DTU_VIEWS - 1)
+                img = np.zeros((DTU_H, DTU_W, 3), np.uint8)
+                cx, cy = DTU_W * (0.5 + 0.15 * np.sin(3 * theta)), DTU_H * 0.5
+                img[(yy - cy) ** 2 + (xx - cx) ** 2 <= (0.25 * DTU_H) ** 2] = disc
+                img[int(0.7 * DTU_H):int(0.8 * DTU_H), int(0.3 * DTU_W):int(0.7 * DTU_W)] = bar
+                Image.fromarray(img).save(d / "image" / f"{v:06d}.png")
+                eye = [2.0 * np.sin(theta), 0.4, 2.0 * np.cos(theta)]
+                pose_cv = flip @ _look_at(np, eye).astype(np.float64) @ flip  # camera-to-world
+                rot = pose_cv[:3, :3].T
+                P = np.eye(4)
+                P[:3] = K @ np.concatenate([rot, -rot @ pose_cv[:3, 3:]], 1)
+                cams[f"world_mat_{v}"] = P
+                cams[f"scale_mat_{v}"] = np.eye(4)
+            np.savez(d / "cameras.npz", **cams)
+            names.append(d.name)
+        (cat / f"new_{stage}.lst").write_text("\n".join(names) + "\n")
+    return str(Path(root) / "dtu")
+
+
+def _write_nmr_dataset(np, root):
+    """An NMR ShapeNet layout at 64x64 (the DVR format of sn64.conf: a
+    category dir with `softras_{train,val,test}.lst`, objects with
+    `image/`, `mask/` and `cameras.npz` holding `world_mat_inv_i` and a
+    side-2 `camera_mat_i`): SN64_VIEWS views on a circle, a disc and bar on
+    white."""
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    cat = Path(root) / "nmr" / "02691156"
+    s = SN64_SIZE
+    yy, xx = np.mgrid[0:s, 0:s]
+    tw = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float64)
+    tc = np.diag([1.0, -1.0, -1.0, 1.0])
+    n = 0
+    for stage, count in SN64_OBJECTS:
+        names = []
+        for _ in range(count):
+            n += 1
+            d = cat / f"obj{n:03d}"
+            (d / "image").mkdir(parents=True)
+            (d / "mask").mkdir()
+            disc, bar = rng.integers(20, 230, 3), rng.integers(20, 230, 3)
+            cams = {}
+            for v in range(SN64_VIEWS):
+                theta = 2 * np.pi * v / SN64_VIEWS
+                img = np.full((s, s, 3), 255, np.uint8)
+                cx, cy = s * (0.5 + 0.15 * np.sin(theta)), s * 0.5
+                img[(yy - cy) ** 2 + (xx - cx) ** 2 <= (0.25 * s) ** 2] = disc
+                img[int(0.7 * s):int(0.8 * s), int(0.3 * s):int(0.7 * s)] = bar
+                Image.fromarray(img).save(d / "image" / f"{v:04d}.png")
+                Image.fromarray(((img != 255).any(-1) * 255).astype(np.uint8)).save(
+                    d / "mask" / f"{v:04d}.png")
+                eye = [2.0 * np.sin(theta), 0.5, 2.0 * np.cos(theta)]
+                pose = _look_at(np, eye).astype(np.float64)
+                # the loader computes tw @ world_mat_inv @ tc: store its pre-image
+                cams[f"world_mat_inv_{v}"] = np.linalg.inv(tw) @ pose @ np.linalg.inv(tc)
+                cams[f"camera_mat_{v}"] = np.diag([1.5, 1.5, 1.0, 1.0])
+            np.savez(d / "cameras.npz", **cams)
+            names.append(d.name)
+        (cat / f"softras_{stage}.lst").write_text("\n".join(names) + "\n")
+    return str(Path(root) / "nmr")
+
+
+def _train_cli(torch, dev, label, argv, card):
+    """`train_pixelnerf.main`: 2 epochs, then --resume to a third, with the
+    launch counts set to 0 before and read after, the plain versions
+    counted, the resumed state checked against the files, and the steps
+    (a synchronise around each) and the host's batch preparation timed.
+    Returns the launches."""
+    import contextlib
+    import io
+    import statistics
+
+    from pixelnerf_tpu_torch.train import train_pixelnerf as cli
+    from pixelnerf_tpu_torch.train.trainer import Trainer
+    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
+
+    orig_start = Trainer.start
+    losses, resumed, rays, step_s, host_s = [], {}, [], [], []
+
+    def start(self):
+        if self.args.resume:
+            cdir = Path(self.args.checkpoints_path) / self.args.name
+            resumed["model"] = _tree_equal(
+                torch, self.model.state_dict(), ckpt.load_state(str(cdir / "pixel_nerf_latest"), dev))
+            resumed["optimizer"] = _tree_equal(
+                torch, self.optimizer.state_dict(), ckpt.load_state(str(cdir / "_optim"), dev))
+        train_step, device_batch = self.train_step, self._device_batch
+        rays.append(self.args.batch_size * self.args.ray_batch_size)
+
+        def timed_step(data, global_step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = train_step(data, global_step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(aux)
+            if len(step_s) == 2:  # one more, warm step on this batch, profiled
+                with contextlib.redirect_stdout(sys.__stdout__):
+                    profile_view(torch, lambda: train_step(data, global_step), f"one {label} step")
+            return aux
+
+        def timed_batch(data, global_step, train=True):
+            t0 = time.perf_counter()
+            out = device_batch(data, global_step, train=train)
+            if train:
+                host_s.append(time.perf_counter() - t0)
+            return out
+
+        self.train_step, self._device_batch = timed_step, timed_batch
+        orig_start(self)
+
+    counters = _counters()
+    watching, plain = _plain_watch()
+    Trainer.start = start
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with watching():
+            for run, extra in (("2 epochs", ["--epochs", "2"]), ("--resume to a third", ["--epochs", "3", "--resume"])):
+                log = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(log):
+                        cli.main(argv + extra, device=dev)
+                finally:
+                    tail = log.getvalue().strip().splitlines()
+                    print(f"{label} ({run}): {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
+    finally:
+        Trainer.start = orig_start
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {name: counters[name].launches for name in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    values = [float(v) for aux in losses for v in aux.values()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: non-finite losses {values}")
+    if not (resumed.get("model") and resumed.get("optimizer")):
+        raise AssertionError(f"{label}: the resumed run does not start from the saved state: {resumed}")
+    # a train_step call: the host's batch preparation (make_step_batch and
+    # the copy), then the step; the first call of the first run warms up
+    own = [t - h for t, h in zip(step_s, host_s)][1:]
+    med = statistics.median(own)
+    print(
+        f"{label}: {len(losses)} train steps in {wall:.1f} s over both runs (the loader, eval, vis "
+        f"and saves included) = {wall / len(losses):.2f} s a step; the step itself median "
+        f"{med * 1e3:.1f} ms over {len(own)} = {rays[0] / med:.1f} rays/s; the host's batch "
+        f"preparation (make_step_batch and the copy) median {statistics.median(host_s) * 1e3:.1f} ms; "
+        f"resumed with model and Adam state bit-equal to the files; launches {got}; plain versions "
+        f"{plain}; peak device memory {peak / 2**30:.2f} GiB; on {card}"
+    )
+    if any(plain.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
+    return got
+
+
+def _eval_cli(torch, dev, label, main, argv, card, seen):
+    """One eval CLI through `main(argv, device)`, its launches counted from
+    0, its plain versions counted, its render_full calls timed; `seen`
+    keeps the first render's arguments and output. Returns (result,
+    launches)."""
+    import contextlib
+    import io
+
+    from pixelnerf_tpu_torch.eval import render_utils
+
+    counters = _counters()
+    watching, plain = _plain_watch()
+    real = render_utils.render_full
+    renders = []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        renders.append((time.perf_counter() - t0, a[2].reshape(-1, 8).shape[0]))
+        if "first" not in seen:
+            seen["first"] = (a, k, out)
+        return out
+
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    render_utils.render_full = timed
+    t0 = time.perf_counter()
+    try:
+        with watching(), contextlib.redirect_stdout(log):
+            res = main(argv, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        render_utils.render_full = real
+        tail = log.getvalue().strip().splitlines()
+        print(f"{label}: {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
+    wall = time.perf_counter() - t0
+    got = {name: counters[name].launches for name in KERNELS}
+    secs, rays = sum(r[0] for r in renders), sum(r[1] for r in renders)
+    print(
+        f"{label}: wall {wall:.2f} s; {len(renders)} render_full calls, {rays} rays in {secs:.3f} s = "
+        f"{rays / secs:.1f} rays/s; launches {got}; plain versions {plain}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}"
+    )
+    if any(plain.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
+    return res, got
+
+
+def _held_render(torch, label, model_cpu, first, idx, alpha_range):
+    """The card's first render against the CPU plain render of the same
+    rays (`idx` of them) on the same checkpoint and encoding."""
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+
+    args, kw, out = first
+    enc, rays, rcfg = args[1], args[2].reshape(-1, 8), args[3]
+    t0 = time.perf_counter()
+    ref = render_full(model_cpu, enc.to("cpu"), rays[idx.to(rays.device)].cpu(), rcfg, seed=kw.get("seed", 0))
+    print(f"{label}: CPU plain render of {len(idx)} rays ({enc.num_views} source views) "
+          f"{time.perf_counter() - t0:.1f} s")
+    for head in ("coarse", "fine"):
+        d = (out[head]["rgb"][idx.to(out[head]["rgb"].device)].cpu() - ref[head]["rgb"]).abs()
+        alpha = ref[head]["alpha"].mean().item()
+        rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
+        print(f"{label}: {head} rgb vs CPU plain max {d.max().item():.3e} mean {d.mean().item():.3e} "
+              f"(tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); compared rays' alpha mean "
+              f"{alpha:.4f}, rgb std {rgb_std:.4f}")
+        if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
+            raise AssertionError(f"{label}: {head} render disagrees with the CPU plain render")
+        if not (alpha_range[0] <= alpha <= alpha_range[1] and rgb_std >= RGB_STD_MIN):
+            raise AssertionError(f"{label}: {head}: the compared rays show too little of the field")
+
+
+def run_dtu(torch, np, dev, root, card):
+    """dtu.conf uncut (bf16, ResNet-34, two 5-block 512-wide heads pooling
+    3 views at block 3, 64 + 16 + 16 samples) on a DTU-layout dataset at
+    300x400: the training CLI (-V 3) from a seeded init checkpoint whose
+    heads `shape_heads` made visible, 2 epochs and a resume; then
+    eval_approx -P "25 22 28" and gen_video on its DTU spline path on that
+    init checkpoint, eval_approx's first view held against the CPU plain
+    render. Returns each CLI's launches."""
+    import tempfile
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.eval import eval_approx, gen_video
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
+    from pixelnerf_tpu_torch.utils import hocon
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datadir = _write_dtu_dataset(np, tmp)
+        print(f"dtu: wrote {sum(n for _, n in DTU_SCANS)} scans x {DTU_VIEWS} views of {DTU_H}x{DTU_W} "
+              f"in {time.perf_counter() - t0:.1f} s")
+        train_set = get_split_dataset("dvr_dtu", datadir, want_split="train")
+        t0 = time.perf_counter()
+        train_set[0]
+        print(f"dtu: one training item ({type(train_set).__name__}: {DTU_VIEWS} views decoded and "
+              f"colour-jittered) {time.perf_counter() - t0:.2f} s on the host")
+        conf_path = root / "conf" / "exp" / "dtu.conf"
+        train_conf, serve_conf = Path(tmp) / "dtu_train.conf", Path(tmp) / "dtu_serve.conf"
+        train_conf.write_text(CONFIG_TRAIN_CONF.format(conf=conf_path))
+        serve_conf.write_text(CONFIG_SERVE_CONF.format(conf=conf_path))
+        conf = hocon.load(str(conf_path))
+        init = make_model(conf["model"], device=dev, seed=0)
+        if init.dtype != torch.bfloat16 or init.mlp_coarse.combine_layer != 3:
+            raise AssertionError("dtu.conf should build a bf16 model pooling at block 3")
+        shape_heads(torch, init)
+        with torch.no_grad():
+            for mlp in (init.mlp_coarse, init.mlp_fine):
+                mlp.lin_out.bias[3] = DTU_SIGMA_BIAS
+                mlp.lin_out.weight[:3] *= DTU_RGB_GAIN
+        ckpt.save_model_weights(init, f"{tmp}/ckpt", "dtu", opt_init=True)
+        # the eval CLIs serve these weights too: 4 steps of training turn
+        # the black DTU backgrounds into an empty field
+        ckpt.save_model_weights(init, f"{tmp}/ckpt", "dtu_init")
+        print(f"dtu: dtu.conf bf16, {sum(p.numel() for p in init.parameters())} params")
+        del init
+        common = ["-n", "dtu", "-D", datadir, "--dataset_format", "dvr_dtu", "--checkpoints_path",
+                  f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"]
+        launches["train"] = _train_cli(
+            torch, dev, "dtu cli", common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + DTU_ARGS,
+            card)
+        missing = [k for k in DTU_CLI_KERNELS if launches["train"][k] <= 0]
+        if missing:
+            raise AssertionError(f"dtu cli: never launched {missing}")
+        serve = common + ["-c", str(serve_conf), "--split", "test", "-P", DTU_SOURCE]
+        serve[serve.index("dtu")] = "dtu_init"
+        seen = {}
+        (psnr, ssim), launches["eval_approx"] = _eval_cli(
+            torch, dev, "dtu eval_approx", eval_approx.main, serve + ["--limit", "1"], card, seen)
+        (vid, frames), launches["gen_video"] = _eval_cli(
+            torch, dev, "dtu gen_video", gen_video.main,
+            serve + ["-S", "0", "--num_views", str(DTU_VIDEO_VIEWS)], card, {})
+        for name in ("eval_approx", "gen_video"):
+            missing = [k for k in DTU_SERVE_KERNELS if launches[name][k] <= 0]
+            if missing:
+                raise AssertionError(f"dtu {name}: never launched {missing}")
+        frames_n = DTU_VIDEO_VIEWS // 5 * 6
+        print(f"dtu: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}; gen_video {Path(vid).name} "
+              f"{frames.shape}")
+        if not (math.isfinite(psnr) and math.isfinite(ssim)) or frames.shape != (frames_n, DTU_H, DTU_W, 3):
+            raise AssertionError(f"dtu: metrics {psnr} {ssim} or frames {frames.shape}")
+        model_cpu = make_model(hocon.load(str(serve_conf))["model"], device="cpu")
+        ckpt.load_weights_file(model_cpu, f"{tmp}/ckpt/dtu_init/pixel_nerf_latest")
+        idx = torch.arange(DTU_HELD_RAYS) * (DTU_H * DTU_W // DTU_HELD_RAYS) + DTU_W // 3
+        _held_render(torch, "dtu eval_approx", model_cpu, seen["first"], idx, ALPHA_RANGE)
+    return launches
+
+
+def run_sn64(torch, np, dev, root, card):
+    """sn64.conf uncut (float32, use_first_pool = False) on an NMR ShapeNet
+    layout at 64x64: the training CLI (-V 1), 2 epochs and a resume, then
+    eval_approx. The JAX package runs no Pallas kernel on a float32 model
+    (they gate on bf16), so neither does the port: every count must stay
+    0."""
+    import tempfile
+
+    from pixelnerf_tpu_torch.eval import eval_approx
+
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_nmr_dataset(np, tmp)
+        conf_path = root / "conf" / "exp" / "sn64.conf"
+        train_conf, serve_conf = Path(tmp) / "sn64_train.conf", Path(tmp) / "sn64_serve.conf"
+        train_conf.write_text(CONFIG_TRAIN_CONF.format(conf=conf_path))
+        serve_conf.write_text(CONFIG_SERVE_CONF.format(conf=conf_path))
+        common = ["-n", "sn64", "-D", datadir, "--dataset_format", "dvr", "--checkpoints_path",
+                  f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"]
+        got = _train_cli(torch, dev, "sn64 cli",
+                         common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + SN64_ARGS, card)
+        (psnr, ssim), got_eval = _eval_cli(
+            torch, dev, "sn64 eval_approx", eval_approx.main,
+            common + ["-c", str(serve_conf), "--split", "test", "-P", "0"], card, {})
+        print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}")
+        if any(got.values()) or any(got_eval.values()) or not math.isfinite(psnr):
+            raise AssertionError(f"sn64: float32 launched a kernel ({got}, {got_eval}) or psnr {psnr}")
+
+
+def _config_variant(conf, **edits):
+    """A deep copy of `conf` with `model` keys set: "a.b" = value."""
+    from pixelnerf_tpu_torch.utils import hocon
+
+    conf = copy.deepcopy(conf)
+    for key, value in edits.items():
+        node = conf["model"]
+        *path, last = key.split(".")
+        for p in path:
+            node = node[p]
+        node[last] = hocon.loads(value) if isinstance(value, str) and "=" in value else value
+    return conf
+
+
+def run_configs(torch, np, dev, root, card, conf):
+    """The configs phase: dtu.conf and sn64.conf through the CLIs, then the
+    bf16 models off the flagship through run_view and run_train. Returns
+    {run: launches} of the counted runs."""
+    import traceback
+
+    runs, failed = {}, []
+
+    def attempt(name, fn):
+        try:
+            fn()
+        except Exception:  # every run of the phase runs; the phase fails at its end
+            failed.append(name)
+            print(f"configs: {name} failed:\n{traceback.format_exc()}")
+        torch.cuda.empty_cache()
+
+    glob_conf = _config_variant(conf, use_global_encoder=True,
+                                global_encoder="backbone = resnet34\nlatent_size = 128")
+    five = _config_variant(conf, **{"encoder.num_layers": 5})
+    custom = _config_variant(conf, **{"encoder.backbone": "custom"})
+    for key, c, name, view, train, kw in (
+        ("global", glob_conf, "srn.conf + a global encoder (d_latent 640)", GLOBAL_VIEW_LAUNCHES,
+         (TRAIN_LAUNCHES, EVAL_LAUNCHES), {"cmp_dtypes": tuple(CMP_TOL)}),
+        ("five-level", five, "srn.conf with num_layers 5 (d_latent 1024)", VIEW_LAUNCHES,
+         (FUSED_TRAIN_LAUNCHES, FUSED_EVAL_LAUNCHES), {"fusion": True}),
+        ("custom", custom, "srn.conf with backbone custom at 64x64", NEAREST_VIEW_LAUNCHES,
+         (NEAREST_TRAIN_LAUNCHES, NEAREST_EVAL_LAUNCHES), {"size": 64}),
+    ):
+        size = kw.get("size", VIEW_SIZE)
+
+        def both(key=key, c=c, name=name, view=view, train=train, kw=kw, size=size):
+            watching, plain = _plain_watch()
+            with watching():
+                (runs[f"{key} view"],) = run_view(torch, np, dev, c, card, f"{key} view", view,
+                                                  size=size, name=name)
+                runs[f"{key} train"], runs[f"{key} eval"] = run_train(
+                    torch, np, dev, c, card, f"{key} train", *train, name=name, **kw)
+            print(f"{key}: plain versions on the card's tensors {plain}")
+            if any(plain.values()):
+                raise AssertionError(f"{key}: a plain version ran on the card: {plain}")
+
+        attempt(key, both)
+    attempt("sn64", lambda: run_sn64(torch, np, dev, root, card))
+    attempt("dtu", lambda: runs.update(
+        {f"dtu {k}": v for k, v in run_dtu(torch, np, dev, root, card).items()}))
+    if failed:
+        raise AssertionError(f"configs: {failed} failed")
+    return runs
+
+
 def main() -> int:
     import argparse
 
@@ -2618,6 +3295,10 @@ def main() -> int:
 
     kernels = [check_field(torch, np, dev)] + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
+    wide = check_wide_latent(torch, np, dev)
+    for k in kernels:
+        k.update(wide.get(k["name"], {}))
+    torch.cuda.empty_cache()
 
     # posenc is checked and timed after the counted view, the lookups after
     # the counted train step (and the bilerp gather after the counted
@@ -2656,9 +3337,12 @@ def main() -> int:
     run_cli(torch, np, dev, root, card, times["train"])
     torch.cuda.empty_cache()
     serve = run_serving_clis(torch, np, dev, root, card)
+    torch.cuda.empty_cache()
+    configs = run_configs(torch, np, dev, root, card, conf)
     for k in kernels:
         if k["name"] in SERVE_KERNELS:
             k["serve_launches"] = {cli: n[k["name"]] for cli, n in serve.items()}
+        k["config_launches"] = {run: n[k["name"]] for run, n in configs.items() if n[k["name"]]}
     if sorted(k["name"] for k in kernels) != sorted(KERNELS):
         raise AssertionError("the kernels line must list every kernel once")
     for k in kernels:

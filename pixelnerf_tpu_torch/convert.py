@@ -9,7 +9,10 @@ written as `.`, so each leaf maps by its kind:
 - Dense `kernel` (in, out) -> `nn.Linear.weight` (out, in), `bias` kept;
 - Conv `kernel` HWIO -> `nn.Conv2d.weight` OIHW;
 - BatchNorm `scale`/`bias` + `batch_stats` `mean`/`var` ->
-  `weight`/`bias`/`running_mean`/`running_var`.
+  `weight`/`bias`/`running_mean`/`running_var`; a GroupNorm's `scale`
+  (no batch statistics) -> `weight`;
+- ConvTranspose `kernel` HWIO -> OIHW, the port's transposed convolutions
+  applying it unflipped to the dilated input, as `lax.conv_transpose`.
 
 bf16 leaves are cast up to float32. Any leaf left unused, and any
 parameter of the model that received no leaf, raises. The BatchNorm
@@ -100,8 +103,8 @@ def state_dict_from_jax(
     for path, leaf in params.items():
         name, tensor = _param_leaf(path, leaf)
         sd[name] = tensor
-        if path[-1] == "scale":
-            key, scope = ".".join(path[:-1]), path[:-1]
+        key, scope = ".".join(path[:-1]), path[:-1]
+        if path[-1] == "scale" and scope + ("mean",) in stats:  # a BatchNorm; else a GroupNorm
             for jax_name, torch_name in (("mean", "running_mean"), ("var", "running_var")):
                 stat = scope + (jax_name,)
                 if stat not in stats:

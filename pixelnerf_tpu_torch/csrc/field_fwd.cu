@@ -44,69 +44,79 @@ struct FieldLevels {
   const float* grid;  // (SB, NS, B, 2) normalized fine-grid coords
 };
 
+// Gather the latent tile's channels [c0, c0 + nc), rows view-major (row =
+// v * P + point); rows past the last point or past NS * P are zero. A
+// thread owns channel pairs (one at DL = 512) and walks the rows GR at a
+// time, all their tap loads issued before any is summed.
+template <int GR>
+__device__ __forceinline__ void gather_band(const ChainParams& c, const FieldLevels& lv,
+                                            unsigned char* Z, int s, int p0, int c0, int nc) {
+  const int ns = c.ns, P = c.pts, B = c.b, rows = ns * P;
+  const int hf = lv.lh[0], wf = lv.lw[0];
+  for (int ch = c0 + 2 * threadIdx.x; ch < c0 + nc; ch += 2 * FWD_CONSUMERS) {
+    int l = 0;
+    while (l + 1 < lv.nlev && ch >= lv.lc0[l + 1]) l++;
+    const int hn = lv.lh[l], wn = lv.lw[l], C = lv.lc[l];
+    const bf16* fl = lv.feats[l] + (ch - lv.lc0[l]);
+    for (int r0 = 0; r0 < FWD_ROWS; r0 += GR) {
+      float2 tap[GR][9];
+      float w[GR][3][3];
+      int bx[GR], by[GR];
+      bool ok[GR];
+#pragma unroll
+      for (int i = 0; i < GR; i++) {
+        const int r = r0 + i, v = r / P, pt = p0 + r % P;
+        ok[i] = r < rows && pt < B;
+        bx[i] = by[i] = 0;
+        if (ok[i]) {
+          float fx, fy;
+          fine_coords(lv.grid + (((size_t)s * ns + v) * B + pt) * 2, hf, wf, &fx, &fy);
+          level_taps(fx, fy, hn, wn, hf, wf, &bx[i], &by[i], w[i]);
+        }
+        const bf16* f = fl + ((size_t)(s * ns + (ok[i] ? v : 0)) * hn * wn) * C;
+#pragma unroll
+        for (int t = 0; t < 9; t++) {
+          const int iy = by[i] + t / 3, ix = bx[i] + t % 3;
+          tap[i][t] = make_float2(0.f, 0.f);
+          if (ok[i] && iy < hn && ix < wn)
+            tap[i][t] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(f + ((size_t)iy * wn + ix) * C));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < GR; i++) {
+        float a0 = 0.f, a1 = 0.f;
+        if (ok[i]) {
+#pragma unroll
+          for (int ty = 0; ty < 3; ty++) {
+            if (by[i] + ty >= hn) continue;
+#pragma unroll
+            for (int tx = 0; tx < 3; tx++) {
+              if (bx[i] + tx >= wn) continue;
+              a0 += w[i][ty][tx] * tap[i][ty * 3 + tx].x;
+              a1 += w[i][ty][tx] * tap[i][ty * 3 + tx].y;
+            }
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(Z + sw128_offset(r0 + i, ch - c0)) =
+            __floats2bfloat162_rn(a0, a1);
+      }
+    }
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     field_fwd_kernel(const __grid_constant__ ChainParams c,
                      const __grid_constant__ ChainMaps maps,
                      const __grid_constant__ FieldLevels lv) {
-  run_chain<H>(c, maps, [&](unsigned char* Z, int s, int p0) {
-    // gather the latent tile, rows view-major (row = v * P + point); rows
-    // past the last point or past NS * P are zero. A thread owns channel
-    // pairs (one at DL = 512) and walks the rows GR at a time, all their
-    // tap loads issued before any is summed.
-    constexpr int GR = 4;
-    const int DL = c.d_latent, ns = c.ns, P = c.pts, B = c.b, rows = ns * P;
-    const int hf = lv.lh[0], wf = lv.lw[0];
-    for (int ch = 2 * threadIdx.x; ch < DL; ch += 2 * FWD_CONSUMERS) {
-      int l = 0;
-      while (l + 1 < lv.nlev && ch >= lv.lc0[l + 1]) l++;
-      const int hn = lv.lh[l], wn = lv.lw[l], C = lv.lc[l];
-      const bf16* fl = lv.feats[l] + (ch - lv.lc0[l]);
-      for (int r0 = 0; r0 < FWD_ROWS; r0 += GR) {
-        float2 tap[GR][9];
-        float w[GR][3][3];
-        int bx[GR], by[GR];
-        bool ok[GR];
-#pragma unroll
-        for (int i = 0; i < GR; i++) {
-          const int r = r0 + i, v = r / P, pt = p0 + r % P;
-          ok[i] = r < rows && pt < B;
-          bx[i] = by[i] = 0;
-          if (ok[i]) {
-            float fx, fy;
-            fine_coords(lv.grid + (((size_t)s * ns + v) * B + pt) * 2, hf, wf, &fx, &fy);
-            level_taps(fx, fy, hn, wn, hf, wf, &bx[i], &by[i], w[i]);
-          }
-          const bf16* f = fl + ((size_t)(s * ns + (ok[i] ? v : 0)) * hn * wn) * C;
-#pragma unroll
-          for (int t = 0; t < 9; t++) {
-            const int iy = by[i] + t / 3, ix = bx[i] + t % 3;
-            tap[i][t] = make_float2(0.f, 0.f);
-            if (ok[i] && iy < hn && ix < wn)
-              tap[i][t] = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(f + ((size_t)iy * wn + ix) * C));
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < GR; i++) {
-          float a0 = 0.f, a1 = 0.f;
-          if (ok[i]) {
-#pragma unroll
-            for (int ty = 0; ty < 3; ty++) {
-              if (by[i] + ty >= hn) continue;
-#pragma unroll
-              for (int tx = 0; tx < 3; tx++) {
-                if (bx[i] + tx >= wn) continue;
-                a0 += w[i][ty][tx] * tap[i][ty * 3 + tx].x;
-                a1 += w[i][ty][tx] * tap[i][ty * 3 + tx].y;
-              }
-            }
-          }
-          *reinterpret_cast<__nv_bfloat162*>(Z + sw128_offset(r0 + i, ch)) =
-              __floats2bfloat162_rn(a0, a1);
-        }
-      }
-    }
+  run_chain<H>(c, maps, [&](unsigned char* Z, int s, int p0, int c0, int nc, bool live) {
+    // a band reloaded mid-chain (a latent wider than the z tile) gathers a
+    // row at a time: the residual stream's registers are live there
+    if (live)
+      gather_band<1>(c, lv, Z, s, p0, c0, nc);
+    else
+      gather_band<4>(c, lv, Z, s, p0, c0, nc);
   });
 }
 

@@ -62,6 +62,13 @@
 // h 32 KB (225 KB). The view pooling goes through the relu(x) and z tiles
 // as f32 scratch, and the output layer keeps W_out in the z tile (z is dead
 // after the last injection).
+// - A latent wider than the z tile fits (d_latent 640 or 1024 at H = 512:
+//   a global latent, or five encoder levels) runs each injection's z @ Wz_i
+//   in column bands of the tile's width (`zw`, fwd_z_cols), summed into the
+//   same accumulators: the consumers reload the band (the gather again, for
+//   the field) before its product, and the z-stash copies each band of the
+//   first injection. Where the whole latent fits (the flagship's widths)
+//   there is one band, loaded once, and no reload.
 #pragma once
 
 #include <type_traits>
@@ -89,6 +96,7 @@ struct ChainParams {
   bf16* spost;        // (2m+1, SB, B, H) or null: no stash
   bf16* zstash;       // (SB, NS, B, DL) or null: the z tile's rows
   int sb, ns, b, pts, d_in, d_in_pad, d_latent, d_out, n_blocks, combine_layer, k, n_inj;
+  int zw;             // latent columns of the z tile: a band (fwd_z_cols)
 };
 
 // TMA maps over w_in (d_in_pad, H), wz (n_inj * DL, H), w0 and w1
@@ -141,15 +149,32 @@ static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 
 
 __host__ __device__ inline int chain_chunk(int hidden) { return hidden >= 256 ? 256 : hidden; }
 
-// Dynamic shared memory of a tile: alignment slack, the ring, relu(x), z
-// (at least H wide: it doubles as pooling scratch), the h chunk and
-// the barriers. A tile of more than 64 views would need a 128-row tile.
-static inline size_t fwd_smem_bytes(int hidden, int d_latent, int ns) {
+#define FWD_SMEM_LIMIT 232448  // dynamic shared memory one Hopper block may use
+
+// Dynamic shared memory of a tile whose z tile holds `zw` latent columns:
+// alignment slack, the ring, relu(x), z (at least H wide: it doubles as
+// pooling scratch), the h chunk and the barriers. A tile of more than 64
+// views would need a 128-row tile.
+static inline size_t fwd_tile_bytes(int hidden, int zw, int ns) {
   const size_t tiles = (size_t)(ns + FWD_ROWS - 1) / FWD_ROWS;
   const size_t rows = FWD_ROWS * (tiles < 1 ? 1 : tiles);
-  const int zw = d_latent > hidden ? d_latent : hidden;
-  return 1024 + (size_t)FWD_STAGES * FWD_STAGE_BYTES + rows * 2 * (hidden + zw) +
+  const int zt = zw > hidden ? zw : hidden;
+  return 1024 + (size_t)FWD_STAGES * FWD_STAGE_BYTES + rows * 2 * (hidden + zt) +
          rows * chain_chunk(hidden) * 2 + (2 * FWD_STAGES + 6) * 8;
+}
+
+// The z tile's width: the whole latent where it fits, else the widest
+// multiple of 64 (and at least H) that does; the injections then run in
+// bands of that width. The tile's size follows (fwd_smem_bytes); past
+// FWD_SMEM_LIMIT the wrappers refuse the launch.
+static inline int fwd_z_cols(int hidden, int d_latent, int ns) {
+  int zw = d_latent;
+  while (zw - 64 >= hidden && fwd_tile_bytes(hidden, zw, ns) > FWD_SMEM_LIMIT) zw -= 64;
+  return zw;
+}
+
+static inline size_t fwd_smem_bytes(int hidden, int d_latent, int ns) {
+  return fwd_tile_bytes(hidden, fwd_z_cols(hidden, d_latent, ns), ns);
 }
 
 // The launch's checks and its tensor maps; 0 or a cudaError_t.
@@ -180,6 +205,7 @@ static inline int chain_setup(ChainParams* p, ChainMaps* m, const void* xin, con
   p->d_in = d_in;
   p->d_in_pad = d_in_pad;
   p->d_latent = d_latent;
+  p->zw = fwd_z_cols(hidden, d_latent, ns);
   p->d_out = d_out;
   p->n_blocks = n_blocks;
   p->combine_layer = combine_layer;
@@ -372,7 +398,7 @@ __device__ void load_xin(const ChainParams& p, unsigned char* A, int s, int p0) 
 struct ChainSmem {
   unsigned char* ring;
   unsigned char* A;   // relu(x) (64 x H), first the xin tile
-  unsigned char* Z;   // the z tile (64 x DL); A and Z are the pooling scratch
+  unsigned char* Z;   // the z tile (64 x max(zw, H)); A and Z are the pooling scratch
   unsigned char* Hb;  // an h chunk (64 x HC)
   uint64_t* full;
   uint64_t* empty;
@@ -381,11 +407,11 @@ struct ChainSmem {
   uint64_t *z_ready, *z_free, *a_ready, *a_free, *h_ready, *h_free;
 };
 
-__device__ __forceinline__ ChainSmem chain_smem(unsigned char* raw, int H, int DL) {
+__device__ __forceinline__ ChainSmem chain_smem(unsigned char* raw, int H, int ZW) {
   ChainSmem m;
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int zw = DL > H ? DL : H;
+  const int zw = ZW > H ? ZW : H;
   m.ring = base;
   m.A = m.ring + FWD_STAGES * FWD_STAGE_BYTES;
   m.Z = m.A + FWD_ROWS * H * 2;
@@ -408,9 +434,11 @@ __device__ __forceinline__ void hand_over(uint64_t* ready) {
 }
 
 // The consumer warpgroups: the chain from the loaded z tile to the output
-// rows. `load_z(Z, s, p0)` fills the z tile. With the stash, each operand
-// tile it belongs to is handed to the copiers once written, and rewritten
-// only after they have freed it: na, nh count the relu(x) and h handoffs.
+// rows. `load_z(Z, s, p0, c0, nc, live)` fills the z tile with latent
+// columns [c0, c0 + nc); `live` says the residual stream's registers are
+// live (a band reloaded mid-chain), where a loader should keep few. With the stash, each operand tile it belongs to is handed
+// to the copiers once written, and rewritten only after they have freed
+// it: nz, na, nh count the z band, relu(x) and h handoffs.
 template <int H, class LoadZ>
 __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainSmem& m,
                                               LoadZ load_z) {
@@ -426,13 +454,18 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
   const uint32_t band_off = wg * 16 * NX * 2, band_lbo = 16 * S::SWE * 2;
   const uint32_t chunk_off = wg * (NH / S::SWE) * S::KS3 * SWB, chunk_lbo = S::KS3 * SWB;
   Ring rg{m.ring, m.full, m.empty, 0, 0};
-  uint32_t na = 0, nh = 0;
+  uint32_t nz = 1, na = 0, nh = 0;
   // before rewriting A (or using it as scratch): the last relu(x) copied
   auto a_freed = [&]() {
     if (stash && na > 0) mbar_wait(m.a_free, (na - 1) & 1);
   };
+  // before rewriting Z: the last z band copied to the z-stash
+  auto z_freed = [&]() {
+    if (zstash) mbar_wait(m.z_free, (nz - 1) & 1);
+  };
+  const bool banded = p.zw < p.d_latent;
 
-  load_z(m.Z, s, p0);
+  load_z(m.Z, s, p0, 0, p.zw, false);
   load_xin(p, m.A, s, p0);
   fence_async_smem();
   bar_sync(1, FWD_CONSUMERS);
@@ -448,7 +481,7 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
     if (blk == p.combine_layer && ns > 1) {
       // mean over the views through f32 scratch over the A and Z tiles
       a_freed();
-      if (zstash) mbar_wait(m.z_free, 0);
+      z_freed();
       float* scr = reinterpret_cast<float*>(m.A);
 #pragma unroll
       for (int j = 0; j < NX / 8; j++) {
@@ -477,7 +510,23 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
       bar_sync(1, FWD_CONSUMERS);
     }
     if (blk < p.n_inj) {
-      ring_product<NX>(x, m.Z, p.d_latent, 16, rg, band_off, band_lbo, SWB);
+      for (int z0 = 0; z0 < p.d_latent; z0 += p.zw) {
+        const int nc = p.d_latent - z0 < p.zw ? p.d_latent - z0 : p.zw;
+        if (banded && (blk > 0 || z0 > 0)) {
+          // the next band: both warpgroups' products on the last are done
+          // and it is copied
+          z_freed();
+          bar_sync(1, FWD_CONSUMERS);
+          load_z(m.Z, s, p0, z0, nc, true);
+          fence_async_smem();
+          bar_sync(1, FWD_CONSUMERS);
+          if (zstash && blk == 0) {
+            hand_over(m.z_ready);
+            nz++;
+          }
+        }
+        ring_product<NX>(x, m.Z, nc, 16, rg, band_off, band_lbo, SWB);
+      }
       add_bias(x, p.bz + (size_t)blk * H, xc0, q);
     }
     a_freed();
@@ -510,7 +559,7 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
   // the z tile (dead since the last injection) as f32 [o][k]; one warp a
   // row, lanes over columns, d_out <= 16 sums a lane
   a_freed();
-  if (zstash) mbar_wait(m.z_free, 0);
+  z_freed();
   store_relu(m.A, x, nullptr, xc0, r0, q);
   const int d_out = p.d_out;
   float* wo = reinterpret_cast<float*>(m.Z);
@@ -554,9 +603,13 @@ __device__ __forceinline__ void chain_copy(const ChainParams& p, const ChainSmem
     if (threadIdx.x % 32 == 0) mbar_arrive(bar);
   };
   if (p.zstash != nullptr) {
-    mbar_wait(m.z_ready, 0);
-    stash_rows(p, m.Z, p.d_latent, true, p.zstash, p.d_latent, 0, s, p0);
-    free_tile(m.z_free);
+    // the first injection's z bands (one where the latent fits the tile)
+    for (int z0 = 0, i = 0; z0 < p.d_latent; z0 += p.zw, i++) {
+      mbar_wait(m.z_ready, i & 1);
+      stash_rows(p, m.Z, p.d_latent - z0 < p.zw ? p.d_latent - z0 : p.zw, true, p.zstash,
+                 p.d_latent, z0, s, p0);
+      free_tile(m.z_free);
+    }
   }
   for (int blk = 0; blk < p.n_blocks; blk++) {
     const bool pre = blk < k;
@@ -580,7 +633,7 @@ template <int H, class LoadZ>
 __device__ __forceinline__ void run_chain(const ChainParams& p, const ChainMaps& maps,
                                           LoadZ load_z) {
   extern __shared__ __align__(1024) unsigned char chain_raw[];
-  const ChainSmem m = chain_smem(chain_raw, H, p.d_latent);
+  const ChainSmem m = chain_smem(chain_raw, H, p.zw);
   if (threadIdx.x == 0) {
     for (int i = 0; i < FWD_STAGES; i++) {
       mbar_init(&m.full[i], 1);

@@ -24,10 +24,11 @@ template <int H>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     resnetfc_fwd_kernel(const __grid_constant__ ChainParams p,
                         const __grid_constant__ ChainMaps maps, const bf16* z) {
-  run_chain<H>(p, maps, [&](unsigned char* Z, int s, int p0) {
-    // the z tile, rows view-major; rows past the last point or past NS * P
-    // are zero; eight 16-byte loads in flight a thread before their stores
-    const int DL = p.d_latent, P = p.pts, rows = p.ns * P, chunks = DL / 8;
+  run_chain<H>(p, maps, [&](unsigned char* Z, int s, int p0, int c0, int nc, bool) {
+    // the z tile (latent columns [c0, c0 + nc)), rows view-major; rows past
+    // the last point or past NS * P are zero; eight 16-byte loads in flight
+    // a thread before their stores
+    const int DL = p.d_latent, P = p.pts, rows = p.ns * P, chunks = nc / 8;
     for (int e0 = threadIdx.x; e0 < FWD_ROWS * chunks; e0 += 8 * FWD_CONSUMERS) {
       uint4 val[8];
 #pragma unroll
@@ -37,7 +38,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         val[i] = make_uint4(0, 0, 0, 0);
         if (e < FWD_ROWS * chunks && r < rows && pt < p.b)
           val[i] = *reinterpret_cast<const uint4*>(z + (((size_t)s * p.ns + v) * p.b + pt) * DL +
-                                                   j * 8);
+                                                   c0 + j * 8);
       }
 #pragma unroll
       for (int i = 0; i < 8; i++) {

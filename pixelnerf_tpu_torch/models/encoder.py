@@ -1,11 +1,12 @@
-"""Pixel-aligned spatial encoder and the feature lookup.
+"""Image encoders and the feature lookup.
 
-Counterpart of `pixelnerf_tpu/models/encoder.py`: `SpatialEncoder`,
-`latent_scaling_for`, `pack_pyramid_levels`, `compose_pyramid` and
-`index_features`, which looks native levels up with the pyramid kernels
-(ops/pyramid.py) and a single bf16 map with the bilerp kernels
-(ops/scatter.py) under the JAX package's predicates, and composes the
-upsampled map for every other lookup. Layout is NHWC.
+Counterpart of `pixelnerf_tpu/models/encoder.py`: `SpatialEncoder` (on the
+ResNet trunk, or the experimental `ConvEncoder` for `backbone = custom`),
+the global `ImageEncoder`, `latent_scaling_for`, `pack_pyramid_levels`,
+`compose_pyramid` and `index_features`, which looks native levels up with
+the pyramid kernels (ops/pyramid.py) and a single bf16 map with the bilerp
+kernels (ops/scatter.py) under the JAX package's predicates, and composes
+the upsampled map for every other lookup. Layout is NHWC.
 """
 
 from __future__ import annotations
@@ -14,11 +15,12 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from pixelnerf_tpu_torch.models.resnet import ResNetTrunk
+from pixelnerf_tpu_torch.models.resnet import ResNetTrunk, make_norm
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
-from pixelnerf_tpu_torch.ops.interpolate import resize_bilinear, resize_nearest
+from pixelnerf_tpu_torch.ops.interpolate import resize_area, resize_bilinear, resize_nearest
 from pixelnerf_tpu_torch.ops.pyramid import (
     pyramid_index_train, pyramid_index_train_dual, pyramid_supported,
 )
@@ -26,6 +28,8 @@ from pixelnerf_tpu_torch.ops.scatter import fused_supported, grid_sample_border_
 
 __all__ = [
     "SpatialEncoder",
+    "ImageEncoder",
+    "ConvEncoder",
     "latent_scaling_for",
     "pack_pyramid_levels",
     "compose_pyramid",
@@ -161,11 +165,126 @@ def index_features(
     return (out, out) if dual else out
 
 
-class SpatialEncoder(nn.Module):
-    """Pixel-aligned feature pyramid encoder on a ResNet trunk.
+def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """(before, after) padding of XLA's SAME for a strided convolution."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
 
-    Returns the channel-packed native levels, finest first, and the
-    pixel-to-grid scaling of level 0.
+
+def _conv_same(conv: nn.Conv2d, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """NCHW convolution with Flax's `padding="SAME"`, no bias, in x's dtype."""
+    k = conv.weight.shape[-1]
+    (t, b), (l, r) = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
+    return F.conv2d(F.pad(x, (l, r, t, b)), conv.weight.to(x.dtype), stride=stride)
+
+
+def _conv_transpose_same(conv: nn.Conv2d, x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """Flax `nn.ConvTranspose(strides=2, padding="SAME")` on NCHW: the input
+    dilated by the stride, padded as `lax.conv_transpose` pads SAME, and
+    convolved with the kernel unflipped (`transpose_kernel=False`); the
+    bias, if any, added in x's dtype after the product, as Flax adds it."""
+    k = conv.weight.shape[-1]
+    pad_len = k + stride - 2
+    pad_a = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    pad_b = pad_len - pad_a
+    n, c, h, w = x.shape
+    xd = x.new_zeros((n, c, (h - 1) * stride + 1, (w - 1) * stride + 1))
+    xd[:, :, ::stride, ::stride] = x
+    y = F.conv2d(F.pad(xd, (pad_a, pad_b, pad_a, pad_b)), conv.weight.to(x.dtype))
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype).reshape(1, -1, 1, 1)
+    return y
+
+
+def _plain_conv(cin: int, cout: int, k: int, bias: bool = False, fan_out: bool = True) -> nn.Conv2d:
+    """An NCHW convolution's parameters, initialized as the Flax modules:
+    kaiming-normal over fan_out (`_conv_init`), or LeCun-normal over fan_in
+    (Flax's default, for `deconv_last`), zero bias."""
+    conv = nn.Conv2d(cin, cout, k, bias=bias)
+    fan = cout * k * k if fan_out else cin * k * k
+    nn.init.normal_(conv.weight, std=float(np.sqrt((2.0 if fan_out else 1.0) / fan)))
+    if bias:
+        nn.init.zeros_(conv.bias)
+    return conv
+
+
+class ConvEncoder(nn.Module):
+    """The experimental down/up conv net of `backbone = custom`
+    (`pixelnerf_tpu/models/encoder.py:ConvEncoder` with the defaults
+    `SpatialEncoder` builds it with): a 7x7/2 stem and three 3x3/2
+    convolutions (SAME padding, group norm, leaky relu), a 4x4/4
+    convolution flattened to a global code and broadcast back over the
+    coarsest map, then 3x3/2 transposed convolutions over the skip
+    concatenations, each cropped to its skip's shape, and a last transposed
+    convolution to 128 channels. NHWC at its boundary: (B, H, W, 3) ->
+    (B, H', W', 128), H' = 2 * the stem's height."""
+
+    FIRST, MID, LAST, N_DOWN = 64, 128, 128, 3
+    STRIDE = 2 ** (N_DOWN + 1) * 4  # input pixels a pixel of the mid map
+
+    def __init__(self, image_hw: Tuple[int, int] = (64, 64), dtype: torch.dtype = torch.float32):
+        """:param image_hw the input's size: the global code is the mid
+            map flattened, ceil(H / 64) x ceil(W / 64) pixels of 128
+            channels, and sets the first transposed convolution's input
+            (Flax infers it at init; 1 x 1 up to 64 x 64)"""
+        super().__init__()
+        self.image_hw = tuple(image_hw)
+        self.dtype = dtype
+        first, mid, n_down = self.FIRST, self.MID, self.N_DOWN
+
+        def down(name, cin, cout, k):
+            self.add_module(name, _plain_conv(cin, cout, k))
+            self.add_module(name + "_norm", make_norm("group", cout))
+
+        down("conv_in", 3, first, 7)
+        ch = first
+        for i in range(n_down):
+            down(f"conv{i}", ch, 2 * ch, 3)
+            ch *= 2
+        down("conv_mid", ch, mid, 4)
+        cin = mid * (-(-image_hw[0] // self.STRIDE)) * (-(-image_hw[1] // self.STRIDE))
+        ch = first * 2 ** (n_down - 1)
+        for i in reversed(range(n_down)):
+            down(f"deconv{i}", cin + first * 2 ** (i + 1), ch, 3)  # + conv{i}'s channels
+            cin, ch = ch, ch // 2
+        self.deconv_last = _plain_conv(cin, self.LAST, 3, bias=True, fan_out=False)
+
+    def _norm_act(self, name, x):
+        return F.leaky_relu(getattr(self, name + "_norm")(x), 0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = self._norm_act("conv_in", _conv_same(self.conv_in, x, 2))
+        inters = []
+        for i in range(self.N_DOWN):
+            x = self._norm_act(f"conv{i}", _conv_same(getattr(self, f"conv{i}"), x, 2))
+            inters.append(x)
+        x = self._norm_act("conv_mid", _conv_same(self.conv_mid, x, 4))
+        code = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as the JAX reshape
+        want = getattr(self, f"deconv{self.N_DOWN - 1}").weight.shape[1] - inters[-1].shape[1]
+        if code.shape[1] != want:
+            raise ValueError(
+                f"a ConvEncoder built for {self.image_hw} images takes a {want}-channel global "
+                f"code, got {code.shape[1]} from a {tuple(x.shape[2:])} mid map: build it with "
+                "the input's image_hw")
+        h, w = inters[-1].shape[2:]
+        x = code[:, :, None, None].expand(code.shape[0], code.shape[1], h, w)
+        for i in reversed(range(self.N_DOWN)):
+            x = torch.cat([x, inters[i]], dim=1)
+            th, tw = inters[i - 1].shape[2:] if i > 0 else (
+                inters[0].shape[2] * 2, inters[0].shape[3] * 2)
+            x = _conv_transpose_same(getattr(self, f"deconv{i}"), x)[:, :, :th, :tw]
+            x = self._norm_act(f"deconv{i}", x)
+        x = _conv_transpose_same(self.deconv_last, x)
+        return x.permute(0, 2, 3, 1)
+
+
+class SpatialEncoder(nn.Module):
+    """Pixel-aligned feature encoder: a ResNet trunk's channel-packed
+    native levels, finest first, or for `backbone = custom` the single map
+    of `ConvEncoder`; with the pixel-to-grid scaling of level 0. The
+    input is first resized by `feature_scale` (area below 1, bilinear with
+    aligned corners above), as the JAX encoder does.
     """
 
     def __init__(
@@ -178,31 +297,43 @@ class SpatialEncoder(nn.Module):
         feature_scale: float = 1.0,
         use_first_pool: bool = True,
         norm_type: str = "batch",
+        image_hw: Tuple[int, int] = (64, 64),
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if backbone not in ("resnet18", "resnet34"):
-            raise NotImplementedError(f"backbone {backbone} is not ported yet")
-        if feature_scale != 1.0 or norm_type != "batch":
-            raise NotImplementedError(
-                "feature_scale != 1 and non-batch norms are not ported yet"
-            )
+        if backbone not in ("resnet18", "resnet34", "custom"):
+            raise NotImplementedError(f"backbone {backbone} is not supported")
+        self.backbone = backbone
         self.num_layers = num_layers
         self.index_interp = index_interp
         self.index_padding = index_padding
         self.upsample_interp = upsample_interp
-        self.model = ResNetTrunk(
-            backbone=backbone, num_stages=num_layers - 1,
-            use_first_pool=use_first_pool, dtype=dtype,
-        )
+        self.feature_scale = feature_scale
+        if backbone == "custom":
+            self.model = ConvEncoder(image_hw=image_hw, dtype=dtype)
+        else:
+            self.model = ResNetTrunk(
+                backbone=backbone, num_stages=num_layers - 1,
+                use_first_pool=use_first_pool, norm_type=norm_type, dtype=dtype,
+            )
 
     @property
     def latent_size(self) -> int:
-        return _LATENT_SIZES[self.num_layers]
+        return ConvEncoder.LAST if self.backbone == "custom" else _LATENT_SIZES[self.num_layers]
 
     def forward(self, x: torch.Tensor):
         """:param x images (B, H, W, 3) in [-1, 1]
-        :return (levels tuple of (B, H_l, W_l, C_l), latent_scaling (2,))"""
+        :return (levels tuple of (B, H_l, W_l, C_l), latent_scaling (2,));
+            for `backbone = custom` one (B, H_l, W_l, 128) map in place of
+            the tuple"""
+        if self.feature_scale != 1.0:
+            hw = (int(round(x.shape[1] * self.feature_scale)),
+                  int(round(x.shape[2] * self.feature_scale)))
+            x = (resize_area(x, hw) if self.feature_scale < 1.0
+                 else resize_bilinear(x, hw, align_corners=True))
+        if self.backbone == "custom":
+            latent = self.model(x).contiguous()
+            return latent, latent_scaling_for(latent.shape[1:3], x.device)
         latents = pack_pyramid_levels(
             self.model(x), self.upsample_interp, self.index_interp
         )
@@ -219,5 +350,40 @@ class SpatialEncoder(nn.Module):
             upsample_interp=conf.get_string("upsample_interp", "bilinear"),
             feature_scale=conf.get_float("feature_scale", 1.0),
             use_first_pool=conf.get_bool("use_first_pool", True),
+            **kwargs,
+        )
+
+
+class ImageEncoder(nn.Module):
+    """Global image encoder (`pixelnerf_tpu/models/encoder.py:ImageEncoder`):
+    the whole ResNet trunk (four stages, first pool on), a global average
+    pool, and a `fc` projection to `latent_size` unless that is 512.
+    (B, H, W, 3) -> (B, latent_size) in the compute dtype."""
+
+    def __init__(self, backbone: str = "resnet34", latent_size: int = 128,
+                 norm_type: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.latent_size = latent_size
+        self.dtype = dtype
+        self.model = ResNetTrunk(backbone=backbone, num_stages=4, use_first_pool=True,
+                                 norm_type=norm_type, dtype=dtype)
+        self.fc = None
+        if latent_size != 512:
+            self.fc = nn.Linear(512, latent_size)
+            # Flax Dense's default init: LeCun-normal over fan_in, zero bias
+            nn.init.normal_(self.fc.weight, std=512 ** -0.5)
+            nn.init.zeros_(self.fc.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.model(x)[-1].float().mean(dim=(1, 2)).to(self.dtype)
+        if self.fc is not None:
+            x = F.linear(x, self.fc.weight.to(self.dtype), self.fc.bias.to(self.dtype))
+        return x
+
+    @classmethod
+    def from_conf(cls, conf, **kwargs) -> "ImageEncoder":
+        return cls(
+            backbone=conf.get_string("backbone"),
+            latent_size=conf.get_int("latent_size", 128),
             **kwargs,
         )

@@ -1,7 +1,9 @@
 """Training losses.
 
-Counterpart of `pixelnerf_tpu/models/losses.py` (the losses the training
-step wires): pure functions of tensors, configuration read host-side.
+Counterpart of `pixelnerf_tpu/models/losses.py`: pure functions of
+tensors, configuration read host-side. `rgb_with_uncertainty` and
+`rgb_with_background` are for callers that thread their own per-ray betas
+or background weights; the training step wires neither, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ __all__ = [
     "mse_loss",
     "l1_loss",
     "rgb_loss_from_conf",
+    "rgb_with_uncertainty",
+    "rgb_with_uncertainty_from_conf",
+    "rgb_with_background",
     "alpha_loss_nv2",
     "alpha_loss_from_conf",
 ]
@@ -32,15 +37,41 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
 
 
-def rgb_loss_from_conf(conf, coarse: bool = True) -> Callable:
+def rgb_loss_from_conf(conf, coarse: bool = True, allow_uncertainty: bool = False) -> Callable:
     """L1 or MSE from a `loss.rgb` subtree. `use_uncertainty` on the fine
-    head needs a beta head the training step does not provide, and raises."""
+    head needs a beta head the training step does not provide, and raises,
+    unless the caller threads betas itself (`allow_uncertainty`: the
+    3-argument `rgb_with_uncertainty`)."""
     if conf.get_bool("use_uncertainty", False) and not coarse:
-        raise ConfigError(
-            "loss.rgb*.use_uncertainty requires a beta (uncertainty) head the "
-            "training step does not provide"
-        )
+        if not allow_uncertainty:
+            raise ConfigError(
+                "loss.rgb*.use_uncertainty requires a beta (uncertainty) head the "
+                "training step does not provide"
+            )
+        return rgb_with_uncertainty_from_conf(conf)
     return l1_loss if conf.get_bool("use_l1", False) else mse_loss
+
+
+def rgb_with_uncertainty(outputs: torch.Tensor, targets: torch.Tensor, betas: torch.Tensor,
+                         use_l1: bool = False) -> torch.Tensor:
+    """Kendall's heteroscedastic loss: mean(err / beta) + mean(log beta).
+
+    :param outputs (B, 3), targets (B, 3), betas (B)"""
+    elem = torch.abs(outputs - targets) if use_l1 else (outputs - targets) ** 2
+    return torch.mean(torch.mean(elem, dim=-1) / betas) + torch.mean(torch.log(betas))
+
+
+def rgb_with_uncertainty_from_conf(conf) -> Callable:
+    use_l1 = conf.get_bool("use_l1", False)
+    return lambda outputs, targets, betas: rgb_with_uncertainty(outputs, targets, betas, use_l1)
+
+
+def rgb_with_background(outputs: torch.Tensor, targets: torch.Tensor, lambda_bg: torch.Tensor,
+                        use_l1: bool = False) -> torch.Tensor:
+    """mean(err / (1 + lambda_bg)) + mean(log lambda_bg)."""
+    elem = torch.abs(outputs - targets) if use_l1 else (outputs - targets) ** 2
+    return torch.mean(torch.mean(elem, dim=-1) / (1.0 + lambda_bg)) + torch.mean(
+        torch.log(lambda_bg))
 
 
 def alpha_loss_nv2(

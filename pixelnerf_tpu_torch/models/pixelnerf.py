@@ -10,7 +10,11 @@ in train mode) hands the native pyramid to the field kernel
 the MLP runs on the (z, x) pair. bf16 models build the MLP input with the
 posenc kernel (ops/posenc.py). `QueryCache` carries the coarse pass's MLP
 inputs to the fine pass, so each sample is projected, gathered and
-encoded once a step.
+encoded once a step. With `use_global_encoder` the `ImageEncoder`'s
+latent of each source view is prepended to the gathered one (d_latent
+grows by its size), and the dual lookup and the field path are off, as in
+the JAX model. The MLP is a `ResnetFC` or, for `type = mlp`, an
+`ImplicitNet` on the concatenated (z, x).
 """
 
 from __future__ import annotations
@@ -25,21 +29,23 @@ from torch import nn
 from pixelnerf_tpu_torch.device import resolve_device
 from pixelnerf_tpu_torch.models.code import PositionalEncoding
 from pixelnerf_tpu_torch.models.encoder import (
-    SpatialEncoder, compose_pyramid, index_features, pyramid_fused_ok,
+    ImageEncoder, SpatialEncoder, compose_pyramid, index_features, pyramid_fused_ok,
 )
+from pixelnerf_tpu_torch.models.mlp import ImplicitNet
 from pixelnerf_tpu_torch.models.resnetfc import FieldInput, ResnetFC
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_supported
 from pixelnerf_tpu_torch.utils.rays import repeat_interleave
 
-__all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model"]
+__all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model", "encoder_image_hw"]
 
 
 @dataclasses.dataclass
 class QueryCache:
     """The coarse pass's per-sample MLP inputs, per ray, for the fine pass.
 
-    z: (SB*NS, R, Kc, d_latent) gathered latent (after stop_encoder_grad);
-    x: (SB*NS, R, Kc, d_in) positional code.
+    z: (SB*NS, R, Kc, d_latent) gathered latent (after stop_encoder_grad,
+    with the global latent prepended); x: (SB*NS, R, Kc, d_in) positional
+    code.
     """
 
     z: torch.Tensor
@@ -56,10 +62,11 @@ class SceneEncoding:
     focal: torch.Tensor  # (1 or SB, 2), fy negated
     c: torch.Tensor  # (1 or SB, 2)
     image_size: torch.Tensor  # (2,) [W, H]
+    global_latent: Optional[torch.Tensor] = None  # (SB*NS, Lg)
     num_views: int = 1
 
     def to(self, device) -> "SceneEncoding":
-        move = lambda t: t.to(device)
+        move = lambda t: None if t is None else t.to(device)
         latent = (
             tuple(move(l) for l in self.latent)
             if isinstance(self.latent, tuple)
@@ -68,7 +75,7 @@ class SceneEncoding:
         return dataclasses.replace(
             self, latent=latent, latent_scaling=move(self.latent_scaling),
             poses=move(self.poses), focal=move(self.focal), c=move(self.c),
-            image_size=move(self.image_size),
+            image_size=move(self.image_size), global_latent=move(self.global_latent),
         )
 
 
@@ -91,8 +98,8 @@ class PixelNeRFNet(nn.Module):
         self,
         encoder: SpatialEncoder,
         code: Optional[PositionalEncoding],
-        mlp_coarse: ResnetFC,
-        mlp_fine: Optional[ResnetFC],
+        mlp_coarse: nn.Module,
+        mlp_fine: Optional[nn.Module],
         d_in: int,
         d_latent: int,
         d_out: int = 4,
@@ -102,10 +109,13 @@ class PixelNeRFNet(nn.Module):
         use_code_viewdirs: bool = True,
         use_viewdirs: bool = False,
         stop_encoder_grad: bool = False,
+        global_encoder: Optional[ImageEncoder] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.encoder = encoder
+        self.global_encoder = global_encoder
+        self.use_global_encoder = global_encoder is not None
         self.code = code
         self.mlp_coarse = mlp_coarse
         self.mlp_fine = mlp_fine
@@ -133,7 +143,7 @@ class PixelNeRFNet(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.mlp_coarse.lin_in.weight.device
+        return next(self.mlp_coarse.parameters()).device
 
     def encode(self, images: torch.Tensor, poses: torch.Tensor, focal, c=None) -> SceneEncoding:
         """:param images (SB, NS, H, W, 3) or (SB, H, W, 3), NHWC, in [-1, 1]
@@ -154,7 +164,7 @@ class PixelNeRFNet(nn.Module):
         image_size = torch.tensor([W, H], dtype=torch.float32, device=device)
 
         latent, latent_scaling = self.encoder(images)
-        if not pyramid_fused_ok(
+        if isinstance(latent, tuple) and not pyramid_fused_ok(
             latent, self.encoder.index_interp, self.encoder.index_padding,
             self.encoder.upsample_interp,
         ):
@@ -168,9 +178,11 @@ class PixelNeRFNet(nn.Module):
 
         focal = _norm_focal_or_c(focal, True, device)
         c = (image_size * 0.5)[None] if c is None else _norm_focal_or_c(c, False, device)
+        global_latent = self.global_encoder(images) if self.use_global_encoder else None
         return SceneEncoding(
             latent=latent, latent_scaling=latent_scaling, poses=w2c,
-            focal=focal, c=c, image_size=image_size, num_views=num_views,
+            focal=focal, c=c, image_size=image_size, global_latent=global_latent,
+            num_views=num_views,
         )
 
     def _posenc_fused_ok(self) -> bool:
@@ -199,7 +211,9 @@ class PixelNeRFNet(nn.Module):
         return (
             self.use_field_fusion
             and not self.stop_encoder_grad
+            and not self.use_global_encoder
             and isinstance(enc.latent, tuple)
+            and isinstance(mlp, ResnetFC)
             and self.d_in > 0
             and mlp.field_path_ok(ns)
         )
@@ -276,19 +290,26 @@ class PixelNeRFNet(nn.Module):
 
         # the coarse pass's latent has two consumers, the coarse MLP and the
         # fine pass's cache: a dual lookup hands the scatter both cotangents
+        # (not with a global latent, which is prepended before either)
+        want_dual = bool(want_cache) and not self.use_global_encoder
         latent = index_features(
             enc.latent, enc.latent_scaling, uv, enc.image_size,
             index_interp=self.encoder.index_interp,
             index_padding=self.encoder.index_padding,
             upsample_interp=self.encoder.upsample_interp,
-            dual=bool(want_cache),
+            dual=want_dual,
         )
-        latent, latent_cache = latent if want_cache else (latent, None)
+        latent, latent_cache = latent if want_dual else (latent, None)
         if self.stop_encoder_grad:
             latent = latent.detach()
             latent_cache = None if latent_cache is None else latent_cache.detach()
+        latent = latent.reshape(-1, latent.shape[-1])
+        if self.use_global_encoder:
+            gl = repeat_interleave(enc.global_latent, latent.shape[0] // enc.global_latent.shape[0])
+            latent = torch.cat([gl.to(latent.dtype), latent], dim=-1)
+        if want_cache and latent_cache is None:
+            latent_cache = latent
         C = latent.shape[-1]
-        latent = latent.reshape(-1, C)
         x = mlp_input.to(latent.dtype)
         if cache is not None:
             # two MLP calls over the disjoint [cached | new] rows, then a
@@ -322,14 +343,16 @@ def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=Fal
     mlp_type = conf.get_string("type", "mlp") if conf else "empty"
     if mlp_type == "resnet":
         return ResnetFC.from_conf(conf, d_in, d_latent=d_latent, d_out=d_out, dtype=dtype)
+    if mlp_type == "mlp":
+        return ImplicitNet.from_conf(conf, d_in + d_latent, d_out=d_out, dtype=dtype)
     if mlp_type == "empty" and allow_empty:
         return None
-    raise NotImplementedError(f"MLP type {mlp_type} is not ported yet")
+    raise NotImplementedError(f"unsupported MLP type {mlp_type}")
 
 
 def make_model(
     conf, dtype=None, device=None, seed: int = 0, train: bool = False,
-    stop_encoder_grad: bool = False,
+    stop_encoder_grad: bool = False, image_hw=None,
 ) -> PixelNeRFNet:
     """Build a PixelNeRFNet from a 'model' config subtree, in eval mode (or
     train mode with `train`), on `device` (CUDA unless the caller passes
@@ -338,14 +361,19 @@ def make_model(
     `dtype` is the compute dtype (parameters stay float32): conf key
     `dtype` ('float32' | 'bfloat16'), overridable by the argument. `seed`
     seeds the random initialization without touching the global generator.
+    `image_hw` is the encoder's input size, which only `backbone = custom`
+    reads (`ConvEncoder`'s global code; 64 x 64 when None, see
+    `encoder_image_hw`).
     """
     device = resolve_device(device)
     if dtype is None:
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             conf.get_string("dtype", "float32")
         ]
-    if not conf.get_bool("use_encoder", True) or conf.get_bool("use_global_encoder", False):
-        raise NotImplementedError("only the pixel-aligned encoder is ported yet")
+    if not conf.get_bool("use_encoder", True):
+        # the JAX model's encode() calls its encoder unconditionally
+        raise NotImplementedError("use_encoder = False: encode needs the pixel-aligned encoder")
+    use_global_encoder = conf.get_bool("use_global_encoder", False)
     use_xyz = conf.get_bool("use_xyz", False)
     use_viewdirs = conf.get_bool("use_viewdirs", False)
     use_code = conf.get_bool("use_code", False)
@@ -353,7 +381,8 @@ def make_model(
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        encoder = SpatialEncoder.from_conf(conf.get_config("encoder"), dtype=dtype)
+        encoder = SpatialEncoder.from_conf(conf.get_config("encoder"), dtype=dtype,
+                                           image_hw=tuple(image_hw or (64, 64)))
         d_latent = encoder.latent_size
         d_in = 3 if use_xyz else 1
         if use_viewdirs and use_code_viewdirs:
@@ -364,6 +393,10 @@ def make_model(
             d_in = code.d_out
         if use_viewdirs and not use_code_viewdirs:
             d_in += 3
+        global_encoder = None
+        if use_global_encoder:
+            global_encoder = ImageEncoder.from_conf(conf.get_config("global_encoder"), dtype=dtype)
+            d_latent += global_encoder.latent_size
         mlp_coarse = _make_mlp(conf.get_config("mlp_coarse"), d_in, d_latent, 4, dtype)
         mlp_fine = _make_mlp(
             conf.get_config("mlp_fine"), d_in, d_latent, 4, dtype, allow_empty=True
@@ -373,7 +406,15 @@ def make_model(
         d_in=d_in, d_latent=d_latent, use_xyz=use_xyz,
         normalize_z=conf.get_bool("normalize_z", True), use_code=use_code,
         use_code_viewdirs=use_code_viewdirs, use_viewdirs=use_viewdirs,
-        stop_encoder_grad=stop_encoder_grad, dtype=dtype,
+        stop_encoder_grad=stop_encoder_grad, global_encoder=global_encoder, dtype=dtype,
     )
     return model.to(device).train(train)
 
+
+def encoder_image_hw(model_conf, dset):
+    """The encoder input size `make_model` needs for `backbone = custom`:
+    the (H, W) of the dataset's first item; None for every other
+    backbone, which reads none."""
+    if model_conf.get_config("encoder").get_string("backbone") != "custom":
+        return None
+    return tuple(int(n) for n in dset[0]["images"].shape[1:3])

@@ -6,9 +6,12 @@ fused (z, x) path of bf16 models (`_call_pallas`'s counterpart: the
 ResnetFC kernels of ops/resnetfc.py, with their backward), and the
 `FieldInput` path, which hands the native pyramid and the sample
 coordinates to the fused field kernel (ops/field.py, with its backward).
-Parameter names follow the Flax tree: `lin_in`, `lin_z_{i}`,
-`block_{i}.fc_{0,1}`, `lin_out`, each an `nn.Linear`. Parameters stay float32; the per-layer
-path computes in the model dtype, as Flax's `nn.Dense(dtype=...)` does.
+Parameter names follow the Flax tree: `lin_in`, `lin_z_{i}`, `scale_z_{i}`
+(SPADE), `block_{i}.fc_{0,1}`, `lin_out`, each an `nn.Linear`. Parameters
+stay float32; the per-layer path computes in the model dtype, as Flax's
+`nn.Dense(dtype=...)` does. A softplus `beta`, SPADE injection and a
+latent-only net (`d_in = 0`) run the per-layer path on every device, where
+the JAX package's `supported_config` refuses its kernels.
 """
 
 from __future__ import annotations
@@ -55,26 +58,38 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
-class ResnetBlockFC(nn.Module):
-    """Pre-activation block: x + fc_1(relu(fc_0(relu(x)))), fc_1 zero-init."""
+def activation(beta: float):
+    """softplus(beta * x) / beta for beta > 0, else relu (Flax's
+    `_activation`)."""
+    if beta > 0:
+        return lambda x: F.softplus(beta * x) / beta
+    return torch.relu
 
-    def __init__(self, size: int):
+
+class ResnetBlockFC(nn.Module):
+    """Pre-activation block: x + fc_1(act(fc_0(act(x)))), fc_1 zero-init."""
+
+    def __init__(self, size: int, beta: float = 0.0):
         super().__init__()
+        self.act = activation(beta)
         self.fc_0 = _linear(size, size)
         self.fc_1 = _linear(size, size, zero=True)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        net = _dense(self.fc_0, torch.relu(x), dtype)
-        return x + _dense(self.fc_1, torch.relu(net), dtype)
+        net = _dense(self.fc_0, self.act(x), dtype)
+        return x + _dense(self.fc_1, self.act(net), dtype)
 
 
 class ResnetFC(nn.Module):
-    """:param d_in positional-code size
+    """:param d_in positional-code size; 0: latent only (no lin_in)
     :param d_out output size (4: rgb + sigma)
     :param n_blocks residual blocks
     :param d_latent conditioning latent size
     :param d_hidden hidden width
-    :param combine_layer block at which the NS views are average-pooled
+    :param beta softplus beta; <= 0 is relu
+    :param combine_layer block at which the NS views are pooled
+    :param combine_type 'average' | 'max'
+    :param use_spade scale-and-shift latent injection (scale_z_{i})
     """
 
     def __init__(
@@ -91,10 +106,6 @@ class ResnetFC(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if beta > 0 or use_spade or d_in <= 0:
-            raise NotImplementedError(
-                "softplus, SPADE and latent-only ResnetFC are not ported yet"
-            )
         self.d_in = d_in
         self.d_out = d_out
         self.n_blocks = n_blocks
@@ -102,23 +113,32 @@ class ResnetFC(nn.Module):
         self.d_hidden = d_hidden
         self.combine_layer = combine_layer
         self.combine_type = combine_type
+        self.beta = beta
+        self.use_spade = use_spade
         self.dtype = dtype
         self.n_inj = min(combine_layer, n_blocks) if d_latent > 0 else 0
-        self.lin_in = _linear(d_in, d_hidden)
+        self.lin_in = _linear(d_in, d_hidden) if d_in > 0 else None
         for i in range(self.n_inj):
             self.add_module(f"lin_z_{i}", _linear(d_latent, d_hidden))
+            if use_spade:
+                self.add_module(f"scale_z_{i}", _linear(d_latent, d_hidden))
         for i in range(n_blocks):
-            self.add_module(f"block_{i}", ResnetBlockFC(d_hidden))
+            self.add_module(f"block_{i}", ResnetBlockFC(d_hidden, beta))
         self.lin_out = _linear(d_hidden, d_out)
         self._field_cache = None  # (parameter key, packed FieldWeights)
 
-    def field_path_ok(self, ns: int) -> bool:
-        """Can this module consume a FieldInput for `ns` views?"""
-        return (
-            self.combine_type == "average"
-            and self.d_latent > 0
-            and field_supported(ns, self.n_blocks, self.combine_layer)
+    def _kernels_take(self, ns: int) -> bool:
+        """The JAX package's `supported_config` for this module at `ns`
+        views."""
+        return supported_config(
+            self.beta, self.use_spade, self.combine_type, self.d_latent, self.d_in,
+            self.combine_layer, self.n_blocks, ns,
         )
+
+    def field_path_ok(self, ns: int) -> bool:
+        """Can this module consume a FieldInput for `ns` views? The JAX
+        module's `field_path_ok`: the kernels' `supported_config`."""
+        return self._kernels_take(ns) and field_supported(ns, self.n_blocks, self.combine_layer)
 
     def fused_ok(self, combine_inner_dims) -> bool:
         """Does a (z, x) call take the fused ResnetFC kernels? The TPU
@@ -128,10 +148,7 @@ class ResnetFC(nn.Module):
         return (
             self.dtype == torch.bfloat16
             and len(combine_inner_dims) == 2
-            and supported_config(
-                0.0, False, self.combine_type, self.d_latent, self.d_in,
-                self.combine_layer, self.n_blocks, combine_inner_dims[0],
-            )
+            and self._kernels_take(combine_inner_dims[0])
         )
 
     def weights(self) -> FieldWeights:
@@ -166,23 +183,34 @@ class ResnetFC(nn.Module):
 
     def forward(self, zx, combine_inner_dims: Tuple[int, ...] = (1,)) -> torch.Tensor:
         """:param zx a (z, x) pair of (..., d_latent) / (..., d_in) tensors,
-            or a FieldInput
+            one (..., d_latent + d_in) tensor, latent first, or a FieldInput
         :param combine_inner_dims (NS, B) multi-view reduction dims
         :return (..., d_out); the leading dim shrinks by NS at combine_layer
         """
         if isinstance(zx, FieldInput):
             return self._call_field(zx, combine_inner_dims)
-        z, x = zx
+        if isinstance(zx, (tuple, list)):
+            z, x = zx
+        else:
+            z, x = zx[..., : self.d_latent], zx[..., self.d_latent :]
         if self.fused_ok(combine_inner_dims):
             return self._call_fused(z, x, combine_inner_dims)
-        x = _dense(self.lin_in, x, self.dtype)
+        act = activation(self.beta)
+        if self.lin_in is not None:
+            x = _dense(self.lin_in, x, self.dtype)
+        else:
+            x = torch.zeros(z.shape[:-1] + (self.d_hidden,), dtype=self.dtype, device=z.device)
         for blk in range(self.n_blocks):
             if blk == self.combine_layer:
                 x = combine_interleaved(x, combine_inner_dims, self.combine_type)
             if blk < self.n_inj:
-                x = x + _dense(getattr(self, f"lin_z_{blk}"), z, self.dtype)
+                tz = _dense(getattr(self, f"lin_z_{blk}"), z, self.dtype)
+                if self.use_spade:
+                    x = _dense(getattr(self, f"scale_z_{blk}"), z, self.dtype) * x + tz
+                else:
+                    x = x + tz
             x = getattr(self, f"block_{blk}")(x, self.dtype)
-        return _dense(self.lin_out, torch.relu(x), self.dtype)
+        return _dense(self.lin_out, act(x), self.dtype)
 
     def _call_fused(self, z, x, combine_inner_dims) -> torch.Tensor:
         ns, b = combine_inner_dims

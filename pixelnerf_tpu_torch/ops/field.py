@@ -238,7 +238,8 @@ def _launch_chain(feats, grid, xin, w, n_blocks, combine_layer, ns, stash: bool)
     smem = lib.pnt_field_fwd_smem_bytes(hidden, d_latent, d_in_pad, ns)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"a field tile of {ns} views needs {smem} B of shared memory (> {SMEM_LIMIT})"
+            f"a field tile of {ns} views at d_hidden={hidden} d_latent={d_latent} needs {smem} B "
+            f"of shared memory (> {SMEM_LIMIT})"
         )
     grid = grid.contiguous()
     xin = xin.contiguous()

@@ -1,7 +1,8 @@
-"""Separable bilinear and nearest resize of NHWC maps.
+"""Separable bilinear, nearest and area resize of NHWC maps.
 
-Counterpart of `pixelnerf_tpu/ops/interpolate.py:resize_bilinear` and
-`resize_nearest`: the same dense 1-D interpolation and selection matrices
+Counterpart of `pixelnerf_tpu/ops/interpolate.py:resize_bilinear`,
+`resize_nearest` and `resize_area`: the same dense 1-D interpolation,
+selection and averaging matrices
 (torch `F.interpolate` semantics), applied as two small products over the
 H and W axes. As products, their gradients are the transposed products,
 which round where the JAX einsums' transposes round (an index-based
@@ -16,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_nearest", "interp_matrix"]
+__all__ = ["resize_bilinear", "resize_nearest", "resize_area", "interp_matrix"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -81,5 +82,30 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
         return x
     Mh = torch.from_numpy(_nearest_matrix_np(Ho, H)).to(device=x.device, dtype=x.dtype)
     Mw = torch.from_numpy(_nearest_matrix_np(Wo, W)).to(device=x.device, dtype=x.dtype)
+    x = torch.einsum("ih,...hwc->...iwc", Mh, x)
+    return torch.einsum("jw,...iwc->...ijc", Mw, x)
+
+
+@functools.lru_cache(maxsize=64)
+def _area_matrix_np(out_size: int, in_size: int) -> np.ndarray:
+    """1-D averaging matrix of torch F.interpolate(mode='area') (adaptive
+    average pooling): output i averages the input pixels
+    [floor(i * in / out), ceil((i + 1) * in / out))."""
+    M = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        j0 = (i * in_size) // out_size
+        j1 = -((-(i + 1) * in_size) // out_size)
+        M[i, j0:j1] = 1.0 / (j1 - j0)
+    return M
+
+
+def resize_area(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Area (average) resize of (..., H, W, C) to (..., H', W', C)."""
+    H, W = x.shape[-3], x.shape[-2]
+    Ho, Wo = out_hw
+    if (H, W) == (Ho, Wo):
+        return x
+    Mh = torch.from_numpy(_area_matrix_np(Ho, H)).to(device=x.device, dtype=x.dtype)
+    Mw = torch.from_numpy(_area_matrix_np(Wo, W)).to(device=x.device, dtype=x.dtype)
     x = torch.einsum("ih,...hwc->...iwc", Mh, x)
     return torch.einsum("jw,...iwc->...ijc", Mw, x)

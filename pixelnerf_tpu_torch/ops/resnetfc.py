@@ -536,7 +536,9 @@ def _launch_fwd_chain(z, xin, w, n_blocks, combine_layer, ns, stash: bool):
     lib = _library("resnetfc_fwd")
     smem = lib.pnt_resnetfc_fwd_smem_bytes(hidden, dl, d_in_pad, ns)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"a ResnetFC tile of {ns} views needs {smem} B of shared memory")
+        raise ValueError(
+            f"a ResnetFC tile of {ns} views at d_hidden={hidden} d_latent={dl} needs {smem} B "
+            f"of shared memory (> {SMEM_LIMIT})")
     out = torch.empty((sb, b, d_out), dtype=torch.float32, device=z.device)
     spre = spost = None
     if stash:
@@ -644,7 +646,9 @@ def _launch_bwd_chain(z, xin, g, stash_pre, stash_post, wp, n_blocks, combine_la
     lib = _library("resnetfc_bwd")
     smem = lib.pnt_resnetfc_bwd_smem_bytes(hidden, dl, ns)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"a ResnetFC backward tile of {ns} views needs {smem} B of shared memory")
+        raise ValueError(
+            f"a ResnetFC backward tile of {ns} views at d_hidden={hidden} d_latent={dl} needs "
+            f"{smem} B of shared memory (> {SMEM_LIMIT})")
     dev = z.device
     g = g.contiguous()
     if g.shape != (sb, b, d_out):

@@ -117,7 +117,7 @@ def make_trainer(argv=None, device=None):
     from pixelnerf_tpu_torch.device import resolve_device
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.losses import alpha_loss_from_conf, rgb_loss_from_conf
-    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.models.pixelnerf import encoder_image_hw, make_model
     from pixelnerf_tpu_torch.native import imagecodec
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import (
@@ -151,7 +151,8 @@ def make_trainer(argv=None, device=None):
     print("image decoder:", imagecodec.decoder())
 
     model = make_model(conf["model"], device=dev, train=True,
-                       stop_encoder_grad=bool(args.freeze_enc))
+                       stop_encoder_grad=bool(args.freeze_enc),
+                       image_hw=encoder_image_hw(conf["model"], dset))
     if args.freeze_enc:
         print("Encoder frozen")
     # the warmup's steps train a shallow copy that shares every parameter

@@ -492,6 +492,26 @@ def test_padded_field_matches_pallas_and_plain(hidden, levels, d_out, monkeypatc
         _grad_close(got.float(), want, 2.0 ** -7 * np.abs(want))
 
 
+# d_latent 640 (a ResNet-34's 512 and a 128-wide global latent) and 1024
+# (five encoder levels): past the z tile the forward chain holds at hidden
+# 512, which runs them in bands of 512 columns, and past the backward's
+# 512-column g_z pass. The wrappers launch them as they are (multiples of
+# 64: no padding); here through the plain versions on the card's route.
+WIDE_LATENT = {"d_latent 640": (64, 640, 4), "d_latent 1024": (64, 1024, 4)}
+WIDE_FIELD = {"d_latent 640": (32, [(8, 8, 128), (4, 4, 128), (4, 4, 384)], 4),
+              "d_latent 1024": (32, [(8, 8, 128), (4, 4, 384), (2, 2, 512)], 4)}
+
+
+@pytest.mark.parametrize("widths", WIDE_LATENT.values(), ids=WIDE_LATENT.keys())
+def test_wide_latent_resnetfc_matches_the_pallas_kernel(widths, monkeypatch):
+    test_padded_resnetfc_matches_the_pallas_kernel(widths, monkeypatch)
+
+
+@pytest.mark.parametrize("hidden,levels,d_out", WIDE_FIELD.values(), ids=WIDE_FIELD.keys())
+def test_wide_latent_field_matches_pallas_and_plain(hidden, levels, d_out, monkeypatch):
+    test_padded_field_matches_pallas_and_plain(hidden, levels, d_out, monkeypatch)
+
+
 def _plan_hidden(model):
     mlp = model.mlp_coarse
     return chain_plan(mlp.d_hidden, mlp.d_latent, mlp.d_in, mlp.d_out)[0]

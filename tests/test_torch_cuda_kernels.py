@@ -747,6 +747,84 @@ def test_field_forward_chain_flagship_width(cuda, ns, sb, b):
         _grad_within(getattr(dw, name), getattr(wdw, name))
 
 
+# Latents wider than the forward's z tile holds at hidden 512 (512
+# columns): the global encoder's 512 + 128 and five encoder levels' 1024
+# (srn.conf's levels and layer4's 4x4x512 at 128x128). The forward runs
+# the injections in 512-column bands (csrc/fwd_chain.cuh:fwd_z_cols), the
+# backward g_z in passes of 512; tolerances as at the flagship's width.
+WIDE_LATENT_LEVELS = {
+    640: [(64, 64, 128), (16, 16, 128), (8, 8, 256), (4, 4, 128)],
+    1024: [(64, 64, 128), (16, 16, 128), (8, 8, 256), (4, 4, 512)],
+}
+WIDE_LATENT_CASES = [(1, 1, 100), (2, 2, 45), (3, 1, 50)]
+
+
+@pytest.mark.parametrize("d_latent", sorted(WIDE_LATENT_LEVELS))
+@pytest.mark.parametrize("ns,sb,b", WIDE_LATENT_CASES)
+def test_wide_latent_resnetfc_chains_match_plain(cuda, d_latent, ns, sb, b):
+    """The ResnetFC forward, stash and backward at d_latent 640 and 1024,
+    hidden 512: one launch each, no plain version, against the plain
+    versions on the kernel's own stash."""
+    rng = np.random.default_rng(7000 + d_latent + ns * 100 + b)
+    combine = 3 if ns > 1 else 1000
+    w = _wide_weights(rng, cuda, d_latent=d_latent, combine=combine)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, torch.bfloat16)
+    z, xin = t(rng.normal(size=(sb, ns, b, d_latent))), t(rng.normal(size=(sb, ns, b, 42)))
+    g = torch.from_numpy(rng.normal(size=(sb, b, 4)).astype(np.float32)).to(cuda)
+    args = (5, combine, ns)
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches)
+    out = resnetfc_fwd(z, xin, w, *args)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    torch.cuda.synchronize()
+    after = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, resnetfc_bwd.launches)
+    assert after == tuple(x + 1 for x in before)
+    assert torch.equal(out, out_s)
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
+    _out_close(out, want)
+    for got, ref in zip((spre, spost), (wpre, wpost)):
+        assert (got is None) == (ref is None)
+        if got is not None:
+            _grad_within(got, ref)
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+@pytest.mark.parametrize("d_latent", sorted(WIDE_LATENT_LEVELS))
+@pytest.mark.parametrize("ns,sb,b", WIDE_LATENT_CASES)
+def test_wide_latent_field_chains_match_plain(cuda, d_latent, ns, sb, b):
+    """The field primal, its stash forward (the z-stash written band by
+    band, equal to the plain gather) and its backward at d_latent 640 and
+    1024, hidden 512."""
+    rng = np.random.default_rng(8000 + d_latent + ns * 100 + b)
+    combine = 3 if ns > 1 else 1000
+    levels = WIDE_LATENT_LEVELS[d_latent]
+    w = _wide_weights(rng, cuda, d_latent=d_latent, combine=combine)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    xin = t(rng.normal(size=(sb, ns, b, 42)), torch.bfloat16)
+    g = t(rng.normal(size=(sb, b, 4)) * 1e-3)
+    args = (5, combine, ns)
+    out = pyramid_field_fused(feats, grid, xin, w, *args)
+    out_s, zs, spre, spost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    d_feats, dxin, dw = pyramid_field_fused_bwd(grid, xin, g, zs, spre, spost, w, *args, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_s)
+    want = field_plain(feats, grid, xin, w, *args)
+    _out_close(out, want)
+    assert torch.equal(zs, pyramid_gather_plain(feats, grid.reshape(sb * ns, b, 2)).reshape(zs.shape))
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs, spre, spost, w, *args, levels)
+    for got, ref in zip(d_feats, wd_feats):
+        _grad_within(got, ref)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
 def test_resnetfc_forward_raises_on_widths_the_chain_lacks(cuda):
     """hidden 576 is past the widest chain (512), so no zero padding
     reaches a width the chain is built for: the wrapper raises before
