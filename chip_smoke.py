@@ -108,9 +108,9 @@ Phases, each failing loudly (an exception and a non-zero exit):
    1 test scans x 49 views of 300x400, `cameras.npz` with `world_mat_i` and
    `scale_mat_i`, `new_{train,val,test}.lst`): the training CLI with `-V 3`
    (2 epochs, then --resume to a third, bit for bit) from a seeded init
-   checkpoint, then `eval_approx -P "25 22 28"` (its first view's middle
-   row held against the CPU plain render) and `gen_video` on the DTU
-   spline; conf/exp/sn64.conf uncut (float32: no kernel may launch) on a
+   checkpoint, then `eval_approx -P "25 22 28"` (128 rays strided across
+   its first view held against the CPU plain render) and `gen_video` on
+   the DTU spline; conf/exp/sn64.conf uncut (float32: no kernel may launch) on a
    64x64 NMR ShapeNet layout through the training CLI (`-V 1`) and
    `eval_approx`; then srn.conf with a global encoder (d_latent 640), with
    `num_layers = 5` (d_latent 1024, the fused field) and with `backbone =
@@ -1868,8 +1868,8 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False, si
     )
     results = []
     for d in (dev, torch.device("cpu")):
-        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name),
-                       image_hw=(size, size))
+        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name))
+        m.init_shapes(batch["images"])
         shape_heads(torch, m)
         latent = []
 
@@ -1960,14 +1960,15 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
 
     rcfg = RendererConfig.from_conf(conf["renderer"])
     near, far = 0.8, 1.8
-    model = make_model(conf["model"], device=dev, seed=0, train=True, image_hw=(size, size))
+    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    batch = _train_batch(torch, np, dev, SB, size)
+    model.init_shapes(batch["images"])
     shape_heads(torch, model)
     # the fused-field view shares every parameter and the optimizer
     stepped = model.with_field_fusion() if fusion else model
     optimizer = make_optimizer(model, 1e-4)
     step = make_train_step(stepped, rcfg, optimizer, TRAIN_RAYS, near, far)
     eval_step = make_eval_step(stepped, rcfg, TRAIN_RAYS, near, far)
-    batch = _train_batch(torch, np, dev, SB, size)
     gen = torch.Generator(device=dev).manual_seed(7)
     print(
         f"{label}: {name} bf16 (upsample {model.encoder.upsample_interp}, field fusion "
@@ -2070,7 +2071,7 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.utils.rays import gen_rays
 
-    model = make_model(conf["model"], device=dev, seed=0, image_hw=(size, size))
+    model = make_model(conf["model"], device=dev, seed=0)
     if model.dtype != torch.bfloat16:
         raise AssertionError(f"{name} should build a bf16 model")
     shape_heads(torch, model)
@@ -2078,6 +2079,7 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     rng = np.random.default_rng(4)
     focal, near, far = 131.25 * size / 128, 0.8, 1.8
     images = rng.uniform(-1, 1, size=(2, size, size, 3)).astype(np.float32)
+    model.init_shapes(torch.from_numpy(images))
     poses = np.stack([_look_at(np, [1.3, 0.2, 0.1]), _look_at(np, [0.2, 0.3, 1.3])])
     target = torch.from_numpy(_look_at(np, [0.9, 0.4, 0.9])[None]).to(dev)
     rays = gen_rays(target, size, size, focal, near, far).reshape(-1, 8)
@@ -2226,108 +2228,292 @@ def _tree_equal(torch, a, b):
     return a == b
 
 
-def run_cli(torch, np, dev, root, card, bare_step_s):
-    """`train_pixelnerf.main` on the card as a user runs it: 2 epochs, then
-    --resume to a third. Every launch count is set to 0 before the first
-    run and read after the second; the files, the losses and the resumed
-    state are checked, and the wall time of each iteration that runs no
-    eval, vis or save is measured (a synchronise at each iteration's end)."""
+def _on_card(args) -> bool:
+    """Does any tensor among `args` (nested in tuples, lists and dicts) lie
+    on the card?"""
+    if hasattr(args, "is_cuda"):
+        return bool(args.is_cuda)
+    if isinstance(args, dict):
+        args = list(args.values())
+    return isinstance(args, (tuple, list)) and any(_on_card(a) for a in args)
+
+
+def _plain_watch():
+    """(patch, counts): a context manager that counts the calls of the
+    kernels' plain versions on the card's tensors (CPU references are
+    theirs to run), and the counts."""
+    import contextlib
+    import importlib
+
+    counts = {name: 0 for names in PLAIN_VERSIONS.values() for name in names}
+
+    @contextlib.contextmanager
+    def watching():
+        reals = []
+        for mod_name, names in PLAIN_VERSIONS.items():
+            mod = importlib.import_module(f"pixelnerf_tpu_torch.ops.{mod_name}")
+            for name in names:
+                real = getattr(mod, name)
+
+                def fn(*a, _real=real, _name=name, **k):
+                    counts[_name] += _on_card((a, k))
+                    return _real(*a, **k)
+
+                reals.append((mod, name, real))
+                setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, real in reals:
+                setattr(mod, name, real)
+
+    return watching, counts
+
+
+def _train_cli(torch, dev, label, argv, card, runs=None, profile=False):
+    """`train_pixelnerf.main` as a user runs it: `runs`, (label, extra
+    flags) pairs, by default 2 epochs then --resume to a third. Every
+    launch count is set to 0 before the first run and read after the
+    last, and the plain versions are counted (none may run on the card).
+    The resumed run must start from the saved files (the iteration, and the
+    model and Adam state bit for bit) and every loss must be finite. Each
+    step (a synchronise around it, the host's batch preparation taken
+    out), that preparation and each iteration (from the previous one's
+    end) are timed; with `profile`, one more warm step of the first run is
+    profiled. Returns a dict of the launches, the backward wrappers' chain
+    and wgrad launches, the iterations' (batch, end time) ticks, the step
+    and host seconds, the wall time, the peak memory and the losses."""
     import contextlib
     import io
     import statistics
-    import tempfile
 
-    from pixelnerf_tpu_torch.native import imagecodec
     from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd
     from pixelnerf_tpu_torch.train import train_pixelnerf as cli
     from pixelnerf_tpu_torch.train.trainer import Trainer
     from pixelnerf_tpu_torch.utils import checkpoint as ckpt
 
+    if runs is None:
+        runs = (("2 epochs", ["--epochs", "2"]), ("--resume to a third", ["--epochs", "3", "--resume"]))
     orig_start, orig_post = Trainer.start, Trainer.post_batch
-    ticks, losses, host_s, resumed = [], [], [], {}
+    out = {"ticks": [], "losses": [], "step_s": [], "host_s": [], "resumed": {}}
+    rays = []
 
     def start(self):
         if self.args.resume:
             cdir = Path(self.args.checkpoints_path) / self.args.name
             meta = json.loads((cdir / "_iter.json").read_text())
-            resumed["iter"] = (self.start_iter_id, meta["iter"])
-            resumed["model"] = _tree_equal(
-                torch, self.model.state_dict(), ckpt.load_state(str(cdir / "pixel_nerf_latest"), dev))
-            resumed["optimizer"] = _tree_equal(
-                torch, self.optimizer.state_dict(), ckpt.load_state(str(cdir / "_optim"), dev))
+            out["resumed"] = {
+                "iter": (self.start_iter_id, meta["iter"]),
+                "model": _tree_equal(torch, self.model.state_dict(),
+                                     ckpt.load_state(str(cdir / "pixel_nerf_latest"), dev)),
+                "optimizer": _tree_equal(torch, self.optimizer.state_dict(),
+                                         ckpt.load_state(str(cdir / "_optim"), dev)),
+            }
         train_step, eval_step, device_batch = self.train_step, self.eval_step, self._device_batch
+        rays.append(self.args.batch_size * self.args.ray_batch_size)
 
-        def timed_batch(*a, **k):
+        def timed_step(data, global_step):
+            torch.cuda.synchronize()
+            n, t0 = len(out["host_s"]), time.perf_counter()
+            aux = train_step(data, global_step)
+            torch.cuda.synchronize()
+            # the call prepares the batch on the host (timed_batch), then steps
+            out["step_s"].append(time.perf_counter() - t0 - sum(out["host_s"][n:]))
+            out["losses"].append(aux)
+            if profile and len(out["step_s"]) == 2:  # one more, warm step on this batch
+                with contextlib.redirect_stdout(sys.__stdout__):
+                    profile_view(torch, lambda: train_step(data, global_step), f"one {label} step")
+            return aux
+
+        def timed_batch(data, global_step, train=True):
             t0 = time.perf_counter()
-            out = device_batch(*a, **k)
-            host_s.append(time.perf_counter() - t0)
-            return out
+            res = device_batch(data, global_step, train=train)
+            if train:
+                out["host_s"].append(time.perf_counter() - t0)
+            return res
 
-        self._device_batch = timed_batch
-        self.train_step = lambda data, global_step: losses.append(train_step(data, global_step)) or losses[-1]
-        self.eval_step = lambda data, global_step: losses.append(eval_step(data, global_step)) or losses[-1]
+        self.train_step, self._device_batch = timed_step, timed_batch
+        self.eval_step = lambda data, global_step: out["losses"].append(
+            eval_step(data, global_step)) or out["losses"][-1]
         torch.cuda.synchronize()
-        ticks.append((None, time.perf_counter()))
+        out["ticks"].append((None, time.perf_counter()))
         orig_start(self)
 
     def post_batch(self, epoch, batch):
         torch.cuda.synchronize()
-        ticks.append((batch, time.perf_counter()))
+        out["ticks"].append((batch, time.perf_counter()))
         orig_post(self, epoch, batch)
 
     counters = _counters()
-    with tempfile.TemporaryDirectory() as tmp:
-        datadir = _write_srn_dataset(np, tmp)
-        conf = Path(tmp) / "cli.conf"
-        conf.write_text(CLI_CONF.format(srn=root / "conf" / "exp" / "srn.conf"))
-        argv = ["-c", str(conf), "-D", datadir, "-n", "cli", "--logs_path", f"{tmp}/logs",
-                "--checkpoints_path", f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"] + CLI_ARGS
-        Trainer.start, Trainer.post_batch = start, post_batch
-        torch.cuda.synchronize()
-        for w in counters.values():
-            w.launches = 0
-        chain0, wgrad0 = launch_bwd.chain_launches, launch_bwd.wgrad_launches
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        runs = (("2 epochs", ["--epochs", "2", "--vis_debug"]),
-                ("--resume to a third", ["--epochs", "3", "--resume"]))
-        t0 = time.perf_counter()
-        try:
-            for label, extra in runs:
+    watching, plain = _plain_watch()
+    Trainer.start, Trainer.post_batch = start, post_batch
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    chain0, wgrad0 = launch_bwd.chain_launches, launch_bwd.wgrad_launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with watching():
+            for run, extra in runs:
                 log = io.StringIO()
                 try:
                     with contextlib.redirect_stdout(log):
                         cli.main(argv + extra, device=dev)
                 finally:
                     tail = log.getvalue().strip().splitlines()
-                    print(f"cli ({label}): {len(tail)} lines of output, the last: " + " | ".join(tail[-3:]))
-        finally:
-            Trainer.start, Trainer.post_batch = orig_start, orig_post
+                    print(f"{label} ({run}): {len(tail)} lines of output, the last: " + " | ".join(tail[-3:]))
+    finally:
+        Trainer.start, Trainer.post_batch = orig_start, orig_post
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = {name: counters[name].launches for name in KERNELS}
+    out["parts"] = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    print(f"{label}: launches over the runs {out['launches']}; backward chain {out['parts'][0]}, "
+          f"wgrad {out['parts'][1]}; plain versions {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
+    values = [float(v) for aux in out["losses"] for v in aux.values()]
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: non-finite losses {values}")
+    resumed = out["resumed"]
+    start_iter, saved_iter = resumed.get("iter", (None, None))
+    if start_iter is None or start_iter != saved_iter or not (resumed["model"] and resumed["optimizer"]):
+        raise AssertionError(f"{label}: the resumed run does not start from the saved state: {resumed}")
+    own = out["step_s"][1:]  # the first run's first step warms up
+    med = statistics.median(own)
+    print(
+        f"{label}: {len(out['step_s'])} train steps in {out['wall']:.1f} s over the runs (the loader, "
+        f"eval, vis and saves included) = {out['wall'] / len(out['step_s']):.2f} s a step; the step "
+        f"itself median {med * 1e3:.1f} ms over {len(own)} = {rays[0] / med:.1f} rays/s; the host's "
+        f"batch preparation (make_step_batch and the copy) median "
+        f"{statistics.median(out['host_s']) * 1e3:.1f} ms; resumed at iter {start_iter} with model "
+        f"and Adam state bit-equal to the files; peak device memory {out['peak'] / 2**30:.2f} GiB; "
+        f"on {card}"
+    )
+    return out
+
+
+def _eval_cli(torch, dev, label, main, argv, card, patches=()):
+    """One eval CLI through `main(argv, device)`: its launches counted
+    from 0, its plain versions counted (none may run on the card), its
+    render_full calls timed, with `patches`, (module, name, function)
+    triples, in place while it runs. Returns (result, launches, the first
+    render's (args, kwargs, output) or None)."""
+    import contextlib
+    import io
+
+    from pixelnerf_tpu_torch.eval import render_utils
+
+    counters = _counters()
+    watching, plain = _plain_watch()
+    real = render_utils.render_full
+    renders, first = [], []
+
+    def timed(*a, **k):
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        got = {name: counters[name].launches for name in KERNELS}
-        parts = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
-        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        rays = a[2] if len(a) > 2 else k["rays"]
+        renders.append((time.perf_counter() - t0, rays.reshape(-1, 8).shape[0]))
+        if not first:
+            first.append((a, k, out))
+        return out
+
+    patches = [(render_utils, "render_full", timed), *patches]
+    reals = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    for m, n, f in patches:
+        setattr(m, n, f)
+    t0 = time.perf_counter()
+    try:
+        with watching(), contextlib.redirect_stdout(log):
+            res = main(argv, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for m, n, f in reals:
+            setattr(m, n, f)
+        tail = log.getvalue().strip().splitlines()
+        print(f"{label}: {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
+    wall = time.perf_counter() - t0
+    got = {name: counters[name].launches for name in KERNELS}
+    secs, rays = sum(r[0] for r in renders), sum(r[1] for r in renders)
+    print(
+        f"{label}: wall {wall:.2f} s; {len(renders)} render_full calls, {rays} rays in {secs:.3f} s"
+        + (f" = {rays / secs:.1f} rays/s" if secs else "")
+        + f"; launches {got}; plain versions {plain}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}"
+    )
+    if any(plain.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
+    return res, got, (first[0] if first else None)
+
+
+def _held_render(torch, label, model_cpu, first, idx, alpha_range):
+    """The card's first render against the CPU plain render of the same
+    rays (`idx` of them) on the same checkpoint and encoding."""
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+
+    args, kw, out = first
+    enc, rays, rcfg = args[1], args[2].reshape(-1, 8), args[3]
+    t0 = time.perf_counter()
+    ref = render_full(model_cpu, enc.to("cpu"), rays[idx.to(rays.device)].cpu(), rcfg, seed=kw.get("seed", 0))
+    print(f"{label}: CPU plain render of {len(idx)} rays ({enc.num_views} source views) "
+          f"{time.perf_counter() - t0:.1f} s")
+    for head in ("coarse", "fine"):
+        d = (out[head]["rgb"][idx.to(out[head]["rgb"].device)].cpu() - ref[head]["rgb"]).abs()
+        alpha = ref[head]["alpha"].mean().item()
+        rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
+        print(f"{label}: {head} rgb vs CPU plain max {d.max().item():.3e} mean {d.mean().item():.3e} "
+              f"(tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); compared rays' alpha mean "
+              f"{alpha:.4f}, rgb std {rgb_std:.4f}")
+        if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
+            raise AssertionError(f"{label}: {head} render disagrees with the CPU plain render")
+        if not (alpha_range[0] <= alpha <= alpha_range[1] and rgb_std >= RGB_STD_MIN):
+            raise AssertionError(f"{label}: {head}: the compared rays show too little of the field")
+
+
+def run_cli(torch, np, dev, root, card, bare_step_s):
+    """`train_pixelnerf.main` on the card as a user runs it (`_train_cli`:
+    2 epochs with --vis_debug, then --resume to a third); the files it
+    writes are checked, and the wall time of each iteration that runs no
+    eval, vis or save is set beside the bare step's."""
+    import statistics
+    import tempfile
+
+    from pixelnerf_tpu_torch.native import imagecodec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_srn_dataset(np, tmp)
+        conf = Path(tmp) / "cli.conf"
+        conf.write_text(CLI_CONF.format(srn=root / "conf" / "exp" / "srn.conf"))
+        argv = ["-c", str(conf), "-D", datadir, "-n", "cli", "--logs_path", f"{tmp}/logs",
+                "--checkpoints_path", f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"] + CLI_ARGS
+        res = _train_cli(torch, dev, "cli", argv, card,
+                         runs=(("2 epochs", ["--epochs", "2", "--vis_debug"]),
+                               ("--resume to a third", ["--epochs", "3", "--resume"])))
         cdir, vdir = Path(tmp) / "ckpt" / "cli", Path(tmp) / "vis" / "cli"
         files = sorted(p.name for p in cdir.iterdir())
         vis = sorted(p.name for p in vdir.glob("*_vis.png"))
         debug = sorted(p.name for p in (vdir / "vis_debug").glob("*_sigma_z0.png"))
         meta = json.loads((cdir / "_iter.json").read_text())
-    print(f"cli: launches over both runs {got}; backward chain {parts[0]}, wgrad {parts[1]}")
+    got, ticks = res["launches"], res["ticks"]
     missing = [name for name in CLI_KERNELS if got[name] <= 0]
-    if missing or parts[0] <= 0:
+    if missing or res["parts"][0] <= 0:
         raise AssertionError(f"cli: the training CLI never launched {missing or ['the backward chain']}")
     for name in ("pixel_nerf_latest", "pixel_nerf_backup", "_optim", "_iter.json", "_renderer.json"):
         if name not in files:
             raise AssertionError(f"cli: checkpoint file {name} missing ({files})")
     if not vis or not debug:
         raise AssertionError(f"cli: vis PNGs missing ({vis}, {debug})")
-    values = [float(v) for aux in losses for v in aux.values()]
-    if not values or not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"cli: non-finite losses {values}")
-    start_iter, saved_iter = resumed.get("iter", (None, None))
-    if start_iter is None or start_iter != saved_iter or not (resumed["model"] and resumed["optimizer"]):
-        raise AssertionError(f"cli: the resumed run does not start from the saved state: {resumed}")
     # iterations that ran no eval, vis or save (odd batches with the
     # intervals of 2), timed from the previous iteration's end
     steps = [t1 - t0 for (_, t0), (b, t1) in zip(ticks, ticks[1:]) if b is not None and b % 2 == 1]
@@ -2335,9 +2521,9 @@ def run_cli(torch, np, dev, root, card, bare_step_s):
     print(
         f"cli: srn.conf bf16 at full width, {CLI_OBJECTS} objects x {CLI_VIEWS} views of "
         f"{TRAIN_SIZE}x{TRAIN_SIZE}, {' '.join(CLI_ARGS)}, {len(ticks) - 2} iterations in "
-        f"{wall_s:.1f} s (2 runs, eval, vis and saves included); resumed at iter {start_iter} "
-        f"with model and Adam state bit-equal to the checkpoint; last iter {meta['iter']}, "
-        f"{len(vis)} vis PNGs, {len(values)} finite losses"
+        f"{res['wall']:.1f} s (2 runs, eval, vis and saves included); resumed at iter "
+        f"{res['resumed']['iter'][0]} with model and Adam state bit-equal to the checkpoint; last "
+        f"iter {meta['iter']}, {len(vis)} vis PNGs, {len(res['losses'])} finite loss sets"
     )
     print(
         f"cli: train step wall time (an iteration without eval/vis/save, the batch's load, "
@@ -2345,9 +2531,9 @@ def run_cli(torch, np, dev, root, card, bare_step_s):
         f"= {SB * TRAIN_RAYS / med:.1f} rays/s; the bare cached step of the train phase "
         f"{bare_step_s * 1e3:.1f} ms = {SB * TRAIN_RAYS / bare_step_s:.1f} rays/s; difference "
         f"{(med - bare_step_s) * 1e3:.1f} ms; host make_step_batch + copy median "
-        f"{statistics.median(host_s) * 1e3:.2f} ms; on {card}"
+        f"{statistics.median(res['host_s']) * 1e3:.2f} ms; on {card}"
     )
-    print(f"cli: image decoder {imagecodec.decoder()}; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"cli: image decoder {imagecodec.decoder()}; peak device memory {res['peak'] / 2**30:.2f} GiB")
     return got
 
 
@@ -2381,55 +2567,26 @@ SERVE_HELD = ("eval_approx", "eval_real")
 
 def run_serving_clis(torch, np, dev, root, card):
     """The eval CLIs through their `main(argv, device)` on the trained
-    flagship: eval_approx, gen_video, eval_mesh --mode both (the default
-    256^3 grid), calc_metrics on its renders and eval_real on one written
-    image. Each runs with the launch counts set to 0 just before and read
-    just after, and with the plain versions of its kernels counted (none
-    may run). The first render of eval_approx and of eval_real (256 rays on
-    two image rows of the first view each) and the middle slab of
+    flagship (`_eval_cli`: launch counts from 0, plain versions counted,
+    none may run): eval_approx, gen_video, eval_mesh --mode both (the
+    default 256^3 grid), calc_metrics on its renders and eval_real on one
+    written image. The first render of eval_approx and of eval_real (256
+    rays on two image rows of the first view each) and the middle slab of
     eval_mesh's grid (65,536 points) are held against the CPU plain run of
     the same checkpoint and inputs. Returns each CLI's launches."""
-    import contextlib
-    import io
     import tempfile
 
     from pixelnerf_tpu_torch.eval import calc_metrics, eval_approx, eval_mesh, eval_real, gen_video
-    from pixelnerf_tpu_torch.eval import common, render_utils
-    from pixelnerf_tpu_torch.eval.render_utils import render_full
+    from pixelnerf_tpu_torch.eval import common
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.native import isosurface
-    from pixelnerf_tpu_torch.ops import field, posenc
     from pixelnerf_tpu_torch.utils import checkpoint as ckpt
     from pixelnerf_tpu_torch.utils import hocon, recon
     from pixelnerf_tpu_torch.utils.visualize import write_png
 
-    counters = _counters()
-    plain = {"field_plain": 0, "posenc_concat_plain": 0}
-    # each render_full's (seconds, rays), the running CLI's first one's
-    # arguments and output; each grid's (seconds, volume); the isosurface's
-    # seconds; the encodings `encode_views` gave, by CLI
-    seen = {"renders": [], "first": None, "grids": [], "iso_s": [], "encodings": []}
-
-    def counting(module, name):
-        real = getattr(module, name)
-
-        def fn(*a, **k):
-            plain[name] += 1
-            return real(*a, **k)
-
-        return module, name, fn
-
-    def timed_render(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = render_full(*a, **k)
-        torch.cuda.synchronize()
-        rays = a[2] if len(a) > 2 else k["rays"]
-        seen["renders"].append((time.perf_counter() - t0, rays.reshape(-1, 8).shape[0]))
-        if seen["first"] is None:
-            seen["first"] = (a, k, out)
-        return out
-
+    # each grid's (seconds, volume); the isosurface's seconds; the
+    # encodings `encode_views` gave
+    seen = {"grids": [], "iso_s": [], "encodings": []}
     real_grid, real_iso, real_encode = recon.eval_sigma_grid, isosurface.load_isosurface, common.encode_views
 
     def timed_grid(query_sigma, reso, *a, **k):
@@ -2455,22 +2612,10 @@ def run_serving_clis(torch, np, dev, root, card):
         seen["encodings"].append(enc)
         return enc
 
-    patches = [counting(field, "field_plain"), counting(posenc, "posenc_concat_plain"),
-               (render_utils, "render_full", timed_render), (recon, "eval_sigma_grid", timed_grid),
-               (isosurface, "load_isosurface", timed_iso), (common, "encode_views", kept_encode)]
+    patches = [(recon, "eval_sigma_grid", timed_grid), (isosurface, "load_isosurface", timed_iso),
+               (common, "encode_views", kept_encode)]
 
-    @contextlib.contextmanager
-    def patched():
-        reals = [(m, n, getattr(m, n)) for m, n, _ in patches]
-        for m, n, f in patches:
-            setattr(m, n, f)
-        try:
-            yield
-        finally:
-            for m, n, f in reals:
-                setattr(m, n, f)
-
-    results, launches, walls = {}, {}, {}
+    results, launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         datadir = _write_srn_dataset(np, tmp, "shapes", stages=(("test", SERVE_OBJECTS),),
                                      views=SERVE_VIEWS, near_far=(0.8, 1.8))
@@ -2509,43 +2654,14 @@ def run_serving_clis(torch, np, dev, root, card):
         ]
         encodings, firsts = {}, {}
         for name, main, argv in runs:
-            n_renders, n_grids, n_enc = len(seen["renders"]), len(seen["grids"]), len(seen["encodings"])
-            seen["first"] = None
-            torch.cuda.synchronize()
-            for w in counters.values():
-                w.launches = 0
-            for k in plain:
-                plain[k] = 0
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            log = io.StringIO()
-            t0 = time.perf_counter()
-            try:
-                with patched(), contextlib.redirect_stdout(log):
-                    results[name] = main(argv, device=dev)
-                torch.cuda.synchronize()
-            finally:
-                tail = log.getvalue().strip().splitlines()
-                print(f"serve {name}: {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
-            walls[name] = time.perf_counter() - t0
+            n_grids, n_enc = len(seen["grids"]), len(seen["encodings"])
+            results[name], launches[name], firsts[name] = _eval_cli(
+                torch, dev, f"serve {name}", main, argv, card, patches)
             encodings[name] = seen["encodings"][n_enc:]
-            firsts[name] = seen["first"]
-            launches[name] = {k: counters[k].launches for k in SERVE_KERNELS}
-            renders = seen["renders"][n_renders:]
-            ray_s = sum(r[0] for r in renders)
-            rays = sum(r[1] for r in renders)
-            print(
-                f"serve {name}: wall {walls[name]:.2f} s; launches {launches[name]}; plain versions "
-                f"{plain}; {len(renders)} render_full calls, {rays} rays in {ray_s:.3f} s"
-                + (f" = {rays / ray_s:.1f} rays/s" if ray_s else "")
-                + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}"
-            )
             for g_s, vol in seen["grids"][n_grids:]:
                 print(f"serve {name}: sigma grid {vol.shape} ({vol.size} points) in {g_s:.3f} s = "
                       f"{vol.size / g_s:.1f} points/s; isosurface on the host "
                       f"{seen['iso_s'][-1]:.3f} s")
-            if any(plain.values()):
-                raise AssertionError(f"serve {name}: a plain version ran on the card: {plain}")
             if name != "calc_metrics" and not all(launches[name][k] > 0 for k in SERVE_KERNELS):
                 raise AssertionError(f"serve {name}: the kernels did not launch: {launches[name]}")
 
@@ -2591,27 +2707,7 @@ def run_serving_clis(torch, np, dev, root, card):
     rows = (VIEW_SIZE // 2, 3 * VIEW_SIZE // 4)
     idx = torch.tensor([r * VIEW_SIZE + c for r in rows for c in range(VIEW_SIZE)][:CPU_RAYS])
     for name in SERVE_HELD:
-        args, kw, out = firsts[name]
-        model, enc, rays, rcfg = args[:4]
-        t0 = time.perf_counter()
-        ref = render_full(model_cpu, enc.to("cpu"), rays.reshape(-1, 8)[idx.to(rays.device)].cpu(),
-                          rcfg, seed=kw.get("seed", 0))
-        print(f"serve: CPU plain render of {len(idx)} rays (rows {rows}) of {name}'s first view "
-              f"({enc.num_views} source views, {rays.reshape(-1, 8).shape[0]} rays in "
-              f"chunks of {kw.get('chunk')}) {time.perf_counter() - t0:.1f} s")
-        for head in ("coarse", "fine"):
-            d = (out[head]["rgb"][idx.to(out[head]["rgb"].device)].cpu() - ref[head]["rgb"]).abs()
-            alpha = ref[head]["alpha"].mean().item()
-            rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
-            print(f"serve: {name} {head} rgb vs CPU plain max {d.max().item():.3e} mean "
-                  f"{d.mean().item():.3e} (tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); "
-                  f"compared rays' alpha mean {alpha:.4f}, rgb std {rgb_std:.4f}")
-            if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
-                raise AssertionError(f"serve: {name} {head} render disagrees with the CPU plain render")
-            # rays that see nothing would agree whatever the field did
-            if not (ALPHA_RANGE[0] <= alpha <= ALPHA_RANGE[1] and rgb_std >= RGB_STD_MIN):
-                raise AssertionError(f"serve: {name} {head}: the compared rays show too little "
-                                     "of the field")
+        _held_render(torch, f"serve {name} (rows {rows})", model_cpu, firsts[name], idx, ALPHA_RANGE)
     # eval_mesh's grid: the middle x slab, GRID_CHUNK points, the chunk the
     # card's query gave, against the CPU plain query (zero view directions)
     _, vol = seen["grids"][0]
@@ -2652,7 +2748,7 @@ DTU_HELD_RAYS = 128  # rays of eval_approx's first view on the CPU, strided over
 # opaque at its first samples; 0 leaves the held rays partly transparent
 # (a CPU reading at full width: alpha 0.83 coarse, 0.29 fine), and a gain
 # on the rgb rows of W_out spreads the colours (fine rgb std 0.0089 over
-# the middle row without it on an NVIDIA H100 80GB HBM3 at 700 W)
+# the view's middle row without it on an NVIDIA H100 80GB HBM3 at 700 W)
 DTU_SIGMA_BIAS, DTU_RGB_GAIN = 0.0, 4.0
 SN64_OBJECTS, SN64_VIEWS, SN64_SIZE = (("train", 8), ("val", 2), ("test", 2)), 24, 64
 SN64_ARGS = ["-V", "1"]
@@ -2773,48 +2869,6 @@ def check_wide_latent(torch, np, dev):
     return out
 
 
-def _on_card(args) -> bool:
-    """Does any tensor among `args` (nested in tuples, lists and dicts) lie
-    on the card?"""
-    if hasattr(args, "is_cuda"):
-        return bool(args.is_cuda)
-    if isinstance(args, dict):
-        args = list(args.values())
-    return isinstance(args, (tuple, list)) and any(_on_card(a) for a in args)
-
-
-def _plain_watch():
-    """(patch, counts): a context manager that counts the calls of the
-    kernels' plain versions on the card's tensors (CPU references are
-    theirs to run), and the counts."""
-    import contextlib
-    import importlib
-
-    counts = {name: 0 for names in PLAIN_VERSIONS.values() for name in names}
-
-    @contextlib.contextmanager
-    def watching():
-        reals = []
-        for mod_name, names in PLAIN_VERSIONS.items():
-            mod = importlib.import_module(f"pixelnerf_tpu_torch.ops.{mod_name}")
-            for name in names:
-                real = getattr(mod, name)
-
-                def fn(*a, _real=real, _name=name, **k):
-                    counts[_name] += _on_card((a, k))
-                    return _real(*a, **k)
-
-                reals.append((mod, name, real))
-                setattr(mod, name, fn)
-        try:
-            yield
-        finally:
-            for mod, name, real in reals:
-                setattr(mod, name, real)
-
-    return watching, counts
-
-
 def _write_dtu_dataset(np, root):
     """A DTU-layout dataset (rs_dtu_4: `DTU/scanN/image/*.png` at 300x400,
     `cameras.npz` with `world_mat_i` = K [R | t] and `scale_mat_i`, and
@@ -2901,188 +2955,14 @@ def _write_nmr_dataset(np, root):
     return str(Path(root) / "nmr")
 
 
-def _train_cli(torch, dev, label, argv, card):
-    """`train_pixelnerf.main`: 2 epochs, then --resume to a third, with the
-    launch counts set to 0 before and read after, the plain versions
-    counted, the resumed state checked against the files, and the steps
-    (a synchronise around each) and the host's batch preparation timed.
-    Returns the launches."""
-    import contextlib
-    import io
-    import statistics
-
-    from pixelnerf_tpu_torch.train import train_pixelnerf as cli
-    from pixelnerf_tpu_torch.train.trainer import Trainer
-    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
-
-    orig_start = Trainer.start
-    losses, resumed, rays, step_s, host_s = [], {}, [], [], []
-
-    def start(self):
-        if self.args.resume:
-            cdir = Path(self.args.checkpoints_path) / self.args.name
-            resumed["model"] = _tree_equal(
-                torch, self.model.state_dict(), ckpt.load_state(str(cdir / "pixel_nerf_latest"), dev))
-            resumed["optimizer"] = _tree_equal(
-                torch, self.optimizer.state_dict(), ckpt.load_state(str(cdir / "_optim"), dev))
-        train_step, device_batch = self.train_step, self._device_batch
-        rays.append(self.args.batch_size * self.args.ray_batch_size)
-
-        def timed_step(data, global_step):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            aux = train_step(data, global_step)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(aux)
-            if len(step_s) == 2:  # one more, warm step on this batch, profiled
-                with contextlib.redirect_stdout(sys.__stdout__):
-                    profile_view(torch, lambda: train_step(data, global_step), f"one {label} step")
-            return aux
-
-        def timed_batch(data, global_step, train=True):
-            t0 = time.perf_counter()
-            out = device_batch(data, global_step, train=train)
-            if train:
-                host_s.append(time.perf_counter() - t0)
-            return out
-
-        self.train_step, self._device_batch = timed_step, timed_batch
-        orig_start(self)
-
-    counters = _counters()
-    watching, plain = _plain_watch()
-    Trainer.start = start
-    torch.cuda.synchronize()
-    for w in counters.values():
-        w.launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        with watching():
-            for run, extra in (("2 epochs", ["--epochs", "2"]), ("--resume to a third", ["--epochs", "3", "--resume"])):
-                log = io.StringIO()
-                try:
-                    with contextlib.redirect_stdout(log):
-                        cli.main(argv + extra, device=dev)
-                finally:
-                    tail = log.getvalue().strip().splitlines()
-                    print(f"{label} ({run}): {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
-    finally:
-        Trainer.start = orig_start
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = {name: counters[name].launches for name in KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    values = [float(v) for aux in losses for v in aux.values()]
-    if not values or not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"{label}: non-finite losses {values}")
-    if not (resumed.get("model") and resumed.get("optimizer")):
-        raise AssertionError(f"{label}: the resumed run does not start from the saved state: {resumed}")
-    # a train_step call: the host's batch preparation (make_step_batch and
-    # the copy), then the step; the first call of the first run warms up
-    own = [t - h for t, h in zip(step_s, host_s)][1:]
-    med = statistics.median(own)
-    print(
-        f"{label}: {len(losses)} train steps in {wall:.1f} s over both runs (the loader, eval, vis "
-        f"and saves included) = {wall / len(losses):.2f} s a step; the step itself median "
-        f"{med * 1e3:.1f} ms over {len(own)} = {rays[0] / med:.1f} rays/s; the host's batch "
-        f"preparation (make_step_batch and the copy) median {statistics.median(host_s) * 1e3:.1f} ms; "
-        f"resumed with model and Adam state bit-equal to the files; launches {got}; plain versions "
-        f"{plain}; peak device memory {peak / 2**30:.2f} GiB; on {card}"
-    )
-    if any(plain.values()):
-        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
-    return got
-
-
-def _eval_cli(torch, dev, label, main, argv, card, seen):
-    """One eval CLI through `main(argv, device)`, its launches counted from
-    0, its plain versions counted, its render_full calls timed; `seen`
-    keeps the first render's arguments and output. Returns (result,
-    launches)."""
-    import contextlib
-    import io
-
-    from pixelnerf_tpu_torch.eval import render_utils
-
-    counters = _counters()
-    watching, plain = _plain_watch()
-    real = render_utils.render_full
-    renders = []
-
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*a, **k)
-        torch.cuda.synchronize()
-        renders.append((time.perf_counter() - t0, a[2].reshape(-1, 8).shape[0]))
-        if "first" not in seen:
-            seen["first"] = (a, k, out)
-        return out
-
-    torch.cuda.synchronize()
-    for w in counters.values():
-        w.launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    log = io.StringIO()
-    render_utils.render_full = timed
-    t0 = time.perf_counter()
-    try:
-        with watching(), contextlib.redirect_stdout(log):
-            res = main(argv, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        render_utils.render_full = real
-        tail = log.getvalue().strip().splitlines()
-        print(f"{label}: {len(tail)} lines of output, the last: " + " | ".join(tail[-2:]))
-    wall = time.perf_counter() - t0
-    got = {name: counters[name].launches for name in KERNELS}
-    secs, rays = sum(r[0] for r in renders), sum(r[1] for r in renders)
-    print(
-        f"{label}: wall {wall:.2f} s; {len(renders)} render_full calls, {rays} rays in {secs:.3f} s = "
-        f"{rays / secs:.1f} rays/s; launches {got}; plain versions {plain}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}"
-    )
-    if any(plain.values()):
-        raise AssertionError(f"{label}: a plain version ran on the card: {plain}")
-    return res, got
-
-
-def _held_render(torch, label, model_cpu, first, idx, alpha_range):
-    """The card's first render against the CPU plain render of the same
-    rays (`idx` of them) on the same checkpoint and encoding."""
-    from pixelnerf_tpu_torch.eval.render_utils import render_full
-
-    args, kw, out = first
-    enc, rays, rcfg = args[1], args[2].reshape(-1, 8), args[3]
-    t0 = time.perf_counter()
-    ref = render_full(model_cpu, enc.to("cpu"), rays[idx.to(rays.device)].cpu(), rcfg, seed=kw.get("seed", 0))
-    print(f"{label}: CPU plain render of {len(idx)} rays ({enc.num_views} source views) "
-          f"{time.perf_counter() - t0:.1f} s")
-    for head in ("coarse", "fine"):
-        d = (out[head]["rgb"][idx.to(out[head]["rgb"].device)].cpu() - ref[head]["rgb"]).abs()
-        alpha = ref[head]["alpha"].mean().item()
-        rgb_std = ref[head]["rgb"].std(dim=0).mean().item()
-        print(f"{label}: {head} rgb vs CPU plain max {d.max().item():.3e} mean {d.mean().item():.3e} "
-              f"(tolerance {RENDER_ATOL} max, {RENDER_MEAN} mean); compared rays' alpha mean "
-              f"{alpha:.4f}, rgb std {rgb_std:.4f}")
-        if not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
-            raise AssertionError(f"{label}: {head} render disagrees with the CPU plain render")
-        if not (alpha_range[0] <= alpha <= alpha_range[1] and rgb_std >= RGB_STD_MIN):
-            raise AssertionError(f"{label}: {head}: the compared rays show too little of the field")
-
-
 def run_dtu(torch, np, dev, root, card):
     """dtu.conf uncut (bf16, ResNet-34, two 5-block 512-wide heads pooling
     3 views at block 3, 64 + 16 + 16 samples) on a DTU-layout dataset at
     300x400: the training CLI (-V 3) from a seeded init checkpoint whose
     heads `shape_heads` made visible, 2 epochs and a resume; then
     eval_approx -P "25 22 28" and gen_video on its DTU spline path on that
-    init checkpoint, eval_approx's first view held against the CPU plain
-    render. Returns each CLI's launches."""
+    init checkpoint, DTU_HELD_RAYS rays strided over eval_approx's first
+    view held against the CPU plain render. Returns each CLI's launches."""
     import tempfile
 
     from pixelnerf_tpu_torch.data import get_split_dataset
@@ -3125,18 +3005,17 @@ def run_dtu(torch, np, dev, root, card):
                   f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"]
         launches["train"] = _train_cli(
             torch, dev, "dtu cli", common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + DTU_ARGS,
-            card)
+            card, profile=True)["launches"]
         missing = [k for k in DTU_CLI_KERNELS if launches["train"][k] <= 0]
         if missing:
             raise AssertionError(f"dtu cli: never launched {missing}")
         serve = common + ["-c", str(serve_conf), "--split", "test", "-P", DTU_SOURCE]
         serve[serve.index("dtu")] = "dtu_init"
-        seen = {}
-        (psnr, ssim), launches["eval_approx"] = _eval_cli(
-            torch, dev, "dtu eval_approx", eval_approx.main, serve + ["--limit", "1"], card, seen)
-        (vid, frames), launches["gen_video"] = _eval_cli(
+        (psnr, ssim), launches["eval_approx"], first = _eval_cli(
+            torch, dev, "dtu eval_approx", eval_approx.main, serve + ["--limit", "1"], card)
+        (vid, frames), launches["gen_video"], _ = _eval_cli(
             torch, dev, "dtu gen_video", gen_video.main,
-            serve + ["-S", "0", "--num_views", str(DTU_VIDEO_VIEWS)], card, {})
+            serve + ["-S", "0", "--num_views", str(DTU_VIDEO_VIEWS)], card)
         for name in ("eval_approx", "gen_video"):
             missing = [k for k in DTU_SERVE_KERNELS if launches[name][k] <= 0]
             if missing:
@@ -3149,7 +3028,8 @@ def run_dtu(torch, np, dev, root, card):
         model_cpu = make_model(hocon.load(str(serve_conf))["model"], device="cpu")
         ckpt.load_weights_file(model_cpu, f"{tmp}/ckpt/dtu_init/pixel_nerf_latest")
         idx = torch.arange(DTU_HELD_RAYS) * (DTU_H * DTU_W // DTU_HELD_RAYS) + DTU_W // 3
-        _held_render(torch, "dtu eval_approx", model_cpu, seen["first"], idx, ALPHA_RANGE)
+        _held_render(torch, f"dtu eval_approx ({DTU_HELD_RAYS} rays strided over the view)",
+                     model_cpu, first, idx, ALPHA_RANGE)
     return launches
 
 
@@ -3172,10 +3052,11 @@ def run_sn64(torch, np, dev, root, card):
         common = ["-n", "sn64", "-D", datadir, "--dataset_format", "dvr", "--checkpoints_path",
                   f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"]
         got = _train_cli(torch, dev, "sn64 cli",
-                         common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + SN64_ARGS, card)
-        (psnr, ssim), got_eval = _eval_cli(
+                         common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + SN64_ARGS, card,
+                         profile=True)["launches"]
+        (psnr, ssim), got_eval, _ = _eval_cli(
             torch, dev, "sn64 eval_approx", eval_approx.main,
-            common + ["-c", str(serve_conf), "--split", "test", "-P", "0"], card, {})
+            common + ["-c", str(serve_conf), "--split", "test", "-P", "0"], card)
         print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}")
         if any(got.values()) or any(got_eval.values()) or not math.isfinite(psnr):
             raise AssertionError(f"sn64: float32 launched a kernel ({got}, {got_eval}) or psnr {psnr}")

@@ -124,6 +124,7 @@ def state_dict_from_jax(
         if missing or extra:
             raise ValueError(f"missing keys {missing}; unused keys {extra}")
         for k, v in sd.items():
-            if tuple(v.shape) != tuple(want[k].shape):
+            # a parameter still to be made at the first input takes the leaf's shape
+            if not torch.nn.parameter.is_lazy(want[k]) and tuple(v.shape) != tuple(want[k].shape):
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != {tuple(want[k].shape)}")
     return sd

@@ -149,7 +149,11 @@ static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 
 
 __host__ __device__ inline int chain_chunk(int hidden) { return hidden >= 256 ? 256 : hidden; }
 
-#define FWD_SMEM_LIMIT 232448  // dynamic shared memory one Hopper block may use
+// The dynamic shared memory one Hopper block may use: ops/cuda_build.py's
+// SMEM_LIMIT, which every build defines as PNT_SMEM_LIMIT.
+#ifndef PNT_SMEM_LIMIT
+#error "build with -DPNT_SMEM_LIMIT (ops/cuda_build.py)"
+#endif
 
 // Dynamic shared memory of a tile whose z tile holds `zw` latent columns:
 // alignment slack, the ring, relu(x), z (at least H wide: it doubles as
@@ -166,10 +170,10 @@ static inline size_t fwd_tile_bytes(int hidden, int zw, int ns) {
 // The z tile's width: the whole latent where it fits, else the widest
 // multiple of 64 (and at least H) that does; the injections then run in
 // bands of that width. The tile's size follows (fwd_smem_bytes); past
-// FWD_SMEM_LIMIT the wrappers refuse the launch.
+// PNT_SMEM_LIMIT the wrappers refuse the launch.
 static inline int fwd_z_cols(int hidden, int d_latent, int ns) {
   int zw = d_latent;
-  while (zw - 64 >= hidden && fwd_tile_bytes(hidden, zw, ns) > FWD_SMEM_LIMIT) zw -= 64;
+  while (zw - 64 >= hidden && fwd_tile_bytes(hidden, zw, ns) > PNT_SMEM_LIMIT) zw -= 64;
   return zw;
 }
 

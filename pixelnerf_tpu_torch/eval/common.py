@@ -26,7 +26,7 @@ def load_model_and_dataset(args, conf, want_split: str, device=None):
     `args.image_size` where given. Mirrors the preamble every reference
     eval script repeats (e.g. eval/gen_video.py:66-110)."""
     from pixelnerf_tpu_torch.data import get_split_dataset
-    from pixelnerf_tpu_torch.models.pixelnerf import encoder_image_hw, make_model
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.utils import checkpoint as ckpt_io
 
@@ -34,8 +34,7 @@ def load_model_and_dataset(args, conf, want_split: str, device=None):
     size_kw = {"image_size": tuple(args.image_size)} if getattr(args, "image_size", None) else {}
     dset = get_split_dataset(args.dataset_format, args.datadir, want_split=want_split,
                              training=False, **size_kw)
-    model = make_model(conf["model"], device=device,
-                       image_hw=encoder_image_hw(conf["model"], dset))
+    model = make_model(conf["model"], device=device)
     ckpt_io.load_model_weights(model, args.checkpoints_path, args.name, resume=True)
     rcfg = RendererConfig.from_conf(conf["renderer"], lindisp=dset.lindisp)
     return model, dset, rcfg

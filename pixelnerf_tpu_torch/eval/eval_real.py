@@ -68,7 +68,7 @@ def main(argv=None, device=None):
     focal_render = args.focal * w / in_sz
     focal_encode = args.focal
 
-    model = make_model(conf["model"], device=resolve_device(device), image_hw=(in_sz, in_sz))
+    model = make_model(conf["model"], device=resolve_device(device))
     ckpt_io.load_model_weights(model, args.checkpoints_path, args.name, resume=True)
     rcfg = RendererConfig.from_conf(conf["renderer"])
     renderer = make_chunk_renderer(model, rcfg)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.lazy import LazyModuleMixin
 
 from pixelnerf_tpu_torch.models.resnet import ResNetTrunk, make_norm
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
@@ -208,6 +209,36 @@ def _plain_conv(cin: int, cout: int, k: int, bias: bool = False, fan_out: bool =
     return conv
 
 
+class _CodeDeconv(LazyModuleMixin, nn.Module):
+    """`ConvEncoder`'s first transposed convolution, whose input is the
+    global code beside the coarsest skip: 128 * ceil(H / 64) * ceil(W / 64)
+    + 512 channels for an H x W input. Its weight is made at the first
+    call from the input's width, as Flax infers it at init (or takes the
+    width of the weight a state dict loads), and drawn from a generator
+    seeded when the module was built, so one seed makes one set of
+    weights."""
+
+    def __init__(self, cout: int, k: int):
+        super().__init__()
+        self.weight = nn.parameter.UninitializedParameter()
+        self.bias = None
+        self.cout, self.k = cout, k
+        self.seed = int(torch.randint(0, 2**62, ()))
+
+    def initialize_parameters(self, x: torch.Tensor) -> None:
+        if not self.has_uninitialized_params():  # a state dict made it
+            return
+        g = torch.Generator().manual_seed(self.seed)
+        std = float(np.sqrt(2.0 / (self.cout * self.k * self.k)))  # kaiming over fan_out
+        w = torch.randn((self.cout, x.shape[1], self.k, self.k), generator=g) * std
+        self.weight.materialize(w.shape)
+        with torch.no_grad():
+            self.weight.copy_(w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_transpose_same(self, x)
+
+
 class ConvEncoder(nn.Module):
     """The experimental down/up conv net of `backbone = custom`
     (`pixelnerf_tpu/models/encoder.py:ConvEncoder` with the defaults
@@ -217,18 +248,14 @@ class ConvEncoder(nn.Module):
     coarsest map, then 3x3/2 transposed convolutions over the skip
     concatenations, each cropped to its skip's shape, and a last transposed
     convolution to 128 channels. NHWC at its boundary: (B, H, W, 3) ->
-    (B, H', W', 128), H' = 2 * the stem's height."""
+    (B, H', W', 128), H' = 2 * the stem's height. The global code's width
+    follows the input's size, so the first transposed convolution is made
+    at the first call (`_CodeDeconv`)."""
 
     FIRST, MID, LAST, N_DOWN = 64, 128, 128, 3
-    STRIDE = 2 ** (N_DOWN + 1) * 4  # input pixels a pixel of the mid map
 
-    def __init__(self, image_hw: Tuple[int, int] = (64, 64), dtype: torch.dtype = torch.float32):
-        """:param image_hw the input's size: the global code is the mid
-            map flattened, ceil(H / 64) x ceil(W / 64) pixels of 128
-            channels, and sets the first transposed convolution's input
-            (Flax infers it at init; 1 x 1 up to 64 x 64)"""
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.image_hw = tuple(image_hw)
         self.dtype = dtype
         first, mid, n_down = self.FIRST, self.MID, self.N_DOWN
 
@@ -242,9 +269,11 @@ class ConvEncoder(nn.Module):
             down(f"conv{i}", ch, 2 * ch, 3)
             ch *= 2
         down("conv_mid", ch, mid, 4)
-        cin = mid * (-(-image_hw[0] // self.STRIDE)) * (-(-image_hw[1] // self.STRIDE))
         ch = first * 2 ** (n_down - 1)
-        for i in reversed(range(n_down)):
+        self.add_module(f"deconv{n_down - 1}", _CodeDeconv(ch, 3))
+        self.add_module(f"deconv{n_down - 1}_norm", make_norm("group", ch))
+        cin, ch = ch, ch // 2
+        for i in reversed(range(n_down - 1)):
             down(f"deconv{i}", cin + first * 2 ** (i + 1), ch, 3)  # + conv{i}'s channels
             cin, ch = ch, ch // 2
         self.deconv_last = _plain_conv(cin, self.LAST, 3, bias=True, fan_out=False)
@@ -261,19 +290,20 @@ class ConvEncoder(nn.Module):
             inters.append(x)
         x = self._norm_act("conv_mid", _conv_same(self.conv_mid, x, 4))
         code = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten, as the JAX reshape
-        want = getattr(self, f"deconv{self.N_DOWN - 1}").weight.shape[1] - inters[-1].shape[1]
-        if code.shape[1] != want:
-            raise ValueError(
-                f"a ConvEncoder built for {self.image_hw} images takes a {want}-channel global "
-                f"code, got {code.shape[1]} from a {tuple(x.shape[2:])} mid map: build it with "
-                "the input's image_hw")
         h, w = inters[-1].shape[2:]
         x = code[:, :, None, None].expand(code.shape[0], code.shape[1], h, w)
         for i in reversed(range(self.N_DOWN)):
             x = torch.cat([x, inters[i]], dim=1)
             th, tw = inters[i - 1].shape[2:] if i > 0 else (
                 inters[0].shape[2] * 2, inters[0].shape[3] * 2)
-            x = _conv_transpose_same(getattr(self, f"deconv{i}"), x)[:, :, :th, :tw]
+            conv = getattr(self, f"deconv{i}")
+            if i == self.N_DOWN - 1 and not nn.parameter.is_lazy(conv.weight) \
+                    and conv.weight.shape[1] != x.shape[1]:
+                raise ValueError(
+                    f"this ConvEncoder was built for a {conv.weight.shape[1] - inters[i].shape[1]}"
+                    f"-channel global code, got {code.shape[1]} from a {tuple(inters[-1].shape[2:])} "
+                    "coarsest map: the input is of another size than the one it was built on")
+            x = (conv(x) if i == self.N_DOWN - 1 else _conv_transpose_same(conv, x))[:, :, :th, :tw]
             x = self._norm_act(f"deconv{i}", x)
         x = _conv_transpose_same(self.deconv_last, x)
         return x.permute(0, 2, 3, 1)
@@ -297,7 +327,6 @@ class SpatialEncoder(nn.Module):
         feature_scale: float = 1.0,
         use_first_pool: bool = True,
         norm_type: str = "batch",
-        image_hw: Tuple[int, int] = (64, 64),
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -310,7 +339,7 @@ class SpatialEncoder(nn.Module):
         self.upsample_interp = upsample_interp
         self.feature_scale = feature_scale
         if backbone == "custom":
-            self.model = ConvEncoder(image_hw=image_hw, dtype=dtype)
+            self.model = ConvEncoder(dtype=dtype)
         else:
             self.model = ResNetTrunk(
                 backbone=backbone, num_stages=num_layers - 1,

@@ -36,7 +36,7 @@ from pixelnerf_tpu_torch.models.resnetfc import FieldInput, ResnetFC
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_supported
 from pixelnerf_tpu_torch.utils.rays import repeat_interleave
 
-__all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model", "encoder_image_hw"]
+__all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model"]
 
 
 @dataclasses.dataclass
@@ -140,6 +140,18 @@ class PixelNeRFNet(nn.Module):
         model = copy.copy(self)
         model.use_field_fusion = True
         return model
+
+    def init_shapes(self, images: torch.Tensor) -> "PixelNeRFNet":
+        """Make the parameters whose shapes follow the input (the custom
+        encoder's global-code convolution), as Flax's init does from an
+        example batch: the encoder runs once on the first of `images`
+        (..., H, W, 3). Nothing for a model that has none. The first encode
+        makes them too; an optimizer or a count of the parameters needs
+        them before."""
+        if any(nn.parameter.is_lazy(p) for p in self.parameters()):
+            with torch.no_grad():
+                self.encoder(images.reshape((-1,) + tuple(images.shape[-3:]))[:1].to(self.device))
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -352,7 +364,7 @@ def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=Fal
 
 def make_model(
     conf, dtype=None, device=None, seed: int = 0, train: bool = False,
-    stop_encoder_grad: bool = False, image_hw=None,
+    stop_encoder_grad: bool = False,
 ) -> PixelNeRFNet:
     """Build a PixelNeRFNet from a 'model' config subtree, in eval mode (or
     train mode with `train`), on `device` (CUDA unless the caller passes
@@ -360,10 +372,9 @@ def make_model(
 
     `dtype` is the compute dtype (parameters stay float32): conf key
     `dtype` ('float32' | 'bfloat16'), overridable by the argument. `seed`
-    seeds the random initialization without touching the global generator.
-    `image_hw` is the encoder's input size, which only `backbone = custom`
-    reads (`ConvEncoder`'s global code; 64 x 64 when None, see
-    `encoder_image_hw`).
+    seeds the random initialization without touching the global generator
+    (`backbone = custom` makes one convolution at its first input:
+    `PixelNeRFNet.init_shapes`).
     """
     device = resolve_device(device)
     if dtype is None:
@@ -381,8 +392,7 @@ def make_model(
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        encoder = SpatialEncoder.from_conf(conf.get_config("encoder"), dtype=dtype,
-                                           image_hw=tuple(image_hw or (64, 64)))
+        encoder = SpatialEncoder.from_conf(conf.get_config("encoder"), dtype=dtype)
         d_latent = encoder.latent_size
         d_in = 3 if use_xyz else 1
         if use_viewdirs and use_code_viewdirs:
@@ -410,11 +420,3 @@ def make_model(
     )
     return model.to(device).train(train)
 
-
-def encoder_image_hw(model_conf, dset):
-    """The encoder input size `make_model` needs for `backbone = custom`:
-    the (H, W) of the dataset's first item; None for every other
-    backbone, which reads none."""
-    if model_conf.get_config("encoder").get_string("backbone") != "custom":
-        return None
-    return tuple(int(n) for n in dset[0]["images"].shape[1:3])

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into a shared library under `build/pixelnerf_tpu_torch/` at
-the repository root, named by a hash of its source and of the shared
-headers (`csrc/*.cuh`), at first use; the library is loaded with `ctypes`.
+the repository root, named by a hash of its source, of the shared
+headers (`csrc/*.cuh`) and of `SMEM_LIMIT` (which the headers read as
+`PNT_SMEM_LIMIT`), at first use; the library is loaded with `ctypes`.
 `build_libraries` starts one `nvcc` per source, all at once. Nothing is
 built when a module is imported.
 """
@@ -44,6 +45,7 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256((_SRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(_SRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(str(SMEM_LIMIT).encode())
     digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -52,7 +54,7 @@ def nvcc_command(source: Path, out: Path) -> list:
     """The nvcc command that builds one source into a shared library."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DPNT_SMEM_LIMIT={SMEM_LIMIT}",
         "-o", str(out), str(source),
     ]
 

@@ -117,7 +117,7 @@ def make_trainer(argv=None, device=None):
     from pixelnerf_tpu_torch.device import resolve_device
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.losses import alpha_loss_from_conf, rgb_loss_from_conf
-    from pixelnerf_tpu_torch.models.pixelnerf import encoder_image_hw, make_model
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.native import imagecodec
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.train.step import (
@@ -151,8 +151,7 @@ def make_trainer(argv=None, device=None):
     print("image decoder:", imagecodec.decoder())
 
     model = make_model(conf["model"], device=dev, train=True,
-                       stop_encoder_grad=bool(args.freeze_enc),
-                       image_hw=encoder_image_hw(conf["model"], dset))
+                       stop_encoder_grad=bool(args.freeze_enc))
     if args.freeze_enc:
         print("Encoder frozen")
     # the warmup's steps train a shallow copy that shares every parameter
@@ -188,6 +187,14 @@ def make_trainer(argv=None, device=None):
                                cache_images=cache_images)
     test_loader = BatchLoader(val_dset, min(args.batch_size, 16), shuffle=True, seed=1)
 
+    # the JAX CLI draws one batch to initialize its model; drawing it here
+    # too keeps the datasets' own generators (DVR view subsets, colour
+    # jitter) in step with it, and makes the parameters whose shapes follow
+    # the input before the optimizer takes them
+    model.init_shapes(torch.from_numpy(
+        next(iter(BatchLoader(dset, args.batch_size, shuffle=False, prefetch=False)))["images"]))
+    ckpt_io.load_model_weights(model, args.checkpoints_path, args.name, resume=args.resume)
+
     # ------- optimizer: per-epoch gamma decay expressed per update ---------
     steps_per_epoch = max(len(train_loader), 1) * conf.get_int("train.num_epoch_repeats", 1)
     accu_grad = conf.get_int("train.accu_grad", 1)
@@ -196,12 +203,6 @@ def make_trainer(argv=None, device=None):
         make_optimizer(model, args.lr), accu_grad,
         lr_schedule(args.lr, args.gamma, args.gamma_delay, steps_per_epoch),
     )
-
-    # the JAX CLI draws one batch to initialize its model; drawing it here
-    # too keeps the datasets' own generators (DVR view subsets, colour
-    # jitter) in step with it
-    next(iter(BatchLoader(dset, args.batch_size, shuffle=False, prefetch=False)))
-    ckpt_io.load_model_weights(model, args.checkpoints_path, args.name, resume=args.resume)
 
     def steps(rcfg, use_bbox: bool, frozen: bool, alpha_active: bool):
         t_step = make_train_step(

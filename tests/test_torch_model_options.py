@@ -263,8 +263,7 @@ def _model_pair(conf_text, seed, hw=32, dtype="float32"):
         jax.random.PRNGKey(0), jnp.asarray(images), jnp.asarray(poses), jnp.asarray(35.0),
         jnp.zeros((1, 8, 3)), viewdirs=jnp.zeros((1, 8, 3)))
     variables = _randomize(variables, seed + 1)
-    model = make_model(loads(conf_text)["model"], dtype=getattr(torch, dtype), device="cpu",
-                       image_hw=(hw, hw))
+    model = make_model(loads(conf_text)["model"], dtype=getattr(torch, dtype), device="cpu")
     model.load_state_dict(state_dict_from_jax(variables, model))
     return jmodel, variables, model, images, poses
 
@@ -347,7 +346,7 @@ def test_conv_encoder_matches_jax(hw, train):
     jmod = jenc.SpatialEncoder(backbone="custom")
     x = np.random.default_rng(17).uniform(-1, 1, size=(2, hw, hw, 3)).astype(np.float32)
     variables = _randomize(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)), 18)
-    tmod = tenc.SpatialEncoder(backbone="custom", image_hw=(hw, hw))
+    tmod = tenc.SpatialEncoder(backbone="custom")
     _load(tmod, variables, "e")
     tmod.train(train)
     assert tmod.latent_size == 128
@@ -363,9 +362,54 @@ def test_conv_encoder_matches_jax(hw, train):
     _grads_close(tmod, jg, "e")
 
 
+@pytest.mark.parametrize("hw,scale", [(128, 0.5), (48, 1.5)])
+def test_conv_encoder_with_feature_scale_matches_jax(hw, scale):
+    """The ConvEncoder runs on the input resized by `feature_scale`, and
+    its global code is sized from that input (1x1 from 128 at 0.5, 2x2
+    from 48 at 1.5), as Flax infers it at init. The reference is the JAX
+    encoder evaluated in float64 on the same float32 values: at 128 and 0.5
+    XLA's float32 CPU gradient of conv_in lies 2.9e-3 of its largest value
+    from that, the port's float32 one 1.2e-6."""
+    x = np.random.default_rng(22).uniform(-1, 1, size=(2, hw, hw, 3)).astype(np.float32)
+    init = jenc.SpatialEncoder(backbone="custom", feature_scale=scale).init(
+        jax.random.PRNGKey(0), jnp.asarray(x))
+    variables = _randomize(jax.device_get(init), 23)
+    tmod = tenc.SpatialEncoder(backbone="custom", feature_scale=scale)
+    _load(tmod, variables, "e")
+    with jax.enable_x64(True):
+        jmod = jenc.SpatialEncoder(backbone="custom", feature_scale=scale, dtype=jnp.float64)
+        v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        jfn = lambda p: jmod.apply({**v64, "params": p}, jnp.asarray(x, jnp.float64))
+        (jout, jscale), vjp = jax.vjp(jfn, v64["params"])
+        cot = np.random.default_rng(24).normal(size=jout.shape).astype(np.float32)
+        (jg,) = vjp((jnp.asarray(cot, jnp.float64), jnp.zeros_like(jscale)))
+        jout, jscale, jg = jax.device_get((jout, jscale, jg))
+    tout, tscale = tmod(torch.from_numpy(x))
+    assert tout.shape == jout.shape == (2, round(hw * scale), round(hw * scale), 128)
+    _close(tout.detach(), jout)
+    _close(tscale, jscale, 1e-6)
+    (tout * torch.from_numpy(cot)).sum().backward()
+    _grads_close(tmod, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jg), "e")
+
+
+def test_conv_encoder_sizes_its_global_code_at_the_first_input():
+    """Seeded and unbuilt, the global-code convolution is made at the first
+    call from that input's width (a 512-channel code and 512 skip channels
+    at 128x128), with the same values for the same seed."""
+    made = []
+    for _ in range(2):
+        torch.manual_seed(3)
+        tmod = tenc.SpatialEncoder(backbone="custom")
+        assert torch.nn.parameter.is_lazy(tmod.model.deconv2.weight)
+        tmod(torch.zeros((1, 128, 128, 3)))
+        made.append(tmod.model.deconv2.weight.detach().clone())
+    assert made[0].shape == (256, 512 + 512, 3, 3) and torch.equal(made[0], made[1])
+
+
 def test_conv_encoder_refuses_another_image_size():
-    tmod = tenc.SpatialEncoder(backbone="custom", image_hw=(64, 64))
-    with pytest.raises(ValueError, match="image_hw"):
+    tmod = tenc.SpatialEncoder(backbone="custom")
+    tmod(torch.zeros((1, 64, 64, 3)))
+    with pytest.raises(ValueError, match="global code"):
         tmod(torch.zeros((1, 128, 128, 3)))
 
 
