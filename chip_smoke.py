@@ -120,7 +120,27 @@ Phases, each failing loudly (an exception and a non-zero exit):
    3 also holds the ResnetFC forward, stash forward and backward at
    d_latent 640 and 1024 (hidden 512, the train step's coarse call)
    against their plain versions, timed beside d_latent 512;
-11. a `kernels` JSON line, the card line, and the result line. A kernel's
+11. what is left of the JAX package: (a) the sharded flagship step
+   (bench.py's batch, injected rays, perturb 0) on the meshes `data:2`,
+   `data:1,rays:2` and `data:2,rays:2`, in turn on subgroups of one world
+   of four spawned ranks that share the card through gloo, and on a world
+   of one on NCCL in this process: every rank's state after the step equal
+   to rank 0's bit for bit, each rank's launches those of the one-process
+   step, and rank 0's loss and gradients held (CMP_TOL's bf16 bounds) to
+   the one-process step on each data index's objects averaged over the data
+   axis; each rank's step time and peak memory; (b) the training CLI with
+   `--mesh data:2` on two spawned ranks (srn.conf at full width, -B 4 -V 2
+   -R 1024, 2 epochs then --resume), each through `_train_cli`, rank 0
+   alone writing files; (c) the cached and the fused flagship steps with
+   remat on and off: launches (each query twice, the primal first), step
+   time and peak memory, the remat step's loss and gradients within the
+   plain step's run-to-run spread; (d) `tools/profile_step` through its
+   `main` at the flagship's shapes, writing its trace; (e)
+   `tools/export_checkpoint` on the trained artifact: import, export (the
+   artifact again, byte for byte), import, and a srn600.conf view from it
+   equal to the artifact's. sn64.conf's CLI run in phase 10 rematerializes
+   its float32 MLP's query (remat "auto");
+12. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
    launches are the most that one counted run of phases 4-7 made,
@@ -3057,7 +3077,8 @@ def run_sn64(torch, np, dev, root, card):
         (psnr, ssim), got_eval, _ = _eval_cli(
             torch, dev, "sn64 eval_approx", eval_approx.main,
             common + ["-c", str(serve_conf), "--split", "test", "-P", "0"], card)
-        print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}")
+        print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}; the CLI's float32 MLP leaves the "
+              "fused kernels, so its step rematerializes the query (remat \"auto\")")
         if any(got.values()) or any(got_eval.values()) or not math.isfinite(psnr):
             raise AssertionError(f"sn64: float32 launched a kernel ({got}, {got_eval}) or psnr {psnr}")
 
@@ -3124,6 +3145,393 @@ def run_configs(torch, np, dev, root, card, conf):
     if failed:
         raise AssertionError(f"configs: {failed} failed")
     return runs
+
+
+# the sharded step: bench.py's batch (injected rays, perturb 0) over
+# (data, rays) meshes of ranks that share the one card through gloo, and a
+# world of one on NCCL; each rank takes its block of objects and rays
+SHARD_MESHES = (("data:2", 2), ("data:1,rays:2", 2), ("data:2,rays:2", 4))
+SHARD_TIMED = 3  # timed steps a rank after its counted one
+RANK_TIMEOUT = 300.0  # seconds a spawned world may take, its start included
+# the remat phase: the cached and the fused flagship steps with remat on
+# and off. A remat step runs each query twice (posenc, the gather, the
+# primal, then in the backward the stash forward and the backward)
+REMAT_TRAIN_LAUNCHES = _launch_table(
+    posenc_concat=4, pyramid_gather=4, pyramid_scatter_add=2, resnetfc_fwd=3,
+    resnetfc_fwd_stash=3, resnetfc_bwd=3,
+)
+REMAT_FUSED_LAUNCHES = _launch_table(
+    posenc_concat=4, pyramid_field_fused=2, pyramid_field_fused_fwd_stash=2,
+    pyramid_field_fused_bwd=2,
+)
+REMAT_TIMED = 5
+# the mesh CLI: 4 train objects over data:2 (-B 4: 2 a rank, one batch an
+# epoch), 2 val and test objects
+MESH_CLI_STAGES = (("train", 4), ("val", 2), ("test", 2))
+
+
+def _shard_setup(torch, np, dev, root, workdir):
+    """bench.py's batch with injected rays and the seeded flagship's
+    weights, written to `workdir` for the ranks to read."""
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.train.step import sample_rays
+    from pixelnerf_tpu_torch.utils import hocon
+
+    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
+    batch = {k: v.cpu() for k, v in _train_batch(torch, np, dev, SB).items()}
+    rng = np.random.default_rng(9)
+    pix = rng.integers(0, NV * TRAIN_SIZE * TRAIN_SIZE, size=(SB, TRAIN_RAYS))
+    batch["rays"], batch["rgb_gt"] = sample_rays(
+        batch["images"], batch["poses"], batch["focal"], batch["c"], 0.8, 1.8, TRAIN_RAYS,
+        draws={"pix": torch.from_numpy(pix)},
+    )
+    model = make_model(conf["model"], device="cpu", seed=0, train=True)
+    model.init_shapes(batch["images"])
+    shape_heads(torch, model)
+    torch.save(batch, Path(workdir) / "batch.pt")
+    torch.save(model.state_dict(), Path(workdir) / "init.pt")
+
+
+def _sharded_step(torch, dev, root, workdir, mesh, label, objects=None):
+    """One counted flagship train step from `workdir`'s weights, on this
+    rank's shard with `mesh`, else on `objects` (a slice) of the batch, then
+    SHARD_TIMED timed ones. Returns the first step's losses, gradients and
+    state (on the host), its launches, the timed steps' ms and the peak
+    device memory."""
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.parallel import shard_batch
+    from pixelnerf_tpu_torch.render.renderer import RendererConfig
+    from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step
+    from pixelnerf_tpu_torch.utils import hocon
+
+    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
+    batch = torch.load(Path(workdir) / "batch.pt")
+    batch = shard_batch(batch, mesh) if mesh is not None else {
+        k: v[objects if objects is not None else slice(None)] for k, v in batch.items()}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    model.init_shapes(batch["images"])
+    model.load_state_dict(torch.load(Path(workdir) / "init.pt"))
+    rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0, noise_std=0.0)
+    step = make_train_step(model, rcfg, make_optimizer(model, 1e-4), batch["rays"].shape[1],
+                           0.8, 1.8, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    aux, launches = _counted(torch, lambda: step(batch, gen), TRAIN_LAUNCHES, label)
+    out = {
+        "aux": {k: v.item() for k, v in aux.items()},
+        "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+        "state": {k: v.cpu() for k, v in model.state_dict().items()},
+        "launches": launches,
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARD_TIMED):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) / SHARD_TIMED * 1e3
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _rank_device(torch, rank):
+    """A spawned rank's card: LOCAL_RANK % device_count, so every rank of a
+    world on one card shares it."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _shard_rank(rank, root, workdir, worlds):
+    """A spawned rank of the sharded phase. `worlds`, (label, axes, n)
+    triples, run in turn on the first n ranks (a subgroup; the others
+    wait at a barrier), so that one start of the processes serves every
+    mesh. Returns this rank's result of each world it was in, else None."""
+    import torch
+    import torch.distributed as dist
+
+    from pixelnerf_tpu_torch.parallel import make_mesh
+
+    dev = _rank_device(torch, rank)
+    out = []
+    for label, axes, n in worlds:
+        group = dist.new_group(list(range(n)))  # every rank makes every group
+        out.append(_sharded_step(torch, dev, root, workdir, make_mesh(axes, rank, group),
+                                 f"{label} rank {rank}") if rank < n else None)
+        dist.barrier()
+    return out
+
+
+def _held_to_reference(label, got, ref, tol):
+    """Loss and gradients of a sharded step against the reference's: the
+    losses' relative error, each parameter group's worst relative
+    Frobenius error (`compare_step`'s groups and CMP_TOL's bf16 bounds)."""
+    rel = abs(got["aux"]["t"] - ref["t"]) / abs(ref["t"])
+    worst = {}
+    for n, g in ref["grads"].items():
+        err = ((got["grads"][n] - g).norm() / (g.norm() + 1e-30)).item()
+        part = "encoder" if n.startswith("encoder") else "head"
+        worst[part] = max(worst.get(part, (-1.0, "")), (err, n))
+        if not math.isfinite(err) or err > tol[part]:
+            raise AssertionError(f"{label}: gradient {n} relative error {err:.3e} > {tol[part]}")
+    if not rel <= tol["loss"]:
+        raise AssertionError(f"{label}: loss {got['aux']['t']} vs {ref['t']} (rel {rel:.3e})")
+    return rel, worst
+
+
+def run_sharded(torch, np, dev, root, card):
+    """The sharded flagship step: the meshes of SHARD_MESHES in turn on
+    subgroups of one world of four spawned ranks sharing the card (gloo, the
+    backend rule's choice for ranks on one card), and a world of one on NCCL
+    in this process. Every
+    rank's state after the step must equal rank 0's bit for bit, and each
+    rank launch the train path's kernels as the one-process step does. The
+    reference is the one-process step on each data index's objects (all
+    rays), its gradients and losses averaged over the data axis: the
+    sharded step's math with its per-shard BatchNorm statistics, which
+    differ from the whole batch's on the data axis. Its loss and gradients
+    are held to CMP_TOL's bf16 bounds. Prints each rank's step time, peak
+    memory and launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pixelnerf_tpu_torch.parallel import backend_for, make_mesh, parse_mesh_spec
+    from pixelnerf_tpu_torch.parallel.launch import run_ranks
+
+    tol = CMP_TOL["bfloat16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _shard_setup(torch, np, dev, root, tmp)
+        whole = _sharded_step(torch, dev, root, tmp, None, "sharded: one-process step")
+        print(f"sharded: one-process flagship step (SB={SB}, {TRAIN_RAYS} rays an object) "
+              f"{whole['ms']:.1f} ms, peak device memory {whole['peak'] / 2**30:.2f} GiB; on {card}")
+        refs = {}
+
+        def reference(data):
+            if data not in refs:
+                n = SB // data
+                parts = [whole] if data == 1 else [
+                    _sharded_step(torch, dev, root, tmp, None, f"sharded: objects {d * n}:{(d + 1) * n}",
+                                  slice(d * n, (d + 1) * n)) for d in range(data)]
+                refs[data] = {
+                    "t": sum(p["aux"]["t"] for p in parts) / data,
+                    "grads": {k: sum(p["grads"][k] for p in parts) / data for k in whole["grads"]},
+                }
+            return refs[data]
+
+        torch.cuda.empty_cache()  # the card's memory to the ranks
+        count = torch.cuda.device_count()
+        size = max(n for _, n in SHARD_MESHES)
+        backend = backend_for("cuda", size, count)
+        worlds = [(f"sharded {spec} ({backend})", parse_mesh_spec(spec, n), n) for spec, n in SHARD_MESHES]
+        print(f"sharded: {size} ranks on {count} card(s): backend {backend}; the meshes "
+              f"{[spec for spec, _ in SHARD_MESHES]} in turn on subgroups of them")
+        t0 = time.perf_counter()
+        spawned = run_ranks(_shard_rank, size, f"{tmp}/world", args=(root, tmp, worlds),
+                            backend=backend, timeout=RANK_TIMEOUT)
+        print(f"sharded: the {size} ranks took {time.perf_counter() - t0:.1f} s with their start")
+        results = [(label, axes, [r[i] for r in spawned[:n]]) for i, (label, axes, n) in enumerate(worlds)]
+        one = backend_for("cuda", 1, count)
+        label = f"sharded world of one ({one})"
+        print(f"{label}: 1 rank on {count} card(s), in this process: backend {one}")
+        dist.init_process_group(one, init_method=f"file://{tmp}/one", rank=0, world_size=1)
+        try:
+            axes = parse_mesh_spec("", 1)
+            results.append((label, axes, [_sharded_step(torch, dev, root, tmp, make_mesh(axes),
+                                                        f"{label} rank 0")]))
+        finally:
+            dist.destroy_process_group()
+        for label, axes, ranks in results:
+            n = len(ranks)
+            for r, res in enumerate(ranks):
+                if not _tree_equal(torch, res["state"], ranks[0]["state"]):
+                    raise AssertionError(f"{label}: rank {r}'s state differs from rank 0's")
+                print(f"{label} rank {r}: step {res['ms']:.1f} ms (mean of {SHARD_TIMED}), peak "
+                      f"device memory {res['peak'] / 2**30:.2f} GiB, launches "
+                      f"{ {k: v for k, v in res['launches'].items() if v} }")
+            rel, worst = _held_to_reference(label, ranks[0], reference(axes["data"]), tol)
+            print(
+                f"{label}: {n} ranks' states bit-equal; loss {ranks[0]['aux']['t']:.6f} vs the "
+                f"reference {refs[axes['data']]['t']:.6f} (rel {rel:.2e}, tolerance {tol['loss']}); "
+                "worst relative gradient errors: " + ", ".join(
+                    f"{part} {e:.2e} ({name}, tolerance {tol[part]})"
+                    for part, (e, name) in sorted(worst.items()))
+                + f"; on {card}"
+            )
+
+
+def _cli_rank(rank, root, argv, card):
+    """A spawned rank of the mesh CLI: `_train_cli` on the one card."""
+    import torch
+
+    dev = _rank_device(torch, rank)
+    res = _train_cli(torch, dev, f"mesh cli rank {rank}", argv, card)
+    return {k: res[k] for k in ("launches", "parts", "peak", "wall", "step_s", "resumed")}
+
+
+def run_mesh_cli(torch, np, root, card):
+    """`train_pixelnerf --mesh data:2` on two spawned ranks sharing the
+    card (gloo): srn.conf at full width, -B 4 -V 2 -R 1024, 2 epochs then
+    --resume to a third, each rank through `_train_cli` (launches from 0,
+    plain versions watched, the resume held to the files). Rank 0 writes
+    the checkpoint and visuals, rank 1 nothing."""
+    import statistics
+    import tempfile
+
+    from pixelnerf_tpu_torch.parallel.launch import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_srn_dataset(np, tmp, name="mesh", stages=MESH_CLI_STAGES)
+        conf = Path(tmp) / "cli.conf"
+        conf.write_text(CLI_CONF.format(srn=root / "conf" / "exp" / "srn.conf"))
+        argv = ["-c", str(conf), "-D", datadir, "-n", "mesh", "--logs_path", f"{tmp}/logs",
+                "--checkpoints_path", f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis",
+                "--mesh", "data:2"] + CLI_ARGS
+        t0 = time.perf_counter()
+        ranks = run_ranks(_cli_rank, 2, f"{tmp}/world", args=(root, argv, card), timeout=RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        files = sorted(p.name for p in (Path(tmp) / "ckpt" / "mesh").iterdir())
+        vis = sorted(p.name for p in (Path(tmp) / "vis" / "mesh").glob("*_vis.png"))
+    for name in ("pixel_nerf_latest", "_optim", "_iter.json"):
+        if name not in files:
+            raise AssertionError(f"mesh cli: checkpoint file {name} missing ({files})")
+    if not vis:
+        raise AssertionError("mesh cli: rank 0 wrote no visuals")
+    for r, res in enumerate(ranks):
+        # rank 0 also renders the vis view (the field primal); rank 1 does not
+        want = CLI_KERNELS if r == 0 else tuple(k for k in CLI_KERNELS if k != "pyramid_field_fused")
+        missing = [k for k in want if res["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"mesh cli rank {r}: never launched {missing}")
+        print(f"mesh cli rank {r}: step median {statistics.median(res['step_s'][1:]) * 1e3:.1f} ms "
+              f"(2 objects x {TRAIN_RAYS} rays), peak device memory {res['peak'] / 2**30:.2f} GiB, "
+              f"resumed {res['resumed']}")
+    print(f"mesh cli: --mesh data:2 on 2 ranks sharing the card (gloo), 2 epochs and a resume in "
+          f"{wall:.1f} s with the ranks' start; rank 0 wrote {files} and {len(vis)} vis PNGs; on {card}")
+
+
+def run_remat(torch, np, dev, root, card):
+    """The cached and the fused flagship steps with remat on and off, from
+    the same weights on bench.py's batch with injected rays: launches (each
+    query twice, the primal first), step time and peak memory. The remat
+    step's loss and gradients are held within the spread of two runs of
+    the plain step (the scatters' and the products' float32 atomics are
+    not bit-reproducible): each group's relative error at most 3x that
+    spread, plus 1e-4 (the loss 1e-5)."""
+    import tempfile
+
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.render.renderer import RendererConfig
+    from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step
+    from pixelnerf_tpu_torch.utils import hocon
+
+    conf = hocon.load(str(root / "conf" / "exp" / "srn.conf"))
+    rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0, noise_std=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        _shard_setup(torch, np, dev, root, tmp)
+        batch = {k: v.to(dev) for k, v in torch.load(Path(tmp) / "batch.pt").items()}
+        init = torch.load(Path(tmp) / "init.pt")
+    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    model.init_shapes(batch["images"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for fused, expected in ((False, REMAT_TRAIN_LAUNCHES), (True, REMAT_FUSED_LAUNCHES)):
+        path = "fused" if fused else "cached"
+        stepped = model.with_field_fusion() if fused else model
+        runs = {}
+        for remat, name in ((False, "plain"), (False, "plain again"), (True, "remat")):
+            model.load_state_dict(init)
+            step = make_train_step(stepped, rcfg, make_optimizer(model, 1e-4), TRAIN_RAYS, 0.8, 1.8,
+                                   remat=remat)
+            want = expected if remat else (FUSED_TRAIN_LAUNCHES if fused else TRAIN_LAUNCHES)
+            aux, launches = _counted(torch, lambda: step(batch, gen), want, f"remat {path} {name}")
+            runs[name] = {"t": aux["t"].item(),
+                          "grads": {n: p.grad.float().clone() for n, p in model.named_parameters()}}
+            if name == "plain again":
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_TIMED):
+                step(batch, gen)
+            torch.cuda.synchronize()
+            runs[name]["ms"] = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+            runs[name]["peak"] = torch.cuda.max_memory_allocated()
+        rel = lambda a, b: ((a - b).norm() / (b.norm() + 1e-30)).item()
+        base = runs["plain"]
+        spread, diff = {}, {}
+        for n, g in base["grads"].items():
+            part = "encoder" if n.startswith("encoder") else "head"
+            spread[part] = max(spread.get(part, 0.0), rel(runs["plain again"]["grads"][n], g))
+            diff[part] = max(diff.get(part, 0.0), rel(runs["remat"]["grads"][n], g))
+        loss_spread = abs(runs["plain again"]["t"] - base["t"]) / abs(base["t"])
+        loss_diff = abs(runs["remat"]["t"] - base["t"]) / abs(base["t"])
+        print(
+            f"remat {path}: step {base['ms']:.1f} ms plain, {runs['remat']['ms']:.1f} ms remat "
+            f"({runs['remat']['ms'] / base['ms']:.2f}x); peak device memory "
+            f"{base['peak'] / 2**30:.2f} GiB plain, {runs['remat']['peak'] / 2**30:.2f} GiB remat; "
+            f"loss rel {loss_diff:.2e} (plain run to run {loss_spread:.2e}); worst relative gradient "
+            "error remat vs plain " + ", ".join(f"{p} {diff[p]:.2e} (run to run {spread[p]:.2e})"
+                                                 for p in sorted(diff)) + f"; on {card}"
+        )
+        if loss_diff > 3 * loss_spread + 1e-5 or any(diff[p] > 3 * spread[p] + 1e-4 for p in diff):
+            raise AssertionError(f"remat {path}: the remat step leaves the plain step's spread")
+
+
+def run_tools(torch, np, dev, root, card):
+    """`tools/profile_step` through its `main` at the flagship's shapes
+    (2 profiled train steps after 2 warm ones), and `tools/export_checkpoint`
+    on the trained artifact: import, export (the artifact again, byte for
+    byte), import of that, and one 128x128 view of srn600.conf from it
+    equal to the view from the artifact itself."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+
+    from pixelnerf_tpu_torch.eval.common import encode_views
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.render.renderer import RendererConfig
+    from pixelnerf_tpu_torch.tools import export_checkpoint, profile_step
+    from pixelnerf_tpu_torch.utils import checkpoint as ckpt
+    from pixelnerf_tpu_torch.utils import hocon
+    from pixelnerf_tpu_torch.utils.rays import gen_rays
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        prof = profile_step.main(["-c", str(root / "conf" / "exp" / "srn.conf"), "--out", tmp,
+                                  "--steps", "2"], device=dev)
+        trace = Path(tmp) / "trace.json"
+        busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if not trace.stat().st_size or not busy > 0:
+            raise AssertionError("profile_step: no trace or no device time")
+        print(f"profile_step: 2 flagship train steps, {busy / 1e3:.1f} ms of kernels, trace "
+              f"{trace.stat().st_size / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s; on {card}")
+
+        artifact = str(root / "artifacts" / "srn600_bf16.ckpt")
+        live, again = f"{tmp}/live", f"{tmp}/again"
+        export_checkpoint.main(["import", "--artifact", artifact, "--ckpt", live])
+        export_checkpoint.main(["export", "--ckpt", live, "--out", f"{tmp}/art"])
+        export_checkpoint.main(["import", "--artifact", f"{tmp}/art", "--ckpt", again])
+        if Path(f"{tmp}/art").read_bytes() != Path(artifact).read_bytes():
+            raise AssertionError("export_checkpoint: export of the import is not the artifact")
+        conf = hocon.load(str(root / "conf" / "exp" / "srn600.conf"))
+        rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0)
+        rng = np.random.default_rng(4)
+        images = rng.uniform(-1, 1, size=(2, VIEW_SIZE, VIEW_SIZE, 3)).astype(np.float32)
+        poses = np.stack([_look_at(np, [1.3, 0.2, 0.1]), _look_at(np, [0.2, 0.3, 1.3])])
+        focal = 131.25 * VIEW_SIZE / 128
+        target = torch.from_numpy(_look_at(np, [0.9, 0.4, 0.9])[None]).to(dev)
+        rays = gen_rays(target, VIEW_SIZE, VIEW_SIZE, focal, 0.8, 1.8).reshape(-1, 8)
+        views = []
+        for path in (artifact, again):
+            model = make_model(conf["model"], device=dev, seed=0)
+            ckpt.load_weights_file(model, path)
+            views.append(render_full(model, encode_views(model, images, poses, focal), rays, rcfg))
+    rgb = [v["fine"]["rgb"] for v in views]
+    if not torch.equal(rgb[0], rgb[1]) or not torch.isfinite(rgb[0]).all():
+        raise AssertionError("export_checkpoint: the round trip's view differs from the artifact's")
+    print(f"export_checkpoint: import, export (the artifact byte for byte), import; one "
+          f"{VIEW_SIZE}x{VIEW_SIZE} srn600.conf view from it equal to the artifact's; on {card}")
 
 
 def main() -> int:
@@ -3220,6 +3628,13 @@ def main() -> int:
     serve = run_serving_clis(torch, np, dev, root, card)
     torch.cuda.empty_cache()
     configs = run_configs(torch, np, dev, root, card, conf)
+    torch.cuda.empty_cache()
+    run_sharded(torch, np, dev, root, card)
+    torch.cuda.empty_cache()
+    run_mesh_cli(torch, np, root, card)
+    run_remat(torch, np, dev, root, card)
+    torch.cuda.empty_cache()
+    run_tools(torch, np, dev, root, card)
     for k in kernels:
         if k["name"] in SERVE_KERNELS:
             k["serve_launches"] = {cli: n[k["name"]] for cli, n in serve.items()}

@@ -21,7 +21,9 @@ step updates.
 
 `params_from_jax` maps a tree shaped like `params` alone, a gradient tree
 of `jax.grad` for instance, onto the port's parameter names, so that two
-trees compare by name.
+trees compare by name. `jax_from_state_dict` is the inverse of
+`state_dict_from_jax`: the JAX variables of a port state_dict, as float32
+numpy arrays, which the JAX package's checkpoint files hold.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "params_from_jax"]
+__all__ = ["state_dict_from_jax", "params_from_jax", "jax_from_state_dict"]
 
 
 def _f32(a) -> torch.Tensor:
@@ -128,3 +130,33 @@ def state_dict_from_jax(
             if not torch.nn.parameter.is_lazy(want[k]) and tuple(v.shape) != tuple(want[k].shape):
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != {tuple(want[k].shape)}")
     return sd
+
+
+def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """`{"params": ..., "batch_stats": ...}` of nested dicts of float32
+    numpy arrays for a port state_dict: weights back to Flax's (in, out)
+    and HWIO kernels, a 1-D weight to a norm's `scale`, the BatchNorm
+    buffers to the batch statistics."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        *scope, leaf = name.split(".")
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight" and a.ndim == 4:
+            coll, key, a = "params", "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and a.ndim == 2:
+            coll, key, a = "params", "kernel", a.T
+        elif leaf == "weight" and a.ndim == 1:
+            coll, key = "params", "scale"
+        elif leaf == "bias":
+            coll, key = "params", "bias"
+        elif leaf in ("running_mean", "running_var"):
+            coll, key = "batch_stats", leaf[len("running_"):]
+        else:
+            raise ValueError(f"unrecognized state_dict entry {name} of shape {tuple(a.shape)}")
+        node = out[coll]
+        for part in scope:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(a)
+    if not out["batch_stats"]:
+        del out["batch_stats"]  # group norms only
+    return out

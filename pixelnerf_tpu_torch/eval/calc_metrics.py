@@ -5,11 +5,11 @@ eval/calc_metrics.py): per object (map), PSNR and SSIM of the rendered
 PNGs (`eval_mesh --mode nvs`) against the dataset's images, with the
 source-view exclusions and the DTU bad-view list (calc_metrics.py:142-145),
 into `<output>/<object>/metrics.txt`; then (reduce) the means per category
-and in total into `all_metrics.txt` (calc_metrics.py:257-340). LPIPS is
-not ported (ROADMAP queue 1): it is NaN with a warning, as the JAX CLI
-gives it offline where its weights are absent, and the means leave it
-out. Runs on the host; the GT images are resized on the CPU where their
-size differs from the renders'.
+and in total into `all_metrics.txt` (calc_metrics.py:257-340). LPIPS (VGG,
+`utils/lpips.py`) runs on the device where its weights are on disk;
+without them it is NaN with a warning, as the JAX CLI gives it, and the
+means leave it out. PSNR and SSIM run on the host; the GT images are
+resized on the CPU where their size differs from the renders'.
 
 Run:
     python -m pixelnerf_tpu_torch.eval.calc_metrics -D <srn600_dataset>/shapes/test \
@@ -180,12 +180,17 @@ def run_reduce(args) -> dict:
 
 
 def main(argv=None, device=None):
-    """Returns `run_reduce`'s summary. `device` is accepted as every
-    eval CLI's is; the metrics run on the host."""
+    """Returns `run_reduce`'s summary. PSNR and SSIM run on the host; LPIPS,
+    where its weights are on disk (`utils/metrics.lpips_fn`), on `device`
+    (CUDA unless named), else it is NaN."""
+    from pixelnerf_tpu_torch.utils.metrics import lpips_fn as make_lpips
+
     args = build_parser().parse_args(argv)
-    warnings.warn("lpips unavailable offline; reporting NaN for LPIPS")
     if not args.reduce_only:
-        run_map(args, lpips_fn=None)
+        lp = make_lpips("vgg", device=device)
+        if lp is None:
+            warnings.warn("lpips weights absent; reporting NaN for LPIPS")
+        run_map(args, lpips_fn=lp)
     return run_reduce(args)
 
 

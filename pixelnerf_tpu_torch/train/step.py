@@ -8,9 +8,30 @@ lambda_fine * rgb_loss(fine) (+ an optional opacity loss), runs backward
 and `torch.optim.Adam` (the `optax.adam` update: b1 0.9, b2 0.999, eps
 1e-8, eps_root 0, the same bias correction) through `MultiSteps`, which
 gives it optax's gradient accumulation, learning-rate schedule and
-gradients of every parameter. Nothing is recomputed in the
-backward: the fused MLP keeps its bf16 stash as saved tensors, the JAX
-package's `remat="auto"` choice when its fused MLP runs.
+gradients of every parameter.
+
+Rematerialization (`remat`, the JAX step's `jax.checkpoint` of the field
+query): `remat=True` runs each field query under reentrant
+`torch.utils.checkpoint`, in both arities the renderer calls (the 3-arg
+no-cache form and the 5-arg `QueryCache` form). The reentrant form runs
+the first forward without grad, so the MLP takes its stash-free primal
+kernel (`resnetfc_fwd`, or the field primal `pyramid_field_fused`), and
+the backward re-runs the query with grad: the stash kernel, then at once
+the backward kernels. No stash lives between the passes, which is what
+`jax.checkpoint` buys. The non-reentrant form would run the stash kernel
+in both forwards and write a stash it throws away. `remat="auto"` is the
+JAX rule: remat is off exactly when every field MLP takes the fused
+kernels (`ResnetFC.fused_ok` at `nviews` source views, unknown counting as
+several), whose bf16 stash is small; a model whose MLP runs the per-layer
+chain (float32, softplus, SPADE, max pooling, `type = mlp`) keeps every
+activation for the backward and gets remat.
+
+Data and ray parallelism (`mesh`, a `parallel.Mesh`; JAX's `pmean_axes`
+under shard_map): the step then sees this rank's SB/data objects and
+R/rays rays (`num_rays` is rays per rays shard), draws from a generator
+folded with the rank's mesh indices, and averages the gradients, the
+BatchNorm running statistics and the losses over the mesh before the
+optimizer update, so every rank applies the same update.
 
 Batch (tensors on the model's device):
     images (SB, NV, H, W, 3) in [-1, 1], poses (SB, NV, 4, 4) camera-to-world
@@ -24,11 +45,16 @@ Batch (tensors on the model's device):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pixelnerf_tpu_torch.models.losses import mse_loss
+from pixelnerf_tpu_torch.models.pixelnerf import QueryCache
+from pixelnerf_tpu_torch.models.resnet import BatchNorm
+from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
 
 __all__ = ["MultiSteps", "make_optimizer", "make_train_step", "make_eval_step", "sample_rays"]
@@ -221,13 +247,56 @@ def _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox):
     )
 
 
-def _render(model, batch, rays, rcfg, generator, train, want_weights=False):
+def _model_uses_fused_mlp(model, max_nviews: Optional[int] = None) -> bool:
+    """True when every field MLP of `model` takes the fused kernels at up to
+    `max_nviews` source views (None: unknown, counted as several, so that
+    remat is never turned off for a model that leaves the kernels at run
+    time); the JAX step's rule of the same name."""
+    mlps = [m for m in (model.mlp_coarse, model.mlp_fine) if m is not None]
+    return bool(mlps) and all(
+        isinstance(m, ResnetFC) and m.fused_ok((max_nviews, 1)) for m in mlps
+    )
+
+
+def _remat_query(model, enc):
+    """model.query on `enc` with the query rematerialized in the backward
+    (reentrant checkpoint; see the module docstring). Reentrant checkpoint
+    follows only the tensors passed to it, so the encoding's latent levels
+    and the cache ride as arguments, and `anchor` (a leaf that wants a
+    gradient) keeps the query in the graph when none of them does (a
+    frozen encoder), else the MLP's parameters would get no gradient. The
+    query draws nothing at random, so no RNG state is kept."""
+    levels = list(enc.latent) if isinstance(enc.latent, tuple) else [enc.latent]
+    anchor = torch.empty(0, device=model.device, requires_grad=True)
+
+    def query_fn(xyz, viewdirs, coarse, want_cache=0, cache=None):
+        def run(_anchor, xyz, viewdirs, global_latent, cz, cx, *levels):
+            latent = tuple(levels) if isinstance(enc.latent, tuple) else levels[0]
+            e = dataclasses.replace(enc, latent=latent, global_latent=global_latent)
+            c = None if cz is None else QueryCache(z=cz, x=cx)
+            out = model.query(e, xyz, viewdirs, coarse, want_cache, c)
+            return (out[0], out[1].z, out[1].x) if want_cache else out
+
+        out = checkpoint(
+            run, anchor, xyz, viewdirs, enc.global_latent,
+            None if cache is None else cache.z, None if cache is None else cache.x, *levels,
+            use_reentrant=True, preserve_rng_state=False,
+        )
+        return (out[0], QueryCache(z=out[1], x=out[2])) if want_cache else out
+
+    return query_fn
+
+
+def _render(model, batch, rays, rcfg, generator, train, want_weights=False, remat=False):
     enc = model.encode(
         batch["src_images"], batch["src_poses"], batch["focal"], batch.get("src_c", batch["c"])
     )
 
     def query_fn(xyz, viewdirs, coarse, want_cache=0, cache=None):
         return model.query(enc, xyz, viewdirs, coarse, want_cache, cache)
+
+    if remat:
+        query_fn = _remat_query(model, enc)
 
     return render_rays(
         query_fn, rays, rcfg, generator=generator, want_weights=want_weights,
@@ -249,11 +318,14 @@ def make_train_step(
     rgb_fine_loss_fn: Optional[Callable] = None,
     use_bbox: bool = False,
     alpha_loss_fn: Optional[Callable] = None,
+    remat="auto",
+    mesh=None,
+    nviews: Optional[int] = None,
 ) -> Callable:
     """train_step(batch, generator=None) -> aux {'rc', 'rf', ['ra'], 't'}:
     one step that updates `model` (parameters and BatchNorm running
     statistics) and `optimizer` in place. The parameters' `.grad` hold the
-    step's gradients afterwards.
+    step's gradients afterwards (averaged over the mesh, with one).
 
     :param optimizer a `MultiSteps` (gradient accumulation and an lr
         schedule; the training CLI shares one between the steps it builds
@@ -261,16 +333,28 @@ def make_train_step(
         call at its own lr
     :param alpha_loss_fn fn(alpha (SB, R)) -> scalar opacity loss on the
         finest head's composited alpha, already epoch-gated by the caller
+    :param remat True, False or "auto" (module docstring)
+    :param mesh a `parallel.Mesh`: the step runs on this rank's shard of
+        the batch and reduces over the mesh (module docstring)
+    :param nviews the most source views the step will see (the largest
+        `-V`), for remat="auto"; None counts as several
     """
     rgb_loss_fn = rgb_loss_fn or mse_loss
     rgb_fine_loss_fn = rgb_fine_loss_fn or rgb_loss_fn
     updater = optimizer if isinstance(optimizer, MultiSteps) else MultiSteps(optimizer)
+    if remat == "auto":
+        remat = not _model_uses_fused_mlp(model, nviews)
+    bn_stats = [b for m in model.modules() if isinstance(m, BatchNorm)
+                for b in (m.running_mean, m.running_var)]
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
         batch = _prepare_batch(batch)
         model.train()
+        if mesh is not None:
+            generator = mesh.fold(generator, model.device)
         rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox)
-        out = _render(model, batch, rays, rcfg, generator, True, alpha_loss_fn is not None)
+        out = _render(model, batch, rays, rcfg, generator, True, alpha_loss_fn is not None,
+                      remat)
         loss_c = rgb_loss_fn(out["coarse"]["rgb"], rgb_gt)
         loss = lambda_coarse * loss_c
         aux = {"rc": lambda_coarse * loss_c}
@@ -286,8 +370,14 @@ def make_train_step(
         aux["t"] = loss
         updater.zero_grad()
         loss.backward()
+        aux = {k: v.detach() for k, v in aux.items()}
+        if mesh is not None:
+            # JAX's pmean of grads, batch_stats and aux: the global loss is
+            # the mean of equal-sized shard means
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            mesh.all_reduce_mean_(grads + bn_stats + list(aux.values()))
         updater.update()
-        return {k: v.detach() for k, v in aux.items()}
+        return aux
 
     return train_step
 
@@ -300,15 +390,19 @@ def make_eval_step(
     z_far: float,
     lambda_coarse: float = 1.0,
     lambda_fine: float = 1.0,
+    mesh=None,
 ) -> Callable:
     """eval_step(batch, generator=None) -> aux {'rc', 'rf', 't'}: the
     losses on held-out data, with eval-mode BatchNorm and no gradient (the
-    fused MLP then runs its stash-free forward)."""
+    fused MLP then runs its stash-free forward); with `mesh`, on this
+    rank's shard and averaged over the mesh."""
 
     @torch.no_grad()
     def eval_step(batch, generator: Optional[torch.Generator] = None):
         batch = _prepare_batch(batch)
         model.eval()
+        if mesh is not None:
+            generator = mesh.fold(generator, model.device)
         rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, False)
         out = _render(model, batch, rays, rcfg, generator, False)
         aux = {"rc": lambda_coarse * mse_loss(out["coarse"]["rgb"], rgb_gt)}
@@ -317,6 +411,8 @@ def make_eval_step(
             aux["rf"] = lambda_fine * mse_loss(out["fine"]["rgb"], rgb_gt)
             total = total + aux["rf"]
         aux["t"] = total
+        if mesh is not None:
+            mesh.all_reduce_mean_(list(aux.values()))
         return aux
 
     return eval_step

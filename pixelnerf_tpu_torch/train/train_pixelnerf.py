@@ -2,19 +2,38 @@
 
 Counterpart of `pixelnerf_tpu/train/train_pixelnerf.py`, the reference's
 train/train.py: the same flags (-n/-c/-D/-B/-V/-R/--no_bbox_step/
---freeze_enc/...), the same loss (lambda_coarse * MSE_coarse + lambda_fine
-* MSE_fine, train.py:271-283), bbox-sampling schedule and NS in `nviews`
-random source-view selection (train.py:193-241), the sample-count and lr
-schedules, and the vis_step grid (source | gt | depth | rgb | alpha rows
-per head, train.py:294-437). One process trains on one device: CUDA
-unless `main` is given another. The host draws (views, batch order, vis
-choices) come from the JAX CLI's numpy generators and seeds, so they are
-the same arrays; the device draws come from one `torch.Generator` seeded
-once, which is not checkpointed (the JAX CLI does not checkpoint its key).
+--freeze_enc/--mesh/--remat/...), the same loss (lambda_coarse *
+MSE_coarse + lambda_fine * MSE_fine, train.py:271-283), bbox-sampling
+schedule and NS in `nviews` random source-view selection
+(train.py:193-241), the sample-count and lr schedules, and the vis_step
+grid (source | gt | depth | rgb | alpha rows per head,
+train.py:294-437). The host draws (views, batch order, vis choices) come
+from the JAX CLI's numpy generators and seeds, so they are the same
+arrays; the device draws come from one `torch.Generator` seeded once,
+which is not checkpointed (the JAX CLI does not checkpoint its key).
+
+One process trains on one device, CUDA unless `main` is given another.
+With `--mesh data:a,rays:b` (or under a launcher that sets WORLD_SIZE >
+1, which the empty spec puts all on `rays`) every process is one rank of
+a `parallel.Mesh` over `torch.distributed`: the world size must equal
+a*b, rank r uses cuda:LOCAL_RANK % device_count, its loader holds the
+interleaved shard of the data index (`BatchLoader(num_shards=a,
+shard_id=data index)`), it samples R/b rays an object, and the step
+averages gradients, BatchNorm statistics and losses over the world.
+`-B` stays the global object batch: a rank takes ceil(B/a) objects. Every
+shard holds the same number of objects, so the ranks' batches, partial
+ones included, are equal in size and need none of the JAX CLI's
+wrap-padding. Only rank 0 writes checkpoints, tensorboard scalars and
+visuals; `--resume` loads on every rank. The process group is the one
+the caller made, else one made from the environment (`torchrun`) with
+the backend `parallel.backend_for` names: NCCL when every local rank
+has a card of its own, gloo when ranks share one or run on the CPU.
 
 Run:
     python -m pixelnerf_tpu_torch.train.train_pixelnerf -n srn_car -c conf/exp/srn.conf \
         -D /data/cars -V 1 2 -B 4 -R 128
+    torchrun --nproc_per_node 4 -m pixelnerf_tpu_torch.train.train_pixelnerf -n srn_car \
+        -c conf/exp/srn.conf -D /data/cars -B 8 -R 1024 --mesh data:2,rays:2
 
 or, from Python, `main(argv, device="cpu")` on the CPU.
 """
@@ -30,7 +49,9 @@ import numpy as np
 
 def extra_args(parser):
     parser.add_argument(
-        "--batch_size", "-B", type=int, default=4, help="Object batch size ('SB')"
+        "--batch_size", "-B", type=int, default=4,
+        help="Object batch size ('SB'), over all ranks: with --mesh "
+        "data:a,rays:b each rank takes ceil(B/a) objects"
     )
     parser.add_argument(
         "--nviews", "-V", type=str, default="2",
@@ -74,14 +95,15 @@ def extra_args(parser):
     )
     parser.add_argument(
         "--spmd_mode", choices=("shard_map", "gspmd"), default="shard_map",
-        help="Multi-device execution mode; means something only with "
-        "--mesh, which is not ported yet (accepted, no effect)",
+        help="The JAX CLI's multi-device mode. Both run the same "
+        "torch.distributed path here, each rank running the kernels on its "
+        "shard (GSPMD exists in JAX only because it cannot split a "
+        "pallas_call)",
     )
     parser.add_argument(
         "--remat", action="store_true", default=False,
-        help="Rematerialize the field evaluation in backward; not ported "
-        "(the port keeps the fused MLP's bf16 stash and never "
-        "rematerializes): raises",
+        help="Rematerialize the field evaluation in backward (always; by "
+        "default only when a field MLP leaves the fused kernels)",
     )
     parser.add_argument(
         "--no_compact_transfer", action="store_true", default=False,
@@ -105,10 +127,35 @@ def lr_schedule(lr: float, gamma: float, gamma_delay: int, steps_per_epoch: int)
     return schedule
 
 
+def _mesh_and_device(args, dev, chosen: bool):
+    """(Mesh or None, this rank's device, whether this call made the
+    process group). `dev` is the resolved device; unless the caller chose
+    it (`chosen`), a rank takes cuda:LOCAL_RANK % device_count."""
+    import torch
+    import torch.distributed as dist
+
+    from pixelnerf_tpu_torch.parallel import init_distributed, make_mesh, parse_mesh_spec, world_size
+
+    if not args.mesh and world_size() == 1:
+        return None, dev, False
+    axis_sizes = parse_mesh_spec(args.mesh)  # raises unless the world fits
+    if dev.type == "cuda" and not chosen:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    owns_group = not dist.is_initialized()
+    if owns_group:
+        init_distributed(dev.type)
+    mesh = make_mesh(axis_sizes)
+    print(f"Using mesh {mesh.shape}: rank {mesh.rank} at data {mesh.data_index}, "
+          f"rays {mesh.rays_index} on {dev}")
+    return mesh, dev, owns_group
+
+
 def make_trainer(argv=None, device=None):
     """Parse `argv`, build the datasets, loaders, model and optimizer, load
     the checkpoint the flags ask for and return the trainer, not started.
-    Raises for the flags the port does not honour."""
+    With `--mesh`, joins (or makes) the process group first."""
     import torch
 
     from pixelnerf_tpu_torch.data import (
@@ -134,15 +181,12 @@ def make_trainer(argv=None, device=None):
     args, conf = util_config.parse_args(
         extra_args, training=True, default_ray_batch_size=128, argv=argv
     )
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU training is not ported yet (ROADMAP queue 1 item 7)"
-        )
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: the port keeps the fused MLP's bf16 stash and never rematerializes; "
-            "rematerialization is not ported yet (ROADMAP queue 1 item 9)"
-        )
+    mesh, dev, owns_group = _mesh_and_device(args, dev, device is not None)
+    is_main = mesh is None or mesh.rank == 0
+    data_shards = mesh.data if mesh is not None else 1
+    data_index = mesh.data_index if mesh is not None else 0
+    local_batch = -(-args.batch_size // data_shards)
+    rays_per_shard = max(1, args.ray_batch_size // mesh.rays) if mesh is not None else args.ray_batch_size
     nviews = list(map(int, args.nviews.split()))
 
     dset_kwargs = {"image_size": tuple(args.image_size)} if args.image_size else {}
@@ -183,9 +227,10 @@ def make_trainer(argv=None, device=None):
             "color jitter which a cache would freeze"
         )
         cache_images = False
-    train_loader = BatchLoader(dset, args.batch_size, shuffle=True, seed=0,
-                               cache_images=cache_images)
-    test_loader = BatchLoader(val_dset, min(args.batch_size, 16), shuffle=True, seed=1)
+    train_loader = BatchLoader(dset, local_batch, shuffle=True, seed=0, num_shards=data_shards,
+                               shard_id=data_index, cache_images=cache_images)
+    test_loader = BatchLoader(val_dset, -(-min(args.batch_size, 16) // data_shards), shuffle=True,
+                              seed=1, num_shards=data_shards, shard_id=data_index)
 
     # the JAX CLI draws one batch to initialize its model; drawing it here
     # too keeps the datasets' own generators (DVR view subsets, colour
@@ -194,6 +239,12 @@ def make_trainer(argv=None, device=None):
     model.init_shapes(torch.from_numpy(
         next(iter(BatchLoader(dset, args.batch_size, shuffle=False, prefetch=False)))["images"]))
     ckpt_io.load_model_weights(model, args.checkpoints_path, args.name, resume=args.resume)
+    if mesh is not None:
+        # replicated from the start: rank 0's weights everywhere
+        import torch.distributed as dist
+
+        for t in model.state_dict().values():
+            dist.broadcast(t, 0, group=mesh.group)
 
     # ------- optimizer: per-epoch gamma decay expressed per update ---------
     steps_per_epoch = max(len(train_loader), 1) * conf.get_int("train.num_epoch_repeats", 1)
@@ -206,22 +257,26 @@ def make_trainer(argv=None, device=None):
 
     def steps(rcfg, use_bbox: bool, frozen: bool, alpha_active: bool):
         t_step = make_train_step(
-            model_frozen if frozen else model, rcfg, optimizer, num_rays=args.ray_batch_size,
+            model_frozen if frozen else model, rcfg, optimizer, num_rays=rays_per_shard,
             z_near=dset.z_near, z_far=dset.z_far,
             lambda_coarse=lambda_coarse, lambda_fine=lambda_fine,
             rgb_loss_fn=rgb_loss, rgb_fine_loss_fn=rgb_fine_loss, use_bbox=use_bbox,
             alpha_loss_fn=(lambda a: alpha_loss(a, alpha_init_epoch)) if alpha_active else None,
+            remat=True if args.remat else "auto", mesh=mesh, nviews=max(nviews),
         )
         e_step = make_eval_step(
-            model, rcfg, num_rays=args.ray_batch_size, z_near=dset.z_near, z_far=dset.z_far,
-            lambda_coarse=lambda_coarse, lambda_fine=lambda_fine,
+            model, rcfg, num_rays=rays_per_shard, z_near=dset.z_near, z_far=dset.z_far,
+            lambda_coarse=lambda_coarse, lambda_fine=lambda_fine, mesh=mesh,
         )
         return t_step, e_step
 
     class PixelNeRFTrainer(Trainer):
         def __init__(self):
-            super().__init__(model, optimizer, train_loader, test_loader, args, conf)
+            super().__init__(model, optimizer, train_loader, test_loader, args, conf,
+                             is_main=is_main)
             self.device = dev
+            self.mesh = mesh
+            self.owns_group = owns_group
             self.host_rng = np.random.default_rng(42)
             self.generator = torch.Generator(device=dev)
             self.generator.manual_seed(99)
@@ -284,6 +339,8 @@ def make_trainer(argv=None, device=None):
             view_dest = int(self.host_rng.integers(0, NV - curr_nviews))
             for vs in range(curr_nviews):
                 view_dest += view_dest >= views_src[vs]
+            if not self.is_main:
+                return None, None  # the draws above keep every rank's host_rng in step
 
             images_0to1 = images * 0.5 + 0.5
             source_views = images_0to1[views_src]
@@ -348,9 +405,14 @@ def make_trainer(argv=None, device=None):
 
 
 def main(argv=None, device=None):
-    """Train as the flags say; returns the trainer after its last epoch."""
+    """Train as the flags say; returns the trainer after its last epoch
+    (with the process group it made, if any, destroyed)."""
     trainer = make_trainer(argv, device)
     trainer.start()
+    if trainer.owns_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return trainer
 
 

@@ -38,9 +38,11 @@ class Trainer:
     :param optimizer a `train.step.MultiSteps`
     :param train_loader / test_loader BatchLoader-like iterables of collated
         numpy batch dicts
+    :param is_main False on the ranks of a mesh other than 0, which write
+        no checkpoint, scalar or visual (every rank still runs each step)
     """
 
-    def __init__(self, model, optimizer, train_loader, test_loader, args, conf):
+    def __init__(self, model, optimizer, train_loader, test_loader, args, conf, is_main=True):
         self.model = model
         self.optimizer = optimizer
         self.train_loader = train_loader
@@ -54,12 +56,14 @@ class Trainer:
         self.eval_interval = tconf.get_int("eval_interval", 50)
         self.num_epoch_repeats = tconf.get_int("num_epoch_repeats", 1)
         self.num_epochs = args.epochs
+        self.is_main = is_main
 
         self.summary_path = os.path.join(args.logs_path, args.name)
         self.visual_path = os.path.join(args.visual_path, args.name)
-        os.makedirs(self.summary_path, exist_ok=True)
-        os.makedirs(self.visual_path, exist_ok=True)
-        self.writer = self._make_writer(self.summary_path)
+        if is_main:
+            os.makedirs(self.summary_path, exist_ok=True)
+            os.makedirs(self.visual_path, exist_ok=True)
+        self.writer = self._make_writer(self.summary_path) if is_main else None
         self.fixed_test = getattr(args, "fixed_test", False)
 
         cp = args.checkpoints_path
@@ -99,6 +103,8 @@ class Trainer:
             self.start_epoch = int(meta.get("epoch", 0))
 
     def save_checkpoint(self, epoch: int, step_id: int) -> None:
+        if not self.is_main:
+            return
         ckpt.save_model_weights(self.model, self.args.checkpoints_path, self.args.name)
         ckpt.save_state(self.optim_state_path, self.optimizer.state_dict())
         tmp = self.iter_state_path + ".json.tmp"

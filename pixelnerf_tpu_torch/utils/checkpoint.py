@@ -28,10 +28,19 @@ returns such a file's tree of numpy arrays, and `load_model_weights`
 loads a JAX checkpoint of the model (`{"params", "batch_stats"}`) through
 `convert.state_dict_from_jax`, so a live f32 `pixel_nerf_latest` and a
 bf16 artifact both load directly.
+
+`write_flax_msgpack` writes such a file, bytes for bytes as
+`flax.serialization.msgpack_serialize` does (keys sorted, as JAX's tree
+flattening orders them; arrays as ext records), or with `sort_keys=False`
+as `flax.serialization.to_bytes` does (the dicts' own order, which the
+JAX package's checkpoint writer keeps), and `Bfloat16` carries a
+bfloat16 leaf as its uint16 bits, rounded to nearest even from float32 as
+ml_dtypes rounds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 import zipfile
@@ -42,8 +51,10 @@ import numpy as np
 import torch
 
 __all__ = [
+    "Bfloat16",
     "is_flax_checkpoint",
     "read_flax_msgpack",
+    "write_flax_msgpack",
     "save_state",
     "load_state",
     "load_weights_file",
@@ -171,6 +182,123 @@ def read_flax_msgpack(path: str) -> Any:
     if reader.pos != len(reader.buf):
         raise ValueError(f"{path}: trailing bytes after the msgpack tree")
     return _unchunk(tree)
+
+
+@dataclasses.dataclass
+class Bfloat16:
+    """A bfloat16 array as its uint16 bits (numpy has no bfloat16)."""
+
+    bits: np.ndarray
+
+    @classmethod
+    def from_float32(cls, a) -> "Bfloat16":
+        """Round to nearest even, NaN kept quiet (ml_dtypes' cast)."""
+        u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32).astype(np.uint64)
+        bits = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+        return cls(np.where(np.isnan(a), np.uint16(0x7FC0), bits))
+
+
+class _Writer:
+    """The msgpack encoder of msgpack-python's `packb(use_bin_type=True)`,
+    with flax's ext records for arrays and numpy scalars."""
+
+    def __init__(self, sort_keys: bool = True):
+        self.out = bytearray()
+        self.sort_keys = sort_keys
+
+    def put(self, fmt: str, *vals) -> None:
+        self.out += struct.pack(fmt, *vals)
+
+    def head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A container or string header: the fix form, else the 8/16/32-bit
+        one (`codes`, None where the form has no 8-bit size)."""
+        if n <= fix_max:
+            self.put(">B", fix | n)
+            return
+        for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+            if code is not None and n <= top:
+                self.put(">B" + fmt[1], code, n)
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def value(self, v) -> None:
+        if v is None or isinstance(v, bool):
+            self.put(">B", {None: 0xC0, False: 0xC2, True: 0xC3}[v])
+        elif isinstance(v, int):
+            self.int(int(v))
+        elif isinstance(v, float):
+            self.put(">Bd", 0xCB, v)
+        elif isinstance(v, str):
+            data = v.encode()
+            self.head(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.out += data
+        elif isinstance(v, (bytes, bytearray)):
+            self.head(len(v), 0, -1, (0xC4, 0xC5, 0xC6))
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 15, (None, 0xDC, 0xDD))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, dict):
+            self.head(len(v), 0x80, 15, (None, 0xDE, 0xDF))
+            for k in sorted(v) if self.sort_keys else v:
+                self.value(k)
+                self.value(v[k])
+        elif isinstance(v, Bfloat16):
+            self.ext(_EXT_NDARRAY, _ndarray_record(v.bits.shape, "bfloat16", v.bits.tobytes()))
+        elif isinstance(v, np.ndarray):
+            self.ext(_EXT_NDARRAY, _ndarray_record(v.shape, v.dtype.name, v.tobytes("C")))
+        elif isinstance(v, np.generic):
+            a = np.asarray(v)
+            self.ext(_EXT_NPSCALAR, _ndarray_record(a.shape, a.dtype.name, a.tobytes("C")))
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+    def int(self, v: int) -> None:
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.put(">b" if v < 0 else ">B", v)
+        elif v > 0:
+            for code, fmt, top in ((0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF),
+                                   (0xCE, "I", 0xFFFFFFFF), (0xCF, "Q", 2**64 - 1)):
+                if v <= top:
+                    self.put(">B" + fmt, code, v)
+                    return
+        else:
+            for code, fmt, bits in ((0xD0, "b", 7), (0xD1, "h", 15), (0xD2, "i", 31), (0xD3, "q", 63)):
+                if v >= -(1 << bits):
+                    self.put(">B" + fmt, code, v)
+                    return
+        if not -(1 << 63) <= v < (1 << 64):
+            raise ValueError(f"integer {v} does not fit msgpack")
+
+    def ext(self, code: int, data: bytes) -> None:
+        n = len(data)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.put(">Bb", fixed[n], code)
+        else:
+            self.head(n, 0, -1, (0xC7, 0xC8, 0xC9))
+            self.put(">b", code)
+        self.out += data
+
+
+def _ndarray_record(shape, name: str, raw: bytes) -> bytes:
+    """flax's `_ndarray_to_bytes`: msgpack (shape, dtype name, C-order bytes)."""
+    w = _Writer()
+    w.value((tuple(int(d) for d in shape), name, raw))
+    return bytes(w.out)
+
+
+def write_flax_msgpack(path: str, tree: Any, sort_keys: bool = True) -> None:
+    """Write `tree` (nested dicts of numpy arrays, `Bfloat16` leaves and
+    Python values) as flax's `msgpack_serialize` would (`to_bytes` with
+    `sort_keys=False`), through a `.tmp` file and os.replace."""
+    w = _Writer(sort_keys)
+    w.value(tree)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(w.out)
+    os.replace(tmp, path)
 
 
 def is_flax_checkpoint(path: str) -> bool:

@@ -49,8 +49,9 @@ def parse_args(
         "--mesh",
         type=str,
         default="",
-        help="device mesh spec, e.g. 'data:2,rays:4' (multi-GPU is not ported "
-        "yet: a non-empty spec raises in the training CLI)",
+        help="process mesh spec, e.g. 'data:2,rays:4': the training CLI's "
+        "ranks over torch.distributed (world size = the product; empty = "
+        "all ranks on rays); the eval CLIs run on one device",
     )
     parser.add_argument(
         "--name", "-n", type=str, default=default_expname, help="experiment name"

@@ -6,9 +6,9 @@ Counterpart of `pixelnerf_tpu/utils/metrics.py` (`psnr`, `psnr_np`,
 multichannel=True, data_range=1)` that the reference uses
 (eval/calc_metrics.py:188-191, eval/eval_approx.py:143-148):
 gaussian_weights=False, a uniform 7x7 window, K1=0.01, K2=0.03,
-use_sample_covariance=True. LPIPS is not ported: the JAX package has it
-only with weights that are absent offline, where it reports NaN, and so
-does the port's `eval/calc_metrics.py` (ROADMAP queue 1).
+use_sample_covariance=True. `lpips_fn` is the JAX module's: the VGG LPIPS
+of `utils/lpips.py` where its weights are on disk, else None, and the
+metric pipelines then report NaN.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["psnr", "psnr_np", "ssim_np"]
+__all__ = ["psnr", "psnr_np", "ssim_np", "lpips_fn"]
 
 
 def psnr(pred, target) -> float:
@@ -86,3 +86,18 @@ def ssim_np(
         return float(np.mean([_ssim_single(img1[..., c], img2[..., c], data_range, win_size)
                               for c in range(img1.shape[-1])]))
     return _ssim_single(img1, img2, data_range, win_size)
+
+
+def lpips_fn(net: str = "vgg", weights: Optional[str] = None, device=None):
+    """An LPIPS callable (im1, im2 in [-1, 1], NCHW numpy) -> float on
+    `device` (CUDA unless named), or None when there are no weights:
+    `weights`, $PIXELNERF_LPIPS_WEIGHTS or checkpoints/lpips_vgg.npz
+    (`utils/lpips.py`). Only net='vgg' exists."""
+    from pixelnerf_tpu_torch.utils import lpips
+
+    params = lpips.load_params(weights) if net == "vgg" else None
+    if params is None:
+        return None
+    from pixelnerf_tpu_torch.device import resolve_device
+
+    return lpips.make_lpips(params, resolve_device(device))

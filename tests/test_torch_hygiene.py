@@ -38,7 +38,8 @@ def test_port_files_found():
         "field.py", "posenc.py", "pyramid.py", "resnetfc.py", "pixelnerf.py", "losses.py",
         "step.py", "convert.py", "chip_smoke.py", "checkpoint.py", "eval_approx.py",
         "gen_video.py", "eval_mesh.py", "calc_metrics.py", "eval_real.py", "recon.py",
-        "isosurface.py", "cameras.py", "video.py",
+        "isosurface.py", "cameras.py", "video.py", "mesh.py", "launch.py", "lpips.py",
+        "preproc.py", "profile_step.py", "export_checkpoint.py", "port_encoder_weights.py",
     } <= names
 
 

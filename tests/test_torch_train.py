@@ -348,7 +348,7 @@ def test_stop_encoder_grad_detaches_the_latent():
     assert model.mlp_fine.lin_in.weight.grad.norm() > 0
 
 
-def _jax_step(jmodel, variables, b, rcfg_j):
+def _jax_step(jmodel, variables, b, rcfg_j, **step_kw):
     captured = {}
 
     def capture(updates, state, params=None):
@@ -358,7 +358,7 @@ def _jax_step(jmodel, variables, b, rcfg_j):
     tx = optax.chain(
         optax.GradientTransformation(lambda p: optax.EmptyState(), capture), optax.adam(LR)
     )
-    step = j_make_train_step(jmodel, rcfg_j, tx, R, NEAR, FAR)
+    step = j_make_train_step(jmodel, rcfg_j, tx, R, NEAR, FAR, **step_kw)
     batch = {k: jnp.asarray(v) for k, v in b.items()}
     state, aux = step(create_train_state(variables, tx), batch, jax.random.PRNGKey(0))
     return jax.device_get(state), jax.device_get(aux), jax.device_get(captured["grads"])
@@ -382,14 +382,16 @@ def test_train_step_matches_jax(dtype_name, monkeypatch):
     _assert_step_matches(dtype_name, model, model, conf_t, variables, b, jstate, jaux, jgrads)
 
 
-def _assert_step_matches(dtype_name, model, stepped, conf_t, variables, b, jstate, jaux, jgrads):
+def _assert_step_matches(dtype_name, model, stepped, conf_t, variables, b, jstate, jaux, jgrads,
+                         **step_kw):
     """One port train step of `stepped` (`model`, or a view of it sharing
     its parameters) with an optimizer over `model`'s parameters, held
     against the JAX step's loss, gradients, parameters after Adam and
-    running statistics."""
+    running statistics. `step_kw` goes to `make_train_step`."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     optimizer = make_optimizer(model, LR)
-    step = make_train_step(stepped, RendererConfig.from_conf(conf_t["renderer"]), optimizer, R, NEAR, FAR)
+    step = make_train_step(stepped, RendererConfig.from_conf(conf_t["renderer"]), optimizer, R, NEAR, FAR,
+                           **step_kw)
     aux = step({k: torch.from_numpy(v) for k, v in b.items()})
     assert stepped.training
 

@@ -11,7 +11,7 @@
 - `main(argv, device="cpu")` end to end on tests/test_cli_pipelines.py's
   tiny conf and fixture data: two epochs, then a resume to a third, with
   the resumed state equal bit for bit to the saved one;
-- the flags the port does not honour, and no GPU with no device.
+- the two flags once unported (`--mesh`, `--remat`), and no GPU with no device.
 """
 
 import json
@@ -362,12 +362,22 @@ def test_train_cli_end_to_end_and_resume(workspace):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--mesh", "data:2"], "queue 1 item 7"),
-    (["--remat"], "queue 1 item 9"),
+    pytest.param(["--mesh", "data:2"], "covers 2 devices but 1 are available",
+                 id="flag0-queue 1 item 7"),
+    pytest.param(["--remat"], None, id="flag1-queue 1 item 9"),
 ])
 def test_unported_flags_raise(workspace, flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(_common_args(workspace, "t2") + flag, device="cpu")
+    """The two flags once unported: `--mesh` now raises only where the world
+    (here one process, no group) does not match the mesh's product;
+    `--remat` trains, the query rematerialized (tests/test_torch_remat.py
+    holds the step)."""
+    if match:
+        with pytest.raises(ValueError, match=match):
+            tcli.main(_common_args(workspace, "t2") + flag, device="cpu")
+        return
+    trainer = tcli.main(_common_args(workspace, "t2") + flag + ["--epochs", "1"], device="cpu")
+    assert trainer.optimizer.count == 1
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
 
 
 def test_spmd_mode_alone_is_accepted(workspace):
