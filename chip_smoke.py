@@ -140,7 +140,21 @@ Phases, each failing loudly (an exception and a non-zero exit):
    artifact again, byte for byte), import, and a srn600.conf view from it
    equal to the artifact's. sn64.conf's CLI run in phase 10 rematerializes
    its float32 MLP's query (remat "auto");
-12. a `kernels` JSON line, the card line, and the result line. A kernel's
+12. past the chains' widths (hidden or padded d_in past 512, more than 64
+   views), the layered kernels of `ops/layer_chain.py`: phase 3 records
+   each launch of a stash forward and a backward at the coarse call's
+   shapes (hidden 1024 with 2 views, hidden 64 with 80, hidden 512 with 2)
+   and replays it as the kernel and as its plain version, timed beside
+   bf16 torch.matmul of the same product (`layered` lines; at hidden 512
+   also against the chain); at the end srn.conf with d_hidden 1024 runs
+   phase 4's view and phase 5's cached and fused steps against the CPU
+   (`wide` lines), and srn.conf renders one 128x128 view from 80 source
+   views of an object written by the port's `make_synthetic_dataset`, in
+   chunks of 8.8M pre-pool rows, 64 rays spread over the view held against
+   the CPU plain render in rgb, depth and alpha, the card's plain route
+   beside them (`80 views` lines); the tools phase also runs `trace_summary`,
+   `make_synthetic_dataset` and `pose_sanity_check`;
+13. a `kernels` JSON line, the card line, and the result line. A kernel's
    ms, plain_ms, bound_ms and library_ms there are sums over the shapes of
    one view (posenc, field) or of one train step (the others); its
    launches are the most that one counted run of phases 4-7 made,
@@ -230,6 +244,7 @@ KERNELS = (
     "posenc_concat", "pyramid_field_fused", "pyramid_field_fused_fwd_stash",
     "pyramid_field_fused_bwd", "pyramid_gather", "pyramid_scatter_add", "resnetfc_fwd",
     "resnetfc_fwd_stash", "resnetfc_bwd", "bilerp_gather", "bilerp_scatter_add",
+    "layer_fwd", "layer_bwd", "view_pool_fwd", "view_pool_bwd",
 )
 
 
@@ -556,18 +571,19 @@ def _check_wgrad(torch, label, dw, again, want):
           f"Frobenius of the plain products, two runs bit-identical")
 
 
-def _random_weights(torch, g, dev, d_latent):
-    """Random (in, out) ResnetFC weights of the flagship head; fc_1 non-zero
-    (a zero-initialized fc_1 would hide the block chain)."""
+def _random_weights(torch, g, dev, d_latent, hidden=HIDDEN):
+    """Random (in, out) ResnetFC weights of the flagship head (at `hidden`);
+    fc_1 non-zero (a zero-initialized fc_1 would hide the block chain)."""
     from pixelnerf_tpu_torch.ops.field import FieldWeights
 
     rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+    h = hidden
     return FieldWeights(
-        w_in=rnd(D_IN, HIDDEN, scale=D_IN ** -0.5), b_in=rnd(HIDDEN, scale=0.1),
-        wz=rnd(3, d_latent, HIDDEN, scale=d_latent ** -0.5), bz=rnd(3, HIDDEN, scale=0.1),
-        w0=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=HIDDEN ** -0.5), b0=rnd(N_BLOCKS, HIDDEN, scale=0.1),
-        w1=rnd(N_BLOCKS, HIDDEN, HIDDEN, scale=0.5 * HIDDEN ** -0.5), b1=rnd(N_BLOCKS, HIDDEN, scale=0.1),
-        w_out=rnd(HIDDEN, D_OUT, scale=HIDDEN ** -0.5), b_out=rnd(D_OUT, scale=0.1),
+        w_in=rnd(D_IN, h, scale=D_IN ** -0.5), b_in=rnd(h, scale=0.1),
+        wz=rnd(3, d_latent, h, scale=d_latent ** -0.5), bz=rnd(3, h, scale=0.1),
+        w0=rnd(N_BLOCKS, h, h, scale=h ** -0.5), b0=rnd(N_BLOCKS, h, scale=0.1),
+        w1=rnd(N_BLOCKS, h, h, scale=0.5 * h ** -0.5), b1=rnd(N_BLOCKS, h, scale=0.1),
+        w_out=rnd(h, D_OUT, scale=h ** -0.5), b_out=rnd(D_OUT, scale=0.1),
     )
 
 
@@ -1818,15 +1834,16 @@ def profile_view(torch, view, label="one view"):
 
 
 def _counters():
-    from pixelnerf_tpu_torch.ops import field, posenc, pyramid, resnetfc, scatter
+    from pixelnerf_tpu_torch.ops import field, layer_chain, posenc, pyramid, resnetfc, scatter
 
-    modules = (field, posenc, pyramid, resnetfc, scatter)
+    modules = (field, layer_chain, posenc, pyramid, resnetfc, scatter)
     return {name: next(getattr(m, name) for m in modules if hasattr(m, name)) for name in KERNELS}
 
 
 def _counted(torch, fn, expected, label):
     """Run fn with every launch count set to 0 just before and read just
     after; fail unless each kernel launched as often as `expected` says."""
+    from pixelnerf_tpu_torch.ops.layer_chain import layer_wgrad
     from pixelnerf_tpu_torch.ops.resnetfc import launch_bwd
 
     counters = _counters()
@@ -1834,15 +1851,20 @@ def _counted(torch, fn, expected, label):
     for w in counters.values():
         w.launches = 0
     chain0, wgrad0 = launch_bwd.chain_launches, launch_bwd.wgrad_launches
+    layered0 = layer_wgrad.launches
     res = fn()
     torch.cuda.synchronize()
     got = {name: w.launches for name, w in counters.items()}
     # the backward wrappers launch the cotangent chain and the
-    # weight-gradient products: one chain each
+    # weight-gradient products: one chain each; the layered backward the
+    # weight-gradient products too
     parts = (launch_bwd.chain_launches - chain0, launch_bwd.wgrad_launches - wgrad0)
-    print(f"{label}: launches {got}; backward chain {parts[0]}, wgrad {parts[1]}")
+    layered_wgrad = layer_wgrad.launches - layered0
+    print(f"{label}: launches {got}; backward chain {parts[0]}, wgrad {parts[1]}, layered wgrad "
+          f"{layered_wgrad}")
     bwd_calls = got["resnetfc_bwd"] + got["pyramid_field_fused_bwd"]
-    if got != expected or parts != (bwd_calls, WGRAD_LAUNCHES * bwd_calls):
+    if got != expected or parts != (bwd_calls, WGRAD_LAUNCHES * bwd_calls) or (
+            (layered_wgrad > 0) != (got["layer_bwd"] > 0)):
         raise AssertionError(f"{label}: launches {got}, expected {expected}")
     return res, got
 
@@ -2479,7 +2501,8 @@ def _eval_cli(torch, dev, label, main, argv, card, patches=()):
 
 def _held_render(torch, label, model_cpu, first, idx, alpha_range):
     """The card's first render against the CPU plain render of the same
-    rays (`idx` of them) on the same checkpoint and encoding."""
+    rays (`idx` of them) on the same checkpoint and encoding; returns the
+    CPU render."""
     from pixelnerf_tpu_torch.eval.render_utils import render_full
 
     args, kw, out = first
@@ -2499,6 +2522,7 @@ def _held_render(torch, label, model_cpu, first, idx, alpha_range):
             raise AssertionError(f"{label}: {head} render disagrees with the CPU plain render")
         if not (alpha_range[0] <= alpha <= alpha_range[1] and rgb_std >= RGB_STD_MIN):
             raise AssertionError(f"{label}: {head}: the compared rays show too little of the field")
+    return ref
 
 
 def run_cli(torch, np, dev, root, card, bare_step_s):
@@ -2887,6 +2911,385 @@ def check_wide_latent(torch, np, dev):
         del dz, dxin, dw, wdz, wdxin, wdw, pairs
         torch.cuda.empty_cache()
     return out
+
+
+# the layered path (ops/layer_chain.py, csrc/layer_chain.cu): the widths the
+# chains lack. Its kernels are held against their plain versions launch by
+# launch at the coarse train call's shapes (SB x NS x B = 524,288 pre-pool
+# rows) at hidden 1024 with 2 views (the wide phase's model), hidden 64
+# with 80 views and hidden 512 with 2 views (also against the chain there).
+# One product's f32 outputs: the same exact bf16 products summed in another
+# order, within 1e-3 of the largest magnitude; bf16 copies that and one
+# bf16 ulp more (a value near zero may round from either side of it).
+LAYERED_CASES = (
+    ("hidden_1024", 1024, TRAIN_NS, TRAIN_RAYS * N_COARSE),
+    ("views_80", 64, 80, TRAIN_RAYS * N_COARSE * TRAIN_NS // 80),
+    ("hidden_512", 512, TRAIN_NS, TRAIN_RAYS * N_COARSE),
+)
+LAYER_F32_TOL, LAYER_BF16_ULP = 1e-3, 2.0 ** -7
+WIDE_HIDDEN = 1024
+WIDE_NAME = f"srn.conf d_hidden {WIDE_HIDDEN}"
+LAYERED_REPLACES = {
+    "layer_fwd": "pixelnerf_tpu/ops/resnetfc_pallas.py:551",
+    "view_pool_fwd": "pixelnerf_tpu/ops/resnetfc_pallas.py:551",
+    "layer_bwd": "pixelnerf_tpu/ops/resnetfc_pallas.py:607",
+    "view_pool_bwd": "pixelnerf_tpu/ops/resnetfc_pallas.py:607",
+}
+# the layered launches of one ResnetFC call at srn.conf's 5 blocks and 3
+# injections: w_in, 3 injections, 2 a block and lin_out; the pooling. The
+# backward: lin_out, 2 a block, 3 injections and dxin; bf(g) and the pooling
+LAYER_FWD_CALL = 1 + 3 + 2 * N_BLOCKS + 1
+LAYER_BWD_CALL = 1 + 2 * N_BLOCKS + 3 + 1
+
+
+def _layered(fwd_calls, bwd_calls=0, **counts):
+    """A launch table of layered calls: each forward call's layer_fwd and
+    pooling launches, each backward call's layer_bwd and pooling ones."""
+    return _launch_table(layer_fwd=LAYER_FWD_CALL * fwd_calls, view_pool_fwd=fwd_calls,
+                         layer_bwd=LAYER_BWD_CALL * bwd_calls, view_pool_bwd=2 * bwd_calls, **counts)
+
+
+WIDE_VIEW_LAUNCHES = _layered(2, posenc_concat=2, pyramid_gather=2)
+WIDE_TRAIN_LAUNCHES = _layered(3, 3, posenc_concat=2, pyramid_gather=2, pyramid_scatter_add=2)
+WIDE_EVAL_LAUNCHES = _layered(3, posenc_concat=2, pyramid_gather=2)
+WIDE_FUSED_TRAIN_LAUNCHES = _layered(2, 2, posenc_concat=2, pyramid_gather=2, pyramid_scatter_add=2)
+WIDE_FUSED_EVAL_LAUNCHES = _layered(2, posenc_concat=2, pyramid_gather=2)
+# the 80-view render: one object of VIEWS80 + 1 views written by the
+# port's make_synthetic_dataset, the last rendered from the others through
+# render_full in chunks of 1,152 rays (x 96 fine samples x 80 views = 8.8M
+# pre-pool rows, 69,120 row tiles of the layered products: past the 65,535
+# of a grid's y axis); VIEWS80_HELD rays, one every other row with its
+# column stepped by 37 (prime to the width), so that they cover the view's
+# rows and columns, against the CPU plain render
+VIEWS80, VIEWS80_CHUNK, VIEWS80_HELD = 80, 1152, 64
+
+
+def _recording(names):
+    """A context that records each call of `ops/layer_chain.py`'s `names`
+    (its bound arguments, the tensors themselves) while it runs them."""
+    import contextlib
+    import inspect
+
+    from pixelnerf_tpu_torch.ops import layer_chain
+
+    calls = []
+
+    @contextlib.contextmanager
+    def patched():
+        reals = {n: getattr(layer_chain, n) for n in names}
+
+        def wrap(name, real):
+            sig = inspect.signature(real)
+
+            def call(*args, **kwargs):
+                calls.append((name, dict(sig.bind(*args, **kwargs).arguments)))
+                return real(*args, **kwargs)
+
+            call.__dict__ = real.__dict__
+            return call
+
+        for n, real in reals.items():
+            setattr(layer_chain, n, wrap(n, real))
+        try:
+            yield calls
+        finally:
+            for n, real in reals.items():
+                setattr(layer_chain, n, real)
+
+    return patched()
+
+
+# each layered kernel's outputs (written in place) among its arguments
+LAYER_OUTPUTS = {"layer_fwd": ("x", "y"), "layer_bwd": ("x", "y", "colsum"),
+                 "view_pool_fwd": ("out", "y"), "view_pool_bwd": ("gx", "y", "colsum")}
+
+
+def _launch_cost(name, a):
+    """(FLOPs, bytes, library call or None) of one recorded launch: each
+    input read once, each output written once (the residual read too where
+    the product adds into it); the library call is the same product as one
+    bf16 torch.matmul, or the mean as torch.mean."""
+    nb = lambda t: 0 if t is None else t.numel() * t.element_size()
+    if name in ("layer_fwd", "layer_bwd"):
+        w = a["w"]
+        m, k = a["a"].shape
+        n = w.shape[0] if name == "layer_bwd" else w.shape[1]
+        cols = a.get("cols") or n
+        out_bytes = sum(m * cols * s for key, s in (("x", 4), ("y", 2)) if a.get(key) is not None)
+        in_bytes = nb(a["a"]) + nb(w) + nb(a.get("bias")) + (m * cols * 2 if a.get("mask") is not None else 0)
+        in_bytes += m * cols * 4 if a.get("add") else 0
+        lib = (lambda: a["a"] @ w.t()) if name == "layer_bwd" else (lambda: a["a"] @ w)
+        return 2 * m * n * k, in_bytes + out_bytes + nb(a.get("colsum")), lib
+    if name == "view_pool_fwd":
+        x = a["x"]
+        return x.numel(), nb(x) + nb(a["out"]) + nb(a.get("y")), (lambda: x.mean(dim=1))
+    g, ns = a["g"], a["ns"]
+    return g.numel() * ns, nb(g) + nb(a.get("gx")) + nb(a.get("y")) + nb(a.get("colsum")), None
+
+
+def _replay_launch(torch, name, a):
+    """One recorded launch again, on copies of its outputs, as the kernel
+    and as the plain version: (max abs error, kernel ms, plain ms, library
+    ms or None, FLOPs, bytes). f32 outputs within LAYER_F32_TOL of their
+    largest magnitude, bf16 ones within one bf16 ulp."""
+    from pixelnerf_tpu_torch.ops import layer_chain
+
+    kernel, plain = getattr(layer_chain, name), getattr(layer_chain, f"{name}_plain")
+    outs = [k for k in LAYER_OUTPUTS[name] if a.get(k) is not None]
+    start = {k: a[k].clone() for k in outs}
+
+    def run(fn):
+        args = dict(a)
+        args.update({k: start[k].clone() for k in outs})
+        fn(**args)
+        return {k: args[k] for k in outs}
+
+    got, want = run(kernel), run(plain)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in outs:
+        g, w = got[k].float(), want[k].float()
+        d = (g - w).abs()
+        err = max(err, d.max().item())
+        # a bf16 copy: the f32 value's allowance, then one bf16 ulp
+        bound = LAYER_F32_TOL * w.abs().max() + (
+            LAYER_BF16_ULP * w.abs() if got[k].dtype == torch.bfloat16 else 0.0)
+        if not (torch.isfinite(g).all() and (d <= bound + 1e-30).all()):
+            raise AssertionError(f"{name}: output {k} disagrees with the plain version "
+                                 f"(max abs error {d.max().item():.3e})")
+    del got, want
+    flops, nbytes, lib = _launch_cost(name, a)
+    ka = dict(a)
+    ka.update({k: start[k] for k in outs})
+    ms = _time_ms(torch, lambda: kernel(**ka), 1, 3)
+    plain_ms = _time_ms(torch, lambda: plain(**ka), 0, 1)
+    lib_ms = None if lib is None else _time_ms(torch, lib, 1, 3)
+    return err, ms, plain_ms, lib_ms, flops, nbytes
+
+
+def check_layered(torch, np, dev):
+    """The layered kernels at the widths the chains lack, launch by launch
+    at the coarse train call's shapes, against their plain versions: the
+    stash forward and the backward of each case in LAYERED_CASES through
+    the wrappers the model calls, each recorded launch replayed as the
+    kernel and as the plain version and timed beside bf16 torch.matmul of
+    the same product; the whole forward and backward against the plain
+    ones; at hidden 512 the layered path against the chain. Returns the
+    four kernels' records (hidden 1024's sums, the other cases under their
+    names)."""
+    from pixelnerf_tpu_torch.ops.field import FieldWeights
+    from pixelnerf_tpu_torch.ops.layer_chain import layered_bwd, layered_fwd
+    from pixelnerf_tpu_torch.ops.resnetfc import (
+        resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd, resnetfc_fwd_plain, resnetfc_fwd_stash,
+        takes_chains,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    recs = {}
+    for case, hidden, ns, b in LAYERED_CASES:
+        args = (N_BLOCKS, COMBINE, ns)
+        w = _random_weights(torch, g, dev, 512, hidden)
+        z = torch.randn((SB, ns, b, 512), generator=g, device=dev).to(torch.bfloat16)
+        xin = torch.randn((SB, ns, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+        gout = torch.randn((SB, b, D_OUT), generator=g, device=dev) * 1e-3
+        chained = takes_chains(hidden, 512, D_IN, D_OUT, ns)
+        if chained != (case == "hidden_512"):
+            raise AssertionError(f"layered {case}: the wrappers' route is not the expected one")
+        fwd = (lambda: layered_fwd(z, xin, w, *args, stash=True)) if chained else (
+            lambda: resnetfc_fwd_stash(z, xin, w, *args))
+        with _recording(LAYER_OUTPUTS) as calls:
+            out, spre, spost = fwd()
+            bwd = (lambda: layered_bwd(z, xin, gout, spre, spost, w, *args)[:3]) if chained else (
+                lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args))
+            dz, dxin, dw = bwd()
+        torch.cuda.synchronize()
+        sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0, max_abs_err=0.0, n=0,
+                        lib=False) for k in LAYER_OUTPUTS}
+        for name, a in calls:
+            err, ms, plain_ms, lib_ms, flops, nbytes = _replay_launch(torch, name, a)
+            s = sums[name]
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["library_ms"] += lib_ms or 0.0
+            s["lib"] |= lib_ms is not None
+            s["flops"] += flops
+            s["bytes"] += nbytes
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["n"] += 1
+        del calls
+        torch.cuda.empty_cache()
+        label = f"layered {case} (SB={SB} NS={ns} B={b} hidden {hidden})"
+        for name, s in sums.items():
+            t_ops = s["flops"] / (PEAK_BF16_FLOPS if name.startswith("layer_") else PEAK_F32_FLOPS) * 1e3
+            t_bytes = s["bytes"] / PEAK_BYTES * 1e3
+            s["bound_ms"], s["bound_by"] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            print(f"{label}: {name} x{s['n']} launches: kernel {s['ms']:.3f} ms, plain "
+                  f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms ({s['bound_by']}), library "
+                  + (f"{s['library_ms']:.3f} ms" if s["lib"] else "none")
+                  + f", {s['flops'] / max(s['ms'], 1e-9) / 1e9:.1f} TFLOP/s, max_abs_err "
+                  f"{s['max_abs_err']:.3e}; each launch against its plain version")
+        want = resnetfc_fwd_plain(z, xin, w, *args)
+        excess = ((out - want).abs() - (FIELD_ATOL + FIELD_RTOL * want.abs())).max().item()
+        primal = layered_fwd(z, xin, w, *args, stash=False)[0] if chained else resnetfc_fwd(
+            z, xin, w, *args)
+        if not (torch.isfinite(out).all() and excess <= 0 and torch.equal(out, primal)):
+            raise AssertionError(f"{label}: the forward disagrees with its plain version")
+        del want, primal
+        wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args)
+        pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
+            (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields]
+        _check_grads(torch, f"{label} backward", pairs, False)
+        del wdz, wdxin, wdw, pairs
+        if chained:  # the chain's forward and backward beside the layered ones
+            out_c, cpre, cpost = resnetfc_fwd_stash(z, xin, w, *args)
+            d = (out - out_c).abs()
+            if (d - (FIELD_ATOL + FIELD_RTOL * out_c.abs())).max().item() > 0:
+                raise AssertionError(f"{label}: the layered forward disagrees with the chain's")
+            for st, sc in ((spre, cpre), (spost, cpost)):
+                if (st.float() - sc.float()).abs().gt(FIELD_ATOL + FIELD_RTOL * sc.float().abs()).any():
+                    raise AssertionError(f"{label}: the layered stash disagrees with the chain's")
+            for pre, post, which in ((cpre, cpost, "chain"), (spre, spost, "layered")):
+                lz, lx, lw = layered_bwd(z, xin, gout, pre, post, w, *args)[:3]
+                cz, cx, cw = resnetfc_bwd(z, xin, gout, pre, post, w, *args)
+                pairs = [("dz", lz, cz), ("dxin", lx, cx)] + [
+                    (f"d{n}", getattr(lw, n), getattr(cw, n)) for n in FieldWeights._fields]
+                _check_grads(torch, f"{label} layered vs chain backward on the {which} stash",
+                             pairs, False)
+            print(f"{label}: the layered forward within {FIELD_ATOL} + {FIELD_RTOL} relative of the "
+                  f"chain's (max {d.max().item():.3e}), its stash too, and both backwards agree on "
+                  "either stash")
+            del out_c, cpre, cpost, d, pairs
+        res = {k: {"ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                   "bound_by": s["bound_by"], "max_abs_err": s["max_abs_err"],
+                   "library_ms": s["library_ms"] if s["lib"] else None,
+                   "launches_a_call": s["n"], "shape": f"SB={SB} NS={ns} B={b} hidden {hidden}"}
+               for k, s in sums.items()}
+        for k, r in res.items():
+            if case == "hidden_1024":
+                recs[k] = _record(k, "cuda", "pixelnerf_tpu_torch/csrc/layer_chain.cu",
+                                  LAYERED_REPLACES[k], {x: r[x] for x in (
+                                      "ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
+                                      "launches_a_call")}, r["bound_by"], r["library_ms"])
+            else:
+                recs[k][case] = r
+        del z, xin, gout, out, spre, spost, dz, dxin, dw, w
+        torch.cuda.empty_cache()
+    return [recs[k] for k in LAYER_OUTPUTS]
+
+
+def run_wide(torch, np, dev, conf, card):
+    """srn.conf with d_hidden 1024 in both heads, everything else uncut: a
+    128x128 view through render_full (held rays against the CPU plain
+    render), the cached and the fused train steps at bench.py's batch
+    (against the CPU plain step), every counted run on the layered
+    kernels and no chain. Returns the counted runs' launches."""
+    wide = _config_variant(conf, **{"mlp_coarse.d_hidden": WIDE_HIDDEN,
+                                    "mlp_fine.d_hidden": WIDE_HIDDEN})
+    runs = run_view(torch, np, dev, wide, card, "wide slice", WIDE_VIEW_LAUNCHES, name=WIDE_NAME)
+    torch.cuda.empty_cache()
+    runs += run_train(torch, np, dev, wide, card, "wide train", WIDE_TRAIN_LAUNCHES,
+                      WIDE_EVAL_LAUNCHES, name=WIDE_NAME)
+    torch.cuda.empty_cache()
+    runs += run_train(torch, np, dev, wide, card, "wide fused train", WIDE_FUSED_TRAIN_LAUNCHES,
+                      WIDE_FUSED_EVAL_LAUNCHES, fusion=True, name=WIDE_NAME)
+    return runs
+
+
+def _card_plain_route():
+    """A context manager in which the kernel wrappers of the ResnetFC, the
+    field, the layered path and the bilerp lookup run their plain versions
+    on the card's tensors (their device test answers "cpu"): the card's
+    own float32 arithmetic, for a witness beside the CPU plain render."""
+    import contextlib
+    import importlib
+
+    @contextlib.contextmanager
+    def plain():
+        mods = [importlib.import_module(f"pixelnerf_tpu_torch.ops.{m}")
+                for m in ("resnetfc", "field", "layer_chain", "scatter")]
+        real = [m._device_of for m in mods]
+        for m in mods:
+            m._device_of = lambda t, what: "cpu"
+        try:
+            yield
+        finally:
+            for m, f in zip(mods, real):
+                m._device_of = f
+
+    return plain()
+
+
+def run_views80(torch, np, dev, conf, card):
+    """srn.conf (hidden 512) rendering one 128x128 view of an object from
+    VIEWS80 source views: the object written by the port's
+    make_synthetic_dataset (srn layout), read by the port's SRN loader,
+    encoded, and the last view rendered through render_full in chunks of
+    VIEWS80_CHUNK rays on the layered kernels (80 views are past one
+    64-row tile, a chunk's rows past a grid's y axis); VIEWS80_HELD rays
+    spread over the view against the CPU plain render: rgb as every held
+    render, and each ray's depth and alpha. The same rays through the
+    card's plain route are printed beside them, as the witness of how far
+    the card's own float32 arithmetic lies from the CPU's. Returns the
+    counted run's launches."""
+    import tempfile
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.eval.common import encode_views
+    from pixelnerf_tpu_torch.eval.render_utils import render_full
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.render.renderer import RendererConfig
+    from pixelnerf_tpu_torch.tools import make_synthetic_dataset
+    from pixelnerf_tpu_torch.utils.rays import gen_rays
+
+    label = "80 views"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_synthetic_dataset.main(["--out", tmp, "--format", "srn", "--n_objs", "1", "--n_views",
+                                     str(VIEWS80 + 1), "--size", str(VIEW_SIZE), "--seed", "5"])
+        item = get_split_dataset("srn", f"{tmp}/shapes", want_split="train", training=False)[0]
+        print(f"{label}: make_synthetic_dataset wrote one object of {VIEWS80 + 1} "
+              f"{VIEW_SIZE}x{VIEW_SIZE} views in {time.perf_counter() - t0:.1f} s")
+    images, poses, focal = item["images"], item["poses"], float(item["focal"])
+    model = make_model(conf["model"], device=dev, seed=0)
+    shape_heads(torch, model)
+    rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0)
+    target = torch.from_numpy(poses[VIEWS80:]).to(dev)
+    rays = gen_rays(target, VIEW_SIZE, VIEW_SIZE, focal, 0.8, 1.8).reshape(-1, 8)
+    enc = encode_views(model, images[:VIEWS80], poses[:VIEWS80], focal)
+    i = torch.arange(VIEWS80_HELD, device=dev)
+    held = 2 * i * VIEW_SIZE + 37 * i % VIEW_SIZE
+    fit_heads(torch, model, lambda: render_full(model, enc, rays[held], rcfg, chunk=VIEWS80_CHUNK),
+              label)
+    chunks = -(-rays.shape[0] // VIEWS80_CHUNK)
+    expected = _layered(2 * chunks, posenc_concat=2 * chunks, pyramid_gather=2 * chunks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = _counted(torch, lambda: render_full(model, enc, rays, rcfg, chunk=VIEWS80_CHUNK),
+                             expected, label)
+    view_s = time.perf_counter() - t0
+    print(f"{label}: srn.conf bf16, {VIEWS80} source views, {rays.shape[0]} rays in chunks of "
+          f"{VIEWS80_CHUNK} (render_full, encoding excluded) {view_s:.3f} s = "
+          f"{rays.shape[0] / view_s:.1f} rays/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    for head in ("coarse", "fine"):
+        rgb = out[head]["rgb"]
+        if not torch.isfinite(rgb).all() or rgb.shape != (VIEW_SIZE * VIEW_SIZE, 3):
+            raise AssertionError(f"{label}: {head} rgb non-finite or misshapen")
+    ref = _held_render(torch, label, copy.deepcopy(model).to("cpu"),
+                       ((model, enc, rays, rcfg), {}, out), held, ALPHA_RANGE)
+    with torch.no_grad(), _card_plain_route():
+        plain = render_full(model, enc, rays[held], rcfg, chunk=VIEWS80_CHUNK)
+    for head in ("coarse", "fine"):
+        for key in ("depth", "alpha", "rgb"):
+            d = (out[head][key][held].cpu() - ref[head][key]).abs()
+            dp = (plain[head][key].cpu() - ref[head][key]).abs()
+            print(f"{label}: {head} {key} vs CPU plain max {d.max().item():.3e} mean "
+                  f"{d.mean().item():.3e}; the card's plain route vs CPU plain max "
+                  f"{dp.max().item():.3e} mean {dp.mean().item():.3e}")
+            if key != "rgb" and not (d.max().item() <= RENDER_ATOL and d.mean().item() <= RENDER_MEAN):
+                raise AssertionError(f"{label}: {head} {key} disagrees with the CPU plain render")
+    return [launches]
 
 
 def _write_dtu_dataset(np, root):
@@ -3479,7 +3882,9 @@ def run_remat(torch, np, dev, root, card):
 
 def run_tools(torch, np, dev, root, card):
     """`tools/profile_step` through its `main` at the flagship's shapes
-    (2 profiled train steps after 2 warm ones), and `tools/export_checkpoint`
+    (2 profiled train steps after 2 warm ones) and `tools/trace_summary` on
+    its trace, `tools/make_synthetic_dataset` (an SRN layout) and
+    `tools/pose_sanity_check` on what it wrote, and `tools/export_checkpoint`
     on the trained artifact: import, export (the artifact again, byte for
     byte), import of that, and one 128x128 view of srn600.conf from it
     equal to the view from the artifact itself."""
@@ -3491,7 +3896,9 @@ def run_tools(torch, np, dev, root, card):
     from pixelnerf_tpu_torch.eval.render_utils import render_full
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
-    from pixelnerf_tpu_torch.tools import export_checkpoint, profile_step
+    from pixelnerf_tpu_torch.tools import (
+        export_checkpoint, make_synthetic_dataset, pose_sanity_check, profile_step, trace_summary,
+    )
     from pixelnerf_tpu_torch.utils import checkpoint as ckpt
     from pixelnerf_tpu_torch.utils import hocon
     from pixelnerf_tpu_torch.utils.rays import gen_rays
@@ -3506,6 +3913,20 @@ def run_tools(torch, np, dev, root, card):
             raise AssertionError("profile_step: no trace or no device time")
         print(f"profile_step: 2 flagship train steps, {busy / 1e3:.1f} ms of kernels, trace "
               f"{trace.stat().st_size / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s; on {card}")
+        where, total_ms, buckets, _ = trace_summary.main(["--logdir", tmp, "--steps", "2", "--top", "8"])
+        if where != "cuda" or not total_ms > 0 or not buckets.get("block chains", 0) > 0:
+            raise AssertionError("trace_summary: no device time in the chains' bucket")
+        print(f"trace_summary: {total_ms:.1f} ms of device time in the trace, "
+              f"{buckets['block chains'] / total_ms:.1%} in the block chains; on {card}")
+
+        data = f"{tmp}/synthetic"
+        make_synthetic_dataset.main(["--out", data, "--n_objs", "10", "--n_views", "6", "--size", "64"])
+        bad = pose_sanity_check.main(["--datadir", f"{data}/shapes", "--num_objects", "3",
+                                      "--num_views", "6", "--diagnostics"])
+        if bad != 0:
+            raise AssertionError(f"pose_sanity_check: {bad} bad poses on make_synthetic_dataset's")
+        print(f"make_synthetic_dataset, pose_sanity_check: 10 objects x 6 views written and "
+              f"checked without JAX; on {card}")
 
         artifact = str(root / "artifacts" / "srn600_bf16.ckpt")
         live, again = f"{tmp}/live", f"{tmp}/again"
@@ -3588,6 +4009,8 @@ def main() -> int:
     for k in kernels:
         k.update(wide.get(k["name"], {}))
     torch.cuda.empty_cache()
+    kernels += check_layered(torch, np, dev)
+    torch.cuda.empty_cache()
 
     # posenc is checked and timed after the counted view, the lookups after
     # the counted train step (and the bilerp gather after the counted
@@ -3635,6 +4058,10 @@ def main() -> int:
     run_remat(torch, np, dev, root, card)
     torch.cuda.empty_cache()
     run_tools(torch, np, dev, root, card)
+    torch.cuda.empty_cache()
+    runs += run_wide(torch, np, dev, conf, card)
+    torch.cuda.empty_cache()
+    runs += run_views80(torch, np, dev, conf, card)
     for k in kernels:
         if k["name"] in SERVE_KERNELS:
             k["serve_launches"] = {cli: n[k["name"]] for cli, n in serve.items()}

@@ -62,58 +62,10 @@ static int launch_chain(const BwdParams& p, const BwdMaps& maps, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The widths of a call (dims: sb, ns, b, d_latent, d_in, d_in_pad, hidden,
-// d_out, n_blocks, combine_layer) and what follows from them.
-static void bwd_dims(BwdParams* p, const int* dims) {
-  p->sb = dims[0];
-  p->ns = dims[1];
-  p->b = dims[2];
-  p->d_latent = dims[3];
-  p->d_in = dims[4];
-  p->d_in_pad = dims[5];
-  p->hidden = dims[6];
-  p->d_out = dims[7];
-  p->n_blocks = dims[8];
-  p->combine_layer = dims[9];
-  p->pts = chain_points(p->ns);
-  p->n_inj = p->combine_layer < p->n_blocks ? p->combine_layer : p->n_blocks;
-  p->k = p->ns > 1 ? p->n_inj : 0;
-}
-
 extern "C" {
 
 size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
   return bwd_smem_bytes(hidden, d_latent, ns);
-}
-
-// The weight-gradient workspace of a call with these dims (as
-// pnt_resnetfc_bwd's), in floats, on the current device; info gets the
-// units of the products' launch, the most and fewest splits of a product
-// and the bytes of the TMA boxes the launch loads. -1 if the call has more
-// blocks than the products take.
-long long pnt_wgrad_workspace(const int* dims, long long* info) {
-  BwdParams p = {};
-  bwd_dims(&p, dims);
-  int sms = 0;
-  if (wgrad_sms(&sms)) return -1;
-  WgradParams w;
-  const long long ws = wgrad_plan(&w, p, nullptr, nullptr, nullptr, nullptr, nullptr, sms);
-  if (ws < 0) return -1;
-  info[0] = w.units;
-  info[1] = info[2] = w.prod[0].splits;
-  info[3] = 0;
-  for (int i = 0; i < w.n_prod; i++) {
-    const WgProduct& q = w.prod[i];
-    info[1] = q.splits > info[1] ? q.splits : info[1];
-    info[2] = q.splits < info[2] ? q.splits : info[2];
-    // every tile loads its A boxes and G boxes once a 64-point step
-    long long boxes = 0;
-    for (int ka0 = 0; ka0 < q.ka; ka0 += WG_BK)
-      for (int n0 = 0; n0 < q.n; n0 += WG_BN)
-        boxes += (ka0 + 64 < q.ka ? 2 : 1) + (q.n - n0 >= WG_BN ? 4 : (q.n - n0 + 63) / 64);
-    info[3] += boxes * ((q.m + WG_PTS - 1) / WG_PTS) * WG_BOX;
-  }
-  return ws;
 }
 
 // ptrs, in order: z, xin, g, spre, spost, w_in, wz, w0, w1, w_out, gpre,

@@ -384,10 +384,12 @@ static inline int wgrad_sms(int* sms) {
 // cotangents (p.gpre, ...), the stash, z and `xin_pad` (xin's columns
 // padded to d_in_pad, rows of a multiple of 16 bytes as TMA needs) in;
 // the f32 gradients added to. `ws` holds the workspace floats that
-// wgrad_plan gives. Adds each kernel launched to *launched.
+// wgrad_plan gives; gout's rows are gout_ld columns (GOUT_LD from the
+// chain, d_out padded to 16 from the layered path). Adds each kernel
+// launched to *launched.
 static inline int wgrad_launch(const BwdParams& p, const bf16* xin_pad, float* ws, float* dw_in,
                                float* dwz, float* dw0, float* dw1, float* dw_out,
-                               cudaStream_t stream, int* launched) {
+                               cudaStream_t stream, int* launched, int gout_ld = GOUT_LD) {
   int sms = 0;
   int rc = wgrad_sms(&sms);
   if (rc) return rc;
@@ -404,7 +406,7 @@ static inline int wgrad_launch(const BwdParams& p, const bf16* xin_pad, float* w
   if (!rc) rc = operand_map(&w.maps[WG_Z], p.z, p.d_latent, p.d_latent, mpre, 1);
   if (!rc) rc = operand_map(&w.maps[WG_XIN], xin_pad, p.d_in_pad, p.d_in_pad, mpre, 1);
   if (!rc) rc = operand_map(&w.maps[WG_GIN], p.gin, H, H, mpre, 1);
-  if (!rc) rc = operand_map(&w.maps[WG_GOUT], p.gout, GOUT_LD, GOUT_LD, mpost, 1);
+  if (!rc) rc = operand_map(&w.maps[WG_GOUT], p.gout, gout_ld, gout_ld, mpost, 1);
   if (rc) return rc;
   const size_t smem = wgrad_smem_bytes();
   cudaError_t err =
@@ -421,3 +423,55 @@ static inline int wgrad_launch(const BwdParams& p, const bf16* xin_pad, float* w
   if (!rc) (*launched)++;
   return rc;
 }
+
+// The widths of a call (dims: sb, ns, b, d_latent, d_in, d_in_pad, hidden,
+// d_out, n_blocks, combine_layer) and what follows from them.
+static inline void bwd_dims(BwdParams* p, const int* dims) {
+  p->sb = dims[0];
+  p->ns = dims[1];
+  p->b = dims[2];
+  p->d_latent = dims[3];
+  p->d_in = dims[4];
+  p->d_in_pad = dims[5];
+  p->hidden = dims[6];
+  p->d_out = dims[7];
+  p->n_blocks = dims[8];
+  p->combine_layer = dims[9];
+  p->pts = chain_points(p->ns);
+  p->n_inj = p->combine_layer < p->n_blocks ? p->combine_layer : p->n_blocks;
+  p->k = p->ns > 1 ? p->n_inj : 0;
+}
+
+extern "C" {
+
+// The weight-gradient workspace of a call with these dims (as
+// pnt_resnetfc_bwd's and pnt_layer_wgrad's), in floats, on the current
+// device; info gets the units of the products' launch, the most and fewest
+// splits of a product and the bytes of the TMA boxes the launch loads. -1
+// if the call has more blocks than the products take.
+long long pnt_wgrad_workspace(const int* dims, long long* info) {
+  BwdParams p = {};
+  bwd_dims(&p, dims);
+  int sms = 0;
+  if (wgrad_sms(&sms)) return -1;
+  WgradParams w;
+  const long long ws = wgrad_plan(&w, p, nullptr, nullptr, nullptr, nullptr, nullptr, sms);
+  if (ws < 0) return -1;
+  info[0] = w.units;
+  info[1] = info[2] = w.prod[0].splits;
+  info[3] = 0;
+  for (int i = 0; i < w.n_prod; i++) {
+    const WgProduct& q = w.prod[i];
+    info[1] = q.splits > info[1] ? q.splits : info[1];
+    info[2] = q.splits < info[2] ? q.splits : info[2];
+    // every tile loads its A boxes and G boxes once a 64-point step
+    long long boxes = 0;
+    for (int ka0 = 0; ka0 < q.ka; ka0 += WG_BK)
+      for (int n0 = 0; n0 < q.n; n0 += WG_BN)
+        boxes += (ka0 + 64 < q.ka ? 2 : 1) + (q.n - n0 >= WG_BN ? 4 : (q.n - n0 + 63) / 64);
+    info[3] += boxes * ((q.m + WG_PTS - 1) / WG_PTS) * WG_BOX;
+  }
+  return ws;
+}
+
+}  // extern "C"

@@ -24,7 +24,9 @@ __all__ = ["build_libraries", "load_library", "nvcc_command", "SOURCES", "SMEM_L
 _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "pixelnerf_tpu_torch"
-SOURCES = ("bilerp", "field_fwd", "posenc", "pyramid", "resnetfc_fwd", "resnetfc_bwd")
+SOURCES = (
+    "bilerp", "field_fwd", "layer_chain", "posenc", "pyramid", "resnetfc_fwd", "resnetfc_bwd",
+)
 SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use
 
 

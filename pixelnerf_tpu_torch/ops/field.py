@@ -23,7 +23,11 @@ the design. The chains are built for hidden 64, 128, 256 and 512 (every
 config under `conf/` is 512 wide) and up to 64 views, whose rows fit one
 64-row tile; the wrappers zero-pad other widths up to 512 and d_latent
 to a multiple of 64, and run more than 16 outputs in groups
-(`ops/resnetfc.py:chain_plan`); past 512 or 64 views they raise.
+(`ops/resnetfc.py:chain_plan`). Past 512 or 64 views
+(`ops/resnetfc.py:takes_chains`) they compose the pyramid gather and
+scatter kernels with the layered ResnetFC kernels instead
+(`ops/layer_chain.py:layered_field_fwd`, `layered_field_bwd`), which count
+their own launches, not these wrappers'.
 
 `pyramid_field_fused` is the entry point: with autograd recording and an
 input or weight that needs a gradient it runs the stash forward and, on
@@ -53,10 +57,11 @@ import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
 from pixelnerf_tpu_torch.ops.pyramid import pyramid_gather_plain, pyramid_scatter_add_plain
+from pixelnerf_tpu_torch.ops import layer_chain
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    FieldWeights, _device_of, _pad16, _pad_last, chain_plan, check_chain_widths, even_d_in,
-    launch_bwd, out_group, out_groups, pack_field_weights, pad_chain_weights, resnetfc_bwd_plain,
-    resnetfc_fwd_plain, stash_layout,
+    FieldWeights, _chains_take, _device_of, _pad16, _pad_last, chain_plan, check_chain_widths,
+    even_d_in, launch_bwd, out_group, out_groups, pack_field_weights, pad_chain_weights,
+    resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter_plan import ScatterPlan, Segment
 
@@ -277,6 +282,9 @@ def pyramid_field_fused_fwd_stash(
     _check(feats, grid, xin, weights, n_blocks, combine_layer, ns)
     if _device_of(grid, "pyramid_field_fused_fwd_stash") == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
+    if not _chains_take(sum(f.shape[3] for f in feats), xin, weights, ns):
+        return layer_chain.layered_field_fwd(feats, grid, xin, weights, n_blocks, combine_layer, ns,
+                                             stash=True)
     res = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=True)
     pyramid_field_fused_fwd_stash.launches += out_groups(res[0].shape[-1])
     return res
@@ -311,6 +319,10 @@ def pyramid_field_fused_bwd(
         )
     if any(c % 2 for _, _, c in levels):
         raise ValueError("level channel counts must be even")
+    if not _chains_take(d_latent, xin, weights, ns):
+        d_feats, dxin, dw = layer_chain.layered_field_bwd(
+            grid, xin, g, zstash, stash_pre, stash_post, weights, n_blocks, combine_layer, ns, levels)
+        return [d.to(zstash.dtype) for d in d_feats], dxin, dw
     d_feats, dxin, dw, _ = launch_bwd(
         zstash, xin, g, stash_pre, stash_post, weights, n_blocks, combine_layer, ns,
         levels=levels, grid=grid,
@@ -375,6 +387,9 @@ def pyramid_field_fused(
         return _FieldFn.apply(grid, xin, (n_blocks, combine_layer, ns), len(feats), *feats, *weights)
     if _device_of(grid, "pyramid_field_fused") == "cpu":
         return field_plain(feats, grid, xin, weights, n_blocks, combine_layer, ns)
+    if not _chains_take(sum(f.shape[3] for f in feats), xin, weights, ns):
+        return layer_chain.layered_field_fwd(feats, grid, xin, weights, n_blocks, combine_layer, ns,
+                                             False)[0]
     out = _launch(feats, grid, xin, weights, n_blocks, combine_layer, ns, stash=False)[0]
     pyramid_field_fused.launches += out_groups(out.shape[-1])
     return out

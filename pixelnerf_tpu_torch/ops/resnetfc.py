@@ -26,20 +26,30 @@ stash); otherwise it runs the stash-free forward. Each of
 `resnetfc_fwd`, `resnetfc_fwd_stash` and `resnetfc_bwd` launches its
 kernel on CUDA tensors, once a group of 16 outputs, and counts each
 launch (`.launches`, `out_groups`); on CPU tensors it takes its plain
-version (`*_plain`). The fused field (ops/field.py)
-shares the weights' form (`FieldWeights`, `pack_field_weights`), the plain
-versions and the backward kernel.
+version (`*_plain`). At widths the chains lack after the wrappers'
+padding (hidden or the padded d_in past 512, more than 64 views:
+`takes_chains`) the CUDA wrappers run the layered kernels of
+`ops/layer_chain.py` instead, which count their own launches. The fused
+field (ops/field.py) shares the plain versions and the backward kernel;
+both and the layered path share the weights' form, the stash's slots and
+the padding (`ops/resnetfc_common.py`, whose names this module
+re-exports).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT, load_library
+from pixelnerf_tpu_torch.ops import layer_chain
+from pixelnerf_tpu_torch.ops.resnetfc_common import (
+    FieldWeights, _dot_g, _pad16, _pad_last, cut_weight_grads, pack_field_weights,
+    pad_chain_weights, resnetfc_wgrad_plain, stash_layout,
+)
 
 __all__ = [
     "FieldWeights",
@@ -57,6 +67,7 @@ __all__ = [
     "check_chain_widths",
     "chain_widths_ok",
     "chain_plan",
+    "takes_chains",
     "pad_chain_weights",
     "even_d_in",
 ]
@@ -64,46 +75,6 @@ __all__ = [
 _GOUT_LD = 16  # columns of the backward's bf16 copy of g (csrc/bwd_chain.cuh)
 
 _BF = torch.bfloat16
-
-
-class FieldWeights(NamedTuple):
-    """ResnetFC weights in (in, out) orientation (H = d_hidden):
-
-    w_in (d_in, H), b_in (H,); wz (n_inj, d_latent, H), bz (n_inj, H);
-    w0, w1 (n_blocks, H, H), b0, b1 (n_blocks, H); w_out (H, d_out),
-    b_out (d_out,). `pack_field_weights` gives the kernels' form.
-    """
-
-    w_in: torch.Tensor
-    b_in: torch.Tensor
-    wz: torch.Tensor
-    bz: torch.Tensor
-    w0: torch.Tensor
-    b0: torch.Tensor
-    w1: torch.Tensor
-    b1: torch.Tensor
-    w_out: torch.Tensor
-    b_out: torch.Tensor
-
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def pack_field_weights(w: FieldWeights) -> FieldWeights:
-    """The kernels' operand form: matrices bf16, biases float32, all
-    contiguous and detached, w_in zero-padded to a multiple of 16 rows
-    (the K step of the kernels' products). Leaves already in that form are kept as they are."""
-    mat = lambda t: t.detach().to(_BF).contiguous()
-    vec = lambda t: t.detach().float().contiguous()
-    w_in = mat(w.w_in)
-    d_in = w_in.shape[0]
-    if d_in % 16:
-        w_in = torch.cat([w_in, w_in.new_zeros((_pad16(d_in) - d_in, w_in.shape[1]))])
-    return FieldWeights(
-        w_in=w_in, b_in=vec(w.b_in), wz=mat(w.wz), bz=vec(w.bz), w0=mat(w.w0),
-        b0=vec(w.b0), w1=mat(w.w1), b1=vec(w.b1), w_out=mat(w.w_out), b_out=vec(w.b_out),
-    )
 
 
 def supported_config(
@@ -126,12 +97,6 @@ def supported_config(
     return True
 
 
-def stash_layout(n_blocks: int, combine_layer: int, ns: int) -> Tuple[int, int]:
-    """(k, m): blocks before the view pooling (NS > 1) and after it."""
-    k = min(combine_layer, n_blocks) if ns > 1 else 0
-    return k, n_blocks - k
-
-
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w with bf16 operands, float32 products and sums."""
     return a.to(_BF).float() @ w.to(_BF).float()
@@ -140,11 +105,6 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _dot_t(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T with bf16 operands: (..., N) x (K, N) -> (..., K)."""
     return a.to(_BF).float() @ w.to(_BF).float().t()
-
-
-def _dot_g(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """a^T @ g over all rows, both bf16: (..., K) x (..., N) -> (K, N)."""
-    return a.reshape(-1, a.shape[-1]).to(_BF).float().t() @ g.reshape(-1, g.shape[-1]).to(_BF).float()
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -274,40 +234,6 @@ def resnetfc_cotangents_plain(
     return gpre, gpost, gin, gout
 
 
-def resnetfc_wgrad_plain(
-    z: torch.Tensor, xin: torch.Tensor, stash_pre: Optional[torch.Tensor],
-    stash_post: torch.Tensor, gpre: Optional[torch.Tensor], gpost: torch.Tensor,
-    gin: torch.Tensor, gout: torch.Tensor, n_blocks: int, combine_layer: int, ns: int,
-    d_out: int,
-) -> dict:
-    """The plain version of the weight-gradient kernel (`csrc/wgrad.cuh`):
-    from the stash and the bf16 cotangents in the layout
-    `resnetfc_cotangents_plain` gives, the float32 weight gradients by
-    FieldWeights name (w_in (d_in, H), wz, w0, w1, w_out), each `_dot_g` of
-    an activation and a cotangent; wz as one packed product of z with the
-    injection cotangents side by side, [Gin | G1_0 | ... | G1_{n_inj-2}], as
-    the kernel and the TPU kernel compute it."""
-    k, m = stash_layout(n_blocks, combine_layer, ns)
-    n_inj = min(combine_layer, n_blocks)
-    dl, hidden = z.shape[-1], gin.shape[-1]
-
-    def act(blk, h1):
-        return stash_pre[k * h1 + blk] if blk < k else stash_post[m * h1 + blk - k]
-
-    def cot(blk, g0):
-        return gpre[k * g0 + blk] if blk < k else gpost[m * g0 + blk - k]
-
-    zz, xx, gi = (z[:, 0], xin[:, 0], gin[:, 0]) if ns == 1 else (z, xin, gin)
-    packed = torch.cat([gi] + [cot(i - 1, 0) for i in range(1, n_inj)], dim=-1)
-    dwz = _dot_g(zz, packed).reshape(dl, n_inj, hidden).permute(1, 0, 2).contiguous()
-    return dict(
-        w_in=_dot_g(xx, gi), wz=dwz,
-        w0=torch.stack([_dot_g(act(i, 0), cot(i, 1)) for i in range(n_blocks)]),
-        w1=torch.stack([_dot_g(act(i, 1), cot(i, 0)) for i in range(n_blocks)]),
-        w_out=_dot_g(stash_post[2 * m], gout[..., :d_out]),
-    )
-
-
 def _check(z, xin, w, n_blocks, combine_layer, ns):
     if z.ndim != 4 or z.shape[1] != ns:
         raise ValueError(f"z must be (SB, {ns}, B, d_latent), got {tuple(z.shape)}")
@@ -352,16 +278,32 @@ def chain_widths_ok(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) 
 
 
 def check_chain_widths(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int = 1) -> None:
-    """Raise unless `chain_widths_ok`: widths the kernels lack after the
-    wrappers' padding (hidden or d_in past 512, more than 64 views; queued
-    in ROADMAP.md) never fall back to a plain version on the card. The
-    wrappers pass their view count; the default checks the widths alone."""
+    """Raise unless `chain_widths_ok`: the chain launches' own guard. The
+    wrappers send the widths the chains lack after their padding (hidden
+    or d_in past 512, more than 64 views) to the layered path
+    (`takes_chains`), so this raises only on a direct launch at such
+    widths."""
     if not chain_widths_ok(hidden, d_latent, d_in, d_out, ns):
         raise ValueError(
             f"the chain kernels take d_hidden in {CHAIN_HIDDEN}, d_latent a multiple of 64, an "
             f"even d_in <= d_hidden, d_out <= 16 and 1 to {CHAIN_MAX_VIEWS} views, got "
             f"d_hidden={hidden} d_latent={d_latent} d_in={d_in} d_out={d_out} views={ns}"
         )
+
+
+def takes_chains(hidden: int, d_latent: int, d_in: int, d_out: int, ns: int) -> bool:
+    """Do the block chains run a model of these widths once the wrappers
+    have padded them (`chain_plan`, `even_d_in`, output groups)? Otherwise
+    (hidden or the padded d_in past 512, more than 64 views) the CUDA
+    wrappers launch the layered path (`ops/layer_chain.py`)."""
+    h, dl, _ = chain_plan(hidden, d_latent, d_in, d_out)
+    return chain_widths_ok(h, dl, d_in + d_in % 2, min(d_out, 16), ns)
+
+
+def _chains_take(d_latent: int, xin, w: FieldWeights, ns: int) -> bool:
+    """`takes_chains` for a call of these inputs and weights (the
+    ResnetFC's and the field's wrappers)."""
+    return takes_chains(w.w_in.shape[1], d_latent, xin.shape[3], w.w_out.shape[1], ns)
 
 
 def even_d_in(xin: torch.Tensor) -> torch.Tensor:
@@ -415,46 +357,12 @@ def out_groups(d_out: int) -> int:
     return max(1, -(-d_out // 16))
 
 
-def _pad_last(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
-    """t with zero columns up to n on its last axis (t itself at n)."""
-    if t is None or t.shape[-1] == n:
-        return t
-    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
-
-
-def pad_chain_weights(w: FieldWeights, hidden: int, d_latent: int) -> FieldWeights:
-    """Packed weights with zero hidden channels up to `hidden` and zero
-    latent rows up to `d_latent` (`chain_plan`); themselves at those
-    widths."""
-    dh, dl = hidden - w.w_in.shape[1], d_latent - w.wz.shape[1]
-    if not dh and not dl:
-        return w
-    pad = torch.nn.functional.pad
-    return FieldWeights(
-        w_in=pad(w.w_in, (0, dh)), b_in=pad(w.b_in, (0, dh)), wz=pad(w.wz, (0, dh, 0, dl)),
-        bz=pad(w.bz, (0, dh)), w0=pad(w.w0, (0, dh, 0, dh)), b0=pad(w.b0, (0, dh)),
-        w1=pad(w.w1, (0, dh, 0, dh)), b1=pad(w.b1, (0, dh)), w_out=pad(w.w_out, (0, 0, 0, dh)),
-        b_out=w.b_out,
-    )
-
-
 def out_group(w: FieldWeights, i: int) -> FieldWeights:
     """w with the i-th group of 16 output columns of W_out / b_out."""
     if w.w_out.shape[1] <= 16:
         return w
     cols = slice(16 * i, 16 * i + 16)
     return w._replace(w_out=w.w_out[:, cols].contiguous(), b_out=w.b_out[cols].contiguous())
-
-
-def cut_weight_grads(dw: FieldWeights, d_in: int, hidden: int, d_latent: int) -> FieldWeights:
-    """The weight gradients of a padded run cut back to the caller's
-    widths (the padded rows and columns are zero)."""
-    h, dl = slice(0, hidden), slice(0, d_latent)
-    return FieldWeights(
-        w_in=dw.w_in[:d_in, h], b_in=dw.b_in[h], wz=dw.wz[:, dl, h], bz=dw.bz[:, h],
-        w0=dw.w0[:, h, h], b0=dw.b0[:, h], w1=dw.w1[:, h, h], b1=dw.b1[:, h],
-        w_out=dw.w_out[h], b_out=dw.b_out,
-    )
 
 
 def sum_groups(grads: Sequence[FieldWeights]) -> FieldWeights:
@@ -565,6 +473,9 @@ def resnetfc_fwd(z, xin, w: FieldWeights, n_blocks: int, combine_layer: int, ns:
     _check(z, xin, w, n_blocks, combine_layer, ns)
     if _device_of(z, "resnetfc_fwd") == "cpu":
         return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns)
+    if not _chains_take(z.shape[3], xin, w, ns):
+        return layer_chain.layered_fwd(*_cuda_inputs(z, xin, w), n_blocks, combine_layer, ns,
+                                       stash=False)[0]
     out = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=False)[0]
     resnetfc_fwd.launches += out_groups(out.shape[-1])
     return out
@@ -579,6 +490,9 @@ def resnetfc_fwd_stash(z, xin, w: FieldWeights, n_blocks: int, combine_layer: in
     _check(z, xin, w, n_blocks, combine_layer, ns)
     if _device_of(z, "resnetfc_fwd_stash") == "cpu":
         return resnetfc_fwd_plain(z, xin, w, n_blocks, combine_layer, ns, stash=True)
+    if not _chains_take(z.shape[3], xin, w, ns):
+        return layer_chain.layered_fwd(*_cuda_inputs(z, xin, w), n_blocks, combine_layer, ns,
+                                       stash=True)
     res = _launch_fwd(z, xin, w, n_blocks, combine_layer, ns, stash=True)
     resnetfc_fwd_stash.launches += out_groups(res[0].shape[-1])
     return res
@@ -723,6 +637,10 @@ def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: in
     _check(z, xin, w, n_blocks, combine_layer, ns)
     if _device_of(z, "resnetfc_bwd") == "cpu":
         return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+    if not _chains_take(z.shape[3], xin, w, ns):
+        z, xin, wp = _cuda_inputs(z, xin, w)
+        return layer_chain.layered_bwd(z, xin, g, stash_pre, stash_post, wp, n_blocks,
+                                       combine_layer, ns)[:3]
     res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)[:3]
     resnetfc_bwd.launches += out_groups(g.shape[-1])
     return res

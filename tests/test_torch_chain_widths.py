@@ -8,9 +8,10 @@ of the widths the chains are built for; the wrappers bring a model's
 widths to them first, exactly (`chain_plan`, `even_d_in`): an odd d_in
 gets a zero column, hidden zero channels up to the next of 64, 128, 256
 and 512, d_latent zero columns up to a multiple of 64, and d_out above 16
-runs in groups of 16 outputs. Only a hidden width past 512 and more than
-64 views raise in the wrapper (`check_chain_widths`) instead of running a
-plain version on the card.
+runs in groups of 16 outputs. A hidden width past 512 and more than 64
+views take the layered kernels (`ops/layer_chain.py`, `takes_chains`)
+instead, never a plain version on the card (tests/test_torch_layer_chain.py
+holds that path against the JAX package).
 
 The card's route is shown here with the wrappers' device test answering
 "cuda" for CPU tensors and either a stand-in for the kernels' libraries
@@ -39,6 +40,7 @@ import torch
 
 import pixelnerf_tpu_torch.models.resnetfc as mod_resnetfc
 import pixelnerf_tpu_torch.ops.field as ops_field
+import pixelnerf_tpu_torch.ops.layer_chain as ops_layer_chain
 import pixelnerf_tpu_torch.ops.resnetfc as ops_resnetfc
 from pixelnerf_tpu.eval.common import encode_views as j_encode_views
 from pixelnerf_tpu.eval.render_utils import render_full as j_render_full
@@ -139,6 +141,8 @@ def _card_route(monkeypatch, lib):
     monkeypatch.setattr(ops_field, "_device_of", lambda t, what: "cuda")
     monkeypatch.setattr(ops_resnetfc, "_library", lambda name: lib)
     monkeypatch.setattr(ops_field, "_library", lambda: lib)
+    monkeypatch.setattr(ops_layer_chain, "_device_of", lambda t, what: "cuda")
+    monkeypatch.setattr(ops_layer_chain, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -155,7 +159,8 @@ def test_the_card_routes_as_the_jax_package_and_never_to_a_plain_version(over, m
     one past 512 and more than 64 views launches the forward at the
     chain's widths (`chain_plan`: d_in 39 as 40, hidden zero-padded,
     d_latent 96 as 128, d_out 17 as two runs of the chain); those two
-    raise."""
+    launch the layered kernels, one a product (15 at 5 blocks and 3
+    injections) and one pooling, and no chain."""
     w = _widths(**over)
     ns, b = w["ns"], 3
     m = _module(w["hidden"], w["d_latent"], w["d_in"], w["d_out"])
@@ -182,9 +187,14 @@ def test_the_card_routes_as_the_jax_package_and_never_to_a_plain_version(over, m
         want = x.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
         assert (lib.xin[:, :w["d_in"]] == want).all() and not lib.xin[:, w["d_in"]:].any()
     else:
-        with torch.no_grad(), pytest.raises(ValueError, match="chain kernels take"):
-            m((z, x), combine_inner_dims=(ns, b))
-        assert not lib.calls
+        before = (ops_resnetfc.resnetfc_fwd.launches, ops_layer_chain.layer_fwd.launches,
+                  ops_layer_chain.view_pool_fwd.launches)
+        with torch.no_grad():
+            out = m((z, x), combine_inner_dims=(ns, b))
+        assert out.shape == (b, w["d_out"])
+        assert lib.launches == ["pnt_layer"] * 10 + ["pnt_view_pool_fwd"] + ["pnt_layer"] * 5
+        assert (ops_resnetfc.resnetfc_fwd.launches, ops_layer_chain.layer_fwd.launches,
+                ops_layer_chain.view_pool_fwd.launches) == (before[0], before[1] + 15, before[2] + 1)
 
 
 @pytest.mark.parametrize("over", ROUTED.values(), ids=ROUTED.keys())

@@ -43,6 +43,10 @@ import pytest
 import torch
 
 from pixelnerf_tpu_torch.ops import resnetfc as ops_resnetfc
+from pixelnerf_tpu_torch.ops.layer_chain import (
+    layer_bwd, layer_bwd_plain, layer_fwd, layer_fwd_plain, layer_wgrad, layered_bwd, layered_fwd,
+    view_pool_bwd, view_pool_bwd_plain, view_pool_fwd, view_pool_fwd_plain,
+)
 from pixelnerf_tpu_torch.ops.field import (
     FieldWeights, field_bwd_plain, field_plain, pyramid_field_fused, pyramid_field_fused_bwd,
     pyramid_field_fused_fwd_stash,
@@ -52,7 +56,7 @@ from pixelnerf_tpu_torch.ops.pyramid import (
 )
 from pixelnerf_tpu_torch.ops.resnetfc import (
     resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd, resnetfc_fwd_plain,
-    resnetfc_fwd_stash, resnetfc_wgrad_plain, stash_layout,
+    resnetfc_fwd_stash, resnetfc_wgrad_plain,
 )
 from pixelnerf_tpu_torch.ops.scatter import _taps as bilerp_taps
 from pixelnerf_tpu_torch.ops.scatter import bilerp_gather, bilerp_gather_plain, bilerp_scatter_add
@@ -440,12 +444,13 @@ def _resnetfc_kernels_match_plain(cuda, ns, sb, b, d_in):
 
 def test_failed_resnetfc_launch_raises(cuda, monkeypatch):
     """A launch the library refuses (here: 65 views, with the wrapper's
-    own widths and shared-memory checks switched off) raises; nothing is
-    counted."""
+    own widths and shared-memory checks and its route to the layered path
+    switched off) raises; nothing is counted."""
     rng = np.random.default_rng(0)
     z, xin, w, _ = _mlp_case(rng, cuda, 65, 1, 4, hidden=512, d_latent=512)
     monkeypatch.setattr(ops_resnetfc, "SMEM_LIMIT", 1 << 30)
     monkeypatch.setattr(ops_resnetfc, "check_chain_widths", lambda *a: None)
+    monkeypatch.setattr(ops_resnetfc, "takes_chains", lambda *a: True)
     before = resnetfc_fwd.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         resnetfc_fwd(z, xin, w, 5, 3, 65)
@@ -825,16 +830,24 @@ def test_wide_latent_field_chains_match_plain(cuda, d_latent, ns, sb, b):
         _grad_within(getattr(dw, name), getattr(wdw, name))
 
 
-def test_resnetfc_forward_raises_on_widths_the_chain_lacks(cuda):
-    """hidden 576 is past the widest chain (512), so no zero padding
-    reaches a width the chain is built for: the wrapper raises before
-    launching."""
+def test_resnetfc_forward_takes_the_layered_path_past_the_chain_widths(cuda):
+    """hidden 576 is past the widest chain (512): the forward wrappers
+    launch the layered kernels (csrc/layer_chain.cu), no chain, and match
+    their plain versions; the primal equals the stash forward's output."""
     rng = np.random.default_rng(5)
     z, xin, w, _ = _mlp_case(rng, cuda, 2, 1, 8, hidden=576, d_latent=64)
-    before = resnetfc_fwd.launches
-    with pytest.raises(ValueError, match="d_hidden"):
-        resnetfc_fwd(z, xin, w, 5, 3, 2)
-    assert resnetfc_fwd.launches == before
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, layer_fwd.launches,
+              view_pool_fwd.launches)
+    out = resnetfc_fwd(z, xin, w, 5, 3, 2)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, 5, 3, 2)
+    torch.cuda.synchronize()
+    # a run: w_in, 3 injections, 2 a block, lin_out; one pooling
+    assert (resnetfc_fwd.launches, resnetfc_fwd_stash.launches) == before[:2]
+    assert (layer_fwd.launches, view_pool_fwd.launches) == (before[2] + 2 * 15, before[3] + 2)
+    assert torch.equal(out, out_s)
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, 5, 3, 2, stash=True)
+    _out_close(out, want)
+    assert spre.shape == wpre.shape and spost.shape == wpost.shape
 
 
 # The chains at every width they are built for. The backward's d_latent is
@@ -1059,35 +1072,186 @@ def test_forward_chains_at_hidden_128_and_256(cuda, hidden, ns, sb, b):
     _out_close(fout, field_plain(feats, grid, xin, w, *args))
 
 
-def test_resnetfc_backward_raises_on_widths_the_chain_lacks(cuda):
-    """hidden 576: the backward wrapper raises before launching, as the
-    forward's."""
+def test_resnetfc_backward_takes_the_layered_path_past_the_chain_widths(cuda):
+    """hidden 576: the backward wrapper launches the layered cotangent
+    kernels and the weight-gradient products, no chain, and every gradient
+    matches the plain backward from the same stash."""
     rng = np.random.default_rng(6)
     z, xin, w, g = _mlp_case(rng, cuda, 2, 1, 8, hidden=576, d_latent=64)
-    k, m = stash_layout(5, 3, 2)
-    spre = torch.zeros((2 * k, 1, 2, 8, 576), dtype=torch.bfloat16, device=cuda)
-    spost = torch.zeros((2 * m + 1, 1, 8, 576), dtype=torch.bfloat16, device=cuda)
-    before = resnetfc_bwd.launches
-    with pytest.raises(ValueError, match="d_hidden"):
-        resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 2)
-    assert resnetfc_bwd.launches == before
+    _, spre, spost = resnetfc_fwd_stash(z, xin, w, 5, 3, 2)
+    before = (resnetfc_bwd.launches, layer_bwd.launches, view_pool_bwd.launches,
+              layer_wgrad.launches)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 2)
+    torch.cuda.synchronize()
+    # lin_out, 2 a block, 3 injections, dxin; bf(g) and the pooling
+    assert (resnetfc_bwd.launches, layer_bwd.launches, view_pool_bwd.launches,
+            layer_wgrad.launches) == (before[0], before[1] + 15, before[2] + 2, before[3] + 2)
+    _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, 2), dz, dxin, dw)
 
 
-def test_chains_refuse_past_64_views(cuda):
+def _layered_grads_close(z, xin, g, spre, spost, w, args, dz, dxin, dw):
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+def test_the_layered_path_takes_past_64_views(cuda):
     """65 views at hidden 64 fit shared memory but not one 64-row tile: both
-    wrappers refuse them (`chain_widths_ok`) before a launch, nothing is
-    counted."""
+    wrappers take the layered path (`takes_chains`), launch no chain, and
+    match their plain versions."""
     rng = np.random.default_rng(7)
     z, xin, w, g = _mlp_case(rng, cuda, 65, 1, 3)
-    k, m = stash_layout(5, 3, 65)
-    spre = torch.zeros((2 * k, 1, 65, 3, 64), dtype=torch.bfloat16, device=cuda)
-    spost = torch.zeros((2 * m + 1, 1, 3, 64), dtype=torch.bfloat16, device=cuda)
-    before = (resnetfc_fwd.launches, resnetfc_bwd.launches)
-    with pytest.raises(ValueError, match="views=65"):
-        resnetfc_fwd(z, xin, w, 5, 3, 65)
-    with pytest.raises(ValueError, match="views=65"):
-        resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 65)
-    assert (resnetfc_fwd.launches, resnetfc_bwd.launches) == before
+    before = (resnetfc_fwd_stash.launches, resnetfc_bwd.launches, layer_fwd.launches,
+              layer_bwd.launches)
+    out, spre, spost = resnetfc_fwd_stash(z, xin, w, 5, 3, 65)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 65)
+    torch.cuda.synchronize()
+    assert (resnetfc_fwd_stash.launches, resnetfc_bwd.launches) == before[:2]
+    assert layer_fwd.launches > before[2] and layer_bwd.launches > before[3]
+    _out_close(out, resnetfc_fwd_plain(z, xin, w, 5, 3, 65))
+    _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, 65), dz, dxin, dw)
+
+
+def test_the_layered_path_takes_more_row_tiles_than_a_grid_column(cuda):
+    """8.4M pre-pool rows at hidden 64 and 80 views: 65,625 row tiles of
+    128, past the 65,535 blocks of a grid's y axis. The stash forward and
+    the backward launch and match their plain versions."""
+    rng = np.random.default_rng(8)
+    sb, ns, b = 1, 80, 105_000
+    assert sb * ns * b > 65_535 * 128
+    _, _, w, _ = _mlp_case(rng, cuda, ns, sb, 1)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    z = torch.randn((sb, ns, b, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    xin = torch.randn((sb, ns, b, 42), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((sb, b, 4), generator=gen, device=cuda)
+    before = (layer_fwd.launches, layer_bwd.launches)
+    out, spre, spost = resnetfc_fwd_stash(z, xin, w, 5, 3, ns)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, ns)
+    torch.cuda.synchronize()
+    assert (layer_fwd.launches, layer_bwd.launches) == (before[0] + 15, before[1] + 15)
+    _out_close(out, resnetfc_fwd_plain(z, xin, w, 5, 3, ns))
+    _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, ns), dz, dxin, dw)
+
+
+# the layered path's widths: (hidden, NS, SB, B); three levels summing to
+# d_latent 512 for the field
+LAYERED_CASES = {"hidden 576": (576, 2, 1, 45), "hidden 1024": (1024, 2, 2, 37),
+                 "views 65": (64, 65, 1, 7), "views 80": (64, 80, 2, 5),
+                 "hidden 1024 one view": (1024, 1, 1, 70)}
+LAYERED_LEVELS = [(32, 32, 128), (8, 8, 128), (4, 4, 256)]
+
+
+@pytest.mark.parametrize("hidden,ns,sb,b", LAYERED_CASES.values(), ids=LAYERED_CASES.keys())
+def test_layered_resnetfc_and_field_match_plain(cuda, hidden, ns, sb, b):
+    """The ResnetFC and the field through the layered path: forward
+    (primal equal to the stash forward's output), stash, backward from the
+    layered stash, and the field's level gradients, against the plain
+    versions; no chain or field kernel counts a launch."""
+    rng = np.random.default_rng(9000 + hidden + ns * 10 + b)
+    args, w, z, xin, g = _chain_case(rng, cuda, hidden, ns, sb, b, LAYERED_LEVELS)
+    out = resnetfc_fwd(z, xin, w, *args)
+    out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_s)
+    _out_close(out, resnetfc_fwd_plain(z, xin, w, *args))
+    _layered_grads_close(z, xin, g, spre, spost, w, args, dz, dxin, dw)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in LAYERED_LEVELS]
+    grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
+    before = (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches,
+              pyramid_field_fused_bwd.launches)
+    fout = pyramid_field_fused(feats, grid, xin, w, *args)
+    fout_s, zs, fpre, fpost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
+    d_feats, fdxin, fdw = pyramid_field_fused_bwd(grid, xin, g, zs, fpre, fpost, w, *args,
+                                                  LAYERED_LEVELS)
+    torch.cuda.synchronize()
+    assert (pyramid_field_fused.launches, pyramid_field_fused_fwd_stash.launches,
+            pyramid_field_fused_bwd.launches) == before
+    assert torch.equal(fout, fout_s)
+    _out_close(fout, field_plain(feats, grid, xin, w, *args))
+    assert torch.equal(zs, pyramid_gather_plain(feats, grid.reshape(sb * ns, b, 2)).reshape(zs.shape))
+    wd_feats, wdxin, wdw = field_bwd_plain(grid, xin, g, zs, fpre, fpost, w, *args, LAYERED_LEVELS)
+    for got, ref in zip(d_feats, wd_feats):
+        _grad_within(got, ref)
+    _grad_within(fdxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(fdw, name), getattr(wdw, name))
+
+
+@pytest.mark.parametrize("ns,sb,b", [(1, 1, 70), (2, 2, 37)])
+def test_layered_path_matches_the_chain_at_hidden_512(cuda, ns, sb, b):
+    """At the flagship's widths the layered path and the chain round at the
+    same places: the outputs and stashes agree within the kernels'
+    tolerances, and on each forward's stash the two backwards agree."""
+    rng = np.random.default_rng(9500 + ns * 10 + b)
+    args, w, z, xin, g = _chain_case(rng, cuda, 512, ns, sb, b, WIDE_LEVELS)
+    out_c, cpre, cpost = resnetfc_fwd_stash(z, xin, w, *args)
+    out_l, lpre, lpost = layered_fwd(z, xin, w, *args, stash=True)
+    torch.cuda.synchronize()
+    _out_close(out_l, out_c)
+    for a, c in ((lpre, cpre), (lpost, cpost)):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert a.shape == c.shape
+            assert ((a.float() - c.float()).abs() <= 3e-2 + 3e-2 * c.float().abs()).all()
+    for spre, spost in ((cpre, cpost), (lpre, lpost)):
+        dz_c, dxin_c, dw_c = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+        dz_l, dxin_l, dw_l, _ = layered_bwd(z, xin, g, spre, spost, w, *args)
+        torch.cuda.synchronize()
+        _grad_within(dz_l, dz_c)
+        _grad_within(dxin_l, dxin_c)
+        for name in FieldWeights._fields:
+            _grad_within(getattr(dw_l, name), getattr(dw_c, name))
+
+
+def test_layer_kernels_match_plain(cuda):
+    """Each layered kernel on its own against its plain version: ragged
+    rows, K off the 32-step (48), N of 16 with 4 columns kept, masks, the
+    residual added to and written, relu'd and plain bf16 copies, column
+    sums (f32 atomics in any order), the pooling and its backward."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    r = lambda *s: torch.randn(s, generator=g).to(cuda)
+    bf = lambda t: t.to(torch.bfloat16)
+    for m, k, n, cols in ((333, 48, 192, 192), (1000, 576, 16, 4), (7, 1024, 1024, 1000)):
+        a, w, bias, x0 = bf(r(m, k)), bf(r(k, n) / k ** 0.5), r(n), r(m, cols)
+        got = [x0.clone(), torch.zeros(m, cols, dtype=torch.bfloat16, device=cuda)]
+        want = [x0.clone(), got[1].clone()]
+        layer_fwd(a, w, bias, x=got[0], add=True, y=got[1], cols=cols)
+        layer_fwd_plain(a, w, bias, x=want[0], add=True, y=want[1], cols=cols)
+        wt, mask = bf(r(n, k) / k ** 0.5), bf(r(m, cols))
+        gotb = [x0.clone(), got[1].clone(), torch.zeros(cols, device=cuda)]
+        wantb = [x0.clone(), got[1].clone(), torch.zeros(cols, device=cuda)]
+        layer_bwd(a, wt, mask=mask, x=gotb[0], add=True, y=gotb[1], colsum=gotb[2], cols=cols)
+        layer_bwd_plain(a, wt, mask=mask, x=wantb[0], add=True, y=wantb[1], colsum=wantb[2],
+                        cols=cols)
+        torch.cuda.synchronize()
+        for gt, wn in zip(got + gotb[:2], want + wantb[:2]):
+            _out_close(gt.float(), wn.float())
+        assert (gotb[2] - wantb[2]).abs().max() <= 1e-5 * wantb[0].abs().sum(dim=0).max()
+    sb, ns, b, h = 2, 80, 9, 1024
+    x = r(sb, ns, b, h)
+    outs = [torch.empty(sb * b, h, device=cuda) for _ in range(2)]
+    ys = [torch.empty(sb * b, h, dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    view_pool_fwd(x, outs[0], ys[0])
+    view_pool_fwd_plain(x, outs[1], ys[1])
+    gc = r(sb, b, 20)
+    gxs = [torch.empty(sb * ns * b, 20, device=cuda) for _ in range(2)]
+    yb = [torch.empty(sb * ns * b, 32, dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    cs = [torch.zeros(20, device=cuda) for _ in range(2)]
+    view_pool_bwd(gc, ns, gx=gxs[0], y=yb[0], colsum=cs[0])
+    view_pool_bwd_plain(gc, ns, gx=gxs[1], y=yb[1], colsum=cs[1])
+    torch.cuda.synchronize()
+    # g / ns: the kernel divides, the plain version on the card may multiply
+    # by the reciprocal (one float32 ulp), and the bf16 copies may then round
+    # one bf16 ulp apart
+    assert (outs[0] - outs[1]).abs().max() <= 1e-5
+    assert ((gxs[0] - gxs[1]).abs() <= 2.0 ** -23 * gxs[1].abs()).all()
+    assert (ys[0].float() - ys[1].float()).abs().max() <= 2.0 ** -7 * outs[1].abs().max()
+    assert ((yb[0].float() - yb[1].float()).abs() <= 2.0 ** -7 * yb[1].float().abs()).all()
+    assert (cs[0] - cs[1]).abs().max() <= 1e-5 * gc.abs().sum(dim=(0, 1)).max()
 
 
 # widths off the chains' that the wrappers zero-pad (ops/resnetfc.py:

@@ -40,6 +40,9 @@ def test_port_files_found():
         "gen_video.py", "eval_mesh.py", "calc_metrics.py", "eval_real.py", "recon.py",
         "isosurface.py", "cameras.py", "video.py", "mesh.py", "launch.py", "lpips.py",
         "preproc.py", "profile_step.py", "export_checkpoint.py", "port_encoder_weights.py",
+        "layer_chain.py", "resnetfc_common.py", "camera_gen.py", "make_synthetic_dataset.py", "eval_view_list_gen.py",
+        "dtu_resize.py", "flatten_alpha.py", "make_pollen_meshes.py", "stl_render_dataset.py",
+        "pose_sanity_check.py", "port_lpips_weights.py", "trace_summary.py",
     } <= names
 
 
