@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                  (from the repository root)
     python3 chip_smoke.py --baseline DIR   (also time the lookup kernels,
-                                            posenc, the field's backward
-                                            and the train step's own code
-                                            of an earlier tree of the
-                                            repository)
+                                            posenc, the field's backward,
+                                            the layered products and the
+                                            train step's own code of an
+                                            earlier tree of the repository)
 
 Phases, each failing loudly (an exception and a non-zero exit):
 
@@ -145,8 +145,10 @@ Phases, each failing loudly (an exception and a non-zero exit):
    each launch of a stash forward and a backward at the coarse call's
    shapes (hidden 1024 with 2 views, hidden 64 with 80, hidden 512 with 2)
    and replays it as the kernel and as its plain version, timed beside
-   bf16 torch.matmul of the same product (`layered` lines; at hidden 512
-   also against the chain); at the end srn.conf with d_hidden 1024 runs
+   bf16 torch.matmul of the same product and, with `--baseline`, the
+   earlier tree's `layer_fwd`/`layer_bwd` in turns (`layered` lines, each
+   product's plan: N tile, N tiles, row slots, grid; at hidden 512 also
+   against the chain); at the end srn.conf with d_hidden 1024 runs
    phase 4's view and phase 5's cached and fused steps against the CPU
    (`wide` lines), and srn.conf renders one 128x128 view from 80 source
    views of an object written by the port's `make_synthetic_dataset`, in
@@ -1034,14 +1036,15 @@ def _kept_calls(keep):
     return patched()
 
 
-BASELINE_SOURCES = ("pyramid", "bilerp", "resnetfc_bwd", "posenc")
+BASELINE_SOURCES = ("pyramid", "bilerp", "resnetfc_bwd", "posenc", "layer_chain")
 
 
 def _baseline_build(path):
     """Start building an earlier tree's kernels (`--baseline`): its
     `csrc/pyramid.cu`, `csrc/bilerp.cu`, `csrc/resnetfc_bwd.cu` and, where
-    it has one, `csrc/posenc.cu`, under `path`, one nvcc each, into
-    build/baseline; returns the running builds and each source's text."""
+    it has them, `csrc/posenc.cu` and `csrc/layer_chain.cu`, under `path`,
+    one nvcc each, into build/baseline; returns the running builds and each
+    source's text."""
     from pixelnerf_tpu_torch.ops.cuda_build import nvcc_command
 
     src = Path(path).resolve() / "pixelnerf_tpu_torch" / "csrc"
@@ -1184,9 +1187,44 @@ def _baseline_kernels(torch, builds):
         check(fbg(ints(plan), *args) if bil_ga else fbg(*args), "bilerp gather")
         return out
 
-    return {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
-            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather,
-            "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd")}
+    out = {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
+           "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather,
+           "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd")}
+    if "layer_chain" in libs:
+        out.update(_baseline_layers(torch, libs["layer_chain"]))
+    return out
+
+
+def _baseline_layers(torch, lib):
+    """The earlier tree's `layer_fwd` and `layer_bwd` as functions of the
+    port's wrappers' arguments, through its `pnt_layer` (the same C
+    interface: 7 pointers, 11 ints, wt, stream; its column sums f32
+    atomics, no workspace)."""
+    import ctypes
+
+    fn = lib.pnt_layer
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                   ctypes.c_void_p]
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    ld = lambda t: 0 if t is None else t.stride(0)
+
+    def launch(wt, a, w, bias, mask, x, add, y, relu, colsum, cols):
+        n = w.shape[0] if wt else w.shape[1]
+        ints = [a.shape[0], n, a.shape[1], ld(a), ld(w), ld(mask), ld(x), ld(y), cols or n, int(add),
+                int(relu)]
+        ptrs = (ctypes.c_void_p * 7)(*[ptr(t) for t in (a, w, bias, mask, x, y, colsum)])
+        err = fn(ptrs, (ctypes.c_int * 11)(*ints), wt, torch.cuda.current_stream(a.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline pnt_layer failed: {err}")
+
+    def layer_fwd(a, w, bias, x=None, add=False, y=None, relu=True, cols=None):
+        launch(0, a, w, bias, None, x, add, y, relu, None, cols)
+
+    def layer_bwd(a, w, mask=None, x=None, add=False, y=None, colsum=None, cols=None):
+        launch(1, a, w, None, mask, x, add, y, False, colsum, cols)
+
+    return {"layer_fwd": layer_fwd, "layer_bwd": layer_bwd}
 
 
 def _time_ab(torch, run, base):
@@ -2936,10 +2974,13 @@ LAYERED_REPLACES = {
     "view_pool_bwd": "pixelnerf_tpu/ops/resnetfc_pallas.py:607",
 }
 # the layered launches of one ResnetFC call at srn.conf's 5 blocks and 3
-# injections: w_in, 3 injections, 2 a block and lin_out; the pooling. The
-# backward: lin_out, 2 a block, 3 injections and dxin; bf(g) and the pooling
+# injections (more than one view): w_in, 3 injections, 2 a block and
+# lin_out; the pooling. The backward: lin_out, 2 a block, 3 injections and
+# dxin, and a column-sum reduction after each product that sums bias
+# gradients (lin_out's and 2 a block, but the one before the pooling,
+# whose sums view_pool_bwd takes); bf(g) and the pooling
 LAYER_FWD_CALL = 1 + 3 + 2 * N_BLOCKS + 1
-LAYER_BWD_CALL = 1 + 2 * N_BLOCKS + 3 + 1
+LAYER_BWD_CALL = (1 + 2 * N_BLOCKS + 3 + 1) + (1 + 2 * N_BLOCKS - 1)
 
 
 def _layered(fwd_calls, bwd_calls=0, **counts):
@@ -3027,11 +3068,14 @@ def _launch_cost(name, a):
     return g.numel() * ns, nb(g) + nb(a.get("gx")) + nb(a.get("y")) + nb(a.get("colsum")), None
 
 
-def _replay_launch(torch, name, a):
+def _replay_launch(torch, name, a, base=None):
     """One recorded launch again, on copies of its outputs, as the kernel
     and as the plain version: (max abs error, kernel ms, plain ms, library
-    ms or None, FLOPs, bytes). f32 outputs within LAYER_F32_TOL of their
-    largest magnitude, bf16 ones within one bf16 ulp."""
+    ms or None, FLOPs, bytes, the kernel's plan or None, baseline ms or
+    None). f32 outputs within LAYER_F32_TOL of their largest magnitude,
+    bf16 ones within one bf16 ulp. With `base` (an earlier tree's kernel
+    of the same arguments), both timed in turns (baseline, kernel, kernel,
+    baseline)."""
     from pixelnerf_tpu_torch.ops import layer_chain
 
     kernel, plain = getattr(layer_chain, name), getattr(layer_chain, f"{name}_plain")
@@ -3044,7 +3088,9 @@ def _replay_launch(torch, name, a):
         fn(**args)
         return {k: args[k] for k in outs}
 
-    got, want = run(kernel), run(plain)
+    got = run(kernel)
+    plan = getattr(kernel, "plan", None)
+    want = run(plain)
     torch.cuda.synchronize()
     err = 0.0
     for k in outs:
@@ -3061,22 +3107,46 @@ def _replay_launch(torch, name, a):
     flops, nbytes, lib = _launch_cost(name, a)
     ka = dict(a)
     ka.update({k: start[k] for k in outs})
-    ms = _time_ms(torch, lambda: kernel(**ka), 1, 3)
+    run_k = lambda: kernel(**ka)
+    if base is None:
+        ms, base_ms = _time_ms(torch, run_k, 1, 3), None
+    else:
+        run_b = lambda: base(**ka)
+        b0, k0, k1, b1 = (_time_ms(torch, f, 1, 3) for f in (run_b, run_k, run_k, run_b))
+        ms, base_ms = (k0 + k1) / 2, (b0 + b1) / 2
     plain_ms = _time_ms(torch, lambda: plain(**ka), 0, 1)
     lib_ms = None if lib is None else _time_ms(torch, lib, 1, 3)
-    return err, ms, plain_ms, lib_ms, flops, nbytes
+    return err, ms, plain_ms, lib_ms, flops, nbytes, plan, base_ms
 
 
-def check_layered(torch, np, dev):
+def _launch_line(name, a, ms, base_ms, lib_ms, flops, nbytes):
+    """One replayed product: its shape, which epilogue parts it runs (x
+    written, + added into, y, mask, column sums), its times and bound."""
+    m, k = a["a"].shape
+    n = a["w"].shape[0] if name == "layer_bwd" else a["w"].shape[1]
+    on = {"x": a.get("x") is not None, "+": bool(a.get("add")), "y": a.get("y") is not None,
+          "m": a.get("mask") is not None, "s": a.get("colsum") is not None}
+    parts = "".join(c for c, v in on.items() if v)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (f"{name} M={m} K={k} N={n} {parts}: kernel {ms:.3f} ms"
+            + ("" if base_ms is None else f", baseline {base_ms:.3f} ms")
+            + ("" if lib_ms is None else f", library {lib_ms:.3f} ms")
+            + f", bound {max(t_ops, t_bytes):.3f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
+            + f", {flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
+
+
+def check_layered(torch, np, dev, baseline=None):
     """The layered kernels at the widths the chains lack, launch by launch
     at the coarse train call's shapes, against their plain versions: the
     stash forward and the backward of each case in LAYERED_CASES through
     the wrappers the model calls, each recorded launch replayed as the
     kernel and as the plain version and timed beside bf16 torch.matmul of
-    the same product; the whole forward and backward against the plain
-    ones; at hidden 512 the layered path against the chain. Returns the
-    four kernels' records (hidden 1024's sums, the other cases under their
-    names)."""
+    the same product (and, with `baseline`, an earlier tree's `layer_fwd` /
+    `layer_bwd` in turns with the kernel); the whole forward and backward
+    against the plain ones; at hidden 512 the layered path against the
+    chain. Each product's plan (N tile, N tiles, row slots, grid) is
+    printed. Returns the four kernels' records (hidden 1024's sums, the
+    other cases under their names)."""
     from pixelnerf_tpu_torch.ops.field import FieldWeights
     from pixelnerf_tpu_torch.ops.layer_chain import layered_bwd, layered_fwd
     from pixelnerf_tpu_torch.ops.resnetfc import (
@@ -3104,10 +3174,18 @@ def check_layered(torch, np, dev):
             dz, dxin, dw = bwd()
         torch.cuda.synchronize()
         sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0, max_abs_err=0.0, n=0,
-                        lib=False) for k in LAYER_OUTPUTS}
-        for name, a in calls:
-            err, ms, plain_ms, lib_ms, flops, nbytes = _replay_launch(torch, name, a)
+                        lib=False, baseline_ms=0.0, plans={}) for k in LAYER_OUTPUTS}
+        label = f"layered {case} (SB={SB} NS={ns} B={b} hidden {hidden})"
+        for i, (name, a) in enumerate(calls):
+            base = None if baseline is None else baseline.get(name)
+            err, ms, plain_ms, lib_ms, flops, nbytes, plan, base_ms = _replay_launch(
+                torch, name, a, base)
             s = sums[name]
+            if plan is not None:
+                print(f"{label}: launch {i} {_launch_line(name, a, ms, base_ms, lib_ms, flops, nbytes)}")
+                key = (plan.bn, plan.n_tiles, plan.slots, plan.grid)
+                s["plans"][key] = s["plans"].get(key, 0) + 1
+            s["baseline_ms"] += base_ms or 0.0
             s["ms"] += ms
             s["plain_ms"] += plain_ms
             s["library_ms"] += lib_ms or 0.0
@@ -3115,10 +3193,10 @@ def check_layered(torch, np, dev):
             s["flops"] += flops
             s["bytes"] += nbytes
             s["max_abs_err"] = max(s["max_abs_err"], err)
-            s["n"] += 1
+            # a product that sums bias gradients launches its reduction too
+            s["n"] += 1 + (name == "layer_bwd" and a.get("colsum") is not None)
         del calls
         torch.cuda.empty_cache()
-        label = f"layered {case} (SB={SB} NS={ns} B={b} hidden {hidden})"
         for name, s in sums.items():
             t_ops = s["flops"] / (PEAK_BF16_FLOPS if name.startswith("layer_") else PEAK_F32_FLOPS) * 1e3
             t_bytes = s["bytes"] / PEAK_BYTES * 1e3
@@ -3127,7 +3205,11 @@ def check_layered(torch, np, dev):
                   f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms ({s['bound_by']}), library "
                   + (f"{s['library_ms']:.3f} ms" if s["lib"] else "none")
                   + f", {s['flops'] / max(s['ms'], 1e-9) / 1e9:.1f} TFLOP/s, max_abs_err "
-                  f"{s['max_abs_err']:.3e}; each launch against its plain version")
+                  f"{s['max_abs_err']:.3e}; each launch against its plain version"
+                  + (f"; baseline {s['baseline_ms']:.3f} ms in turns" if s["baseline_ms"] else ""))
+            if s["plans"]:
+                print(f"{label}: {name} plans (N tile, N tiles, row slots, grid: launches): "
+                      + ", ".join(f"{k}: {v}" for k, v in sorted(s["plans"].items())))
         want = resnetfc_fwd_plain(z, xin, w, *args)
         excess = ((out - want).abs() - (FIELD_ATOL + FIELD_RTOL * want.abs())).max().item()
         primal = layered_fwd(z, xin, w, *args, stash=False)[0] if chained else resnetfc_fwd(
@@ -3164,12 +3246,16 @@ def check_layered(torch, np, dev):
                    "library_ms": s["library_ms"] if s["lib"] else None,
                    "launches_a_call": s["n"], "shape": f"SB={SB} NS={ns} B={b} hidden {hidden}"}
                for k, s in sums.items()}
+        for k, s in sums.items():
+            if s["baseline_ms"]:
+                res[k]["baseline_ms"] = s["baseline_ms"]
         for k, r in res.items():
             if case == "hidden_1024":
                 recs[k] = _record(k, "cuda", "pixelnerf_tpu_torch/csrc/layer_chain.cu",
                                   LAYERED_REPLACES[k], {x: r[x] for x in (
                                       "ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
-                                      "launches_a_call")}, r["bound_by"], r["library_ms"])
+                                      "launches_a_call", "baseline_ms") if x in r},
+                                  r["bound_by"], r["library_ms"])
             else:
                 recs[k][case] = r
         del z, xin, gout, out, spre, spost, dz, dxin, dw, w
@@ -3962,7 +4048,7 @@ def main() -> int:
     parser.add_argument(
         "--baseline", metavar="DIR",
         help="an earlier tree of the repository: time its lookup kernels, posenc, field "
-        "backward and train step beside the port's",
+        "backward, layered products and train step beside the port's",
     )
     args = parser.parse_args()
     import torch
@@ -4009,7 +4095,7 @@ def main() -> int:
     for k in kernels:
         k.update(wide.get(k["name"], {}))
     torch.cuda.empty_cache()
-    kernels += check_layered(torch, np, dev)
+    kernels += check_layered(torch, np, dev, baseline)
     torch.cuda.empty_cache()
 
     # posenc is checked and timed after the counted view, the lookups after

@@ -20,7 +20,7 @@
 // 2. `layer_bwd`: v = bf(A) @ W^T * [mask > 0] for W (N, K) row-major (the
 //    weight as the forward reads it, so W^T's rows are W's), then the same
 //    epilogue without relu and with the column sums of v added into an f32
-//    vector (the bias gradients: f32 atomics, one a column and warp).
+//    vector (the bias gradients).
 // 3. `view_pool_fwd`: the mean over the NS views at combine_layer, (SB, NS,
 //    B, H) f32 to (SB, B, H), and bf(relu(mean)) into the next block's stash
 //    slot; `view_pool_bwd`: the broadcast of the cotangent / NS back over the
@@ -35,221 +35,435 @@
 // each pre-pool bf16 stash slot 1 GiB (6 of them at combine_layer 3), each
 // post-pool slot 0.5 GiB (5 of them).
 //
-// Bound on the H100: a block product at K = N = 1024 that adds into the
-// residual does 2 MFLOP a row against ~12 KB a row (bf16 A, the f32
-// residual read and written, bf16 y): 170 FLOP a byte, under the card's
-// ~295 ridge, so bytes at 3.35 TB/s; one without the residual (fc_0's,
-// ~4 KB a row) is operations-bound at 989 TFLOP/s. A stash forward's 15
-// products at bench.py's batch are bytes-bound in sum (chip_smoke.py's
-// `layered` lines), and so is every product at 80 views and hidden 64.
-// The pooling and its backward move bytes only.
+// Bound on the H100: bytes. A block product at K = N = 1024 that adds into
+// the residual does 2 MFLOP a row against 10-12 KB a row (bf16 A, the f32
+// residual read and written, bf16 y where the next product reads it): under
+// 210 FLOP a byte, below the card's ~295 ridge, so 1.6-1.9 ms of bytes at
+// 3.35 TB/s against 1.1 ms of products at 989 TFLOP/s a call of 524,288
+// rows; a stash forward's 15 products are bytes-bound in sum
+// (chip_smoke.py's `layered` lines), and every product at 80 views and
+// hidden 64 is the epilogue's bytes with a small product beside it. So the
+// residual's round trip and the copies must stream while the tensor cores
+// run, not after them.
 //
-// Design (simple and right first; making it fast is later work): 128 x 128
-// output tiles on a 1-D grid, N tiles fastest (the CTAs that share an A row
-// tile run together, and any row count below 2^31 launches: a grid's y axis
-// would stop at 65,535 row tiles, 8.4M rows), a CTA of eight warps, each
-// warp 64 x 32 of m16n8k16
-// `mma.sync` products from `ldmatrix` fragments (`.trans` for the (K, N)
-// weight), K in steps of 32 through a 3-stage `cp.async` ring with padded
-// rows (no bank conflicts for ldmatrix). Edges are zero-filled by the
-// copies (K and N multiples of 8) and masked in the epilogue.
+// Design of the products (`layer_kernel<BN, WT>`), five warpgroups:
+// - A persistent grid: each CTA keeps one N tile of BN columns (64 where N
+//   <= 64, else 128) and walks row tiles of 128 rows, a 64-bit walk; the
+//   CTAs of one row slot hold consecutive N tiles (N tiles fastest), so the
+//   CTAs that share an A row tile run together and read it from L2. About
+//   one CTA an SM (the row slots fill the SMs in whole N-tile groups).
+// - Warpgroup 2, one producer thread: a ring of 4 (BN 128) or 6 (BN 64)
+//   stages kept full through TMA on mbarriers, a 128-row x 64-K box of A
+//   and the W box of the CTA's columns, both with the 128-byte swizzle; TMA
+//   zero-fills K past its end (48, 16) and rows past M. W (K, N) is read as
+//   MN-major wgmma B (tnspB = 1, 64-column boxes), W (N, K) as K-major B
+//   (tnspB = 0).
+// - Warpgroups 0-1, MMA: `wgmma` m64nBNk16, 64 rows each, a stage freed once
+//   the next stage's products are in flight; at a tile's end the f32
+//   accumulators go to a padded staging tile in shared memory, and the MMA
+//   warpgroups start the next tile. They never wait on device memory.
+// - Warpgroups 3-4, epilogue: each thread finishes 8-column chunks of fixed
+//   columns (the bias loaded once: a CTA's columns never change). It loads
+//   half a tile's residual and mask rows ahead with 16-byte loads (the
+//   first half while the tile's K loop still runs), reads the staged
+//   accumulators, applies bias, mask and residual, and stores x and y 16
+//   bytes at a time; the stores drain while the MMA warpgroups run the next
+//   tile. Two mbarriers hand the staging tile back and forth. Strides off
+//   16 bytes (never on the path) and a ragged last chunk of `cols` take
+//   element accesses.
+// - Column sums: each epilogue thread sums its chunk's columns over every
+//   row it finishes; at the end the CTA adds its threads' sums in a fixed
+//   order into its own workspace row, and `layer_colsum` (a second launch)
+//   adds each column's CTA rows in slot order into the vector. No atomics:
+//   the bias gradients are bit-identical from run to run.
+// - BN stays at most 128: the staging tile of 128 x 128 f32 (68 KB with its
+//   padding) and a 4-stage ring of 32 KB fill shared memory; a 256-wide
+//   tile would need twice the staging and 48 KB stages.
+// Two earlier drafts ran slower at hidden 512 and 1024 and no faster at
+// 80 views (PERF.md, PR 16): the MMA warpgroups finishing their own tiles
+// (the residual prefetched in their registers; the stores' drain then
+// holds the tensor cores idle), and the same with x and y leaving by TMA
+// stores from shared memory.
 
 #include "wgrad.cuh"
 
-#define LC_BM 128
-#define LC_BN 128
-#define LC_BK 32
-#define LC_THREADS 256
-#define LC_STAGES 3
-#define LC_LD (LC_BK + 8)   // row of the A tile and of the (N, K) weight tile
-#define LC_LDB (LC_BN + 8)  // row of the (K, N) weight tile
+#define LC_BM 128           // rows of a tile: two MMA warpgroups of 64
+#define LC_BK 64            // K columns of a ring stage (one 128-byte row)
+#define LC_MMA 256          // the two MMA warpgroups' threads (0-255)
+#define LC_EPI0 384         // the epilogue's first thread, after the producer warpgroup
+#define LC_EPILOGUE 256     // the two epilogue warpgroups' threads
+#define LC_THREADS (LC_EPI0 + LC_EPILOGUE)
+#define LC_PAD 8            // floats of padding a staging row (no bank conflicts)
+
+template <int BN>
+struct LcShape {
+  static_assert(BN == 64 || BN == 128, "N tiles of 64 or 128 columns");
+  static constexpr int STAGES = BN == 64 ? 6 : 4;
+  static constexpr int A_BYTES = LC_BM * LC_BK * 2;  // 16 KB
+  static constexpr int W_BYTES = BN * LC_BK * 2;     // 8 or 16 KB
+  static constexpr int STAGE = A_BYTES + W_BYTES;
+  static constexpr int SP = BN + LC_PAD;             // staging row pitch, floats
+  static constexpr int CH = BN / 8;                  // 8-column chunks a row
+  static constexpr int RPT = LC_EPILOGUE / CH;       // rows the epilogue finishes at once
+  static constexpr int P = LC_BM / RPT;              // chunks a thread finishes a tile
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE + (size_t)LC_BM * SP * 4 + (2 * STAGES + 2) * 8;
+};
 
 struct LayerParams {
-  const bf16* a;        // (M, lda)
-  const bf16* w;        // (K, ldw) for layer_fwd, (N, ldw) for layer_bwd
+  CUtensorMap a_map;    // A (M, K): boxes of 64 K x 128 rows
+  CUtensorMap w_map;    // W (K, N): 64 N x 64 K; W (N, K): 64 K x BN rows
   const float* bias;    // (N) or null
   const bf16* mask;     // (M, ldm) or null: v *= [mask > 0]
   float* x;             // (M, ldx) f32 or null
   bf16* y;              // (M, ldy) bf16 or null
-  float* colsum;        // (cols) or null: += column sums of v
-  int m, n, k, lda, ldw, ldm, ldx, ldy, cols, add_x, relu_y;
+  float* ws;            // (grid, BN) column sums a CTA, or null
+  long long row_tiles;
+  int m, n, k, ldm, ldx, ldy, cols, add_x, relu_y;
+  int ntn, slots;       // N tiles, row slots (grid = slots * ntn)
+  int vx, vy, vm;       // x, y, mask rows take 16-byte vectors
 };
 
-__device__ __forceinline__ void lc_cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void lc_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void lc_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void lc_ldm4(uint32_t (&r)[4], const bf16* p) {
-  if constexpr (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void lc_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
+__device__ __forceinline__ void lc_tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, uint64_t policy) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
 }
 
-// WT: the weight is (N, K) row-major (layer_bwd's W^T), else (K, N)
-template <bool WT>
-__device__ __forceinline__ void lc_load(const LayerParams& p, bf16* As, bf16* Ws, int stage,
-                                        int k0, int m0, int n0) {
-  const int tid = threadIdx.x;
-  bf16* A = As + stage * LC_BM * LC_LD;
+template <int BN, int TB, int R>
+__device__ __forceinline__ void lc_mma(float (&d)[R], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) wgmma_n128<TB>(d, da, db);
+  else wgmma_n64<TB>(d, da, db);
+}
+
+// The producer thread: every tile's A and W boxes, K box by K box.
+template <int BN, int WT>
+__device__ __forceinline__ void lc_produce(const LayerParams& p, unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty) {
+  typedef LcShape<BN> S;
+  const uint64_t stream = l2_evict_normal(), keep = l2_evict_last();
+  const int n0 = (int)(blockIdx.x % p.ntn) * BN, kb = (p.k + LC_BK - 1) / LC_BK;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long rt = blockIdx.x / p.ntn; rt < p.row_tiles; rt += p.slots) {
+    const int m0 = (int)(rt * LC_BM);
+    for (int b = 0; b < kb; b++) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], S::STAGE);
+      unsigned char* st = ring + stage * S::STAGE;
+      lc_tma_2d(st, &p.a_map, &full[stage], b * LC_BK, m0, stream);
+      if constexpr (WT) {
+        lc_tma_2d(st + S::A_BYTES, &p.w_map, &full[stage], b * LC_BK, n0, keep);
+      } else {
 #pragma unroll
-  for (int i = tid; i < LC_BM * (LC_BK / 8); i += LC_THREADS) {
-    const int r = i / (LC_BK / 8), c = i % (LC_BK / 8) * 8;
-    const bool ok = m0 + r < p.m && k0 + c < p.k;
-    lc_cp16(A + r * LC_LD + c, ok ? p.a + (size_t)(m0 + r) * p.lda + k0 + c : p.a, ok);
-  }
-  if constexpr (WT) {
-    bf16* W = Ws + stage * LC_BN * LC_LD;
-#pragma unroll
-    for (int i = tid; i < LC_BN * (LC_BK / 8); i += LC_THREADS) {
-      const int r = i / (LC_BK / 8), c = i % (LC_BK / 8) * 8;
-      const bool ok = n0 + r < p.n && k0 + c < p.k;
-      lc_cp16(W + r * LC_LD + c, ok ? p.w + (size_t)(n0 + r) * p.ldw + k0 + c : p.w, ok);
-    }
-  } else {
-    bf16* W = Ws + stage * LC_BK * LC_LDB;
-#pragma unroll
-    for (int i = tid; i < LC_BK * (LC_BN / 8); i += LC_THREADS) {
-      const int r = i / (LC_BN / 8), c = i % (LC_BN / 8) * 8;
-      const bool ok = k0 + r < p.k && n0 + c < p.n;
-      lc_cp16(W + r * LC_LDB + c, ok ? p.w + (size_t)(k0 + r) * p.ldw + n0 + c : p.w, ok);
+        for (int j = 0; j < BN / 64; j++)
+          lc_tma_2d(st + S::A_BYTES + j * 8192, &p.w_map, &full[stage], n0 + 64 * j, b * LC_BK,
+                    keep);
+      }
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 }
 
-template <bool WT>
-__device__ __forceinline__ void layer_tile(const LayerParams& p) {
-  extern __shared__ __align__(16) unsigned char lc_raw[];
-  bf16* As = reinterpret_cast<bf16*>(lc_raw);
-  bf16* Ws = As + LC_STAGES * LC_BM * LC_LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int ntn = (p.n + LC_BN - 1) / LC_BN;
-  const int m0 = (int)(blockIdx.x / ntn) * LC_BM, n0 = (int)(blockIdx.x % ntn) * LC_BN;
-  float acc[4][4][4];
+// The residual's 8 columns [col, col + 8) of `row` (zeros where not added)
+__device__ __forceinline__ void lc_load_x(const LayerParams& p, int row, int col, float (&r)[8]) {
 #pragma unroll
-  for (int i = 0; i < 4; i++)
+  for (int e = 0; e < 8; e++) r[e] = 0.f;
+  if (p.add_x && row < p.m) {
+    const float* src = p.x + (size_t)row * p.ldx + col;
+    if (p.vx && col + 8 <= p.cols) {
+      const float4 a = __ldcs(reinterpret_cast<const float4*>(src));
+      const float4 b = __ldcs(reinterpret_cast<const float4*>(src) + 1);
+      r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = b.x, r[5] = b.y, r[6] = b.z,
+      r[7] = b.w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; j++)
-#pragma unroll
-      for (int e = 0; e < 4; e++) acc[i][j][e] = 0.f;
-
-  const int ktiles = (p.k + LC_BK - 1) / LC_BK;
-#pragma unroll
-  for (int s = 0; s < LC_STAGES - 1; s++) {
-    if (s < ktiles) lc_load<WT>(p, As, Ws, s, s * LC_BK, m0, n0);
-    lc_commit();
+      for (int e = 0; e < 8; e++)
+        if (col + e < p.cols) r[e] = src[e];
+    }
   }
-  for (int kt = 0; kt < ktiles; kt++) {
-    lc_wait<LC_STAGES - 2>();
-    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1's stage
-    const int nk = kt + LC_STAGES - 1;
-    if (nk < ktiles) lc_load<WT>(p, As, Ws, nk % LC_STAGES, nk * LC_BK, m0, n0);
-    lc_commit();
-    const int st = kt % LC_STAGES;
-    const bf16* A = As + st * LC_BM * LC_LD;
+}
+
+// The mask's 8 columns [col, col + 8) of `row` as 8 bf16 bit patterns
+__device__ __forceinline__ uint4 lc_load_mask(const LayerParams& p, int row, int col) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (p.mask && row < p.m) {
+    const bf16* src = p.mask + (size_t)row * p.ldm + col;
+    if (p.vm && col + 8 <= p.cols) {
+      r = __ldcs(reinterpret_cast<const uint4*>(src));
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int kk = 0; kk < LC_BK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
+      for (int e = 0; e < 8; e++)
+        if (col + e < p.cols) w[e / 2] |= (uint32_t)__bfloat16_as_ushort(src[e]) << (16 * (e % 2));
+      r = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  return r;
+}
+
+__device__ __forceinline__ uint32_t lc_word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+__device__ __forceinline__ uint32_t lc_pack(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return (uint32_t)__bfloat16_as_ushort(h.x) | ((uint32_t)__bfloat16_as_ushort(h.y) << 16);
+}
+
+// Warpgroups 0-1 (MMA): each tile's products into registers, then, once
+// the epilogue has read the last tile's, the accumulators into the staging
+// tile. They never touch device memory.
+template <int BN, int WT>
+__device__ __forceinline__ void lc_mma_role(const LayerParams& p, unsigned char* ring, float* stg,
+                                            uint64_t* full, uint64_t* empty, uint64_t* sfull,
+                                            uint64_t* sfree) {
+  typedef LcShape<BN> S;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const bool lead = lane == 0;
+  const int kb = (p.k + LC_BK - 1) / LC_BK;
+  // the accumulator fragment of m64nBN: register 4j + {0,1} row r0, columns
+  // 8j + 2q + {0,1}; 4j + {2,3} row r0 + 8
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4, q = lane % 4;
+  int stage = 0;
+  uint32_t phase = 0, t = 0;
+  for (long long rt = blockIdx.x / p.ntn; rt < p.row_tiles; rt += p.slots, t++) {
+    float acc[BN / 2];
 #pragma unroll
-      for (int mi = 0; mi < 4; mi++)
-        lc_ldm4<false>(af[mi], A + (wm * 64 + mi * 16 + lane % 16) * LC_LD + kk + lane / 16 * 8);
+    for (int i = 0; i < BN / 2; i++) acc[i] = 0.f;
+    int prev = -1;
+    for (int b = 0; b < kb; b++) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = ring + stage * S::STAGE;
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int nj = 0; nj < 2; nj++) {
-        const int nb = wn * 32 + nj * 16;
+      for (int kk = 0; kk < LC_BK; kk += 16) {
+        const uint64_t da = a_desc(st + wg * 8192, kk);
         if constexpr (WT)
-          lc_ldm4<false>(bfr[nj], Ws + st * LC_BN * LC_LD +
-                                      (nb + lane % 8 + lane / 16 * 8) * LC_LD + kk +
-                                      (lane / 8) % 2 * 8);
+          lc_mma<BN, 0>(acc, da, smem_desc(st + S::A_BYTES + kk * 2, 16, 1024, 1));
         else
-          lc_ldm4<true>(bfr[nj], Ws + st * LC_BK * LC_LDB +
-                                     (kk + lane % 8 + (lane / 8) % 2 * 8) * LC_LDB + nb +
-                                     lane / 16 * 8);
+          lc_mma<BN, 1>(acc, da, smem_desc(st + S::A_BYTES + kk * 128, 8192, 1024, 1));
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; mi++)
-#pragma unroll
-        for (int ni = 0; ni < 4; ni++)
-          lc_mma(acc[mi][ni], af[mi], bfr[ni / 2][ni % 2 * 2], bfr[ni / 2][ni % 2 * 2 + 1]);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (prev >= 0 && lead) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (prev >= 0 && lead) mbar_arrive(&empty[prev]);
+    mbar_wait(sfree, (t & 1) ^ 1);  // the epilogue has read the last tile
+#pragma unroll
+    for (int j = 0; j < BN / 8; j++)
+#pragma unroll
+      for (int h = 0; h < 2; h++)
+        *reinterpret_cast<float2*>(stg + (r0 + 8 * h) * S::SP + 8 * j + 2 * q) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    mbar_arrive(sfull);  // every thread's writes, released to the epilogue
   }
-  lc_wait<0>();
+}
 
-  // epilogue: fragment (mi, ni) holds rows r0 + {0, 8}, columns c, c + 1
-  float cs[4][2];
+// Warpgroups 3-4 (epilogue): each tile's 8-column chunks of fixed columns,
+// half a tile's residual and mask rows loaded ahead at a time (the first
+// half while the MMA warpgroups still run the tile's K loop), finished from
+// the staging tile and stored 16 bytes at a time; then the CTA's column
+// sums into its workspace row.
+template <int BN>
+__device__ __forceinline__ void lc_epilogue(const LayerParams& p, float* stg, uint64_t* sfull,
+                                            uint64_t* sfree) {
+  typedef LcShape<BN> S;
+  constexpr int H = S::P / 2;  // chunks a thread loads ahead at once
+  const int et = threadIdx.x - LC_EPI0;
+  const int n0 = (int)(blockIdx.x % p.ntn) * BN;
+  // this thread's chunk: columns [col, col + 8) of rows rr + RPT * i
+  const int c = et % S::CH, rr = et / S::CH, col = n0 + 8 * c;
+  const int sw = (c >> 2) & 1;  // which half of the chunk it reads first
+  float bias[8], cs[8];
 #pragma unroll
-  for (int ni = 0; ni < 4; ni++) cs[ni][0] = cs[ni][1] = 0.f;
+  for (int e = 0; e < 8; e++) {
+    bias[e] = p.bias && col + e < p.n ? p.bias[col + e] : 0.f;
+    cs[e] = 0.f;
+  }
+  uint32_t t = 0;
+  for (long long rt = blockIdx.x / p.ntn; rt < p.row_tiles; rt += p.slots, t++) {
+    const int m0 = (int)(rt * LC_BM);
 #pragma unroll
-  for (int mi = 0; mi < 4; mi++) {
+    for (int half = 0; half < 2; half++) {
+      float xr[H][8];
+      uint4 mr[H];
 #pragma unroll
-    for (int h = 0; h < 2; h++) {
-      const int r = m0 + wm * 64 + mi * 16 + lane / 4 + 8 * h;
-      if (r >= p.m) continue;
+      for (int i = 0; i < H; i++) {
+        const int row = m0 + rr + (half * H + i) * S::RPT;
+        lc_load_x(p, row, col, xr[i]);
+        mr[i] = lc_load_mask(p, row, col);
+      }
+      if (half == 0) mbar_wait(sfull, t & 1);  // the tile's accumulators are staged
 #pragma unroll
-      for (int ni = 0; ni < 4; ni++) {
-        const int c = n0 + wn * 32 + ni * 8 + lane % 4 * 2;
+      for (int i = 0; i < H; i++) {
+        const int lr = rr + (half * H + i) * S::RPT, row = m0 + lr;
+        const float* sr = stg + lr * S::SP + 8 * c;
+        const float4 f0 = *reinterpret_cast<const float4*>(sr + 4 * sw);
+        const float4 f1 = *reinterpret_cast<const float4*>(sr + 4 - 4 * sw);
+        const float4 lo = sw ? f1 : f0, hi = sw ? f0 : f1;
+        float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-        for (int e = 0; e < 2; e++) {
-          if (c + e >= p.cols) continue;
-          float v = acc[mi][ni][2 * h + e];
-          if (p.bias) v = v + p.bias[c + e];
-          if (p.mask) v = v * (__bfloat162float(p.mask[(size_t)r * p.ldm + c + e]) > 0.f ? 1.f : 0.f);
-          if (p.x) {
-            float* xp = p.x + (size_t)r * p.ldx + c + e;
-            if (p.add_x) v = *xp + v;
-            *xp = v;
+        for (int e = 0; e < 8; e++) {
+          if (p.bias) v[e] = v[e] + bias[e];
+          if (p.mask) {
+            const uint32_t bits = (lc_word(mr[i], e / 2) >> (16 * (e % 2))) << 16;
+            v[e] = v[e] * (__uint_as_float(bits) > 0.f ? 1.f : 0.f);
           }
-          if (p.y) p.y[(size_t)r * p.ldy + c + e] = __float2bfloat16(p.relu_y ? fmaxf(v, 0.f) : v);
-          cs[ni][e] += v;
+          if (p.add_x) v[e] = xr[i][e] + v[e];
         }
+        if (row >= p.m) continue;
+        const bool whole = col + 8 <= p.cols;
+        if (p.x) {
+          float* xd = p.x + (size_t)row * p.ldx + col;
+          if (p.vx && whole) {
+            reinterpret_cast<float4*>(xd)[0] = make_float4(v[0], v[1], v[2], v[3]);
+            reinterpret_cast<float4*>(xd)[1] = make_float4(v[4], v[5], v[6], v[7]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; e++)
+              if (col + e < p.cols) xd[e] = v[e];
+          }
+        }
+        if (p.y) {
+          float u[8];
+#pragma unroll
+          for (int e = 0; e < 8; e++) u[e] = p.relu_y ? fmaxf(v[e], 0.f) : v[e];
+          bf16* yd = p.y + (size_t)row * p.ldy + col;
+          if (p.vy && whole) {
+            *reinterpret_cast<uint4*>(yd) =
+                make_uint4(lc_pack(u[0], u[1]), lc_pack(u[2], u[3]), lc_pack(u[4], u[5]),
+                           lc_pack(u[6], u[7]));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; e++)
+              if (col + e < p.cols) yd[e] = __float2bfloat16(u[e]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; e++) cs[e] += v[e];
       }
     }
+    mbar_arrive(sfree);  // this thread's reads of the staging tile are done
   }
-  if (p.colsum) {
-    // the rows of a warp's fragments: lanes of one lane % 4 share columns
+  if (p.ws == nullptr) return;
+  // the CTA's column sums: its threads' sums of a column in row order (the
+  // MMA warpgroups are done with the staging tile once its last tile is read)
+  bar_sync(1, LC_EPILOGUE);
 #pragma unroll
-    for (int ni = 0; ni < 4; ni++)
-#pragma unroll
-      for (int e = 0; e < 2; e++) {
-        float s = cs[ni][e];
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        const int c = n0 + wn * 32 + ni * 8 + lane % 4 * 2 + e;
-        if (lane < 4 && c < p.cols) atomicAdd(p.colsum + c, s);
-      }
+  for (int e = 0; e < 8; e++) stg[rr * BN + 8 * c + e] = cs[e];
+  bar_sync(1, LC_EPILOGUE);
+  if (et < BN) {
+    float s = 0.f;
+    for (int r = 0; r < S::RPT; r++) s += stg[r * BN + et];
+    p.ws[(size_t)blockIdx.x * BN + et] = s;
   }
 }
 
-__global__ void __launch_bounds__(LC_THREADS) layer_fwd_kernel(const __grid_constant__ LayerParams p) {
-  layer_tile<false>(p);
+template <int BN, int WT>
+__global__ void __launch_bounds__(LC_THREADS, 1) layer_kernel(const __grid_constant__ LayerParams p) {
+  typedef LcShape<BN> S;
+  extern __shared__ __align__(1024) unsigned char lc_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(lc_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* stg = reinterpret_cast<float*>(ring + S::STAGES * S::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg + LC_BM * S::SP);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* sfull = empty + S::STAGES;
+  uint64_t* sfree = sfull + 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; i++) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], LC_MMA / 32);
+    }
+    mbar_init(sfull, LC_MMA);
+    mbar_init(sfree, LC_EPILOGUE);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;  // 0-1 MMA, 2 producer, 3-4 epilogue
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == LC_MMA) lc_produce<BN, WT>(p, ring, full, empty);
+  } else if (role < 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 104;\n");
+    lc_mma_role<BN, WT>(p, ring, stg, full, empty, sfull, sfree);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+    lc_epilogue<BN>(p, stg, sfull, sfree);
+  }
 }
 
-__global__ void __launch_bounds__(LC_THREADS) layer_bwd_kernel(const __grid_constant__ LayerParams p) {
-  layer_tile<true>(p);
+// colsum[c] += the CTAs' sums of column c, in row-slot order
+__global__ void __launch_bounds__(256) layer_colsum(const float* ws, float* colsum, int cols,
+                                                    int bn, int ntn, int slots) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const int nt = c / bn, j = c % bn;
+  float s = 0.f;
+  for (int i = 0; i < slots; i++) s += ws[((size_t)i * ntn + nt) * bn + j];
+  colsum[c] += s;
+}
+
+// The launch plan of a product: N tile, N tiles, row slots, grid, row tiles.
+struct LayerPlan {
+  int bn, ntn, slots, grid;
+  long long row_tiles;
+};
+
+static inline LayerPlan layer_plan(int m, int n, int sms) {
+  LayerPlan l;
+  l.bn = n <= 64 ? 64 : 128;
+  l.ntn = (n + l.bn - 1) / l.bn;
+  l.row_tiles = ((long long)m + LC_BM - 1) / LC_BM;
+  long long slots = sms / l.ntn;
+  if (slots > l.row_tiles) slots = l.row_tiles;
+  l.slots = (int)(slots > 0 ? slots : 1);
+  l.grid = l.slots * l.ntn;
+  return l;
+}
+
+// a row-major bf16 matrix (rows, inner) with rows `ld` elements apart, in
+// boxes of box_inner x box_rows with the 128-byte swizzle; past the edges
+// reads zeros
+static inline int lc_map(CUtensorMap* map, const void* base, int inner, int ld, int rows,
+                         int box_inner, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BN, int WT>
+static inline int layer_launch(const LayerParams& p, int grid, cudaStream_t stream) {
+  typedef LcShape<BN> S;
+  cudaError_t err = cudaFuncSetAttribute(layer_kernel<BN, WT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  layer_kernel<BN, WT><<<grid, LC_THREADS, S::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // view_pool_fwd: xo[s, p, c] = sum_v x[s, v, p, c] / ns; y = bf(relu(xo)).
@@ -311,44 +525,78 @@ static int lc_row_blocks(long long rows) {
 
 extern "C" {
 
-// ptrs: a, w, bias, mask, x, y, colsum (null where unused); ints: m, n, k,
-// lda, ldw, ldm, ldx, ldy, cols, add_x, relu_y. wt: 0 launches layer_fwd
-// (W (K, N)), 1 layer_bwd (W (N, K), the product with W^T). K, N, the
-// leading dims and the operands' addresses must be multiples of 8 elements
-// (16-byte copies); returns cudaGetLastError() or cudaErrorInvalidValue.
+// The plan pnt_layer launches for ints (as pnt_layer's) on the current
+// device: out = N tile, N tiles, row slots, grid, workspace floats (grid x
+// N tile, for the column sums), row tiles.
+int pnt_layer_plan(const int* ints, int* out) {
+  int sms = 0;
+  const int rc = wgrad_sms(&sms);
+  if (rc) return rc;
+  const LayerPlan l = layer_plan(ints[0], ints[1], sms);
+  out[0] = l.bn;
+  out[1] = l.ntn;
+  out[2] = l.slots;
+  out[3] = l.grid;
+  out[4] = l.grid * l.bn;
+  out[5] = (int)l.row_tiles;
+  return 0;
+}
+
+// ptrs: a, w, bias, mask, x, y, colsum, ws (null where unused; ws, of
+// pnt_layer_plan's floats, where colsum is given); ints: m, n, k, lda, ldw,
+// ldm, ldx, ldy, cols, add_x, relu_y. wt: 0 launches layer_fwd (W (K, N)),
+// 1 layer_bwd (W (N, K), the product with W^T). K, N and the leading dims
+// of A and W must be multiples of 8 elements and A and W start on 16
+// bytes (TMA's rows); returns cudaGetLastError() or cudaErrorInvalidValue.
+// With colsum (and M, cols > 0) a second launch, layer_colsum, adds the
+// column sums.
 int pnt_layer(void* const* ptrs, const int* ints, int wt, void* stream) {
   LayerParams p;
-  p.a = static_cast<const bf16*>(ptrs[0]);
-  p.w = static_cast<const bf16*>(ptrs[1]);
+  memset(&p, 0, sizeof(p));
+  const void* a = ptrs[0];
+  const void* w = ptrs[1];
   p.bias = static_cast<const float*>(ptrs[2]);
   p.mask = static_cast<const bf16*>(ptrs[3]);
   p.x = static_cast<float*>(ptrs[4]);
   p.y = static_cast<bf16*>(ptrs[5]);
-  p.colsum = static_cast<float*>(ptrs[6]);
+  float* colsum = static_cast<float*>(ptrs[6]);
+  p.ws = colsum ? static_cast<float*>(ptrs[7]) : nullptr;
   p.m = ints[0];
   p.n = ints[1];
   p.k = ints[2];
-  p.lda = ints[3];
-  p.ldw = ints[4];
+  const int lda = ints[3], ldw = ints[4];
   p.ldm = ints[5];
   p.ldx = ints[6];
   p.ldy = ints[7];
   p.cols = ints[8];
   p.add_x = ints[9];
   p.relu_y = ints[10];
-  const bool aligned = reinterpret_cast<uintptr_t>(p.a) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(p.w) % 16 == 0;
-  if (p.k % 8 || p.n % 8 || p.lda % 8 || p.ldw % 8 || !aligned || p.cols > p.n || p.m < 0)
+  const auto on16 = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  if (p.k % 8 || p.n % 8 || lda % 8 || ldw % 8 || !on16(a) || !on16(w) || p.cols > p.n ||
+      p.m < 0 || p.k <= 0 || (colsum && !p.ws))
     return (int)cudaErrorInvalidValue;
   if (p.m == 0) return 0;
-  const size_t smem = wt ? (size_t)LC_STAGES * 2 * LC_BM * LC_LD * sizeof(bf16)
-                         : (size_t)LC_STAGES * (LC_BM * LC_LD + LC_BK * LC_LDB) * sizeof(bf16);
-  auto kernel = wt ? layer_bwd_kernel : layer_fwd_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)((p.n + LC_BN - 1) / LC_BN) * ((p.m + LC_BM - 1) / LC_BM);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)tiles, LC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  p.vx = p.x && p.ldx % 4 == 0 && on16(p.x);
+  p.vy = p.y && p.ldy % 8 == 0 && on16(p.y);
+  p.vm = p.mask && p.ldm % 8 == 0 && on16(p.mask);
+  int sms = 0;
+  int rc = wgrad_sms(&sms);
+  if (rc) return rc;
+  const LayerPlan l = layer_plan(p.m, p.n, sms);
+  p.ntn = l.ntn;
+  p.slots = l.slots;
+  p.row_tiles = l.row_tiles;
+  rc = lc_map(&p.a_map, a, p.k, lda, p.m, LC_BK, LC_BM);
+  if (!rc)
+    rc = wt ? lc_map(&p.w_map, w, p.k, ldw, p.n, LC_BK, l.bn) : lc_map(&p.w_map, w, p.n, ldw, p.k, 64, LC_BK);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l.bn == 64)
+    rc = wt ? layer_launch<64, 1>(p, l.grid, s) : layer_launch<64, 0>(p, l.grid, s);
+  else
+    rc = wt ? layer_launch<128, 1>(p, l.grid, s) : layer_launch<128, 0>(p, l.grid, s);
+  if (rc || colsum == nullptr || p.cols == 0) return rc;
+  layer_colsum<<<(p.cols + 255) / 256, 256, 0, s>>>(p.ws, colsum, p.cols, l.bn, l.ntn, l.slots);
   return (int)cudaGetLastError();
 }
 

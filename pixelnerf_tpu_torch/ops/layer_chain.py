@@ -17,7 +17,9 @@ the design:
   (x = v or x += v) and the bf16 copy bf(relu(v)), which is the next
   product's operand and the stash slot;
 - `layer_bwd`: v = bf(A) @ W^T * [mask > 0] with the same epilogue (no
-  relu) and the column sums of v (the bias gradients);
+  relu) and the column sums of v (the bias gradients: each CTA's sums in a
+  workspace the wrapper allocates, added in a fixed order by a second
+  launch, `layer_colsum`);
 - `view_pool_fwd`: the mean over the views at combine_layer and its relu'd
   bf16 copy; `view_pool_bwd`: the broadcast of the cotangent / NS, its
   bf16 copy and column sums (with NS = 1 also bf(g) for the weight
@@ -35,15 +37,18 @@ backward consumes either path's stash; `layered_field_fwd` /
 is zero-padded to a multiple of 64 and d_latent as `chain_plan` pads it;
 d_out takes no output groups (one product takes any N). Each kernel
 wrapper launches on CUDA tensors and counts each launch (`.launches`;
-`layer_wgrad` two a call); on CPU tensors it runs its plain version
-(`*_plain`), which the CPU tests compose into the same sequence.
+`layer_wgrad` two a call, `layer_bwd` two where it sums columns;
+`layer_fwd.plan` / `layer_bwd.plan` hold the last product's `LayerPlan`);
+on CPU tensors it runs its plain version (`*_plain`), which the CPU tests
+compose into the same sequence. A and W are read by TMA: their rows must
+start on 16 bytes and lie a multiple of 8 elements apart.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,6 +102,8 @@ def _library() -> ctypes.CDLL:
     lib.pnt_layer.restype = ctypes.c_int
     lib.pnt_layer.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                               ctypes.c_int, ctypes.c_void_p]
+    lib.pnt_layer_plan.restype = ctypes.c_int
+    lib.pnt_layer_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.pnt_view_pool_fwd.restype = ctypes.c_int
     lib.pnt_view_pool_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pnt_view_pool_bwd.restype = ctypes.c_int
@@ -162,14 +169,37 @@ def layer_bwd_plain(a, w, mask=None, x=None, add=False, y=None, colsum=None, col
     _epilogue(v, x, add, y, False, colsum, cols)
 
 
+def _tma_rows(t: torch.Tensor, m: int, what: str) -> int:
+    """The row stride of A or W (bf16, `m` rows), which TMA reads in rows
+    of a multiple of 16 bytes from a 16-byte aligned start."""
+    ld = _rows_of(t, _BF, m, what)
+    if ld % 8 or t.data_ptr() % 16:
+        raise ValueError(f"{what} must start on 16 bytes with rows a multiple of 8 elements apart "
+                         f"(TMA), got a row stride of {ld}")
+    return ld
+
+
+class LayerPlan(NamedTuple):
+    """A product's launch (`csrc/layer_chain.cu:layer_plan`): its N tile
+    (64 or 128 columns), N tiles, row slots, persistent grid (slots x N
+    tiles) and 128-row tiles."""
+    bn: int
+    n_tiles: int
+    slots: int
+    grid: int
+    row_tiles: int
+
+
 def _layer(wt: int, a, w, bias, mask, x, add, y, relu, colsum, cols, what):
+    """Launch one product: (its LayerPlan, the kernels launched: the column
+    sums' reduction is a second)."""
     m, k = a.shape
     n = w.shape[0] if wt else w.shape[1]
     if (w.shape[1] if wt else w.shape[0]) != k:
         raise ValueError(f"{what}: A is {tuple(a.shape)}, W {tuple(w.shape)}")
     cols = cols or n
     ints = [
-        m, n, k, _rows_of(a, _BF, m, f"{what} A"), _rows_of(w, _BF, w.shape[0], f"{what} W"),
+        m, n, k, _tma_rows(a, m, f"{what} A"), _tma_rows(w, w.shape[0], f"{what} W"),
         _rows_of(mask, _BF, m, f"{what} mask"), _rows_of(x, _F32, m, f"{what} x"),
         _rows_of(y, _BF, m, f"{what} y"), cols, int(add), int(relu),
     ]
@@ -178,9 +208,15 @@ def _layer(wt: int, a, w, bias, mask, x, add, y, relu, colsum, cols, what):
             raise ValueError(f"{what}: bias and colsum are contiguous f32 vectors")
     if any(t is not None and t.device != a.device for t in (w, bias, mask, x, y, colsum)):
         raise ValueError(f"{what}: every tensor on A's device")
-    ptrs = (ctypes.c_void_p * 7)(*[_ptr(t) for t in (a, w, bias, mask, x, y, colsum)])
-    err = _library().pnt_layer(ptrs, (ctypes.c_int * 11)(*ints), wt, _stream(a))
-    _raise_on(err, what)
+    lib = _library()
+    cints = (ctypes.c_int * 11)(*ints)
+    plan = (ctypes.c_int * 6)()
+    _raise_on(lib.pnt_layer_plan(cints, plan), what)
+    reduce = colsum is not None and m > 0 and cols > 0
+    ws = torch.empty(plan[4] if reduce else 0, dtype=_F32, device=a.device)
+    ptrs = (ctypes.c_void_p * 8)(*[_ptr(t) for t in (a, w, bias, mask, x, y, colsum, ws)])
+    _raise_on(lib.pnt_layer(ptrs, cints, wt, _stream(a)), what)
+    return LayerPlan(plan[0], plan[1], plan[2], plan[3], plan[5]), 1 + reduce
 
 
 def layer_fwd(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -198,11 +234,12 @@ def layer_fwd(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     """
     if _device_of(a, "layer_fwd") == "cpu":
         return layer_fwd_plain(a, w, bias, x, add, y, relu, cols)
-    _layer(0, a, w, bias, None, x, add, y, relu, None, cols, "layer_fwd")
-    layer_fwd.launches += 1
+    layer_fwd.plan, n = _layer(0, a, w, bias, None, x, add, y, relu, None, cols, "layer_fwd")
+    layer_fwd.launches += n
 
 
 layer_fwd.launches = 0
+layer_fwd.plan = None
 
 
 def layer_bwd(a: torch.Tensor, w: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -217,11 +254,12 @@ def layer_bwd(a: torch.Tensor, w: torch.Tensor, mask: Optional[torch.Tensor] = N
     """
     if _device_of(a, "layer_bwd") == "cpu":
         return layer_bwd_plain(a, w, mask, x, add, y, colsum, cols)
-    _layer(1, a, w, None, mask, x, add, y, False, colsum, cols, "layer_bwd")
-    layer_bwd.launches += 1
+    layer_bwd.plan, n = _layer(1, a, w, None, mask, x, add, y, False, colsum, cols, "layer_bwd")
+    layer_bwd.launches += n
 
 
 layer_bwd.launches = 0
+layer_bwd.plan = None
 
 
 def view_pool_fwd_plain(x, out, y=None):

@@ -1083,9 +1083,11 @@ def test_resnetfc_backward_takes_the_layered_path_past_the_chain_widths(cuda):
               layer_wgrad.launches)
     dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, 2)
     torch.cuda.synchronize()
-    # lin_out, 2 a block, 3 injections, dxin; bf(g) and the pooling
+    # lin_out, 2 a block, 3 injections, dxin, and the column sums'
+    # reduction of lin_out's and 2 a block but the pooling's (10); bf(g) and
+    # the pooling
     assert (resnetfc_bwd.launches, layer_bwd.launches, view_pool_bwd.launches,
-            layer_wgrad.launches) == (before[0], before[1] + 15, before[2] + 2, before[3] + 2)
+            layer_wgrad.launches) == (before[0], before[1] + 25, before[2] + 2, before[3] + 2)
     _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, 2), dz, dxin, dw)
 
 
@@ -1116,8 +1118,10 @@ def test_the_layered_path_takes_past_64_views(cuda):
 
 def test_the_layered_path_takes_more_row_tiles_than_a_grid_column(cuda):
     """8.4M pre-pool rows at hidden 64 and 80 views: 65,625 row tiles of
-    128, past the 65,535 blocks of a grid's y axis. The stash forward and
-    the backward launch and match their plain versions."""
+    128, past the 65,535 blocks of a grid's y axis, walked by the
+    persistent grid. The stash forward and the backward launch (the
+    backward's 10 column-sum reductions counted) and match their plain
+    versions."""
     rng = np.random.default_rng(8)
     sb, ns, b = 1, 80, 105_000
     assert sb * ns * b > 65_535 * 128
@@ -1130,7 +1134,7 @@ def test_the_layered_path_takes_more_row_tiles_than_a_grid_column(cuda):
     out, spre, spost = resnetfc_fwd_stash(z, xin, w, 5, 3, ns)
     dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, 5, 3, ns)
     torch.cuda.synchronize()
-    assert (layer_fwd.launches, layer_bwd.launches) == (before[0] + 15, before[1] + 15)
+    assert (layer_fwd.launches, layer_bwd.launches) == (before[0] + 15, before[1] + 25)
     _out_close(out, resnetfc_fwd_plain(z, xin, w, 5, 3, ns))
     _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, ns), dz, dxin, dw)
 
@@ -1209,9 +1213,10 @@ def test_layered_path_matches_the_chain_at_hidden_512(cuda, ns, sb, b):
 
 def test_layer_kernels_match_plain(cuda):
     """Each layered kernel on its own against its plain version: ragged
-    rows, K off the 32-step (48), N of 16 with 4 columns kept, masks, the
-    residual added to and written, relu'd and plain bf16 copies, column
-    sums (f32 atomics in any order), the pooling and its backward."""
+    rows, K off the 64-deep box (48), N of 16 with 4 columns kept (rows of
+    the mask and y off 16 bytes: element accesses), masks, the residual
+    added to and written, relu'd and plain bf16 copies, column sums
+    (per-CTA sums in a fixed order), the pooling and its backward."""
     g = torch.Generator(device="cpu").manual_seed(11)
     r = lambda *s: torch.randn(s, generator=g).to(cuda)
     bf = lambda t: t.to(torch.bfloat16)
@@ -1252,6 +1257,85 @@ def test_layer_kernels_match_plain(cuda):
     assert (ys[0].float() - ys[1].float()).abs().max() <= 2.0 ** -7 * outs[1].abs().max()
     assert ((yb[0].float() - yb[1].float()).abs() <= 2.0 ** -7 * yb[1].float().abs()).all()
     assert (cs[0] - cs[1]).abs().max() <= 1e-5 * gc.abs().sum(dim=(0, 1)).max()
+
+
+def _layer_pair(cuda, m, k, n, cols, seed):
+    """layer_fwd and layer_bwd of one shape (every epilogue part on) as the
+    kernel and as the plain version: the outputs of each, and each kernel's
+    plan."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g).to(cuda)
+    bf = lambda t: t.to(torch.bfloat16)
+    a, w, wt, bias = bf(r(m, k)), bf(r(k, n) / k ** 0.5), bf(r(n, k) / k ** 0.5), r(n)
+    x0, mask = r(m, cols), bf(r(m, cols))
+    y0 = torch.zeros(m, cols, dtype=torch.bfloat16, device=cuda)
+    outs = []
+    for fwd, bwd in ((layer_fwd, layer_bwd), (layer_fwd_plain, layer_bwd_plain)):
+        f = [x0.clone(), y0.clone()]
+        fwd(a, w, bias, x=f[0], add=True, y=f[1], cols=cols)
+        b = [x0.clone(), y0.clone(), torch.zeros(cols, device=cuda)]
+        bwd(a, wt, mask=mask, x=b[0], add=True, y=b[1], colsum=b[2], cols=cols)
+        outs.append(f + b)
+    torch.cuda.synchronize()
+    return outs, (layer_fwd.plan, layer_bwd.plan)
+
+
+def _layer_pair_close(outs):
+    (fx, fy, bx, by, cs), (wfx, wfy, wbx, wby, wcs) = outs
+    for got, want in ((fx, wfx), (fy, wfy), (bx, wbx), (by, wby)):
+        _out_close(got.float(), want.float())
+    assert (cs - wcs).abs().max() <= 1e-5 * wbx.abs().sum(dim=0).max()
+
+
+# (M, K, N, cols) and the N tile the plan takes: N <= 64 on 64-column
+# tiles, wider on 128; K off the 64-deep box (16, 48, 576); M under one
+# 128-row tile and off a tile multiple; N off the tile (192 = 128 + 64)
+LAYER_SHAPES = {
+    "N 64": (333, 64, 64, 64, 64), "N 48 K 48": (129, 48, 48, 48, 64),
+    "N 16 K 16": (7, 16, 16, 16, 64), "N 1024 K 576": (300, 576, 1024, 1024, 128),
+    "N 192 M 7": (7, 1024, 192, 192, 128), "N 512 K 64": (1000, 64, 512, 512, 128),
+}
+
+
+@pytest.mark.parametrize("m,k,n,cols,bn", LAYER_SHAPES.values(), ids=LAYER_SHAPES.keys())
+def test_layer_products_at_each_tile_width(cuda, m, k, n, cols, bn):
+    """The layered products at each N tile their plan instantiates (64 and
+    128), K off the 64-deep box, M under a tile and off a tile multiple:
+    every output against the plain version at the path's tolerances."""
+    outs, plans = _layer_pair(cuda, m, k, n, cols, seed=m + k + n)
+    assert [p.bn for p in plans] == [bn, bn]
+    assert all(p.n_tiles == -(-n // bn) and p.grid == p.slots * p.n_tiles for p in plans)
+    _layer_pair_close(outs)
+
+
+def test_layer_products_walk_more_tiles_than_a_wave(cuda):
+    """Row tiles past one wave of the persistent grid: each CTA walks
+    several (N 64: one N tile, every SM a row slot; N 1024: 8 N tiles a
+    slot), and the column sums of two runs are bit-identical (the CTAs'
+    sums added in a fixed order, no atomics)."""
+    for k, n in ((64, 64), (1024, 1024)):
+        m = 300 * 128 + 5
+        outs, plans = _layer_pair(cuda, m, k, n, n, seed=n)
+        assert all(p.row_tiles == 301 and p.row_tiles > p.slots for p in plans)
+        _layer_pair_close(outs)
+        again, _ = _layer_pair(cuda, m, k, n, n, seed=n)
+        assert torch.equal(outs[0][4], again[0][4])
+
+
+def test_layer_products_refuse_rows_tma_cannot_read(cuda):
+    """A and W are read by TMA: a row stride off 16 bytes or a start off 16
+    bytes is refused before any launch."""
+    bf = lambda *s: torch.randn(s, device=cuda).to(torch.bfloat16)
+    a, w, wt = bf(64, 64), bf(64, 64), bf(64, 64)
+    x = torch.zeros(64, 64, device=cuda)
+    before = (layer_fwd.launches, layer_bwd.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        layer_fwd(bf(64, 68)[:, :64], w, None, x=x)  # rows 136 bytes apart
+    with pytest.raises(ValueError, match="TMA"):
+        layer_fwd(a, bf(64 * 64 + 4)[4:].view(64, 64), None, x=x)  # starts 8 bytes off
+    with pytest.raises(ValueError, match="TMA"):
+        layer_bwd(bf(64, 72)[:, 4:68], wt, x=x)
+    assert (layer_fwd.launches, layer_bwd.launches) == before
 
 
 # widths off the chains' that the wrappers zero-pad (ops/resnetfc.py:
