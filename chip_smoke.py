@@ -145,10 +145,13 @@ Phases, each failing loudly (an exception and a non-zero exit):
    each launch of a stash forward and a backward at the coarse call's
    shapes (hidden 1024 with 2 views, hidden 64 with 80, hidden 512 with 2)
    and replays it as the kernel and as its plain version, timed beside
-   bf16 torch.matmul of the same product and, with `--baseline`, the
-   earlier tree's `layer_fwd`/`layer_bwd` in turns (`layered` lines, each
-   product's plan: N tile, N tiles, row slots, grid; at hidden 512 also
-   against the chain); at the end srn.conf with d_hidden 1024 runs
+   bf16 torch.matmul of the same product (the pooling beside torch.mean)
+   and, with `--baseline`, the earlier tree's four layered kernels in
+   turns (`layered` lines, each product's plan: N tile, N tiles, row
+   slots, grid; each pooling's event time and the card's own time, 20
+   launches in one CUDA graph, read twice, the baseline's and torch.mean's
+   beside them, the pooling's forward held equal to the baseline's; at
+   hidden 512 also against the chain); at the end srn.conf with d_hidden 1024 runs
    phase 4's view and phase 5's cached and fused steps against the CPU
    (`wide` lines), and srn.conf renders one 128x128 view from 80 source
    views of an object written by the port's `make_synthetic_dataset`, in
@@ -1196,27 +1199,45 @@ def _baseline_kernels(torch, builds):
 
 
 def _baseline_layers(torch, lib):
-    """The earlier tree's `layer_fwd` and `layer_bwd` as functions of the
-    port's wrappers' arguments, through its `pnt_layer` (the same C
-    interface: 7 pointers, 11 ints, wt, stream; its column sums f32
-    atomics, no workspace)."""
+    """The earlier tree's layered kernels as functions of the port's
+    wrappers' arguments, through its C interface as the symbols it exports
+    tell it: `pnt_layer` with 8 pointers and a workspace of its plan's
+    floats for the column sums where the library exports `pnt_layer_plan`,
+    else the 7 of a tree whose column sums were f32 atomics;
+    `pnt_view_pool_fwd` (x, xo, y, sb, ns, b, h, stream) in every tree;
+    `pnt_view_pool_bwd` with a fifth pointer, a workspace of
+    `pnt_view_pool_bwd_workspace`'s floats for the column sums, where the
+    library exports that, else (g, gx, y, colsum, sb, ns, b, c, ldy,
+    stream) with f32 atomics."""
     import ctypes
 
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.pnt_layer
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.restype = ci
+    fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci), ci, vp]
+    planned = hasattr(lib, "pnt_layer_plan")
+    if planned:
+        lib.pnt_layer_plan.restype = ci
+        lib.pnt_layer_plan.argtypes = [ctypes.POINTER(ci), ctypes.POINTER(ci)]
     ptr = lambda t: 0 if t is None else t.data_ptr()
     ld = lambda t: 0 if t is None else t.stride(0)
+    stream = lambda t: torch.cuda.current_stream(t.device).cuda_stream
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"baseline {what} failed: {err}")
 
     def launch(wt, a, w, bias, mask, x, add, y, relu, colsum, cols):
         n = w.shape[0] if wt else w.shape[1]
-        ints = [a.shape[0], n, a.shape[1], ld(a), ld(w), ld(mask), ld(x), ld(y), cols or n, int(add),
-                int(relu)]
-        ptrs = (ctypes.c_void_p * 7)(*[ptr(t) for t in (a, w, bias, mask, x, y, colsum)])
-        err = fn(ptrs, (ctypes.c_int * 11)(*ints), wt, torch.cuda.current_stream(a.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"baseline pnt_layer failed: {err}")
+        ints = (ci * 11)(a.shape[0], n, a.shape[1], ld(a), ld(w), ld(mask), ld(x), ld(y), cols or n,
+                         int(add), int(relu))
+        tensors = [a, w, bias, mask, x, y, colsum]
+        if planned:
+            plan = (ci * 6)()
+            check(lib.pnt_layer_plan(ints, plan), "pnt_layer_plan")
+            tensors.append(torch.empty(plan[4] if colsum is not None else 0, dtype=torch.float32,
+                                       device=a.device))
+        check(fn((vp * len(tensors))(*[ptr(t) for t in tensors]), ints, wt, stream(a)), "pnt_layer")
 
     def layer_fwd(a, w, bias, x=None, add=False, y=None, relu=True, cols=None):
         launch(0, a, w, bias, None, x, add, y, relu, None, cols)
@@ -1224,7 +1245,32 @@ def _baseline_layers(torch, lib):
     def layer_bwd(a, w, mask=None, x=None, add=False, y=None, colsum=None, cols=None):
         launch(1, a, w, None, mask, x, add, y, False, colsum, cols)
 
-    return {"layer_fwd": layer_fwd, "layer_bwd": layer_bwd}
+    pool_fwd, pool_bwd = lib.pnt_view_pool_fwd, lib.pnt_view_pool_bwd
+    pool_fwd.restype = pool_bwd.restype = ci
+    pool_fwd.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+    pool_ws = hasattr(lib, "pnt_view_pool_bwd_workspace")
+    pool_bwd.argtypes = [vp] * (5 if pool_ws else 4) + [ci] * 5 + [vp]
+    if pool_ws:
+        lib.pnt_view_pool_bwd_workspace.restype = ctypes.c_longlong
+        lib.pnt_view_pool_bwd_workspace.argtypes = [ci] * 3
+
+    def view_pool_fwd(x, out, y=None):
+        sb, ns, b, h = x.shape
+        check(pool_fwd(x.data_ptr(), out.data_ptr(), ptr(y), sb, ns, b, h, stream(x)),
+              "pnt_view_pool_fwd")
+
+    def view_pool_bwd(g, ns, gx=None, y=None, colsum=None):
+        sb, b, c = g.shape
+        ptrs = [g.data_ptr(), ptr(gx), ptr(y), ptr(colsum)]
+        if pool_ws:
+            ws = torch.empty(lib.pnt_view_pool_bwd_workspace(sb, b, c) if colsum is not None else 0,
+                             dtype=torch.float32, device=g.device)
+            ptrs.append(ptr(ws))
+        check(pool_bwd(*ptrs, sb, ns, b, c, 0 if y is None else y.shape[-1], stream(g)),
+              "pnt_view_pool_bwd")
+
+    return {"layer_fwd": layer_fwd, "layer_bwd": layer_bwd, "view_pool_fwd": view_pool_fwd,
+            "view_pool_bwd": view_pool_bwd}
 
 
 def _time_ab(torch, run, base):
@@ -2978,7 +3024,8 @@ LAYERED_REPLACES = {
 # lin_out; the pooling. The backward: lin_out, 2 a block, 3 injections and
 # dxin, and a column-sum reduction after each product that sums bias
 # gradients (lin_out's and 2 a block, but the one before the pooling,
-# whose sums view_pool_bwd takes); bf(g) and the pooling
+# whose sums view_pool_bwd takes); bf(g) and the pooling, each with the
+# reduction of its column sums (b_out's, the sums before the pooling)
 LAYER_FWD_CALL = 1 + 3 + 2 * N_BLOCKS + 1
 LAYER_BWD_CALL = (1 + 2 * N_BLOCKS + 3 + 1) + (1 + 2 * N_BLOCKS - 1)
 
@@ -2987,7 +3034,7 @@ def _layered(fwd_calls, bwd_calls=0, **counts):
     """A launch table of layered calls: each forward call's layer_fwd and
     pooling launches, each backward call's layer_bwd and pooling ones."""
     return _launch_table(layer_fwd=LAYER_FWD_CALL * fwd_calls, view_pool_fwd=fwd_calls,
-                         layer_bwd=LAYER_BWD_CALL * bwd_calls, view_pool_bwd=2 * bwd_calls, **counts)
+                         layer_bwd=LAYER_BWD_CALL * bwd_calls, view_pool_bwd=4 * bwd_calls, **counts)
 
 
 WIDE_VIEW_LAUNCHES = _layered(2, posenc_concat=2, pyramid_gather=2)
@@ -3068,14 +3115,49 @@ def _launch_cost(name, a):
     return g.numel() * ns, nb(g) + nb(a.get("gx")) + nb(a.get("y")) + nb(a.get("colsum")), None
 
 
+def _graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """The card's own time of `fn` a call: `calls` calls captured in one
+    CUDA graph, replayed `replays` times between two events. The replay
+    launches the kernels back to back from the card, so the host's share of
+    a call (a wrapper's checks, ctypes, the queueing), which events around
+    a launch of 0.05-0.1 ms can hold the stream for, is not read as kernel
+    time. `fn` runs once on a side stream first, as capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
+
+
 def _replay_launch(torch, name, a, base=None):
     """One recorded launch again, on copies of its outputs, as the kernel
-    and as the plain version: (max abs error, kernel ms, plain ms, library
-    ms or None, FLOPs, bytes, the kernel's plan or None, baseline ms or
-    None). f32 outputs within LAYER_F32_TOL of their largest magnitude,
-    bf16 ones within one bf16 ulp. With `base` (an earlier tree's kernel
-    of the same arguments), both timed in turns (baseline, kernel, kernel,
-    baseline)."""
+    and as the plain version: a dict of the max abs error (`err`), the
+    kernel's, plain version's and library call's event ms (`ms`,
+    `plain_ms`, `lib_ms`: None without a library call), FLOPs, bytes, the
+    kernel's plan (or None) and, with `base` (an earlier tree's kernel of
+    the same arguments), its ms timed in turns (baseline, kernel, kernel,
+    baseline; `base_ms`). The pooling's launches also give the card's own
+    time of each (`dev_ms`, `base_dev_ms`, `lib_dev_ms`: `_graph_ms`, in
+    turns too; `dev_two`: the kernel's two readings, for their spread), and
+    `view_pool_fwd`'s `base_equal`: its outputs equal to the baseline's
+    (both add the views in order). f32 outputs within LAYER_F32_TOL of their largest magnitude, bf16
+    ones within one bf16 ulp more."""
     from pixelnerf_tpu_torch.ops import layer_chain
 
     kernel, plain = getattr(layer_chain, name), getattr(layer_chain, f"{name}_plain")
@@ -3089,7 +3171,7 @@ def _replay_launch(torch, name, a, base=None):
         return {k: args[k] for k in outs}
 
     got = run(kernel)
-    plan = getattr(kernel, "plan", None)
+    r = {"plan": getattr(kernel, "plan", None), "base_equal": None}
     want = run(plain)
     torch.cuda.synchronize()
     err = 0.0
@@ -3103,20 +3185,37 @@ def _replay_launch(torch, name, a, base=None):
         if not (torch.isfinite(g).all() and (d <= bound + 1e-30).all()):
             raise AssertionError(f"{name}: output {k} disagrees with the plain version "
                                  f"(max abs error {d.max().item():.3e})")
+    if base is not None and name == "view_pool_fwd":
+        theirs = run(base)
+        r["base_equal"] = all(torch.equal(got[k], theirs[k]) for k in outs)
+        if not r["base_equal"]:
+            raise AssertionError("view_pool_fwd: the outputs differ from the baseline's")
+        del theirs
     del got, want
-    flops, nbytes, lib = _launch_cost(name, a)
+    r["err"] = err
+    r["flops"], r["bytes"], lib = _launch_cost(name, a)
     ka = dict(a)
     ka.update({k: start[k] for k in outs})
     run_k = lambda: kernel(**ka)
+    pool = name.startswith("view_pool")
+    r["dev_ms"] = r["base_dev_ms"] = r["dev_two"] = None
     if base is None:
-        ms, base_ms = _time_ms(torch, run_k, 1, 3), None
+        r["ms"], r["base_ms"] = _time_ms(torch, run_k, 1, 3), None
+        if pool:
+            r["dev_two"] = (_graph_ms(torch, run_k), _graph_ms(torch, run_k))
     else:
         run_b = lambda: base(**ka)
         b0, k0, k1, b1 = (_time_ms(torch, f, 1, 3) for f in (run_b, run_k, run_k, run_b))
-        ms, base_ms = (k0 + k1) / 2, (b0 + b1) / 2
-    plain_ms = _time_ms(torch, lambda: plain(**ka), 0, 1)
-    lib_ms = None if lib is None else _time_ms(torch, lib, 1, 3)
-    return err, ms, plain_ms, lib_ms, flops, nbytes, plan, base_ms
+        r["ms"], r["base_ms"] = (k0 + k1) / 2, (b0 + b1) / 2
+        if pool:
+            b0, k0, k1, b1 = (_graph_ms(torch, f) for f in (run_b, run_k, run_k, run_b))
+            r["dev_two"], r["base_dev_ms"] = (k0, k1), (b0 + b1) / 2
+    if r["dev_two"] is not None:
+        r["dev_ms"] = sum(r["dev_two"]) / 2
+    r["plain_ms"] = _time_ms(torch, lambda: plain(**ka), 0, 1)
+    r["lib_ms"] = None if lib is None else _time_ms(torch, lib, 1, 3)
+    r["lib_dev_ms"] = _graph_ms(torch, lib) if pool and lib is not None else None
+    return r
 
 
 def _launch_line(name, a, ms, base_ms, lib_ms, flops, nbytes):
@@ -3135,18 +3234,40 @@ def _launch_line(name, a, ms, base_ms, lib_ms, flops, nbytes):
             + f", {flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
 
 
+def _pool_line(name, a, r):
+    """One replayed pooling launch: its shape, which outputs it writes, the
+    event and the card's own times (the kernel's two readings, the
+    baseline's and the library's beside them), the bytes bound and the
+    kernel's rate."""
+    x = a["x"] if name == "view_pool_fwd" else a["g"]
+    shape = ("SB={} NS={} B={} H={}".format(*x.shape) if name == "view_pool_fwd" else
+             "SB={} B={} C={} NS={}".format(*x.shape, a["ns"]))
+    outs = "+".join(k for k in LAYER_OUTPUTS[name] if a.get(k) is not None)
+    bound = r["bytes"] / PEAK_BYTES * 1e3
+    timed = lambda what, ev, dv: [] if ev is None else [
+        f"{what} {ev:.4f} ms" + ("" if dv is None else f" (device {dv:.4f} ms)")]
+    two = "" if r["dev_two"] is None else " (device {:.4f} and {:.4f} ms)".format(*r["dev_two"])
+    parts = ([f"kernel {r['ms']:.4f} ms{two}"] + timed("baseline", r["base_ms"], r["base_dev_ms"])
+             + timed("library", r["lib_ms"], r["lib_dev_ms"])
+             + [f"bound {bound:.4f} ms (bytes)", f"{r['bytes'] / (r['dev_ms'] or r['ms']) / 1e6:.1f} GB/s"]
+             + ([] if r["base_equal"] is None else ["equal to the baseline"]))
+    return f"{name} {shape} ({outs}): " + ", ".join(parts)
+
+
 def check_layered(torch, np, dev, baseline=None):
     """The layered kernels at the widths the chains lack, launch by launch
     at the coarse train call's shapes, against their plain versions: the
     stash forward and the backward of each case in LAYERED_CASES through
     the wrappers the model calls, each recorded launch replayed as the
     kernel and as the plain version and timed beside bf16 torch.matmul of
-    the same product (and, with `baseline`, an earlier tree's `layer_fwd` /
-    `layer_bwd` in turns with the kernel); the whole forward and backward
-    against the plain ones; at hidden 512 the layered path against the
-    chain. Each product's plan (N tile, N tiles, row slots, grid) is
-    printed. Returns the four kernels' records (hidden 1024's sums, the
-    other cases under their names)."""
+    the same product or torch.mean of the same pooling (and, with
+    `baseline`, an earlier tree's kernel of the same launch in turns with
+    the kernel); the pooling's launches also in the card's own time
+    (`_graph_ms`); the whole forward and backward against the plain ones;
+    at hidden 512 the layered path against the chain. Each product's plan
+    (N tile, N tiles, row slots, grid) is printed. Returns the four
+    kernels' records (hidden 1024's sums, the other cases under their
+    names)."""
     from pixelnerf_tpu_torch.ops.field import FieldWeights
     from pixelnerf_tpu_torch.ops.layer_chain import layered_bwd, layered_fwd
     from pixelnerf_tpu_torch.ops.resnetfc import (
@@ -3174,39 +3295,48 @@ def check_layered(torch, np, dev, baseline=None):
             dz, dxin, dw = bwd()
         torch.cuda.synchronize()
         sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0, max_abs_err=0.0, n=0,
-                        lib=False, baseline_ms=0.0, plans={}) for k in LAYER_OUTPUTS}
+                        lib=False, baseline_ms=0.0, plans={}, device_ms=0.0, baseline_device_ms=0.0,
+                        library_device_ms=0.0) for k in LAYER_OUTPUTS}
         label = f"layered {case} (SB={SB} NS={ns} B={b} hidden {hidden})"
         for i, (name, a) in enumerate(calls):
             base = None if baseline is None else baseline.get(name)
-            err, ms, plain_ms, lib_ms, flops, nbytes, plan, base_ms = _replay_launch(
-                torch, name, a, base)
-            s = sums[name]
-            if plan is not None:
-                print(f"{label}: launch {i} {_launch_line(name, a, ms, base_ms, lib_ms, flops, nbytes)}")
-                key = (plan.bn, plan.n_tiles, plan.slots, plan.grid)
-                s["plans"][key] = s["plans"].get(key, 0) + 1
-            s["baseline_ms"] += base_ms or 0.0
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-            s["library_ms"] += lib_ms or 0.0
-            s["lib"] |= lib_ms is not None
-            s["flops"] += flops
-            s["bytes"] += nbytes
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-            # a product that sums bias gradients launches its reduction too
-            s["n"] += 1 + (name == "layer_bwd" and a.get("colsum") is not None)
+            r = _replay_launch(torch, name, a, base)
+            s, plan = sums[name], r["plan"]
+            if name.startswith("layer_"):
+                print(f"{label}: launch {i} "
+                      + _launch_line(name, a, r["ms"], r["base_ms"], r["lib_ms"], r["flops"], r["bytes"]))
+                if plan is not None:
+                    key = (plan.bn, plan.n_tiles, plan.slots, plan.grid)
+                    s["plans"][key] = s["plans"].get(key, 0) + 1
+            else:
+                print(f"{label}: launch {i} {_pool_line(name, a, r)}")
+            s["baseline_ms"] += r["base_ms"] or 0.0
+            s["ms"] += r["ms"]
+            s["plain_ms"] += r["plain_ms"]
+            s["library_ms"] += r["lib_ms"] or 0.0
+            s["lib"] |= r["lib_ms"] is not None
+            s["device_ms"] += r["dev_ms"] or 0.0
+            s["baseline_device_ms"] += r["base_dev_ms"] or 0.0
+            s["library_device_ms"] += r["lib_dev_ms"] or 0.0
+            s["flops"] += r["flops"]
+            s["bytes"] += r["bytes"]
+            s["max_abs_err"] = max(s["max_abs_err"], r["err"])
+            # a launch that sums bias gradients launches its reduction too
+            s["n"] += 1 + (name in ("layer_bwd", "view_pool_bwd") and a.get("colsum") is not None)
         del calls
         torch.cuda.empty_cache()
         for name, s in sums.items():
             t_ops = s["flops"] / (PEAK_BF16_FLOPS if name.startswith("layer_") else PEAK_F32_FLOPS) * 1e3
             t_bytes = s["bytes"] / PEAK_BYTES * 1e3
             s["bound_ms"], s["bound_by"] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-            print(f"{label}: {name} x{s['n']} launches: kernel {s['ms']:.3f} ms, plain "
+            on_card = lambda key: f" (device {s[key]:.4f} ms)" if s[key] else ""
+            print(f"{label}: {name} x{s['n']} launches: kernel {s['ms']:.3f} ms{on_card('device_ms')}, plain "
                   f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms ({s['bound_by']}), library "
-                  + (f"{s['library_ms']:.3f} ms" if s["lib"] else "none")
+                  + (f"{s['library_ms']:.3f} ms{on_card('library_device_ms')}" if s["lib"] else "none")
                   + f", {s['flops'] / max(s['ms'], 1e-9) / 1e9:.1f} TFLOP/s, max_abs_err "
                   f"{s['max_abs_err']:.3e}; each launch against its plain version"
-                  + (f"; baseline {s['baseline_ms']:.3f} ms in turns" if s["baseline_ms"] else ""))
+                  + (f"; baseline {s['baseline_ms']:.3f} ms{on_card('baseline_device_ms')} in turns"
+                     if s["baseline_ms"] else ""))
             if s["plans"]:
                 print(f"{label}: {name} plans (N tile, N tiles, row slots, grid: launches): "
                       + ", ".join(f"{k}: {v}" for k, v in sorted(s["plans"].items())))
@@ -3247,14 +3377,16 @@ def check_layered(torch, np, dev, baseline=None):
                    "launches_a_call": s["n"], "shape": f"SB={SB} NS={ns} B={b} hidden {hidden}"}
                for k, s in sums.items()}
         for k, s in sums.items():
-            if s["baseline_ms"]:
-                res[k]["baseline_ms"] = s["baseline_ms"]
+            for key in ("baseline_ms", "device_ms", "baseline_device_ms", "library_device_ms"):
+                if s[key]:
+                    res[k][key] = s[key]
         for k, r in res.items():
             if case == "hidden_1024":
                 recs[k] = _record(k, "cuda", "pixelnerf_tpu_torch/csrc/layer_chain.cu",
                                   LAYERED_REPLACES[k], {x: r[x] for x in (
                                       "ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
-                                      "launches_a_call", "baseline_ms") if x in r},
+                                      "launches_a_call", "baseline_ms", "device_ms",
+                                      "baseline_device_ms", "library_device_ms") if x in r},
                                   r["bound_by"], r["library_ms"])
             else:
                 recs[k][case] = r
@@ -3628,12 +3760,41 @@ def run_configs(torch, np, dev, root, card, conf):
                 raise AssertionError(f"{key}: a plain version ran on the card: {plain}")
 
         attempt(key, both)
+    _five_level_bounds()
     attempt("sn64", lambda: run_sn64(torch, np, dev, root, card))
     attempt("dtu", lambda: runs.update(
         {f"dtu {k}": v for k, v in run_dtu(torch, np, dev, root, card).items()}))
     if failed:
         raise AssertionError(f"configs: {failed} failed")
     return runs
+
+
+def _five_level_bounds(d_latent: int = 1024):
+    """The bounds of the field primal over a view (rows of CHUNK_SAMPLES
+    samples of CHUNK_RAYS rays) and of its stash forward over a fused train
+    step (FIELD_CALLS over SB x TRAIN_RAYS rays) at the five-level
+    encoder's d_latent, from the code's shapes: the operations at the bf16
+    peak (`field_flops`), or the bytes of xin, the grid, the weights, the
+    output and the stash, whichever is larger (the levels' bf16 maps, under
+    2 MB a view, left out)."""
+    from pixelnerf_tpu_torch.ops.field import field_flops
+    from pixelnerf_tpu_torch.ops.resnetfc_common import stash_layout
+
+    per_point = field_flops(NS, D_IN, d_latent, HIDDEN, D_OUT, N_BLOCKS, COMBINE)
+    n_inj = min(COMBINE, N_BLOCKS)
+    wbytes = (D_IN * HIDDEN + n_inj * d_latent * HIDDEN + 2 * N_BLOCKS * HIDDEN * HIDDEN
+              + HIDDEN * D_OUT) * 2
+    io = lambda pts: pts * NS * (D_IN * 2 + 2 * 4) + pts * D_OUT * 4 + wbytes
+    k, m = stash_layout(N_BLOCKS, COMBINE, NS)
+    view_pts = CHUNK_RAYS * sum(CHUNK_SAMPLES.values())
+    step_pts = SB * TRAIN_RAYS * sum(FIELD_CALLS.values())
+    stash = step_pts * (NS * d_latent + 2 * k * NS * HIDDEN + (2 * m + 1) * HIDDEN) * 2
+    view = _bound(per_point * view_pts, PEAK_BF16_FLOPS, io(view_pts))
+    step = _bound(per_point * step_pts, PEAK_BF16_FLOPS, io(step_pts) + stash)
+    print(f"five-level: bounds at d_latent {d_latent} from the code's shapes: the field primal "
+          f"{view[0]:.3f} ms a view ({view[1]}), its stash forward {step[0]:.3f} ms a fused step "
+          f"({step[1]})")
+    return view, step
 
 
 # the sharded step: bench.py's batch (injected rays, perturb 0) over

@@ -23,9 +23,11 @@
 //    vector (the bias gradients).
 // 3. `view_pool_fwd`: the mean over the NS views at combine_layer, (SB, NS,
 //    B, H) f32 to (SB, B, H), and bf(relu(mean)) into the next block's stash
-//    slot; `view_pool_bwd`: the broadcast of the cotangent / NS back over the
+//    slot (a stream at its bytes bound: the design is at the kernel);
+//    `view_pool_bwd`: the broadcast of the cotangent / NS back over the
 //    views, its bf16 copy (zero past C up to the copy's width) and its column
-//    sums. With NS = 1 it is also the copy bf(g) the weight gradients read.
+//    sums (per row-block sums, added in a fixed order by a second launch).
+//    With NS = 1 it is also the copy bf(g) the weight gradients read.
 // 4. The weight gradients: wgrad.cuh's grouped products and fixed-order
 //    reduction, unchanged, on the cotangents the products wrote in the
 //    chain's layout (`pnt_layer_wgrad`).
@@ -466,29 +468,105 @@ static inline int layer_launch(const LayerParams& p, int grid, cudaStream_t stre
   return (int)cudaGetLastError();
 }
 
-// view_pool_fwd: xo[s, p, c] = sum_v x[s, v, p, c] / ns; y = bf(relu(xo)).
-// A block: 32 columns x 8 row lanes; rows (s, p) strided over blockIdx.y.
-__global__ void __launch_bounds__(256) view_pool_fwd_kernel(const float* x, float* xo, bf16* y,
-                                                            int sb, int ns, int b, int h) {
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  if (c >= h) return;
-  const long long rows = (long long)sb * b;
-  for (long long r = (long long)blockIdx.y * 8 + threadIdx.y; r < rows;
-       r += (long long)gridDim.y * 8) {
-    const long long s = r / b, pt = r % b;
-    float sum = 0.f;
-    for (int v = 0; v < ns; v++) sum += x[((s * ns + v) * b + pt) * h + c];
-    const float mean = sum / (float)ns;
-    xo[r * h + c] = mean;
-    if (y) y[r * h + c] = __float2bfloat16(fmaxf(mean, 0.f));
+// view_pool_fwd: out[s, p, :] = (the sum of x[s, v, p, :] over v = 0..NS-1,
+// added in view order from 0) / NS; y = bf(relu(out)). Bound: bytes (x read
+// once, out and y written once, one add a float read; no products), so the
+// design keeps HBM busy and enough bytes in flight:
+// - An item is 8 consecutive columns of one post-pool row: two 16-byte
+//   streaming loads a view (`__ldcs`: x is read once), two 16-byte stores of
+//   out and one of y's 8 bf16 (left cached: the next product reads y). An
+//   item off 16 bytes (a pointer, or rows of x and out off 16 bytes; y's
+//   rows off 16 bytes) or ragged (the last of a row where H % 8 != 0) takes
+//   element accesses in the same kernel.
+// - A 1-D grid of 256-thread blocks over the items (no grid.y, which stops
+//   at 65,535); a thread finds its row, (s, p) and columns once, never in
+//   the view loop, and issues the loads of VP_GROUP views before adding any.
+//   The views are added in order from 0, so out and y are bit-equal to a
+//   plain loop over the views in order. With 16-byte loads of VP_GROUP
+//   views in flight the stream fills the card from about one block an SM
+//   (80 views at hidden 64 and 6,552 rows: 205 blocks).
+#define VP_THREADS 256
+#define VP_GROUP 4  // views whose loads are in flight before any is added
+
+struct PoolParams {
+  const float* x;    // (SB, NS, B, H)
+  float* out;        // (SB * B, H)
+  bf16* y;           // (SB * B, H) or null
+  long long items;   // rows x chunks
+  int ns, b, h, chunks;
+  int vx, vo, vy;    // x, out, y take 16-byte accesses
+};
+
+// x's columns [col, col + 8) of one row, zeros past `left` columns
+__device__ __forceinline__ void vp_load(const float* src, bool vec, int left, float (&r)[8]) {
+  if (vec && left >= 8) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(src));
+    const float4 c = __ldcs(reinterpret_cast<const float4*>(src) + 1);
+    r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = c.x, r[5] = c.y, r[6] = c.z,
+    r[7] = c.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; e++) r[e] = e < left ? __ldcs(src + e) : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(VP_THREADS) view_pool_fwd_kernel(const PoolParams p) {
+  const long long item = (long long)blockIdx.x * VP_THREADS + threadIdx.x;
+  if (item >= p.items) return;
+  const long long row = item / p.chunks;
+  const int col = (int)(item - row * p.chunks) * 8, left = p.h - col;
+  const long long s = row / p.b, pt = row - s * p.b;
+  const size_t view = (size_t)p.b * p.h;  // floats between two views of a row
+  const float* src = p.x + ((size_t)s * p.ns * p.b + pt) * p.h + col;
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; e++) acc[e] = 0.f;
+  for (int v = 0; v < p.ns; v += VP_GROUP) {
+    float r[VP_GROUP][8];
+#pragma unroll
+    for (int g = 0; g < VP_GROUP; g++)
+      if (v + g < p.ns) vp_load(src + (v + g) * view, p.vx, left, r[g]);
+#pragma unroll
+    for (int g = 0; g < VP_GROUP; g++)
+      if (v + g < p.ns) {
+#pragma unroll
+        for (int e = 0; e < 8; e++) acc[e] += r[g][e];
+      }
+  }
+  float m[8];
+#pragma unroll
+  for (int e = 0; e < 8; e++) m[e] = acc[e] / (float)p.ns;
+  float* od = p.out + row * p.h + col;
+  if (p.vo && left >= 8) {
+    reinterpret_cast<float4*>(od)[0] = make_float4(m[0], m[1], m[2], m[3]);
+    reinterpret_cast<float4*>(od)[1] = make_float4(m[4], m[5], m[6], m[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; e++)
+      if (e < left) od[e] = m[e];
+  }
+  if (p.y == nullptr) return;
+  bf16* yd = p.y + row * p.h + col;
+  if (p.vy && left >= 8) {
+    *reinterpret_cast<uint4*>(yd) =
+        make_uint4(lc_pack(fmaxf(m[0], 0.f), fmaxf(m[1], 0.f)), lc_pack(fmaxf(m[2], 0.f), fmaxf(m[3], 0.f)),
+                   lc_pack(fmaxf(m[4], 0.f), fmaxf(m[5], 0.f)), lc_pack(fmaxf(m[6], 0.f), fmaxf(m[7], 0.f)));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; e++)
+      if (e < left) yd[e] = __float2bfloat16(fmaxf(m[e], 0.f));
   }
 }
 
 // view_pool_bwd: for g (SB, B, C) f32, v = g / ns broadcast over the views:
 // gx (SB, NS, B, C) f32 = v (if given), y (SB, NS, B, ldy) = bf(v), zero at
-// columns C..ldy-1, colsum (C) += the sum of v over every (s, view, p).
+// columns C..ldy-1. A block: 32 columns x 8 row lanes, rows (s, p) strided
+// over blockIdx.y. With ws, the block's sums of v (its row lanes' in lane
+// order) go to its row blockIdx.y of ws (row blocks, C), which
+// view_pool_colsum then adds into colsum in a fixed order: no atomics, so
+// the column sums are bit-identical from run to run.
 __global__ void __launch_bounds__(256) view_pool_bwd_kernel(const float* g, float* gx, bf16* y,
-                                                            float* colsum, int sb, int ns, int b,
+                                                            float* ws, int sb, int ns, int b,
                                                             int cc, int ldy) {
   __shared__ float part[8][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
@@ -508,13 +586,38 @@ __global__ void __launch_bounds__(256) view_pool_bwd_kernel(const float* g, floa
       }
     }
   }
-  if (!colsum) return;
+  if (!ws) return;
   part[threadIdx.y][threadIdx.x] = sum;
   __syncthreads();
   if (threadIdx.y == 0 && c < cc) {
     float t = 0.f;
     for (int i = 0; i < 8; i++) t += part[i][threadIdx.x];
-    atomicAdd(colsum + c, t);
+    ws[(size_t)blockIdx.y * cc + c] = t;
+  }
+}
+
+// colsum[c] += the row blocks' sums of column c (ws (blocks, cols), one row
+// a row block of view_pool_bwd_kernel) in a fixed order: lane l of 32 adds
+// row blocks l, l + 32, ... in order, then lane 0 adds the lanes' sums in
+// lane order. A block: 32 columns x 32 lanes (the 4,096 row blocks of a
+// long backward in 128 loads a thread: layer_colsum's one thread a column
+// would walk them all).
+__global__ void __launch_bounds__(1024) view_pool_colsum(const float* __restrict__ ws,
+                                                         float* __restrict__ colsum, int cols,
+                                                         int blocks) {
+  __shared__ float part[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (c < cols) {
+#pragma unroll 8
+    for (int i = threadIdx.y; i < blocks; i += 32) s += ws[(size_t)i * cols + c];
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    float t = 0.f;
+    for (int l = 0; l < 32; l++) t += part[l][threadIdx.x];
+    colsum[c] += t;
   }
 }
 
@@ -601,26 +704,56 @@ int pnt_layer(void* const* ptrs, const int* ints, int wt, void* stream) {
 }
 
 // view_pool_fwd: x (sb, ns, b, h) f32 -> xo (sb, b, h) f32 and, if y is
-// not null, y (sb, b, h) bf16 = bf(relu(xo)).
+// not null, y (sb, b, h) bf16 = bf(relu(xo)), the views added in order. Any
+// h and any start: vector accesses where aligned, element ones otherwise.
 int pnt_view_pool_fwd(const void* x, void* xo, void* y, int sb, int ns, int b, int h,
                       void* stream) {
-  if (sb * b == 0) return 0;
-  dim3 grid((h + 31) / 32, lc_row_blocks((long long)sb * b));
-  view_pool_fwd_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(xo), static_cast<bf16*>(y), sb, ns, b, h);
+  if (sb < 0 || b < 0 || ns < 1 || h < 1) return (int)cudaErrorInvalidValue;
+  PoolParams p;
+  p.x = static_cast<const float*>(x);
+  p.out = static_cast<float*>(xo);
+  p.y = static_cast<bf16*>(y);
+  p.ns = ns;
+  p.b = b;
+  p.h = h;
+  p.chunks = (h + 7) / 8;
+  p.items = (long long)sb * b * p.chunks;
+  if (p.items == 0) return 0;
+  const auto on16 = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  p.vx = h % 4 == 0 && on16(x);
+  p.vo = h % 4 == 0 && on16(xo);
+  p.vy = h % 8 == 0 && on16(y);
+  const long long blocks = (p.items + VP_THREADS - 1) / VP_THREADS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  view_pool_fwd_kernel<<<(unsigned)blocks, VP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The floats of view_pool_bwd's column-sum workspace: a row of c a row block.
+long long pnt_view_pool_bwd_workspace(int sb, int b, int c) {
+  return (long long)lc_row_blocks((long long)sb * b) * (c > 0 ? c : 0);
+}
+
 // view_pool_bwd: g (sb, b, c) f32 -> gx (sb, ns, b, c) f32 = g / ns (if not
-// null), y (sb, ns, b, ldy) bf16 (if not null), colsum (c) += sums.
-int pnt_view_pool_bwd(const void* g, void* gx, void* y, void* colsum, int sb, int ns, int b, int c,
-                      int ldy, void* stream) {
-  if (sb * b == 0) return 0;
-  const int width = y ? ldy : c;
-  dim3 grid((width + 31) / 32, lc_row_blocks((long long)sb * b));
-  view_pool_bwd_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+// null), y (sb, ns, b, ldy) bf16 (if not null), colsum (c) += sums (if not
+// null: ws holds pnt_view_pool_bwd_workspace's floats, and a second launch,
+// view_pool_colsum, adds the row blocks' sums in a fixed order).
+int pnt_view_pool_bwd(const void* g, void* gx, void* y, void* colsum, void* ws, int sb, int ns,
+                      int b, int c, int ldy, void* stream) {
+  const long long rows = (long long)sb * b;
+  if (rows <= 0) return 0;
+  const bool sums = colsum != nullptr && c > 0;
+  if (sums && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int width = y ? ldy : c, blocks = lc_row_blocks(rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((width + 31) / 32, blocks);
+  view_pool_bwd_kernel<<<grid, dim3(32, 8), 0, s>>>(
       static_cast<const float*>(g), static_cast<float*>(gx), static_cast<bf16*>(y),
-      static_cast<float*>(colsum), sb, ns, b, c, ldy);
+      sums ? static_cast<float*>(ws) : nullptr, sb, ns, b, c, ldy);
+  const int rc = (int)cudaGetLastError();
+  if (rc || !sums) return rc;
+  view_pool_colsum<<<(c + 31) / 32, dim3(32, 32), 0, s>>>(static_cast<const float*>(ws),
+                                                          static_cast<float*>(colsum), c, blocks);
   return (int)cudaGetLastError();
 }
 

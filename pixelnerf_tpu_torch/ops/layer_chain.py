@@ -21,9 +21,11 @@ the design:
   workspace the wrapper allocates, added in a fixed order by a second
   launch, `layer_colsum`);
 - `view_pool_fwd`: the mean over the views at combine_layer and its relu'd
-  bf16 copy; `view_pool_bwd`: the broadcast of the cotangent / NS, its
-  bf16 copy and column sums (with NS = 1 also bf(g) for the weight
-  gradients);
+  bf16 copy, a stream of 16-byte accesses that adds the views in order;
+  `view_pool_bwd`: the broadcast of the cotangent / NS, its bf16 copy and
+  column sums (per row-block sums in a workspace, added in a fixed order
+  by a second launch, `view_pool_colsum`; with NS = 1 also bf(g) for the
+  weight gradients);
 - `layer_wgrad`: the weight gradients by `csrc/wgrad.cuh`'s grouped
   products and fixed-order reduction, unchanged, from the cotangents the
   products wrote in the chain's layout.
@@ -37,8 +39,9 @@ backward consumes either path's stash; `layered_field_fwd` /
 is zero-padded to a multiple of 64 and d_latent as `chain_plan` pads it;
 d_out takes no output groups (one product takes any N). Each kernel
 wrapper launches on CUDA tensors and counts each launch (`.launches`;
-`layer_wgrad` two a call, `layer_bwd` two where it sums columns;
-`layer_fwd.plan` / `layer_bwd.plan` hold the last product's `LayerPlan`);
+`layer_wgrad` two a call, `layer_bwd` and `view_pool_bwd` two where they
+sum columns; `layer_fwd.plan` / `layer_bwd.plan` hold the last product's
+`LayerPlan`);
 on CPU tensors it runs its plain version (`*_plain`), which the CPU tests
 compose into the same sequence. A and W are read by TMA: their rows must
 start on 16 bytes and lie a multiple of 8 elements apart.
@@ -106,8 +109,10 @@ def _library() -> ctypes.CDLL:
     lib.pnt_layer_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.pnt_view_pool_fwd.restype = ctypes.c_int
     lib.pnt_view_pool_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pnt_view_pool_bwd_workspace.restype = ctypes.c_longlong
+    lib.pnt_view_pool_bwd_workspace.argtypes = [ctypes.c_int] * 3
     lib.pnt_view_pool_bwd.restype = ctypes.c_int
-    lib.pnt_view_pool_bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.pnt_view_pool_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.pnt_wgrad_workspace.restype = ctypes.c_longlong
     lib.pnt_wgrad_workspace.argtypes = [ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_longlong)]
@@ -271,7 +276,8 @@ def view_pool_fwd_plain(x, out, y=None):
 
 def view_pool_fwd(x: torch.Tensor, out: torch.Tensor, y: Optional[torch.Tensor] = None) -> None:
     """The mean over the views: x (SB, NS, B, H) float32 into out (SB*B, H)
-    float32, and bf(relu(out)) into y (SB*B, H) bf16 if given."""
+    float32, and bf(relu(out)) into y (SB*B, H) bf16 if given, the views
+    added in order."""
     if _device_of(x, "view_pool_fwd") == "cpu":
         return view_pool_fwd_plain(x, out, y)
     sb, ns, b, h = x.shape
@@ -306,8 +312,9 @@ def view_pool_bwd(g: torch.Tensor, ns: int, gx: Optional[torch.Tensor] = None,
                   y: Optional[torch.Tensor] = None, colsum: Optional[torch.Tensor] = None) -> None:
     """The pooling's backward: v = g / ns broadcast over the views, for g
     (SB, B, C) float32: gx (SB*NS*B, C) float32 = v, y (SB*NS*B, L >= C)
-    bf16 = bf(v) zero past C, colsum (C,) += the sums of v over every row.
-    With ns = 1, y is the bf16 copy of the output cotangent."""
+    bf16 = bf(v) zero past C, colsum (C,) += the sums of v over every row
+    (in a fixed order: a second launch adds the row blocks' sums). With
+    ns = 1, y is the bf16 copy of the output cotangent."""
     if _device_of(g, "view_pool_bwd") == "cpu":
         return view_pool_bwd_plain(g, ns, gx, y, colsum)
     sb, b, c = g.shape
@@ -318,9 +325,13 @@ def view_pool_bwd(g: torch.Tensor, ns: int, gx: Optional[torch.Tensor] = None,
     if (gx is not None and gx.numel() != sb * ns * b * c) or (
             y is not None and (y.numel() != sb * ns * b * ldy or ldy < c)):
         raise ValueError("view_pool_bwd: gx must hold (SB*NS*B, C), y (SB*NS*B, >= C)")
-    _raise_on(_library().pnt_view_pool_bwd(g.data_ptr(), _ptr(gx), _ptr(y), _ptr(colsum), sb, ns,
-                                           b, c, ldy, _stream(g)), "view_pool_bwd")
-    view_pool_bwd.launches += 1
+    lib = _library()
+    reduce = colsum is not None and sb * b > 0 and c > 0
+    ws = torch.empty(lib.pnt_view_pool_bwd_workspace(sb, b, c) if reduce else 0, dtype=_F32,
+                     device=g.device)
+    _raise_on(lib.pnt_view_pool_bwd(g.data_ptr(), _ptr(gx), _ptr(y), _ptr(colsum), _ptr(ws), sb,
+                                    ns, b, c, ldy, _stream(g)), "view_pool_bwd")
+    view_pool_bwd.launches += 1 + reduce
 
 
 view_pool_bwd.launches = 0

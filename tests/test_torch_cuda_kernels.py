@@ -35,7 +35,11 @@ shuffle trees) through five blocks. The weight-gradient products
 and bf16 cotangents: both sides multiply the same bf16 operands exactly and
 differ only in the order of their float32 sums, so within 1e-4 of each
 gradient's largest magnitude and 1e-5 relative in Frobenius norm; and two
-runs of the backward give bit-identical weight gradients.
+runs of the backward give bit-identical weight gradients. The layered
+pooling: the mean within 1e-5 of the plain one and its bf16 copy within one
+bf16 ulp, and both equal to a loop over the views in order; the column sums
+of its backward and every gradient of the layered backward bit-identical
+from run to run.
 """
 
 import numpy as np
@@ -1085,9 +1089,9 @@ def test_resnetfc_backward_takes_the_layered_path_past_the_chain_widths(cuda):
     torch.cuda.synchronize()
     # lin_out, 2 a block, 3 injections, dxin, and the column sums'
     # reduction of lin_out's and 2 a block but the pooling's (10); bf(g) and
-    # the pooling
+    # the pooling, each with its column sums' reduction
     assert (resnetfc_bwd.launches, layer_bwd.launches, view_pool_bwd.launches,
-            layer_wgrad.launches) == (before[0], before[1] + 25, before[2] + 2, before[3] + 2)
+            layer_wgrad.launches) == (before[0], before[1] + 25, before[2] + 4, before[3] + 2)
     _layered_grads_close(z, xin, g, spre, spost, w, (5, 3, 2), dz, dxin, dw)
 
 
@@ -1257,6 +1261,107 @@ def test_layer_kernels_match_plain(cuda):
     assert (ys[0].float() - ys[1].float()).abs().max() <= 2.0 ** -7 * outs[1].abs().max()
     assert ((yb[0].float() - yb[1].float()).abs() <= 2.0 ** -7 * yb[1].float().abs()).all()
     assert (cs[0] - cs[1]).abs().max() <= 1e-5 * gc.abs().sum(dim=(0, 1)).max()
+
+
+# (SB, NS, B, H, which of x, out and y start 4 bytes off 16, y given): one
+# view to 80; one row, rows just past a block's items (256: 32 rows of 64
+# columns, 2 of 1024); H of 20 (element accesses) and 1024
+POOL_CASES = {
+    "ns 1": (2, 1, 37, 64, (), True),
+    "ns 2 hidden 1024": (2, 2, 3, 1024, (), True),
+    "ns 3 hidden 20": (1, 3, 7, 20, (), True),
+    "ns 80": (1, 80, 5, 64, (), True),
+    "ns 80 hidden 1024": (1, 80, 3, 1024, (), True),
+    "one row": (1, 3, 1, 64, (), True),
+    "one row ns 80": (1, 80, 1, 1024, (), True),
+    "rows past a block": (1, 2, 33, 64, (), True),
+    "off 16 bytes": (2, 3, 9, 64, ("x", "out", "y"), True),
+    "off 16 bytes ns 80": (2, 80, 3, 64, ("x", "out", "y"), True),
+    "x off 16 bytes": (1, 2, 5, 1024, ("x",), True),
+    "no y": (2, 2, 9, 64, (), False),
+    "no y ns 80": (1, 80, 5, 20, (), False),
+}
+
+
+def _off16(t, off):
+    """t's values in a tensor of its shape that starts 4 bytes off 16 (a
+    view into a larger buffer) if `off`, else t."""
+    if not off:
+        return t
+    step = 4 // t.element_size()
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    base = (-buf.data_ptr() % 16) // t.element_size() + step
+    out = buf[base:base + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("sb,ns,b,h,off,with_y", POOL_CASES.values(), ids=POOL_CASES.keys())
+def test_view_pool_fwd_matches_plain(cuda, sb, ns, b, h, off, with_y):
+    """The pooling against its plain version at the path's tolerances, and
+    the mean and its bf16 copy equal to a loop over the views in order (the
+    kernel's arithmetic)."""
+    g = torch.Generator(device="cpu").manual_seed(sb * 1000 + ns * 10 + b + h)
+    x = _off16(torch.randn((sb, ns, b, h), generator=g).to(cuda), "x" in off)
+    out = _off16(torch.zeros(sb * b, h, device=cuda), "out" in off)
+    y = _off16(torch.zeros(sb * b, h, dtype=torch.bfloat16, device=cuda), "y" in off) if with_y else None
+    want, wy = torch.empty(sb * b, h, device=cuda), torch.empty(sb * b, h, dtype=torch.bfloat16, device=cuda)
+    before = view_pool_fwd.launches
+    view_pool_fwd(x, out, y)
+    view_pool_fwd_plain(x, want, wy)
+    torch.cuda.synchronize()
+    assert view_pool_fwd.launches == before + 1
+    assert (out - want).abs().max() <= 1e-5
+    if with_y:
+        assert (y.float() - wy.float()).abs().max() <= 2.0 ** -7 * want.abs().max()
+    acc = torch.zeros(sb, b, h, device=cuda)
+    for v in range(ns):
+        acc = acc + x[:, v]
+    mean = (acc / torch.full_like(acc, float(ns))).reshape(sb * b, h)
+    assert torch.equal(out, mean)
+    assert not with_y or torch.equal(y, torch.relu(mean).to(torch.bfloat16))
+
+
+def test_view_pool_bwd_column_sums_are_deterministic(cuda):
+    """Rows past one wave of the backward's row blocks (4,096 blocks of 64
+    rows): each block's sums go to a workspace row and a second launch adds
+    them in block order, so two runs give equal column sums; every output
+    against the plain version."""
+    sb, ns, b, c, ldy = 1, 2, 300_000, 64, 64
+    assert sb * b > 4096 * 64
+    g = torch.randn((sb, b, c), generator=torch.Generator(device="cpu").manual_seed(5)).to(cuda)
+    runs = []
+    for fn in (view_pool_bwd, view_pool_bwd, view_pool_bwd_plain):
+        outs = [torch.empty(sb * ns * b, c, device=cuda),
+                torch.empty(sb * ns * b, ldy, dtype=torch.bfloat16, device=cuda),
+                torch.zeros(c, device=cuda)]
+        before = view_pool_bwd.launches
+        fn(g, ns, gx=outs[0], y=outs[1], colsum=outs[2])
+        torch.cuda.synchronize()
+        if fn is view_pool_bwd:
+            assert view_pool_bwd.launches == before + 2  # the broadcast, the column sums
+        runs.append(outs)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    (gx, y, cs), (wgx, wy, wcs) = runs[0], runs[2]
+    assert ((gx - wgx).abs() <= 2.0 ** -23 * wgx.abs()).all()
+    assert ((y.float() - wy.float()).abs() <= 2.0 ** -7 * wy.float().abs()).all()
+    assert (cs - wcs).abs().max() <= 1e-5 * g.abs().sum(dim=(0, 1)).max()
+
+
+def test_layered_backward_is_deterministic(cuda):
+    """Two runs of the layered backward at hidden 1024 and 2 views (the
+    pooling's column sums and the products' reduced in fixed orders, the
+    weight gradients too) give equal gradients, every one."""
+    rng = np.random.default_rng(17)
+    args, w, z, xin, g = _chain_case(rng, cuda, 1024, 2, 2, 4096, LAYERED_LEVELS)
+    _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    runs = [layered_bwd(z, xin, g, spre, spost, w, *args)[:3] for _ in range(2)]
+    torch.cuda.synchronize()
+    (dz, dxin, dw), (dz2, dxin2, dw2) = runs
+    assert torch.equal(dz, dz2) and torch.equal(dxin, dxin2)
+    for name in FieldWeights._fields:
+        assert torch.equal(getattr(dw, name), getattr(dw2, name)), name
 
 
 def _layer_pair(cuda, m, k, n, cols, seed):

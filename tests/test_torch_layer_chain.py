@@ -269,10 +269,11 @@ def test_the_card_launches_the_layered_kernels_past_the_chain_widths(hidden, ns,
     # and a call of the weight gradients (whose 2 launches the library
     # reports: none from the stand-in); four forwards and two backwards here.
     # The products that sum bias gradients (lin_out's and 2 a block but the
-    # one before the pooling) count their column sums' reduction too.
+    # one before the pooling) count their column sums' reduction too, and so
+    # do bf(g) and the pooling's backward (b_out's and the sums before it).
     fwd, bwd = 2 * n_blocks + combine + 2, 2 * n_blocks + combine + 2
     sums = 1 + 2 * n_blocks - 1
-    assert [a - c for a, c in zip(counts(), before)] == [4 * fwd, 2 * (bwd + sums), 4, 4, 0]
+    assert [a - c for a, c in zip(counts(), before)] == [4 * fwd, 2 * (bwd + sums), 4, 2 * 4, 0]
     assert lib.launches.count("pnt_layer") == 4 * fwd + 2 * bwd
     assert lib.launches.count("pnt_layer_wgrad") == 2
 
