@@ -110,9 +110,11 @@ Phases, each failing loudly (an exception and a non-zero exit):
    (2 epochs, then --resume to a third, bit for bit) from a seeded init
    checkpoint, then `eval_approx -P "25 22 28"` (128 rays strided across
    its first view held against the CPU plain render) and `gen_video` on
-   the DTU spline; conf/exp/sn64.conf uncut (float32: no kernel may launch) on a
-   64x64 NMR ShapeNet layout through the training CLI (`-V 1`) and
-   `eval_approx`; then srn.conf with a global encoder (d_latent 640), with
+   the DTU spline; conf/exp/sn64.conf uncut (float32: the ResnetFC kernels,
+   as the JAX package runs them on its TPU) on a 64x64 NMR ShapeNet layout
+   through the training CLI (`-V 1`; every train step the stash forward
+   and the float32 backward once per MLP call, no primal: remat "auto" off)
+   and `eval_approx` (the primal alone); then srn.conf with a global encoder (d_latent 640), with
    `num_layers = 5` (d_latent 1024, the fused field) and with `backbone =
    custom` at 64x64 (the bilerp kernels) through phase 4's view and phase
    5's train path. Each run prints its wall time, rays/s, peak memory and
@@ -120,6 +122,24 @@ Phases, each failing loudly (an exception and a non-zero exit):
    3 also holds the ResnetFC forward, stash forward and backward at
    d_latent 640 and 1024 (hidden 512, the train step's coarse call)
    against their plain versions, timed beside d_latent 512;
+10b. float32 models through the ResnetFC kernels (the JAX package's route
+   on its TPU): pollen.conf's model uncut (the flagship's architecture in
+   float32) renders phase 4's view and runs phase 5's cached train path
+   through the kernels (their forward reading bf16 copies of the float32
+   inputs, the backward writing float32 dz and dxin: the chain's F32
+   store), the view's rays and the step held against the CPU on the same
+   route (use_pallas=True: CMP_TOL's "float32 kernels"), then the same
+   view and step with use_pallas=False (the per-layer float32 chain)
+   timed beside them (`float32` lines); pollen.conf through the training
+   CLI on a written pollen dataset (SRN layout with near_far.txt, -B 4 -V
+   2 -R 1024, 2 epochs and a resume, the opacity loss on; each step's
+   launches counted) and `eval_approx` on its checkpoint (`pollen` lines).
+   Phase 3 also holds the backward's float32 dz and dxin against its plain
+   version at the train step's three calls (the chain) and at hidden 1024
+   and 80 views (the layered path): unrounded, rounded to bf16 equal to
+   the bf16 backward's, two runs equal, timed beside the bf16 backward
+   (`resnetfc_bwd_f32` lines and record; with `--baseline`, the earlier
+   tree's bf16 backward equal to this tree's);
 11. what is left of the JAX package: (a) the sharded flagship step
    (bench.py's batch, injected rays, perturb 0) on the meshes `data:2`,
    `data:1,rays:2` and `data:2,rays:2`, in turn on subgroups of one world
@@ -138,8 +158,8 @@ Phases, each failing loudly (an exception and a non-zero exit):
    `main` at the flagship's shapes, writing its trace; (e)
    `tools/export_checkpoint` on the trained artifact: import, export (the
    artifact again, byte for byte), import, and a srn600.conf view from it
-   equal to the artifact's. sn64.conf's CLI run in phase 10 rematerializes
-   its float32 MLP's query (remat "auto");
+   equal to the artifact's. sn64.conf's CLI run in phase 10 keeps its
+   float32 MLP's stash on the card (remat "auto" off, as on a TPU);
 12. past the chains' widths (hidden or padded d_in past 512, more than 64
    views), the layered kernels of `ops/layer_chain.py`: phase 3 records
    each launch of a stash forward and a backward at the coarse call's
@@ -250,6 +270,9 @@ KERNELS = (
     "pyramid_field_fused_bwd", "pyramid_gather", "pyramid_scatter_add", "resnetfc_fwd",
     "resnetfc_fwd_stash", "resnetfc_bwd", "bilerp_gather", "bilerp_scatter_add",
     "layer_fwd", "layer_bwd", "view_pool_fwd", "view_pool_bwd",
+    # the backward's launches that write a float32 caller's dz and dxin (the
+    # chain's F32 store), counted apart as well as in resnetfc_bwd's
+    "resnetfc_bwd_f32",
 )
 
 
@@ -274,6 +297,17 @@ NEAREST_TRAIN_LAUNCHES = _launch_table(
     posenc_concat=2, bilerp_gather=2, bilerp_scatter_add=2, resnetfc_fwd_stash=3, resnetfc_bwd=3,
 )
 NEAREST_EVAL_LAUNCHES = _launch_table(posenc_concat=2, bilerp_gather=2, resnetfc_fwd=3)
+# a float32 model of the flagship's architecture (pollen.conf) on the card:
+# the ResnetFC kernels as the JAX package runs them on its TPU, its lookup,
+# posenc and field the exact float32 paths (bf16 only, as in JAX). A view
+# renders through render_full, whose field fusion forms no query cache:
+# the primal for the coarse and for the fine samples; a train step's three
+# MLP calls take the stash forward and the F32 backward each, an eval
+# step's the primal; use_pallas=False launches nothing
+F32_VIEW_LAUNCHES = _launch_table(resnetfc_fwd=2)
+F32_TRAIN_LAUNCHES = _launch_table(resnetfc_fwd_stash=3, resnetfc_bwd=3, resnetfc_bwd_f32=3)
+F32_EVAL_LAUNCHES = _launch_table(resnetfc_fwd=3)
+NO_LAUNCHES = _launch_table()
 # kernels against plain versions: the gathers, one bf16 ulp (the same exact
 # products summed in another order); the scatters, float32 atomics in any
 # order; the ResnetFC and field forwards as the field; their gradients,
@@ -308,11 +342,25 @@ WGRAD_LAUNCHES = 2  # a backward call: the grouped products, the reduction
 # H100 80GB HBM3, 700 W): it is held as trunk_precision holds the flagship's,
 # each side's bf16 against its own float32 step, the card within
 # TRUNK_RATIO of the CPU, and to 3e-2 in float32.
+# A float32 model through the ResnetFC kernels ("float32 kernels", both
+# sides use_pallas=True: the kernels on the card, their plain versions on
+# the CPU): the MLP rounds its operands to bf16 as the bf16 rows' does and
+# sums them in other orders, so the heads keep the bf16 rows' 5e-2 and the
+# loss its 1e-2; the float32 trunk and lookup add float32 rounding only
+# (the float32 row's 3e-2 covers them), so the latent and the trunk take
+# what the MLP hands them, the kernels' GRAD_MAX (5e-2), not the bf16
+# trunk's 0.1 and 0.75. The "float32" row is the exact chain
+# (use_pallas=False on both sides), as it was before float32 models took
+# the kernels.
 CMP_SB, CMP_RAYS = 2, 64
 CMP_TOL = {
     "bfloat16": {"loss": 1e-2, "latent": 1e-1, "head": 5e-2, "encoder": 0.75, "global": None},
     "float32": {"loss": 1e-4, "latent": 1e-2, "head": 1e-2, "encoder": 3e-2, "global": 3e-2},
+    "float32 kernels": {"loss": 1e-2, "latent": 5e-2, "head": 5e-2, "encoder": 5e-2, "global": None},
 }
+# each compared step's model: (dtype, make_model's use_pallas), both sides
+CMP_ROUTES = {"bfloat16": ("bfloat16", "auto"), "float32": ("float32", False),
+              "float32 kernels": ("float32", True)}
 TRUNK_RATIO = 1.5
 PROFILE_WATCH = ("pyramid_", "bilerp_")  # kernel names profile_view always prints
 
@@ -1192,7 +1240,8 @@ def _baseline_kernels(torch, builds):
 
     out = {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather,
-           "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd")}
+           "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd"),
+           "resnetfc_bwd_path": builds["resnetfc_bwd"][1]}
     if "layer_chain" in libs:
         out.update(_baseline_layers(torch, libs["layer_chain"]))
     return out
@@ -1835,6 +1884,153 @@ def check_resnetfc(torch, np, dev):
     ]
 
 
+def _unrounded(torch, t) -> float:
+    """The share of entries of a float32 tensor that no bf16 value equals."""
+    return (t != t.to(torch.bfloat16).float()).float().mean().item()
+
+
+def _chain_sass_same(baseline_lib):
+    """{(H, FIELD): whether the backward chain kernel's SASS in this tree's
+    `resnetfc_bwd` library (its bf16 instantiations, F32 false) is the
+    earlier tree's instruction for instruction (`cuobjdump -sass`, white
+    space collapsed)}, or None where the toolkit has no cuobjdump."""
+    import re
+
+    from pixelnerf_tpu_torch.ops.cuda_build import _lib_path, _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    name = re.compile(r"Function : \S*chain_kernelILi(\d+)ELb(\d)E(Lb(\d)E)?")
+
+    def functions(lib):
+        text = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                              text=True).stdout
+        out, cur = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                m = name.search(line)
+                cur = None if m is None or m.group(4) == "1" else (int(m.group(1)), int(m.group(2)))
+                if cur:
+                    out[cur] = []
+            elif cur:
+                out[cur].append(" ".join(line.split()))
+        return out
+
+    old, new = functions(baseline_lib), functions(_lib_path("resnetfc_bwd"))
+    return {key: new.get(key) == body for key, body in sorted(old.items())}
+
+
+def check_resnetfc_f32(torch, np, dev, baseline=None):
+    """The backward for a float32 caller: float32 z and xin copied to bf16
+    as `resnetfc_fused` copies them, the stash forward, then the backward
+    with float32 dz and dxin (row 6 of PERF.md's table for a float32
+    model) against its plain version from the same stash, every gradient
+    within GRAD_MAX and GRAD_FRO (the bf16 backward's bounds): at the
+    train step's three MLP calls through the chain (`csrc/bwd_chain.cuh`'s
+    F32 store) and at the layered cases hidden 1024 and 80 views
+    (LAYERED_CASES, the layered path's float32 sums). dz and dxin must be
+    float32 and unrounded, equal bit for bit to the bf16 backward's once
+    rounded to bf16 (and the weight gradients of the products equal to
+    its), and equal from run to run. Each is timed beside the bf16
+    backward and the plain version. With `baseline`, the bf16 backward of
+    the earlier tree's library on the same inputs: dz, dxin and the
+    products' weight gradients equal to this tree's bit for bit, and the
+    chain kernel's bf16 and field instantiations the same instructions
+    (`_chain_sass_same`). Returns the `resnetfc_bwd_f32` record, sums over
+    a cached train step's three calls."""
+    from pixelnerf_tpu_torch.ops.field import FieldWeights, field_flops
+    from pixelnerf_tpu_torch.ops.resnetfc import (
+        launch_bwd, resnetfc_bwd, resnetfc_bwd_plain, resnetfc_fwd_stash, takes_chains,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+    f32, bf = torch.float32, torch.bfloat16
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bf16_ms=0.0)
+    layered = {}
+    dl = sum(c for _, _, c in LEVELS)
+    cases = [(call, HIDDEN, TRAIN_NS, TRAIN_RAYS * k) for call, k in MLP_CALLS.items()] + [
+        (case, hidden, ns, b) for case, hidden, ns, b in LAYERED_CASES if case != "hidden_512"]
+    for call, hidden, ns, b in cases:
+        args = (N_BLOCKS, COMBINE, ns)
+        w = _random_weights(torch, g, dev, dl, hidden)
+        z, xin = rnd(SB, ns, b, dl).to(bf), rnd(SB, ns, b, D_IN).to(bf)  # the float32 inputs' copies
+        gout = rnd(SB, b, D_OUT, scale=1e-3)
+        chained = takes_chains(hidden, dl, D_IN, D_OUT, ns)
+        if chained != (call in MLP_CALLS):
+            raise AssertionError(f"resnetfc_bwd_f32 {call}: not the expected route")
+        _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+        run32 = lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args, grad_dtype=f32)
+        run16 = lambda: resnetfc_bwd(z, xin, gout, spre, spost, w, *args)
+        dz, dxin, dw = run32()
+        dz2, dxin2, dw2 = run32()
+        bz, bxin, bdw = run16()
+        torch.cuda.synchronize()
+        wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args, grad_dtype=f32)
+        pairs = [("dz", dz, wdz), ("dxin", dxin, wdxin)] + [
+            (f"d{n}", getattr(dw, n), getattr(wdw, n)) for n in FieldWeights._fields]
+        label = f"resnetfc_bwd_f32 {call} (SB={SB} NS={ns} B={b} hidden {hidden}, " + (
+            "the chain)" if chained else "layered)")
+        worst = _check_grads(torch, label, pairs, call == "coarse")
+        same = lambda a, c: all(torch.equal(getattr(a, n), getattr(c, n)) for n in WGRAD_WEIGHTS)
+        checks = {
+            "float32": dz.dtype == dxin.dtype == f32,
+            "unrounded": min(_unrounded(torch, dz), _unrounded(torch, dxin)) > 0.5,
+            "bf16 of it equal to the bf16 backward's": torch.equal(dz.to(bf), bz)
+            and torch.equal(dxin.to(bf), bxin) and same(dw, bdw),
+            "two runs equal": torch.equal(dz, dz2) and torch.equal(dxin, dxin2) and same(dw, dw2),
+        }
+        if baseline is not None and chained:
+            old = _on_library(baseline["resnetfc_bwd"],
+                              lambda: launch_bwd(z, xin, gout, spre, spost, w, *args))
+            torch.cuda.synchronize()
+            checks["bf16 equal to the baseline's"] = (
+                torch.equal(old[0], bz) and torch.equal(old[1], bxin) and same(old[2], bdw))
+        print(f"{label}: unrounded dz {_unrounded(torch, dz):.3f} dxin {_unrounded(torch, dxin):.3f}; "
+              + ", ".join(
+            f"{k}: {v}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise AssertionError(f"{label}: {checks}")
+        del dz, dxin, dw, dz2, dxin2, dw2, bz, bxin, bdw, wdz, wdxin, wdw, pairs
+        ms = _time_ms(torch, run32, 1, 3)
+        ms16 = _time_ms(torch, run16, 1, 3)
+        plain_ms = _time_ms(
+            torch, lambda: resnetfc_bwd_plain(z, xin, gout, spre, spost, w, *args, grad_dtype=f32), 1, 2)
+        flops = field_flops(ns, D_IN, dl, hidden, D_OUT, N_BLOCKS, COMBINE) * SB * b
+        stash_bytes = sum(t.numel() * 2 for t in (spre, spost) if t is not None)
+        wbytes = sum(t.numel() * 2 for t in w)
+        # reads: bf16 z, xin, the stash, weights and g; writes: float32 dz,
+        # dxin and weight gradients
+        nbytes = (z.numel() + xin.numel()) * (2 + 4) + stash_bytes + wbytes + gout.numel() * 4 + sum(
+            t.numel() * 4 for t in w)
+        bound_ms, bound_by = _bound(2 * flops, PEAK_BF16_FLOPS, nbytes)
+        print(f"{label}: float32 dz and dxin {ms:.3f} ms, the bf16 backward {ms16:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        if chained:
+            res["max_abs_err"] = max(res["max_abs_err"], worst)
+            res_bound_by = bound_by
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms), ("bf16_ms", ms16)):
+                res[k] += v
+        else:
+            layered[call] = dict(ms=ms, bf16_ms=ms16, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 max_abs_err=worst)
+        del z, xin, gout, spre, spost, w
+        torch.cuda.empty_cache()
+    if baseline is not None:
+        same = _chain_sass_same(baseline["resnetfc_bwd_path"])
+        print(f"resnetfc_bwd_f32: the bf16 and field chain kernels' SASS (H, FIELD) the same as the "
+              f"baseline's: {same}")
+        if same is not None and not all(same.values()):
+            raise AssertionError(f"resnetfc_bwd_f32: the bf16 chain's code moved: {same}")
+    print(f"resnetfc_bwd_f32: kernel {res['ms']:.3f} ms (the bf16 backward {res['bf16_ms']:.3f} ms), "
+          f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms ({res_bound_by}), per train "
+          f"step")
+    res["layered"] = layered
+    return _record("resnetfc_bwd_f32", "cuda", "pixelnerf_tpu_torch/csrc/bwd_chain.cuh",
+                   "pixelnerf_tpu/ops/resnetfc_pallas.py:607", res, res_bound_by, None)
+
+
 def shape_heads(torch, model):
     """Give the randomly initialized heads weights that render a visible
     scene. fc_1 becomes non-zero: its zero init would hide the block chain.
@@ -1917,11 +2113,30 @@ def profile_view(torch, view, label="one view"):
             print(f"profile: {e.self_device_time_total / 1e3:10.3f} ms x{e.count:<4d} {e.key[:100]}")
 
 
+class _F32Launches:
+    """`resnetfc_bwd.f32_launches` read and set as a kernel's `.launches`."""
+
+    @property
+    def launches(self):
+        from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_bwd
+
+        return resnetfc_bwd.f32_launches
+
+    @launches.setter
+    def launches(self, n):
+        from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_bwd
+
+        resnetfc_bwd.f32_launches = n
+
+
 def _counters():
     from pixelnerf_tpu_torch.ops import field, layer_chain, posenc, pyramid, resnetfc, scatter
 
     modules = (field, layer_chain, posenc, pyramid, resnetfc, scatter)
-    return {name: next(getattr(m, name) for m in modules if hasattr(m, name)) for name in KERNELS}
+    counters = {name: next(getattr(m, name) for m in modules if hasattr(m, name))
+                for name in KERNELS if name != "resnetfc_bwd_f32"}
+    counters["resnetfc_bwd_f32"] = _F32Launches()
+    return counters
 
 
 def _counted(torch, fn, expected, label):
@@ -1976,15 +2191,18 @@ def _train_batch(torch, np, dev, sb, size=TRAIN_SIZE):
     }
 
 
-def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False, size=TRAIN_SIZE):
+def compare_step(torch, np, conf, rcfg, dev, route, label, fusion=False, size=TRAIN_SIZE):
     """One train step on the card against the CPU plain step: the same
     parameters (seeded), injected rays, perturb=0, a small batch; with
     `fusion`, both steps run the model's fused-field view. The encoder's
-    output and a global encoder's parameters count with the trunk's."""
+    output and a global encoder's parameters count with the trunk's.
+    `route` names the models' dtype and use_pallas (CMP_ROUTES) and the
+    tolerances (CMP_TOL)."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.train.step import make_optimizer, make_train_step, sample_rays
 
-    tol = CMP_TOL[dtype_name]
+    tol = CMP_TOL[route]
+    dtype_name, use_pallas = CMP_ROUTES[route]
     batch = {k: v.cpu() for k, v in _train_batch(torch, np, dev, CMP_SB, size).items()}
     rng = np.random.default_rng(8)
     pix = 2 * size * size + rng.integers(0, size * size, size=(CMP_SB, CMP_RAYS))
@@ -1994,7 +2212,8 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False, si
     )
     results = []
     for d in (dev, torch.device("cpu")):
-        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name))
+        m = make_model(conf["model"], device=d, seed=0, train=True, dtype=getattr(torch, dtype_name),
+                       use_pallas=use_pallas)
         m.init_shapes(batch["images"])
         shape_heads(torch, m)
         latent = []
@@ -2023,16 +2242,17 @@ def compare_step(torch, np, conf, rcfg, dev, dtype_name, label, fusion=False, si
         if err >= worst.get(part, (-1.0, ""))[0]:
             worst[part] = (err, n)
         if not math.isfinite(err) or (tol[part] is not None and err > tol[part]):
-            raise AssertionError(f"{label}: card vs CPU {dtype_name} step: gradient {n} relative error {err:.3e}")
+            raise AssertionError(f"{label}: card vs CPU {route} step: gradient {n} relative error {err:.3e}")
     print(
-        f"{label}: card vs CPU plain {dtype_name} step ({CMP_SB}x{CMP_RAYS} rays, CPU {cpu_s:.1f} s): "
+        f"{label}: card vs CPU plain {route} step (use_pallas={use_pallas!r}; {CMP_SB}x{CMP_RAYS} "
+        f"rays, CPU {cpu_s:.1f} s): "
         f"loss {loss_d:.6f} vs {loss_c:.6f} (rel {rel:.2e}, tolerance {tol['loss']}); worst "
         "relative gradient errors: " + ", ".join(
             f"{part} {e:.2e} ({n}, tolerance {tol[part]})" for part, (e, n) in sorted(worst.items())
         )
     )
     if not rel <= tol["loss"]:
-        raise AssertionError(f"{label}: card vs CPU {dtype_name} step: losses disagree")
+        raise AssertionError(f"{label}: card vs CPU {route} step: losses disagree")
     return grads_d, grads_c
 
 
@@ -2070,7 +2290,7 @@ def trunk_precision(torch, grads, label):
 
 def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
               fusion=False, cmp_dtypes=("bfloat16",), keep=(), times=None, base_step=None,
-              size=TRAIN_SIZE, name="srn.conf"):
+              size=TRAIN_SIZE, name="srn.conf", use_pallas="auto"):
     """A training path at bench.py's shapes: counted train and eval steps,
     timed steps, a profiled step, and the card step against the CPU step.
     With `keep`, (module, function name, list) triples, the counted train
@@ -2078,15 +2298,18 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     `times`, a dict, the timed steps' mean seconds go to times[label]; with
     `base_step`, an earlier tree's `make_train_step`, its step on the same
     model, batch and a fresh Adam is timed beside this tree's, in turns.
-    `size` is the views' side, `name` the model's name in the output.
-    Returns the counted runs' launches."""
+    `size` is the views' side, `name` the model's name in the output,
+    `use_pallas` make_model's; `cmp_dtypes` names the compared steps'
+    routes (CMP_ROUTES). Returns the counted runs' launches."""
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
-    from pixelnerf_tpu_torch.train.step import make_eval_step, make_optimizer, make_train_step
+    from pixelnerf_tpu_torch.train.step import (
+        _model_uses_fused_mlp, make_eval_step, make_optimizer, make_train_step,
+    )
 
     rcfg = RendererConfig.from_conf(conf["renderer"])
     near, far = 0.8, 1.8
-    model = make_model(conf["model"], device=dev, seed=0, train=True)
+    model = make_model(conf["model"], device=dev, seed=0, train=True, use_pallas=use_pallas)
     batch = _train_batch(torch, np, dev, SB, size)
     model.init_shapes(batch["images"])
     shape_heads(torch, model)
@@ -2097,8 +2320,10 @@ def run_train(torch, np, dev, conf, card, label, train_expected, eval_expected,
     eval_step = make_eval_step(stepped, rcfg, TRAIN_RAYS, near, far)
     gen = torch.Generator(device=dev).manual_seed(7)
     print(
-        f"{label}: {name} bf16 (upsample {model.encoder.upsample_interp}, field fusion "
-        f"{stepped.use_field_fusion}), {sum(p.numel() for p in model.parameters())} params, SB={SB} "
+        f"{label}: {name} {_dtype_name(model)} (use_pallas={use_pallas!r}, upsample "
+        f"{model.encoder.upsample_interp}, field fusion {stepped.use_field_fusion}, remat \"auto\" "
+        f"{'off' if _model_uses_fused_mlp(model, TRAIN_NS) else 'on'}), "
+        f"{sum(p.numel() for p in model.parameters())} params, SB={SB} "
         f"NV={NV} NS={TRAIN_NS} {size}x{size}, {TRAIN_RAYS} rays/object, "
         f"{rcfg.n_coarse} coarse + {rcfg.n_fine} fine samples, Adam"
     )
@@ -2184,12 +2409,31 @@ def _baseline_step(path):
     return mod.make_train_step
 
 
+def _dtype_name(model) -> str:
+    return {"torch.bfloat16": "bf16", "torch.float32": "float32"}[str(model.dtype)]
+
+
+def _card_route_on_cpu(model):
+    """`model` (moved to the CPU) on the route the card gave it: a float32
+    ResnetFC under use_pallas "auto" takes the kernels on the card, so its
+    CPU copy takes their plain versions (use_pallas=True); every other
+    route is the same on both devices."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    for mlp in (model.mlp_coarse, model.mlp_fine):
+        if isinstance(mlp, ResnetFC) and mlp.use_pallas == "auto":
+            mlp.use_pallas = True
+    return model
+
+
 def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZE,
-             name="srn.conf"):
-    """One full size x size (128x128) view of the bf16 model through
-    `render_full`, counted, timed warm, profiled, and its first rays
-    against the CPU plain render; the counted view keeps the arguments of
-    `keep`'s functions as `run_train` does. Returns the counted run's
+             name="srn.conf", dtype_name="bfloat16", use_pallas="auto", times=None):
+    """One full size x size (128x128) view of the model (of `dtype_name`,
+    built with `use_pallas`) through `render_full`, counted, timed warm,
+    profiled, and its first rays against the CPU plain render of the same
+    route (`_card_route_on_cpu`); the counted view keeps the arguments of
+    `keep`'s functions as `run_train` does; with `times`, a dict, the warm
+    view's seconds go to times[label]. Returns the counted run's
     launches."""
     from pixelnerf_tpu_torch.eval.common import encode_views
     from pixelnerf_tpu_torch.eval.render_utils import render_full
@@ -2197,9 +2441,9 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     from pixelnerf_tpu_torch.render.renderer import RendererConfig
     from pixelnerf_tpu_torch.utils.rays import gen_rays
 
-    model = make_model(conf["model"], device=dev, seed=0)
-    if model.dtype != torch.bfloat16:
-        raise AssertionError(f"{name} should build a bf16 model")
+    model = make_model(conf["model"], device=dev, seed=0, use_pallas=use_pallas)
+    if model.dtype != getattr(torch, dtype_name):
+        raise AssertionError(f"{name} should build a {dtype_name} model")
     shape_heads(torch, model)
 
     rng = np.random.default_rng(4)
@@ -2211,8 +2455,8 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     rays = gen_rays(target, size, size, focal, near, far).reshape(-1, 8)
     rcfg = RendererConfig.from_conf(conf["renderer"]).replace(perturb=0.0)
     print(
-        f"{label}: {name} bf16 (upsample {model.encoder.upsample_interp}), "
-        f"{sum(p.numel() for p in model.parameters())} params, "
+        f"{label}: {name} {_dtype_name(model)} (use_pallas={use_pallas!r}, upsample "
+        f"{model.encoder.upsample_interp}), {sum(p.numel() for p in model.parameters())} params, "
         f"{rays.shape[0]} rays, {rcfg.n_coarse} coarse + {rcfg.n_fine - rcfg.n_fine_depth} "
         f"importance + {rcfg.n_fine_depth} depth samples, 2 source views"
     )
@@ -2255,6 +2499,8 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     view()
     torch.cuda.synchronize()
     view_s = time.perf_counter() - t0
+    if times is not None:
+        times[label] = view_s
     print(
         f"{label}: {size}x{size} view (encode + render_full) {view_s:.3f} s warm = "
         f"{rays.shape[0] / view_s:.1f} rays/s (first call {first_s:.3f} s), peak device memory "
@@ -2263,7 +2509,7 @@ def run_view(torch, np, dev, conf, card, label, expected, keep=(), size=VIEW_SIZ
     profile_view(torch, view, f"one {label} view")
 
     n = CPU_RAYS
-    model_cpu = copy.deepcopy(model).to("cpu")
+    model_cpu = _card_route_on_cpu(copy.deepcopy(model).to("cpu"))
     t0 = time.perf_counter()
     ref = render_full(model_cpu, enc.to("cpu"), rays[:n].cpu(), rcfg)
     print(f"{label}: CPU plain render of {n} rays {time.perf_counter() - t0:.1f} s")
@@ -2406,9 +2652,10 @@ def _train_cli(torch, dev, label, argv, card, runs=None, profile=False):
     step (a synchronise around it, the host's batch preparation taken
     out), that preparation and each iteration (from the previous one's
     end) are timed; with `profile`, one more warm step of the first run is
-    profiled. Returns a dict of the launches, the backward wrappers' chain
-    and wgrad launches, the iterations' (batch, end time) ticks, the step
-    and host seconds, the wall time, the peak memory and the losses."""
+    profiled. Returns a dict of the launches, each train step's own
+    launches (`step_launches`), the backward wrappers' chain and wgrad
+    launches, the iterations' (batch, end time) ticks, the step and host
+    seconds, the wall time, the peak memory and the losses."""
     import contextlib
     import io
     import statistics
@@ -2421,8 +2668,9 @@ def _train_cli(torch, dev, label, argv, card, runs=None, profile=False):
     if runs is None:
         runs = (("2 epochs", ["--epochs", "2"]), ("--resume to a third", ["--epochs", "3", "--resume"]))
     orig_start, orig_post = Trainer.start, Trainer.post_batch
-    out = {"ticks": [], "losses": [], "step_s": [], "host_s": [], "resumed": {}}
+    out = {"ticks": [], "losses": [], "step_s": [], "host_s": [], "resumed": {}, "step_launches": []}
     rays = []
+    counters = _counters()
 
     def start(self):
         if self.args.resume:
@@ -2440,11 +2688,14 @@ def _train_cli(torch, dev, label, argv, card, runs=None, profile=False):
 
         def timed_step(data, global_step):
             torch.cuda.synchronize()
+            before = {name: w.launches for name, w in counters.items()}
             n, t0 = len(out["host_s"]), time.perf_counter()
             aux = train_step(data, global_step)
             torch.cuda.synchronize()
             # the call prepares the batch on the host (timed_batch), then steps
             out["step_s"].append(time.perf_counter() - t0 - sum(out["host_s"][n:]))
+            out["step_launches"].append(
+                {name: w.launches - before[name] for name, w in counters.items()})
             out["losses"].append(aux)
             if profile and len(out["step_s"]) == 2:  # one more, warm step on this batch
                 with contextlib.redirect_stdout(sys.__stdout__):
@@ -2470,7 +2721,6 @@ def _train_cli(torch, dev, label, argv, card, runs=None, profile=False):
         out["ticks"].append((batch, time.perf_counter()))
         orig_post(self, epoch, batch)
 
-    counters = _counters()
     watching, plain = _plain_watch()
     Trainer.start, Trainer.post_batch = start, post_batch
     torch.cuda.synchronize()
@@ -3674,12 +3924,41 @@ def run_dtu(torch, np, dev, root, card):
     return launches
 
 
+def _nonzero(table):
+    return {k: v for k, v in table.items() if v}
+
+
+def _float32_cli_steps(label, res):
+    """Every train step of a float32 model's training CLI launched what the
+    JAX step runs on its TPU: the ResnetFC stash forward and the float32
+    backward once per MLP call (F32_TRAIN_LAUNCHES), and no stash-free
+    primal, which a rematerialized query would add: remat "auto" is off."""
+    steps = res["step_launches"]
+    bad = [i for i, got in enumerate(steps) if got != F32_TRAIN_LAUNCHES]
+    print(f"{label}: each of {len(steps)} train steps launched {_nonzero(F32_TRAIN_LAUNCHES)} "
+          f"(remat \"auto\" off: no primal in a step); steps that did not: {bad}")
+    if not steps or bad:
+        raise AssertionError(f"{label}: train steps {bad} launched "
+                             f"{[_nonzero(steps[i]) for i in bad[:3]]}, expected "
+                             f"{_nonzero(F32_TRAIN_LAUNCHES)}")
+
+
+def _float32_eval(label, got):
+    """A float32 model's eval CLI: the ResnetFC primal and nothing else
+    (its lookup, posenc and field take bf16 only, as in the JAX package)."""
+    if not got["resnetfc_fwd"] > 0 or any(v for k, v in got.items() if k != "resnetfc_fwd"):
+        raise AssertionError(f"{label}: launched {_nonzero(got)}, expected resnetfc_fwd alone")
+
+
 def run_sn64(torch, np, dev, root, card):
     """sn64.conf uncut (float32, use_first_pool = False) on an NMR ShapeNet
     layout at 64x64: the training CLI (-V 1), 2 epochs and a resume, then
-    eval_approx. The JAX package runs no Pallas kernel on a float32 model
-    (they gate on bf16), so neither does the port: every count must stay
-    0."""
+    eval_approx. The JAX package runs its ResnetFC kernels on a float32
+    model on its TPU, and so does the port on the card: each train step
+    launches the stash forward and the float32 backward once per MLP call
+    and keeps its stash (remat "auto" off), eval_approx the primal; the
+    lookup, posenc and the field launch nothing (bf16 only). Returns each
+    CLI's launches."""
     import tempfile
 
     from pixelnerf_tpu_torch.eval import eval_approx
@@ -3692,16 +3971,95 @@ def run_sn64(torch, np, dev, root, card):
         serve_conf.write_text(CONFIG_SERVE_CONF.format(conf=conf_path))
         common = ["-n", "sn64", "-D", datadir, "--dataset_format", "dvr", "--checkpoints_path",
                   f"{tmp}/ckpt", "--visual_path", f"{tmp}/vis"]
-        got = _train_cli(torch, dev, "sn64 cli",
+        res = _train_cli(torch, dev, "sn64 cli",
                          common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + SN64_ARGS, card,
-                         profile=True)["launches"]
+                         profile=True)
         (psnr, ssim), got_eval, _ = _eval_cli(
             torch, dev, "sn64 eval_approx", eval_approx.main,
             common + ["-c", str(serve_conf), "--split", "test", "-P", "0"], card)
-        print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}; the CLI's float32 MLP leaves the "
-              "fused kernels, so its step rematerializes the query (remat \"auto\")")
-        if any(got.values()) or any(got_eval.values()) or not math.isfinite(psnr):
-            raise AssertionError(f"sn64: float32 launched a kernel ({got}, {got_eval}) or psnr {psnr}")
+    _float32_cli_steps("sn64 cli", res)
+    _float32_eval("sn64 eval_approx", got_eval)
+    print(f"sn64: eval_approx psnr {psnr:.4f} ssim {ssim:.4f}; launches {_nonzero(got_eval)}")
+    if not math.isfinite(psnr):
+        raise AssertionError(f"sn64: psnr {psnr}")
+    return {"sn64 cli": res["launches"], "sn64 eval_approx": got_eval}
+
+
+def run_pollen_cli(torch, np, dev, root, card):
+    """pollen.conf uncut (the flagship's architecture in float32, the
+    opacity loss on: lambda_alpha) through the training CLI on a pollen
+    dataset written as the serving phase writes one (SRN layout with
+    near_far.txt, read with lindisp), -B 4 -V 2 -R 1024, 2 epochs and a
+    resume, then eval_approx on its checkpoint. Each train step launches
+    the ResnetFC kernels as the JAX step on a TPU does (remat "auto" off).
+    Returns each CLI's launches."""
+    import tempfile
+
+    from pixelnerf_tpu_torch.eval import eval_approx
+
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = _write_srn_dataset(np, tmp, name="pollen", near_far=(0.8, 1.8))
+        conf_path = root / "conf" / "exp" / "pollen.conf"
+        train_conf, serve_conf = Path(tmp) / "pollen_train.conf", Path(tmp) / "pollen_serve.conf"
+        train_conf.write_text(CLI_CONF.format(srn=conf_path))
+        serve_conf.write_text(CONFIG_SERVE_CONF.format(conf=conf_path))
+        common = ["-n", "pollen", "-D", datadir, "--checkpoints_path", f"{tmp}/ckpt",
+                  "--visual_path", f"{tmp}/vis"]
+        res = _train_cli(torch, dev, "pollen cli",
+                         common + ["-c", str(train_conf), "--logs_path", f"{tmp}/logs"] + CLI_ARGS,
+                         card, profile=True)
+        (psnr, ssim), got_eval, _ = _eval_cli(
+            torch, dev, "pollen eval_approx", eval_approx.main,
+            common + ["-c", str(serve_conf), "--split", "test", "-P", "0 4"], card)
+    _float32_cli_steps("pollen cli", res)
+    _float32_eval("pollen eval_approx", got_eval)
+    alpha = [float(aux["ra"]) for aux in res["losses"] if "ra" in aux]
+    print(f"pollen: the opacity loss (ra) in {len(alpha)} of {len(res['losses'])} loss sets, last "
+          f"{alpha[-1] if alpha else None}; eval_approx psnr {psnr:.4f} ssim {ssim:.4f}, launches "
+          f"{_nonzero(got_eval)}")
+    if len(alpha) < len(res["step_s"]) or not math.isfinite(psnr):
+        raise AssertionError(f"pollen: opacity loss in {len(alpha)} of {len(res['step_s'])} steps, "
+                             f"psnr {psnr}")
+    return {"pollen cli": res["launches"], "pollen eval_approx": got_eval}
+
+
+def run_float32(torch, np, dev, root, card, bf16_step_s=None):
+    """pollen.conf's model uncut, the flagship's architecture in float32
+    (ResNet-34, two 5-block 512-wide heads pooling 2 views at block 3), at
+    bench.py's batch: one 128x128 view and the cached train step through
+    the ResnetFC kernels (use_pallas "auto" on the card), the view's rays
+    and the step held against the CPU on the same route (use_pallas=True,
+    the kernels' plain versions: CMP_TOL's "float32 kernels"); then the
+    same view and step with use_pallas=False, the per-layer float32 chain
+    the kernels replace, timed in the same call. Returns the counted
+    runs' launches (the kernel route's)."""
+    from pixelnerf_tpu_torch.utils import hocon
+
+    conf = hocon.load(str(root / "conf" / "exp" / "pollen.conf"))
+    times = {}
+    kw = dict(name="pollen.conf", dtype_name="float32", times=times)
+    runs = run_view(torch, np, dev, conf, card, "float32 view", F32_VIEW_LAUNCHES, **kw)
+    runs += run_train(torch, np, dev, conf, card, "float32 train", F32_TRAIN_LAUNCHES,
+                      F32_EVAL_LAUNCHES, cmp_dtypes=("float32 kernels",), times=times,
+                      name="pollen.conf")
+    torch.cuda.empty_cache()
+    run_view(torch, np, dev, conf, card, "float32 view, use_pallas=False", NO_LAUNCHES,
+             use_pallas=False, **kw)
+    run_train(torch, np, dev, conf, card, "float32 train, use_pallas=False", NO_LAUNCHES,
+              NO_LAUNCHES, cmp_dtypes=(), times=times, name="pollen.conf", use_pallas=False)
+    torch.cuda.empty_cache()
+    k_view, p_view = times["float32 view"], times["float32 view, use_pallas=False"]
+    k_step, p_step = times["float32 train"], times["float32 train, use_pallas=False"]
+    print(
+        f"float32: pollen.conf view {k_view:.3f} s through the kernels, {p_view:.3f} s on the "
+        f"per-layer chain (use_pallas=False, remat off in a view): {p_view / k_view:.2f}x; cached "
+        f"train step {k_step * 1e3:.1f} ms through the kernels (stash kept), {p_step * 1e3:.1f} ms "
+        f"on the per-layer chain (remat \"auto\" on): {p_step / k_step:.2f}x"
+        + ("" if bf16_step_s is None else
+           f"; the bf16 flagship's cached step {bf16_step_s * 1e3:.1f} ms "
+           f"({k_step / bf16_step_s:.2f}x of it)") + f"; on {card}"
+    )
+    return runs
 
 
 def _config_variant(conf, **edits):
@@ -3740,7 +4098,7 @@ def run_configs(torch, np, dev, root, card, conf):
     custom = _config_variant(conf, **{"encoder.backbone": "custom"})
     for key, c, name, view, train, kw in (
         ("global", glob_conf, "srn.conf + a global encoder (d_latent 640)", GLOBAL_VIEW_LAUNCHES,
-         (TRAIN_LAUNCHES, EVAL_LAUNCHES), {"cmp_dtypes": tuple(CMP_TOL)}),
+         (TRAIN_LAUNCHES, EVAL_LAUNCHES), {"cmp_dtypes": ("bfloat16", "float32")}),
         ("five-level", five, "srn.conf with num_layers 5 (d_latent 1024)", VIEW_LAUNCHES,
          (FUSED_TRAIN_LAUNCHES, FUSED_EVAL_LAUNCHES), {"fusion": True}),
         ("custom", custom, "srn.conf with backbone custom at 64x64", NEAREST_VIEW_LAUNCHES,
@@ -3761,7 +4119,7 @@ def run_configs(torch, np, dev, root, card, conf):
 
         attempt(key, both)
     _five_level_bounds()
-    attempt("sn64", lambda: run_sn64(torch, np, dev, root, card))
+    attempt("sn64", lambda: runs.update(run_sn64(torch, np, dev, root, card)))
     attempt("dtu", lambda: runs.update(
         {f"dtu {k}": v for k, v in run_dtu(torch, np, dev, root, card).items()}))
     if failed:
@@ -4252,6 +4610,8 @@ def main() -> int:
 
     kernels = [check_field(torch, np, dev)] + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
+    kernels.append(check_resnetfc_f32(torch, np, dev, baseline))
+    torch.cuda.empty_cache()
     wide = check_wide_latent(torch, np, dev)
     for k in kernels:
         k.update(wide.get(k["name"], {}))
@@ -4273,7 +4633,7 @@ def main() -> int:
     kernels.append(check_posenc(torch, dev, kept["posenc_concat"], baseline))
     times = {}
     runs += run_train(torch, np, dev, conf, card, "train", TRAIN_LAUNCHES, EVAL_LAUNCHES,
-                      cmp_dtypes=tuple(CMP_TOL), times=times,
+                      cmp_dtypes=("bfloat16", "float32"), times=times,
                       base_step=None if args.baseline is None else _baseline_step(args.baseline),
                       keep=[(pyramid, name, kept[name])
                             for name in ("pyramid_gather", "pyramid_scatter_add")])
@@ -4298,6 +4658,10 @@ def main() -> int:
     serve = run_serving_clis(torch, np, dev, root, card)
     torch.cuda.empty_cache()
     configs = run_configs(torch, np, dev, root, card, conf)
+    torch.cuda.empty_cache()
+    runs += run_float32(torch, np, dev, root, card, times["train"])
+    torch.cuda.empty_cache()
+    configs.update(run_pollen_cli(torch, np, dev, root, card))
     torch.cuda.empty_cache()
     run_sharded(torch, np, dev, root, card)
     torch.cuda.empty_cache()

@@ -18,7 +18,8 @@
 //          which is Gin for i = 0 and G1_{i-1} otherwise, bit for bit)
 //   db1_i, db0_i, db_in, dbz_i, db_out: column sums of the f32 cotangents
 // then either dz = bf(gz), or (the field) bf(gz) times the composed taps
-// added into the native level gradients with f32 reductions. G1, G0, Gin and
+// added into the native level gradients with f32 reductions, or (F32, a
+// float32 caller's) dz = gz and dxin unrounded, in float32. G1, G0, Gin and
 // bf(g) go to device memory in the stash's layout for the weight-gradient
 // products (resnetfc_bwd.cu `wgrad`).
 //
@@ -57,10 +58,12 @@
 //   accumulators a thread over passes of 512 latent columns. Its A tiles
 //   are Gin (in GB) and G1_0 (still in GA), the others reloaded from their
 //   cotangent slots (L2-hot) by the consumers. bf(gz) is staged in GB for
-//   the dz copy or the level scatter. The scatter walks each view's run of
-//   the tile's points (consecutive samples of rays) with a warp an item of
-//   a level's channels, lanes over channel quads: w * g summed in registers
-//   while the points' tap base holds, one 16-byte reduction (8-byte where a
+//   the dz copy or the level scatter; the F32 chain stores gz from the
+//   accumulators instead, and dxin as float2 in place of bf16 pairs. The
+//   scatter walks each view's run of the tile's points (consecutive
+//   samples of rays) with a warp an item of a level's channels, lanes over
+//   channel quads: w * g summed in registers while the points' tap base
+//   holds, one 16-byte reduction (8-byte where a
 //   level's channels are not quads) a lane and nonzero tap when it changes,
 //   in place of one f32 atomic a channel and tap. Shared memory is full, so
 //   even the small levels take reductions into device memory.
@@ -98,8 +101,8 @@ struct BwdParams {
   bf16* gpost;        // (2m, SB, B, H): [G1 | G0] of the others
   bf16* gin;          // (SB, NS, B, H): cotangent at block 0's input
   bf16* gout;         // (SB, B, GOUT_LD): bf(g), zero past d_out
-  bf16* dz;           // (SB, NS, B, DL); null for the field
-  bf16* dxin;         // (SB, NS, B, d_in)
+  bf16* dz;           // (SB, NS, B, DL); null for the field; float for the F32 chain
+  bf16* dxin;         // (SB, NS, B, d_in); float for the F32 chain
   float* grads[MAX_LEVELS];  // the field's level gradients (SB*NS, H_l, W_l, C_l)
   int lh[MAX_LEVELS], lw[MAX_LEVELS], lc[MAX_LEVELS], lc0[MAX_LEVELS];
   int nlev;           // 0: no levels, write dz
@@ -533,7 +536,7 @@ __device__ __forceinline__ void scatter_gz(const BwdParams& p, const unsigned ch
   }
 }
 
-template <int H, bool FIELD>
+template <int H, bool FIELD, bool F32>
 __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m) {
   typedef BwdShape<H> S;
   constexpr int NX = S::NX, NH = S::NH, NSUB = S::NSUB;
@@ -736,7 +739,11 @@ __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m
 #pragma unroll
       for (int h = 0; h < 2; h++) {
         const long long row = bwd_row(p, true, s, p0, r0 + 8 * h);
-        if (row >= 0)
+        if constexpr (F32) {
+          if (row >= 0)
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.dxin) + row * p.d_in + c) =
+                make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        } else if (row >= 0)
           *reinterpret_cast<__nv_bfloat162*>(p.dxin + row * p.d_in + c) =
               __floats2bfloat162_rn(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
       }
@@ -744,7 +751,8 @@ __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m
   }
 
   // 5. g_z = [Gin | G1_0 | ...] @ Wz^T in passes of up to two units, then
-  //    the dz copy or the level scatter from bf(g_z) staged in GB
+  //    the dz copy or the level scatter from bf(g_z) staged in GB (F32: dz
+  //    from the accumulators)
   const int DL = p.d_latent, units = (DL + 2 * BWD_ZW - 1) / (2 * BWD_ZW);
   for (int u0 = 0; u0 < units; u0 += 2) {
     const int nu = units - u0 < 2 ? units - u0 : 2;
@@ -766,6 +774,29 @@ __device__ __forceinline__ void bwd_consume(const BwdParams& p, const BwdSmem& m
         bar_sync(1, FWD_CONSUMERS);
       }
       ring_product_z(zacc, A, H, nu, rg, wg * BWD_ZW * BWD_KS * 2);
+    }
+    if constexpr (F32) {
+      // the float32 sums unrounded, from the accumulators (fragment as
+      // store_bf16's): 8 bytes a thread and row, a quad's 32 bytes in a row
+      const int c0 = u0 * 2 * BWD_ZW, ncols = min(DL - c0, nu * 2 * BWD_ZW);
+      float* dz = reinterpret_cast<float*>(p.dz);
+#pragma unroll
+      for (int u = 0; u < 2; u++) {
+        if (u >= nu) break;
+#pragma unroll
+        for (int j = 0; j < 16; j++) {
+          const int c = u * 2 * BWD_ZW + wg * BWD_ZW + 8 * j + 2 * q;
+          if (c >= ncols) continue;
+#pragma unroll
+          for (int h = 0; h < 2; h++) {
+            const long long row = bwd_row(p, true, s, p0, r0 + 8 * h);
+            if (row >= 0)
+              *reinterpret_cast<float2*>(dz + row * DL + c0 + c) =
+                  make_float2(zacc[u][4 * j + 2 * h], zacc[u][4 * j + 2 * h + 1]);
+          }
+        }
+      }
+      continue;  // GB untouched: the next pass's reloads wait on its own barriers
     }
     gb_freed();
     bar_sync(1, FWD_CONSUMERS);  // every product on GB and GA done
@@ -884,7 +915,7 @@ __device__ __forceinline__ void bwd_copy(const BwdParams& p, const BwdSmem& m) {
 }
 
 // The whole tile: barriers, then the producer, copier and consumer roles.
-template <int H, bool FIELD>
+template <int H, bool FIELD, bool F32>
 __device__ __forceinline__ void run_bwd_chain(const BwdParams& p, const BwdMaps& maps) {
   extern __shared__ __align__(1024) unsigned char bwd_raw[];
   const BwdSmem m = bwd_smem(bwd_raw, H, p.d_latent);
@@ -910,6 +941,6 @@ __device__ __forceinline__ void run_bwd_chain(const BwdParams& p, const BwdMaps&
     if (threadIdx.x >= FWD_THREADS - FWD_COPIERS) bwd_copy<H>(p, m);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-    bwd_consume<H, FIELD>(p, m);
+    bwd_consume<H, FIELD, F32>(p, m);
   }
 }

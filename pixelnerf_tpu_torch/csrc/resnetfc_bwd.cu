@@ -43,24 +43,30 @@
 
 // FIELD: the field's epilogue (the level scatter) in place of the dz copy,
 // compiled apart so that the ResnetFC's chain keeps its own register
-// allocation
-template <int H, bool FIELD>
+// allocation; F32: float32 dz and dxin stored from the chain's float32 sums
+// (a float32 caller's, whose TPU kernel writes them in the input's dtype)
+// in place of their bf16 roundings, compiled apart so that the bf16 chain's
+// code is unchanged
+template <int H, bool FIELD, bool F32>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     resnetfc_bwd_chain_kernel(const __grid_constant__ BwdParams p,
                               const __grid_constant__ BwdMaps maps) {
-  run_bwd_chain<H, FIELD>(p, maps);
+  run_bwd_chain<H, FIELD, F32>(p, maps);
 }
 
-template <int H, bool FIELD>
+template <int H, bool FIELD, bool F32>
 static int launch_chain(const BwdParams& p, const BwdMaps& maps, size_t smem,
                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_chain_kernel<H, FIELD>,
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_chain_kernel<H, FIELD, F32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_dim((p.b + p.pts - 1) / p.pts, p.sb);
-  resnetfc_bwd_chain_kernel<H, FIELD><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps);
+  resnetfc_bwd_chain_kernel<H, FIELD, F32><<<grid_dim, FWD_THREADS, smem, stream>>>(p, maps);
   return (int)cudaGetLastError();
 }
+
+static int resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
+                        int nlev, const void* grid, bool f32, void* stream_, int* launched);
 
 extern "C" {
 
@@ -81,6 +87,18 @@ size_t pnt_resnetfc_bwd_smem_bytes(int hidden, int d_latent, int ns) {
 // error.
 int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
                      int nlev, const void* grid, void* stream_, int* launched) {
+  return resnetfc_bwd(ptrs, dims, grads, ldims, nlev, grid, false, stream_, launched);
+}
+
+// pnt_resnetfc_bwd without levels, dz and dxin float32 (ptrs 14 and 15)
+int pnt_resnetfc_bwd_f32(void* const* ptrs, const int* dims, void* stream_, int* launched) {
+  return resnetfc_bwd(ptrs, dims, nullptr, nullptr, 0, nullptr, true, stream_, launched);
+}
+
+}  // extern "C"
+
+static int resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, const int* ldims,
+                        int nlev, const void* grid, bool f32, void* stream_, int* launched) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   BwdParams p;
   bwd_dims(&p, dims);
@@ -135,13 +153,13 @@ int pnt_resnetfc_bwd(void* const* ptrs, const int* dims, void* const* grads, con
   if (rc) return rc;
   const size_t smem = bwd_smem_bytes(p.hidden, p.d_latent, p.ns);
   rc = dispatch_hidden(p.hidden, [&](auto h) {
-    return p.nlev > 0 ? launch_chain<decltype(h)::value, true>(p, maps, smem, stream)
-                      : launch_chain<decltype(h)::value, false>(p, maps, smem, stream);
+    constexpr int H = decltype(h)::value;
+    return p.nlev > 0 ? launch_chain<H, true, false>(p, maps, smem, stream)
+           : f32      ? launch_chain<H, false, true>(p, maps, smem, stream)
+                      : launch_chain<H, false, false>(p, maps, smem, stream);
   });
   if (rc) return rc;
   launched[0]++;
   return wgrad_launch(p, static_cast<const bf16*>(ptrs[26]), static_cast<float*>(ptrs[27]), dw_in,
                       dwz, dw0, dw1, dw_out, stream, &launched[1]);
 }
-
-}  // extern "C"

@@ -50,14 +50,17 @@ def latent_scaling_for(latent_hw: Tuple[int, int], device=None) -> torch.Tensor:
 
 
 def pyramid_fused_ok(
-    levels, index_interp: str, index_padding: str, upsample_interp: str = "bilinear"
+    levels, index_interp: str, index_padding: str, upsample_interp: str = "bilinear",
+    allow_fused: bool = True,
 ) -> bool:
     """True when the native levels feed the pyramid kernels (ops/pyramid.py)
-    and the fused field kernel (ops/field.py): bilinear upsample and lookup
+    and the fused field kernel (ops/field.py): `allow_fused`
+    (make_model(use_pallas=False) clears it), bilinear upsample and lookup
     with border padding, bf16 levels, a fine grid of at most 8192 pixels.
     Otherwise `encode` composes the upsampled pyramid once."""
     return (
-        index_interp == "bilinear"
+        allow_fused
+        and index_interp == "bilinear"
         and index_padding == "border"
         and upsample_interp == "bilinear"
         and all(l.dtype == torch.bfloat16 for l in levels)
@@ -126,6 +129,7 @@ def index_features(
     index_padding: str = "border",
     upsample_interp: str = "bilinear",
     dual: bool = False,
+    allow_fused: bool = True,
 ):
     """Pixel-aligned lookup of (B, N, 2) image points (x, y) in input-pixel
     coordinates in a (B, Hl, Wl, C) map, or in a tuple of native levels.
@@ -137,6 +141,8 @@ def index_features(
     gradient for the map, none for uv); any other map through
     `grid_sample_2d`.
 
+    :param allow_fused False: no kernel (the composed pyramid and
+        `grid_sample_2d`), as make_model(use_pallas=False) asks
     :param dual return the latent twice, for two consumers (the coarse MLP
         and the fine pass's query cache); on the pyramid path the two
         cotangents are summed inside the scatter kernel, elsewhere autograd
@@ -146,13 +152,14 @@ def index_features(
     grid = uv * (latent_scaling / image_size) - 1.0
     if isinstance(latent, (tuple, list)):
         levels = tuple(latent)
-        if pyramid_fused_ok(levels, index_interp, index_padding, upsample_interp):
+        if pyramid_fused_ok(levels, index_interp, index_padding, upsample_interp, allow_fused):
             if dual:
                 return pyramid_index_train_dual(levels, grid)
             return pyramid_index_train(levels, grid)
         latent = compose_pyramid(levels, upsample_interp, index_interp)
     if (
-        index_interp == "bilinear"
+        allow_fused
+        and index_interp == "bilinear"
         and index_padding == "border"
         and latent.dtype == torch.bfloat16
         and fused_supported(latent.shape[1], latent.shape[2])

@@ -111,6 +111,7 @@ class PixelNeRFNet(nn.Module):
         stop_encoder_grad: bool = False,
         global_encoder: Optional[ImageEncoder] = None,
         dtype: torch.dtype = torch.float32,
+        use_fused_gather: bool = True,
     ):
         super().__init__()
         self.encoder = encoder
@@ -129,6 +130,9 @@ class PixelNeRFNet(nn.Module):
         self.use_viewdirs = use_viewdirs
         self.stop_encoder_grad = stop_encoder_grad
         self.dtype = dtype
+        # make_model(use_pallas=False) turns it off: the composed lookup and
+        # plain posenc (the MLPs' own use_pallas keeps them per-layer)
+        self.use_fused_gather = use_fused_gather
         # run the fused gather+field kernel in query(); eval renders turn
         # it on (eval/render_utils.py:make_chunk_renderer), and a train step
         # of `with_field_fusion()` trains through it
@@ -178,7 +182,7 @@ class PixelNeRFNet(nn.Module):
         latent, latent_scaling = self.encoder(images)
         if isinstance(latent, tuple) and not pyramid_fused_ok(
             latent, self.encoder.index_interp, self.encoder.index_padding,
-            self.encoder.upsample_interp,
+            self.encoder.upsample_interp, self.use_fused_gather,
         ):
             latent = compose_pyramid(
                 latent, self.encoder.upsample_interp, self.encoder.index_interp
@@ -199,9 +203,11 @@ class PixelNeRFNet(nn.Module):
 
     def _posenc_fused_ok(self) -> bool:
         """The [xyz, code(xyz), viewdirs] layout of the posenc kernel, in a
-        bf16 model (float32 models keep the plain chain)."""
+        bf16 model (float32 models keep the plain chain, as in the JAX
+        package), unless `use_fused_gather` is off."""
         return (
-            self.d_in > 0
+            self.use_fused_gather
+            and self.d_in > 0
             and self.use_xyz
             and self.use_code
             and not self.use_code_viewdirs
@@ -310,6 +316,7 @@ class PixelNeRFNet(nn.Module):
             index_padding=self.encoder.index_padding,
             upsample_interp=self.encoder.upsample_interp,
             dual=want_dual,
+            allow_fused=self.use_fused_gather,
         )
         latent, latent_cache = latent if want_dual else (latent, None)
         if self.stop_encoder_grad:
@@ -351,10 +358,12 @@ class PixelNeRFNet(nn.Module):
         return torch.cat([rgb, sigma], dim=-1).reshape(SB, B, -1)
 
 
-def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=False):
+def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=False,
+              use_pallas="auto"):
     mlp_type = conf.get_string("type", "mlp") if conf else "empty"
     if mlp_type == "resnet":
-        return ResnetFC.from_conf(conf, d_in, d_latent=d_latent, d_out=d_out, dtype=dtype)
+        return ResnetFC.from_conf(conf, d_in, d_latent=d_latent, d_out=d_out, dtype=dtype,
+                                  use_pallas=use_pallas)
     if mlp_type == "mlp":
         return ImplicitNet.from_conf(conf, d_in + d_latent, d_out=d_out, dtype=dtype)
     if mlp_type == "empty" and allow_empty:
@@ -364,7 +373,7 @@ def _make_mlp(conf, d_in: int, d_latent: int, d_out: int, dtype, allow_empty=Fal
 
 def make_model(
     conf, dtype=None, device=None, seed: int = 0, train: bool = False,
-    stop_encoder_grad: bool = False,
+    stop_encoder_grad: bool = False, use_pallas="auto",
 ) -> PixelNeRFNet:
     """Build a PixelNeRFNet from a 'model' config subtree, in eval mode (or
     train mode with `train`), on `device` (CUDA unless the caller passes
@@ -375,6 +384,18 @@ def make_model(
     seeds the random initialization without touching the global generator
     (`backbone = custom` makes one convolution at its first input:
     `PixelNeRFNet.init_shapes`).
+
+    `use_pallas` ("auto" | True | False) is the JAX `make_model`'s switch
+    of its Pallas kernels, read for the port's kernels. "auto" (the
+    default, the CLIs' too): on the card the ResnetFC kernels take every
+    config the JAX package's kernels take on its TPU, bf16 and float32
+    alike; off the card bf16 models take the kernels' plain versions and
+    float32 models the exact per-layer chain. True: the ResnetFC kernel
+    route on every device (the plain versions on the CPU, the counterpart
+    of JAX's interpret mode). False: no kernel anywhere, the per-layer
+    MLP, the composed lookup and plain posenc, as the JAX package with
+    use_pallas=False. The lookups, posenc and the field take bf16 models
+    only, under "auto" and True alike (ResnetFC.fused_ok).
     """
     device = resolve_device(device)
     if dtype is None:
@@ -407,9 +428,11 @@ def make_model(
         if use_global_encoder:
             global_encoder = ImageEncoder.from_conf(conf.get_config("global_encoder"), dtype=dtype)
             d_latent += global_encoder.latent_size
-        mlp_coarse = _make_mlp(conf.get_config("mlp_coarse"), d_in, d_latent, 4, dtype)
+        mlp_coarse = _make_mlp(conf.get_config("mlp_coarse"), d_in, d_latent, 4, dtype,
+                               use_pallas=use_pallas)
         mlp_fine = _make_mlp(
-            conf.get_config("mlp_fine"), d_in, d_latent, 4, dtype, allow_empty=True
+            conf.get_config("mlp_fine"), d_in, d_latent, 4, dtype, allow_empty=True,
+            use_pallas=use_pallas,
         )
     model = PixelNeRFNet(
         encoder=encoder, code=code, mlp_coarse=mlp_coarse, mlp_fine=mlp_fine,
@@ -417,6 +440,7 @@ def make_model(
         normalize_z=conf.get_bool("normalize_z", True), use_code=use_code,
         use_code_viewdirs=use_code_viewdirs, use_viewdirs=use_viewdirs,
         stop_encoder_grad=stop_encoder_grad, global_encoder=global_encoder, dtype=dtype,
+        use_fused_gather=use_pallas is not False,
     )
     return model.to(device).train(train)
 

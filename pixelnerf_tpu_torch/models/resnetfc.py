@@ -2,8 +2,9 @@
 
 Counterpart of `pixelnerf_tpu/models/resnetfc.py:ResnetFC`: the per-layer
 path (latent injection below `combine_layer`, view pooling at it), the
-fused (z, x) path of bf16 models (`_call_pallas`'s counterpart: the
-ResnetFC kernels of ops/resnetfc.py, with their backward), and the
+fused (z, x) path (`_call_pallas`'s counterpart: the ResnetFC kernels of
+ops/resnetfc.py, with their backward; routed by `use_pallas` as the JAX
+module routes its Pallas kernels, `fused_ok`), and the
 `FieldInput` path, which hands the native pyramid and the sample
 coordinates to the fused field kernel (ops/field.py, with its backward).
 Parameter names follow the Flax tree: `lin_in`, `lin_z_{i}`, `scale_z_{i}`
@@ -90,6 +91,15 @@ class ResnetFC(nn.Module):
     :param combine_layer block at which the NS views are pooled
     :param combine_type 'average' | 'max'
     :param use_spade scale-and-shift latent injection (scale_z_{i})
+    :param use_pallas the JAX module's switch of its Pallas kernels, with
+        its meaning in the port. "auto": the ResnetFC kernels take every
+        config the JAX `_pallas_ok` takes, bf16 and float32 alike, on the
+        card; off the card a bf16 model takes their plain versions, and a
+        float32 model keeps the exact per-layer chain (as the JAX
+        package's "auto" off the TPU). True: the kernel route on every
+        device (the plain versions on the CPU: the JAX interpret mode's
+        counterpart). False: the per-layer chain everywhere, and no field
+        path.
     """
 
     def __init__(
@@ -104,8 +114,12 @@ class ResnetFC(nn.Module):
         combine_type: str = "average",
         use_spade: bool = False,
         dtype: torch.dtype = torch.float32,
+        use_pallas="auto",
     ):
         super().__init__()
+        if use_pallas not in (True, False, "auto"):
+            raise ValueError(f"use_pallas is True, False or 'auto', got {use_pallas!r}")
+        self.use_pallas = use_pallas
         self.d_in = d_in
         self.d_out = d_out
         self.n_blocks = n_blocks
@@ -135,20 +149,36 @@ class ResnetFC(nn.Module):
             self.combine_layer, self.n_blocks, ns,
         )
 
+    def _on_kernel_route(self, device_type=None) -> bool:
+        """`use_pallas` read as the JAX module reads it, the card in place
+        of the TPU: "auto" takes the kernel route for a float32 model only
+        where `device_type` (the parameters' device by default) is "cuda",
+        for a bf16 model everywhere (the plain versions off the card)."""
+        if self.use_pallas == "auto" and self.dtype != torch.bfloat16:
+            return (device_type or self.lin_out.weight.device.type) == "cuda"
+        return self.use_pallas is not False
+
     def field_path_ok(self, ns: int) -> bool:
         """Can this module consume a FieldInput for `ns` views? The JAX
-        module's `field_path_ok`: the kernels' `supported_config`."""
-        return self._kernels_take(ns) and field_supported(ns, self.n_blocks, self.combine_layer)
-
-    def fused_ok(self, combine_inner_dims) -> bool:
-        """Does a (z, x) call take the fused ResnetFC kernels? The TPU
-        kernel's predicate (`_pallas_ok`), for bf16 models: float32 models
-        keep the exact per-layer chain. On the card the wrappers raise on
-        widths their chains lack (`check_chain_widths`)."""
+        module's `field_path_ok`: the kernels' `supported_config`, unless
+        `use_pallas` is False. The field's levels are bf16 only (the
+        caller's `pyramid_fused_ok`), so a float32 model never takes it."""
         return (
-            self.dtype == torch.bfloat16
-            and len(combine_inner_dims) == 2
+            self.use_pallas is not False
+            and self._kernels_take(ns)
+            and field_supported(ns, self.n_blocks, self.combine_layer)
+        )
+
+    def fused_ok(self, combine_inner_dims, device_type=None) -> bool:
+        """Does a (z, x) call take the fused ResnetFC kernels? The JAX
+        module's `_pallas_ok` with the card in place of the TPU
+        (`_on_kernel_route`). The wrappers take every width: the chains up
+        to 512 and 64 views, the layered path past them
+        (`ops/resnetfc.py:takes_chains`)."""
+        return (
+            len(combine_inner_dims) == 2
             and self._kernels_take(combine_inner_dims[0])
+            and self._on_kernel_route(device_type)
         )
 
     def weights(self) -> FieldWeights:
@@ -215,9 +245,10 @@ class ResnetFC(nn.Module):
     def _call_fused(self, z, x, combine_inner_dims) -> torch.Tensor:
         ns, b = combine_inner_dims
         sb = x.shape[0] // (ns * b)
+        # in the model's dtype: a float32 model's dz and dxin come back in
+        # float32, as the TPU kernel writes them
         out = resnetfc_fused(
-            z.to(torch.bfloat16).reshape(sb, ns, b, -1),
-            x.to(torch.bfloat16).reshape(sb, ns, b, -1),
+            z.reshape(sb, ns, b, -1), x.reshape(sb, ns, b, -1),
             self.weights(), self.n_blocks, self.combine_layer, ns,
         )
         return out.reshape(sb * b, self.d_out)

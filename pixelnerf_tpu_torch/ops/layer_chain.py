@@ -449,11 +449,16 @@ def layered_fwd(z: torch.Tensor, xin: torch.Tensor, w: FieldWeights, n_blocks: i
 
 def layered_bwd(z: torch.Tensor, xin: torch.Tensor, g: torch.Tensor,
                 stash_pre: Optional[torch.Tensor], stash_post: torch.Tensor, w: FieldWeights,
-                n_blocks: int, combine_layer: int, ns: int):
+                n_blocks: int, combine_layer: int, ns: int, grad_dtype: torch.dtype = _BF):
     """The fused ResnetFC backward as layered launches from either path's
-    stash: (dz (SB, NS, B, d_latent) bf16, dxin (SB, NS, B, d_in) bf16,
-    float32 FieldWeights gradients at the caller's widths, the bf16
-    cotangents (gpre, gpost, gin, gout) at the layered widths)."""
+    stash: (dz (SB, NS, B, d_latent), dxin (SB, NS, B, d_in), both bf16 or,
+    with `grad_dtype` float32, the float32 sums unrounded (the g_z
+    accumulator and dxin's product written to x in place of y), float32
+    FieldWeights gradients at the caller's widths, the bf16 cotangents
+    (gpre, gpost, gin, gout) at the layered widths)."""
+    if grad_dtype not in (_BF, _F32):
+        raise ValueError(f"the layered backward writes bf16 or float32 dz and dxin, got {grad_dtype}")
+    f32 = grad_dtype == _F32
     hidden_call = w.w_in.shape[1]
     dl_call, d_in = z.shape[3], xin.shape[3]
     w, z, stash_pre, stash_post, hidden, dl = _prepare(z, w, stash_pre, stash_post)
@@ -499,12 +504,15 @@ def layered_bwd(z: torch.Tensor, xin: torch.Tensor, g: torch.Tensor,
     # g_z: the injections' cotangents (Gin, then G1 of the block before)
     # times their Wz^T, summed in f32 in injection order
     gz = empty(mpre, dl, dt=_F32)
-    dz = empty(sb, ns, b, dl)
+    dz = gz.view(sb, ns, b, dl) if f32 else empty(sb, ns, b, dl)
     for i in range(n_inj):
         layer_bwd(gin2 if i == 0 else cot(i - 1, 0), w.wz[i], x=gz, add=i > 0,
-                  y=dz.view(mpre, dl) if i == n_inj - 1 else None)
-    dxin = empty(mpre, d_in_pad)
-    layer_bwd(gin2, w.w_in, y=dxin)
+                  y=dz.view(mpre, dl) if i == n_inj - 1 and not f32 else None)
+    dxin = empty(mpre, d_in_pad, dt=grad_dtype)
+    if f32:
+        layer_bwd(gin2, w.w_in, x=dxin)
+    else:
+        layer_bwd(gin2, w.w_in, y=dxin)
     xin_pad = _pad_last(xin, d_in_pad).contiguous()
     dw = FieldWeights(
         w_in=zeros(d_in, hidden), b_in=db_in,

@@ -22,10 +22,16 @@ The port's stash layout is its own: `stash_pre` (2k, SB, NS, B, H) holds
 `resnetfc_fused` is the entry point: with autograd recording and an input
 that needs a gradient it runs the stash forward and, on backward, the
 backward kernel (a `torch.autograd.Function` whose saved tensors are the
-stash); otherwise it runs the stash-free forward. Each of
+stash); otherwise it runs the stash-free forward. It takes bf16 or
+float32 z and xin, as the TPU kernels do: the kernels read one bf16 copy
+of a float32 input (the TPU kernel's cast at its products, bit for bit),
+and the backward writes dz and dxin in the input's dtype, a float32
+caller's unrounded (`grad_dtype`; the chain's F32 store, or the layered
+path's float32 sums). Each of
 `resnetfc_fwd`, `resnetfc_fwd_stash` and `resnetfc_bwd` launches its
 kernel on CUDA tensors, once a group of 16 outputs, and counts each
-launch (`.launches`, `out_groups`); on CPU tensors it takes its plain
+launch (`.launches`, `out_groups`; `resnetfc_bwd.f32_launches` those of
+them that write float32 dz and dxin); on CPU tensors it takes its plain
 version (`*_plain`). At widths the chains lack after the wrappers'
 padding (hidden or the padded d_in past 512, more than 64 views:
 `takes_chains`) the CUDA wrappers run the layered kernels of
@@ -176,10 +182,12 @@ def resnetfc_bwd_plain(
     z: torch.Tensor, xin: torch.Tensor, g: torch.Tensor,
     stash_pre: Optional[torch.Tensor], stash_post: torch.Tensor,
     w: FieldWeights, n_blocks: int, combine_layer: int, ns: int,
+    grad_dtype: Optional[torch.dtype] = None,
 ):
     """The plain version of the backward kernel: (dz in z's dtype, dxin in
     xin's dtype, FieldWeights of float32 weight gradients with w_in
-    (d_in, H))."""
+    (d_in, H)); with `grad_dtype`, dz and dxin in that dtype instead (a
+    float32 caller's from its bf16 copies of z and xin)."""
     sb, _, b, dl = z.shape
     d_in = xin.shape[-1]
     k, m = stash_layout(n_blocks, combine_layer, ns)
@@ -209,7 +217,7 @@ def resnetfc_bwd_plain(
         b1=torch.stack([_rows(t) for t in g1s]),
         w_out=_dot_g(rxf, g), b_out=_rows(g),
     )
-    return gz.to(z.dtype), dxin.to(xin.dtype), dw
+    return gz.to(grad_dtype or z.dtype), dxin.to(grad_dtype or xin.dtype), dw
 
 
 def resnetfc_cotangents_plain(
@@ -402,6 +410,12 @@ def bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
+        if hasattr(lib, "pnt_resnetfc_bwd_f32"):  # an earlier tree's library may lack it
+            lib.pnt_resnetfc_bwd_f32.restype = ctypes.c_int
+            lib.pnt_resnetfc_bwd_f32.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int),
+            ]
         lib.pnt_wgrad_workspace.restype = ctypes.c_longlong
         lib.pnt_wgrad_workspace.argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
@@ -504,6 +518,7 @@ resnetfc_fwd_stash.launches = 0
 def launch_bwd(
     z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int, combine_layer: int,
     ns: int, levels: Sequence[Tuple[int, int, int]] = (), grid: Optional[torch.Tensor] = None,
+    grad_dtype: torch.dtype = _BF,
 ):
     """Launch `csrc/resnetfc_bwd.cu` on CUDA tensors: (dz, dxin, float32
     FieldWeights gradients, the chain's bf16 cotangents (gpre, gpost, gin,
@@ -514,7 +529,9 @@ def launch_bwd(
     through `chain_plan`: z (or the z-stash), the weights, the last
     level's channels and a stash at the caller's hidden width are
     zero-padded, each output group runs the chain, and the gradients come
-    back summed over the groups at the caller's widths. Counts the kernels
+    back summed over the groups at the caller's widths. dz and dxin come
+    back in `grad_dtype`: bf16, or float32 from the chain's float32 sums
+    (a float32 caller's; not with `levels`). Counts the kernels
     it launches in `launch_bwd.chain_launches` (the cotangent chain) and
     `launch_bwd.wgrad_launches` (the weight-gradient products and their
     reduction: 2 a run), not the wrappers' `.launches`;
@@ -522,6 +539,9 @@ def launch_bwd(
     the most and fewest splits of a product and the bytes of the boxes
     its TMA loads read from L2."""
     z, xin, wp = _cuda_inputs(z, xin, w)
+    if grad_dtype not in (_BF, torch.float32) or (levels and grad_dtype != _BF):
+        raise ValueError(f"the backward writes bf16 or float32 dz and dxin (bf16 with levels), "
+                         f"got {grad_dtype}")
     d_in, dl_call, hidden_call = xin.shape[3], z.shape[3], wp.w_in.shape[1]
     if levels:  # z is the field's z-stash, possibly at the chain's width already
         dl_call = sum(c for _, _, c in levels)
@@ -534,7 +554,8 @@ def launch_bwd(
     g = g.to(device=z.device, dtype=torch.float32)
     runs = [
         _launch_bwd_chain(z, xin, g[..., 16 * i : 16 * i + 16] if groups > 1 else g, stash_pre,
-                          stash_post, out_group(wp, i), n_blocks, combine_layer, ns, levels, grid)
+                          stash_post, out_group(wp, i), n_blocks, combine_layer, ns, levels, grid,
+                          grad_dtype)
         for i in range(groups)
     ]
     dz = [sum(ts) for ts in zip(*[r[0] for r in runs])] if levels else sum(r[0] for r in runs)
@@ -548,7 +569,7 @@ def launch_bwd(
 
 
 def _launch_bwd_chain(z, xin, g, stash_pre, stash_post, wp, n_blocks, combine_layer, ns, levels,
-                      grid):
+                      grid, grad_dtype):
     sb, _, b, dl = z.shape
     d_in_pad, hidden = wp.w_in.shape
     d_out = wp.w_out.shape[1]
@@ -573,8 +594,8 @@ def _launch_bwd_chain(z, xin, g, stash_pre, stash_post, wp, n_blocks, combine_la
     gpost = empty(2 * m, sb, b, hidden)
     gin = empty(sb, ns, b, hidden)
     gout = empty(sb, b, _GOUT_LD)
-    dxin = torch.empty_like(xin)
-    dz = None if levels else torch.empty_like(z)
+    dxin = torch.empty(xin.shape, dtype=grad_dtype, device=dev)
+    dz = None if levels else torch.empty(z.shape, dtype=grad_dtype, device=dev)
     d_feats = [zeros(sb * ns, h, wd, c) for h, wd, c in levels]
     if levels:
         if grid is None or grid.shape != (sb, ns, b, 2) or grid.dtype != torch.float32:
@@ -614,10 +635,11 @@ def _launch_bwd_chain(z, xin, g, stash_pre, stash_post, wp, n_blocks, combine_la
     lptrs = (ctypes.c_void_p * max(nlev, 1))(*[t.data_ptr() for t in d_feats])
     ldims = (ctypes.c_int * max(3 * nlev, 1))(*[d for hwc in levels for d in hwc])
     launched = (ctypes.c_int * 2)(0, 0)
-    err = lib.pnt_resnetfc_bwd(
-        ptrs, dims, lptrs, ldims, nlev, ptr(grid), torch.cuda.current_stream(dev).cuda_stream,
-        launched,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if grad_dtype == _BF:
+        err = lib.pnt_resnetfc_bwd(ptrs, dims, lptrs, ldims, nlev, ptr(grid), stream, launched)
+    else:
+        err = lib.pnt_resnetfc_bwd_f32(ptrs, dims, stream, launched)
     launch_bwd.chain_launches += launched[0]
     launch_bwd.wgrad_launches += launched[1]
     _raise_on(err, lib, "resnetfc_bwd")
@@ -630,32 +652,45 @@ launch_bwd.wgrad_plan = None
 
 
 def resnetfc_bwd(z, xin, g, stash_pre, stash_post, w: FieldWeights, n_blocks: int,
-                 combine_layer: int, ns: int):
+                 combine_layer: int, ns: int, grad_dtype: Optional[torch.dtype] = None):
     """dz, dxin and the float32 weight gradients (FieldWeights, w_in
     (d_in, H)) from the stash of `resnetfc_fwd_stash` and the output
-    cotangent g (SB, B, d_out)."""
+    cotangent g (SB, B, d_out). dz and dxin come in z's dtype, or in
+    `grad_dtype`: float32 for a float32 caller, whose z and xin are the
+    bf16 copies its forward made (the TPU kernel writes them in the
+    input's dtype, unrounded)."""
     _check(z, xin, w, n_blocks, combine_layer, ns)
+    grad_dtype = grad_dtype or z.dtype
     if _device_of(z, "resnetfc_bwd") == "cpu":
-        return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)
+        return resnetfc_bwd_plain(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns,
+                                  grad_dtype)
     if not _chains_take(z.shape[3], xin, w, ns):
         z, xin, wp = _cuda_inputs(z, xin, w)
         return layer_chain.layered_bwd(z, xin, g, stash_pre, stash_post, wp, n_blocks,
-                                       combine_layer, ns)[:3]
-    res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns)[:3]
+                                       combine_layer, ns, grad_dtype)[:3]
+    res = launch_bwd(z, xin, g, stash_pre, stash_post, w, n_blocks, combine_layer, ns,
+                     grad_dtype=grad_dtype)[:3]
     resnetfc_bwd.launches += out_groups(g.shape[-1])
+    if grad_dtype == torch.float32:  # the F32 chain's share of them
+        resnetfc_bwd.f32_launches += out_groups(g.shape[-1])
     return res
 
 
 resnetfc_bwd.launches = 0
+resnetfc_bwd.f32_launches = 0
 
 
 class _ResnetFCFn(torch.autograd.Function):
     """Forward with stash, backward from it: the stash is the saved
-    tensors (no recomputation)."""
+    tensors (no recomputation). float32 z and xin are copied to bf16 once
+    (the TPU kernel's casts at its products, bit for bit) and the copies
+    are saved; dz and dxin come back in the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, z, xin, n_blocks, combine_layer, ns, *weights):
         w = FieldWeights(*weights)
+        ctx.grad_dtypes = (z.dtype, xin.dtype)
+        z, xin = z.to(_BF), xin.to(_BF)
         out, spre, spost = resnetfc_fwd_stash(z, xin, w, n_blocks, combine_layer, ns)
         ctx.cfg = (n_blocks, combine_layer, ns)
         ctx.has_pre = spre is not None
@@ -667,8 +702,10 @@ class _ResnetFCFn(torch.autograd.Function):
         z, xin, spost, *rest = ctx.saved_tensors
         spre = rest.pop(0) if ctx.has_pre else None
         w = FieldWeights(*rest)
-        dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *ctx.cfg)
-        return (dz, dxin, None, None, None) + tuple(dw)
+        dz_dtype, dxin_dtype = ctx.grad_dtypes
+        dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *ctx.cfg,
+                                    grad_dtype=torch.promote_types(dz_dtype, dxin_dtype))
+        return (dz.to(dz_dtype), dxin.to(dxin_dtype), None, None, None) + tuple(dw)
 
 
 def resnetfc_fused(
@@ -677,15 +714,20 @@ def resnetfc_fused(
 ) -> torch.Tensor:
     """Run the fused ResnetFC on a flattened point batch.
 
-    :param z (SB, NS, B, d_latent) conditioning latents
-    :param xin (SB, NS, B, d_in) positional-code features
+    :param z (SB, NS, B, d_latent) conditioning latents, bf16 or float32
+    :param xin (SB, NS, B, d_in) positional-code features, bf16 or float32;
+        the kernels read bf16 copies of float32 ones, and dz and dxin come
+        back in each one's own dtype
     :param weights FieldWeights of the float32 parameters in (in, out)
         orientation; their gradients come back in the same shapes
     :return (SB, B, d_out) float32
     """
+    for name, t in (("z", z), ("xin", xin)):
+        if t.dtype not in (_BF, torch.float32):
+            raise TypeError(f"{name} must be bf16 or float32, got {t.dtype}")
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (z, xin, *weights)
     )
     if not needs_grad:
-        return resnetfc_fwd(z, xin, weights, n_blocks, combine_layer, ns)
+        return resnetfc_fwd(z.to(_BF), xin.to(_BF), weights, n_blocks, combine_layer, ns)
     return _ResnetFCFn.apply(z, xin, n_blocks, combine_layer, ns, *weights)

@@ -23,8 +23,10 @@ in both forwards and write a stash it throws away. `remat="auto"` is the
 JAX rule: remat is off exactly when every field MLP takes the fused
 kernels (`ResnetFC.fused_ok` at `nviews` source views, unknown counting as
 several), whose bf16 stash is small; a model whose MLP runs the per-layer
-chain (float32, softplus, SPADE, max pooling, `type = mlp`) keeps every
-activation for the backward and gets remat.
+chain (softplus, SPADE, max pooling, `type = mlp`, `use_pallas=False`, or
+float32 off the card) keeps every activation for the backward and gets
+remat. A float32 model on the card takes the kernels and keeps its stash,
+as on the JAX package's TPU.
 
 Data and ray parallelism (`mesh`, a `parallel.Mesh`; JAX's `pmean_axes`
 under shard_map): the step then sees this rank's SB/data objects and
@@ -247,14 +249,16 @@ def _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox):
     )
 
 
-def _model_uses_fused_mlp(model, max_nviews: Optional[int] = None) -> bool:
+def _model_uses_fused_mlp(model, max_nviews: Optional[int] = None, device_type=None) -> bool:
     """True when every field MLP of `model` takes the fused kernels at up to
     `max_nviews` source views (None: unknown, counted as several, so that
     remat is never turned off for a model that leaves the kernels at run
-    time); the JAX step's rule of the same name."""
+    time) on `device_type` (the parameters' device by default: float32
+    models take the kernels on the card only, `ResnetFC.fused_ok`); the
+    JAX step's rule of the same name, which has no dtype test either."""
     mlps = [m for m in (model.mlp_coarse, model.mlp_fine) if m is not None]
     return bool(mlps) and all(
-        isinstance(m, ResnetFC) and m.fused_ok((max_nviews, 1)) for m in mlps
+        isinstance(m, ResnetFC) and m.fused_ok((max_nviews, 1), device_type) for m in mlps
     )
 
 

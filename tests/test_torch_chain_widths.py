@@ -353,13 +353,14 @@ def _plain_chains(monkeypatch):
         res = resnetfc_fwd_plain(z, xin, w, n_blocks, combine, ns, stash=stash)
         return res if stash else (res, None, None)
 
-    def bwd(z, xin, g, spre, spost, w, n_blocks, combine, ns, levels, grid):
+    def bwd(z, xin, g, spre, spost, w, n_blocks, combine, ns, levels, grid, grad_dtype):
         widths(z.shape[3], xin, w, ns)
         if levels:
             d_feats, dxin, dw = field_bwd_plain(grid, xin, g, z, spre, spost, w, n_blocks, combine,
                                                 ns, levels)
             return [d.float() for d in d_feats], dxin, dw, None
-        return (*resnetfc_bwd_plain(z, xin, g, spre, spost, w, n_blocks, combine, ns), None)
+        return (*resnetfc_bwd_plain(z, xin, g, spre, spost, w, n_blocks, combine, ns, grad_dtype),
+                None)
 
     def field(feats, grid, xin, w, n_blocks, combine, ns, stash):
         widths(sum(f.shape[3] for f in feats), xin, w, ns)

@@ -39,7 +39,10 @@ runs of the backward give bit-identical weight gradients. The layered
 pooling: the mean within 1e-5 of the plain one and its bf16 copy within one
 bf16 ulp, and both equal to a loop over the views in order; the column sums
 of its backward and every gradient of the layered backward bit-identical
-from run to run.
+from run to run. The backward of a float32 caller (float32 dz and dxin,
+the chain's F32 store and the layered path's float32 sums): the bf16
+backward's bounds against the plain backward's float32 dz and dxin, and
+rounded to bf16 equal to the bf16 backward's bit for bit.
 """
 
 import numpy as np
@@ -59,8 +62,8 @@ from pixelnerf_tpu_torch.ops.pyramid import (
     _level_taps, pyramid_gather, pyramid_gather_plain, pyramid_scatter_add,
 )
 from pixelnerf_tpu_torch.ops.resnetfc import (
-    resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fwd, resnetfc_fwd_plain,
-    resnetfc_fwd_stash, resnetfc_wgrad_plain,
+    resnetfc_bwd, resnetfc_bwd_plain, resnetfc_cotangents_plain, resnetfc_fused, resnetfc_fwd,
+    resnetfc_fwd_plain, resnetfc_fwd_stash, resnetfc_wgrad_plain,
 )
 from pixelnerf_tpu_torch.ops.scatter import _taps as bilerp_taps
 from pixelnerf_tpu_torch.ops.scatter import bilerp_gather, bilerp_gather_plain, bilerp_scatter_add
@@ -1513,3 +1516,97 @@ def test_padded_widths_match_plain(cuda, hidden, levels, d_out, ns, sb, b):
     _grad_within(dxin, wdxin)
     for name in FieldWeights._fields:
         _grad_within(getattr(dw, name), getattr(wdw, name))
+
+
+# ------------------------------------------------- float32 callers' dz and dxin
+
+F32_CASES = {
+    "chain_h64_ns1": (64, 1, 2, 50), "chain_h128_ns2": (128, 2, 2, 37),
+    "chain_h256_ns3": (256, 3, 1, 45), "chain_h512_ns2": (512, 2, 1, 70),
+    "chain_h512_ns5": (512, 5, 2, 13), "layered_h576": (576, 2, 1, 40),
+    "layered_65_views": (64, 65, 1, 3),
+}
+WGRAD_NAMES = ("w_in", "wz", "w0", "w1", "w_out")
+
+
+def _f32_grads(z, xin, g, spre, spost, w, args):
+    dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *args, grad_dtype=torch.float32)
+    torch.cuda.synchronize()
+    return dz, dxin, dw
+
+
+@pytest.mark.parametrize("hidden,ns,sb,b", F32_CASES.values(), ids=F32_CASES.keys())
+def test_float32_backward_matches_plain(cuda, hidden, ns, sb, b):
+    """The backward for a float32 caller (bf16 copies of its z and xin, as
+    `resnetfc_fused` makes them): dz and dxin float32 from the chain's F32
+    store (or the layered path's float32 sums), unrounded, within the bf16
+    backward's bounds of the plain backward's float32 ones from the same
+    stash; rounded to bf16 they equal the bf16 backward's dz and dxin bit
+    for bit (the same sums, rounded at the store), whose weight gradients
+    they share; and two runs give equal outputs."""
+    rng = np.random.default_rng(hidden + ns * 10 + b)
+    z, xin, w, g = _mlp_case(rng, cuda, ns, sb, b, hidden=hidden, d_latent=128)
+    args = (5, 3, ns)
+    _, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
+    before = resnetfc_bwd.launches
+    dz, dxin, dw = _f32_grads(z, xin, g, spre, spost, w, args)
+    chained = ops_resnetfc.takes_chains(hidden, 128, 42, 4, ns)
+    assert chained == (hidden <= 512 and ns <= 64)
+    assert resnetfc_bwd.launches == before + chained
+    assert dz.dtype == dxin.dtype == torch.float32
+    assert dz.shape == z.shape and dxin.shape == xin.shape
+    for t in (dz, dxin):
+        assert (t != t.to(torch.bfloat16).float()).float().mean() > 0.5  # unrounded
+    wdz, wdxin, wdw = resnetfc_bwd_plain(z, xin, g, spre, spost, w, *args,
+                                         grad_dtype=torch.float32)
+    assert wdz.dtype == wdxin.dtype == torch.float32
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)
+    for name in FieldWeights._fields:
+        _grad_within(getattr(dw, name), getattr(wdw, name))
+    bz, bxin, bdw = resnetfc_bwd(z, xin, g, spre, spost, w, *args)
+    assert bz.dtype == bxin.dtype == torch.bfloat16
+    assert torch.equal(dz.to(torch.bfloat16), bz) and torch.equal(dxin.to(torch.bfloat16), bxin)
+    for name in WGRAD_NAMES:
+        assert torch.equal(getattr(dw, name), getattr(bdw, name)), name
+    dz2, dxin2, dw2 = _f32_grads(z, xin, g, spre, spost, w, args)
+    assert torch.equal(dz, dz2) and torch.equal(dxin, dxin2)
+    for name in WGRAD_NAMES:
+        assert torch.equal(getattr(dw, name), getattr(dw2, name)), name
+
+
+def test_float32_inputs_through_resnetfc_fused_on_card(cuda):
+    """`resnetfc_fused` on float32 z and xin that want gradients: the stash
+    forward and the F32 backward launch once each on the bf16 copies of the
+    inputs; the output, float32 dz and dxin and the products' weight
+    gradients are those of the two wrappers called on those copies, bit for
+    bit (the bias sums are float32 atomics: the bf16 backward's bounds), and
+    dz and dxin lie within the bf16 backward's bounds of the plain
+    backward from that stash."""
+    rng = np.random.default_rng(31)
+    _, _, w, g = _mlp_case(rng, cuda, 2, 2, 37, hidden=512, d_latent=512)
+    z32 = torch.from_numpy(rng.normal(size=(2, 2, 37, 512)).astype(np.float32)).to(cuda)
+    x32 = torch.from_numpy(rng.normal(size=(2, 2, 37, 42)).astype(np.float32)).to(cuda)
+    zz, xx = z32.clone().requires_grad_(True), x32.clone().requires_grad_(True)
+    ww = FieldWeights(*[t.detach().clone().requires_grad_(True) for t in w])
+    before = (resnetfc_fwd_stash.launches, resnetfc_bwd.launches, resnetfc_bwd.f32_launches)
+    out = resnetfc_fused(zz, xx, ww, 5, 3, 2)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (resnetfc_fwd_stash.launches, resnetfc_bwd.launches, resnetfc_bwd.f32_launches) == tuple(
+        x + 1 for x in before)
+    assert zz.grad.dtype == xx.grad.dtype == torch.float32
+    zb, xb = z32.to(torch.bfloat16), x32.to(torch.bfloat16)
+    out_s, spre, spost = resnetfc_fwd_stash(zb, xb, w, 5, 3, 2)
+    dz, dxin, dw = _f32_grads(zb, xb, g, spre, spost, w, (5, 3, 2))
+    assert torch.equal(out, out_s)
+    assert torch.equal(zz.grad, dz) and torch.equal(xx.grad, dxin)
+    for name in FieldWeights._fields:
+        got = getattr(ww, name).grad
+        if name in WGRAD_NAMES:
+            assert torch.equal(got, getattr(dw, name)), name
+        else:
+            _grad_within(got, getattr(dw, name))
+    wdz, wdxin, _ = resnetfc_bwd_plain(zb, xb, g, spre, spost, w, 5, 3, 2, grad_dtype=torch.float32)
+    _grad_within(dz, wdz)
+    _grad_within(dxin, wdxin)

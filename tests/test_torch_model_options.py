@@ -545,7 +545,9 @@ def test_uncertainty_and_background_losses_match_jax(use_l1):
 def test_routing_mirrors_supported_config(beta, spade, combine_type, d_latent, d_in, combine):
     """A bf16 ResnetFC takes the kernels (fused_ok) and the field path
     (field_path_ok) exactly where JAX's `supported_config` lets its Pallas
-    kernels run; float32 never takes the fused kernels."""
+    kernels run; on the CPU a float32 model keeps the per-layer chain under
+    use_pallas "auto" (on the card it takes the kernels:
+    tests/test_torch_float32_kernels.py)."""
     for dtype in (torch.bfloat16, torch.float32):
         m = ResnetFC(d_in=d_in, n_blocks=5, d_latent=d_latent, d_hidden=32, beta=beta,
                      combine_layer=combine, combine_type=combine_type, use_spade=spade,

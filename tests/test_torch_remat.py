@@ -14,12 +14,14 @@
   tests/test_torch_train.py's float32 step, where `auto` rematerializes on
   both sides (loss 1e-5 relative, each gradient 1e-3 relative Frobenius).
 - remat="auto" against the JAX package's `_model_uses_fused_mlp` on every
-  shipped config. The JAX rule reads the Pallas routing, which is backend
-  dependent under use_pallas="auto"; the JAX models here are built with
-  use_pallas=True, the routing a TPU gives them. The port's fused kernels
-  take bf16 models only (float32 models keep the exact per-layer chain,
-  tests/test_torch_model_options.py), so the port turns remat on for a
-  float32 config where the JAX package on a TPU would not.
+  shipped config, on the CPU. The JAX rule reads the Pallas routing, which
+  is backend dependent under use_pallas="auto"; the JAX models here are
+  built with use_pallas=True, the routing a TPU gives them. On the CPU
+  the port's "auto" keeps a float32 model on the exact per-layer chain,
+  as the JAX package's "auto" does off its TPU, so it rematerializes
+  there; on the card a float32 model takes the kernels and keeps its
+  stash, as on a TPU (the card's rule against JAX's:
+  tests/test_torch_float32_kernels.py).
 """
 
 import copy
