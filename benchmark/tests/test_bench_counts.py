@@ -1,0 +1,70 @@
+"""The operation and byte counts against counts made by hand."""
+
+import pytest
+
+import bench_tiny  # noqa: F401  (puts the benchmark on sys.path)
+from harness import counts, manifest
+
+MLP = {"d_hidden": 4, "n_blocks": 3, "combine_layer": 2}
+
+
+def test_mlp_forward_by_hand():
+    # 6 rows of 2 views; d_in 3, d_latent 5, hidden 4, out 4
+    pre = 6 * (3 * 4 + 2 * 5 * 4 + 2 * 2 * 4 * 4)
+    post = 3 * (1 * 2 * 4 * 4 + 4 * 4)
+    assert counts.mlp_forward_flops(MLP, 3, 5, 6, 2) == 2 * (pre + post)
+
+
+def test_backward_twice_forward_and_bytes():
+    f, b = counts.mlp_stash_forward(MLP, 3, 5, 6, 2)
+    g, c = counts.mlp_backward(MLP, 3, 5, 6, 2)
+    assert g == 2 * f
+    params = (3 + 1) * 4 + 2 * (5 + 1) * 4 + 3 * 2 * (4 + 1) * 4 + (4 + 1) * 4
+    assert counts.mlp_params(MLP, 3, 5) == params
+    assert b == 6 * 8 * 2 + params * 4 + 3 * 4 * 4
+    assert c == 6 * 8 * 2 + 3 * 4 * 4 + params * 4 + 6 * 5 * 2 + params * 4
+
+
+def test_field_and_lookup_bytes():
+    levels = [(4, 4, 8), (2, 2, 8)]
+    f, b = counts.field_primal(MLP, 3, 5, 6, 2, levels, 2)
+    assert f == counts.mlp_forward_flops(MLP, 3, 5, 6, 2)
+    lv = 2 * (16 * 8 + 4 * 8) * 2
+    assert b == lv + 6 * (8 + 6) + counts.mlp_params(MLP, 3, 5) * 4 + 3 * 4 * 4
+    assert counts.pyramid_gather(6, levels, 2, 16) == (0.0, lv + 48 + 6 * 16 * 2)
+    assert counts.pyramid_scatter(6, levels, 2, 16) == (0.0, 6 * 16 * 2 + 48 + lv * 2)
+
+
+def test_trunk_convolutions_by_hand():
+    enc = {"backbone": "resnet18", "num_layers": 2}
+    convs = counts.trunk_convs(enc, 32, 32)
+    # stem 7x7/2 -> 16x16, pool -> 8x8, layer1: two blocks of two 3x3 convs
+    assert convs[0] == (3, 64, 7, 2, 16, 16)
+    assert convs[1:] == [(64, 64, 3, 1, 8, 8)] * 4
+    fwd = 2 * (16 * 16 * 64 * 3 * 49 + 4 * 8 * 8 * 64 * 64 * 9)
+    assert counts.encoder_flops(enc, 1, 32, 32, train=False) == fwd
+    train = 2 * 2 * 16 * 16 * 64 * 3 * 49 + 3 * 2 * 4 * 8 * 8 * 64 * 64 * 9
+    assert counts.encoder_flops(enc, 1, 32, 32, train=True) == train
+
+
+def test_resnet34_levels_and_downsamples():
+    enc = {"backbone": "resnet34", "num_layers": 4}
+    convs = counts.trunk_convs(enc, 128, 128)
+    assert len(convs) == 1 + 2 * (3 + 4 + 6) + 2
+    assert convs[-1][4:] == (8, 8)
+    assert counts.latent_levels(128, 128) == [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
+    assert counts.latent_levels(300, 400) == [(150, 200, 128), (38, 50, 128), (19, 25, 256)]
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in manifest.load_manifest()["workloads"]])
+def test_cell_work_is_positive_and_below_peak_share(workload):
+    cell = manifest.Cell(manifest.load_manifest(), workload)
+    work = counts.cell_work(cell.config, cell.traffic)
+    assert work["model_flops"] > work["mlp_flops"] > 0
+    if cell.kind == "train":
+        # srn's step of 4,096 rays: 22.85 TFLOP of MLP (PERF.md), forward +
+        # 2x backward, ~5.6 GFLOP a ray
+        rays = cell.traffic["objects_per_step"] * cell.traffic["rays_per_object"]
+        assert 3.5e9 < work["mlp_flops"] / rays < 15e9
+    else:
+        assert work["field_least_s"] > 0
