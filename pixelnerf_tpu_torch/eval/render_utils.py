@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = ["make_chunk_renderer", "render_full"]
 
@@ -44,7 +45,15 @@ def render_full(
 
     :return {'coarse': {'rgb' (B,3), 'depth' (B,), 'alpha' (B,)}, 'fine': ...}
         as tensors on the model's device
+
+    Counts the rays asked for in `render_full.rays` and those rendered
+    past them to fill the last chunk in `render_full.padded_rays`.
     """
+    with span("pnt.render_full", seed):
+        return _render_full(model, enc, rays, rcfg, chunk, seed, renderer)
+
+
+def _render_full(model, enc, rays, rcfg, chunk, seed, renderer):
     device = model.device
     if not torch.is_tensor(rays):
         rays = torch.from_numpy(np.array(rays, dtype=np.float32))
@@ -54,6 +63,8 @@ def render_full(
     if renderer is None:
         renderer = make_chunk_renderer(model, rcfg)
     pad = (-B) % chunk
+    render_full.rays += B
+    render_full.padded_rays += pad
     if pad:
         rays = torch.cat([rays, rays[-1:].expand(pad, 8)], dim=0)
 
@@ -61,13 +72,18 @@ def render_full(
     generator.manual_seed(seed)
     outs: Dict[str, Dict[str, list]] = {}
     for start in range(0, rays.shape[0], chunk):
-        res = renderer(enc, rays[None, start : start + chunk], generator)
-        for head, vals in res.items():
-            dst = outs.setdefault(head, {"rgb": [], "depth": [], "alpha": []})
-            dst["rgb"].append(vals["rgb"][0])
-            dst["depth"].append(vals["depth"][0])
-            dst["alpha"].append(vals["weights"][0].sum(-1))
+        with span("pnt.chunk"):
+            res = renderer(enc, rays[None, start : start + chunk], generator)
+            for head, vals in res.items():
+                dst = outs.setdefault(head, {"rgb": [], "depth": [], "alpha": []})
+                dst["rgb"].append(vals["rgb"][0])
+                dst["depth"].append(vals["depth"][0])
+                dst["alpha"].append(vals["weights"][0].sum(-1))
     return {
         head: {k: torch.cat(v, dim=0)[:B] for k, v in vals.items()}
         for head, vals in outs.items()
     }
+
+
+render_full.rays = 0
+render_full.padded_rays = 0

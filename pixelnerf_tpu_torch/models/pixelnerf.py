@@ -35,6 +35,7 @@ from pixelnerf_tpu_torch.models.mlp import ImplicitNet
 from pixelnerf_tpu_torch.models.resnetfc import FieldInput, ResnetFC
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_supported
 from pixelnerf_tpu_torch.utils.rays import repeat_interleave
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = ["PixelNeRFNet", "SceneEncoding", "QueryCache", "make_model"]
 
@@ -167,6 +168,10 @@ class PixelNeRFNet(nn.Module):
         :param focal () | (2,) | (SB,) | (SB, 2) [fx, fy]
         :param c principal point, same formats; None = image center
         """
+        with span("pnt.encode"):
+            return self._encode(images, poses, focal, c)
+
+    def _encode(self, images, poses, focal, c) -> SceneEncoding:
         device = self.device
         images = images.to(device)
         poses = poses.to(device=device, dtype=torch.float32)
@@ -252,6 +257,10 @@ class PixelNeRFNet(nn.Module):
         :return (SB, B, 4) [sigmoid(rgb), relu(sigma)], float32; with
             want_cache, (out, QueryCache)
         """
+        with span("pnt.query.coarse" if coarse else "pnt.query.fine"):
+            return self._query(enc, xyz, viewdirs, coarse, want_cache, cache)
+
+    def _query(self, enc, xyz, viewdirs, coarse, want_cache, cache):
         SB, B, _ = xyz.shape
         NS = enc.num_views
         xyz_rep = repeat_interleave(xyz, NS)  # (SB*NS, B, 3)
@@ -304,20 +313,23 @@ class PixelNeRFNet(nn.Module):
                 feats=tuple(enc.latent), grid=grid,
                 x=mlp_input.to(enc.latent[0].dtype),
             )
-            return self._head(mlp(fi, combine_inner_dims=(NS, B)), SB, B)
+            with span("pnt.mlp.fwd"):
+                out = mlp(fi, combine_inner_dims=(NS, B))
+            return self._head(out, SB, B)
 
         # the coarse pass's latent has two consumers, the coarse MLP and the
         # fine pass's cache: a dual lookup hands the scatter both cotangents
         # (not with a global latent, which is prepended before either)
         want_dual = bool(want_cache) and not self.use_global_encoder
-        latent = index_features(
-            enc.latent, enc.latent_scaling, uv, enc.image_size,
-            index_interp=self.encoder.index_interp,
-            index_padding=self.encoder.index_padding,
-            upsample_interp=self.encoder.upsample_interp,
-            dual=want_dual,
-            allow_fused=self.use_fused_gather,
-        )
+        with span("pnt.lookup"):
+            latent = index_features(
+                enc.latent, enc.latent_scaling, uv, enc.image_size,
+                index_interp=self.encoder.index_interp,
+                index_padding=self.encoder.index_padding,
+                upsample_interp=self.encoder.upsample_interp,
+                dual=want_dual,
+                allow_fused=self.use_fused_gather,
+            )
         latent, latent_cache = latent if want_dual else (latent, None)
         if self.stop_encoder_grad:
             latent = latent.detach()
@@ -335,16 +347,20 @@ class PixelNeRFNet(nn.Module):
             # per-ray concat of the (R, K, 4) outputs
             r_rays, kc = cache.z.shape[1], cache.z.shape[2]
             kf = B // r_rays
-            out_c = mlp(
-                (cache.z.reshape(-1, C), cache.x.reshape(-1, cache.x.shape[-1])),
-                combine_inner_dims=(NS, r_rays * kc),
-            )
-            out_n = mlp((latent, x), combine_inner_dims=(NS, B))
+            with span("pnt.mlp.fwd"):
+                out_c = mlp(
+                    (cache.z.reshape(-1, C), cache.x.reshape(-1, cache.x.shape[-1])),
+                    combine_inner_dims=(NS, r_rays * kc),
+                )
+            with span("pnt.mlp.fwd"):
+                out_n = mlp((latent, x), combine_inner_dims=(NS, B))
             mlp_output = torch.cat(
                 [out_c.reshape(SB, r_rays, kc, -1), out_n.reshape(SB, r_rays, kf, -1)], dim=2
             )
             return self._head(mlp_output, SB, r_rays * (kc + kf))
-        out = self._head(mlp((latent, x), combine_inner_dims=(NS, B)), SB, B)
+        with span("pnt.mlp.fwd"):
+            out = mlp((latent, x), combine_inner_dims=(NS, B))
+        out = self._head(out, SB, B)
         if not want_cache:
             return out
         per_ray = lambda a: a.reshape(SB * NS, -1, want_cache, a.shape[-1])

@@ -64,6 +64,7 @@ from pixelnerf_tpu_torch.ops.resnetfc import (
     resnetfc_bwd_plain, resnetfc_fwd_plain, stash_layout,
 )
 from pixelnerf_tpu_torch.ops.scatter_plan import ScatterPlan, Segment
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = [
     "FieldWeights",
@@ -352,12 +353,13 @@ class _FieldFn(torch.autograd.Function):
     def backward(ctx, g):
         grid, xin, zstash, spost, *rest = ctx.saved_tensors
         spre = rest.pop(0) if ctx.has_pre else None
-        d_feats, dxin, dw = pyramid_field_fused_bwd(
-            grid, xin, g, zstash, spre, spost, FieldWeights(*rest), *ctx.cfg, ctx.levels,
-        )
-        grads = (*d_feats, *dw)
-        grads = tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad[4:]))
-        return (torch.zeros_like(grid), dxin, None, None) + grads
+        with span("pnt.mlp.bwd"):
+            d_feats, dxin, dw = pyramid_field_fused_bwd(
+                grid, xin, g, zstash, spre, spost, FieldWeights(*rest), *ctx.cfg, ctx.levels,
+            )
+            grads = (*d_feats, *dw)
+            grads = tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad[4:]))
+            return (torch.zeros_like(grid), dxin, None, None) + grads
 
 
 def pyramid_field_fused(

@@ -37,6 +37,7 @@ import torch
 from pixelnerf_tpu_torch.ops.cuda_build import load_library
 from pixelnerf_tpu_torch.ops.gather_plan import plan_gather
 from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = [
     "pyramid_gather",
@@ -301,13 +302,14 @@ pyramid_scatter_add.plan = None
 def _scatter_back(ctx, g1, g2):
     uv = ctx.saved_tensors[0]
     dtype = ctx.dtypes[0]
-    gs = [g.to(dtype) for g in (g1, g2) if g is not None]
-    if not gs:
+    if g1 is None and g2 is None:
         return (None,) * (1 + len(ctx.dtypes))
-    d = pyramid_scatter_add(
-        uv, gs[0], ctx.csizes, ctx.hws, ctx.hws[0], gs[1] if len(gs) == 2 else None
-    )
-    return (torch.zeros_like(uv),) + tuple(x.to(t) for x, t in zip(d, ctx.dtypes))
+    with span("pnt.lookup.bwd"):
+        gs = [g.to(dtype) for g in (g1, g2) if g is not None]
+        d = pyramid_scatter_add(
+            uv, gs[0], ctx.csizes, ctx.hws, ctx.hws[0], gs[1] if len(gs) == 2 else None
+        )
+        return (torch.zeros_like(uv),) + tuple(x.to(t) for x, t in zip(d, ctx.dtypes))
 
 
 class _IndexTrain(torch.autograd.Function):

@@ -56,6 +56,7 @@ from pixelnerf_tpu_torch.ops.resnetfc_common import (
     FieldWeights, _dot_g, _pad16, _pad_last, cut_weight_grads, pack_field_weights,
     pad_chain_weights, resnetfc_wgrad_plain, stash_layout,
 )
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = [
     "FieldWeights",
@@ -703,9 +704,10 @@ class _ResnetFCFn(torch.autograd.Function):
         spre = rest.pop(0) if ctx.has_pre else None
         w = FieldWeights(*rest)
         dz_dtype, dxin_dtype = ctx.grad_dtypes
-        dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *ctx.cfg,
-                                    grad_dtype=torch.promote_types(dz_dtype, dxin_dtype))
-        return (dz.to(dz_dtype), dxin.to(dxin_dtype), None, None, None) + tuple(dw)
+        with span("pnt.mlp.bwd"):
+            dz, dxin, dw = resnetfc_bwd(z, xin, g, spre, spost, w, *ctx.cfg,
+                                        grad_dtype=torch.promote_types(dz_dtype, dxin_dtype))
+            return (dz.to(dz_dtype), dxin.to(dxin_dtype), None, None, None) + tuple(dw)
 
 
 def resnetfc_fused(

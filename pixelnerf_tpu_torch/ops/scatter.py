@@ -38,6 +38,7 @@ from pixelnerf_tpu_torch.ops.cuda_build import load_library
 from pixelnerf_tpu_torch.ops.gather_plan import plan_gather
 from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
 from pixelnerf_tpu_torch.ops.scatter_plan import aligned, device_sms, plan_scatter
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = [
     "bilerp_gather",
@@ -211,7 +212,8 @@ class _GridSampleBorderTrain(torch.autograd.Function):
     def backward(ctx, g):
         (uv,) = ctx.saved_tensors
         hl, wl, dtype = ctx.hw_dtype
-        return bilerp_scatter_add(uv, g, hl, wl).to(dtype), torch.zeros_like(uv)
+        with span("pnt.lookup.bwd"):
+            return bilerp_scatter_add(uv, g, hl, wl).to(dtype), torch.zeros_like(uv)
 
 
 def grid_sample_border_train(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

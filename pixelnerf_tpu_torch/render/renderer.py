@@ -21,6 +21,7 @@ from pixelnerf_tpu_torch.ops.composite import alpha_composite
 from pixelnerf_tpu_torch.ops.sampling import (
     sample_coarse, sample_fine, sample_fine_depth,
 )
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = ["RendererConfig", "render_rays"]
 
@@ -109,12 +110,13 @@ def _composite(query_fn, rays_flat, z_samp, cfg, superbatch, coarse,
     else:
         out = query_fn(points, viewdirs, coarse)
     out = out.reshape(B, K, -1)
-    res = alpha_composite(
-        out[..., :3], out[..., 3], z_samp, rays_flat,
-        white_bkgd=cfg.white_bkgd,
-        noise_std=cfg.noise_std if train else 0.0,
-        generator=generator,
-    )
+    with span("pnt.composite"):
+        res = alpha_composite(
+            out[..., :3], out[..., 3], z_samp, rays_flat,
+            white_bkgd=cfg.white_bkgd,
+            noise_std=cfg.noise_std if train else 0.0,
+            generator=generator,
+        )
     return res + (cache,) if want_cache else res
 
 
@@ -142,14 +144,21 @@ def render_rays(
     """
     if rays.ndim != 3:
         raise ValueError(f"rays must be (SB, B, 8), got {tuple(rays.shape)}")
+    with span("pnt.render"):
+        return _render(query_fn, rays, cfg, generator, want_weights, use_viewdirs, train,
+                       query_cache)
+
+
+def _render(query_fn, rays, cfg, generator, want_weights, use_viewdirs, train, query_cache):
     superbatch = rays.shape[0]
     rays_flat = rays.reshape(-1, 8)
 
     want_cache = cfg.n_coarse if (query_cache and cfg.using_fine) else 0
-    z_coarse = sample_coarse(
-        rays_flat, cfg.n_coarse, cfg.lindisp, perturb=cfg.perturb,
-        generator=generator,
-    )
+    with span("pnt.sample"):
+        z_coarse = sample_coarse(
+            rays_flat, cfg.n_coarse, cfg.lindisp, perturb=cfg.perturb,
+            generator=generator,
+        )
     res = _composite(
         query_fn, rays_flat, z_coarse, cfg, superbatch, True, use_viewdirs,
         generator, train, want_cache=want_cache,
@@ -168,21 +177,22 @@ def render_rays(
     outputs = {"coarse": fmt(weights_c, rgb_c, depth_c, cfg.n_coarse)}
     if cfg.using_fine:
         new_samps = []
-        if cfg.n_fine - cfg.n_fine_depth > 0:
-            new_samps.append(
-                sample_fine(
-                    rays_flat, weights_c, cfg.n_fine - cfg.n_fine_depth,
-                    cfg.lindisp, perturb=cfg.perturb, generator=generator,
+        with span("pnt.sample"):
+            if cfg.n_fine - cfg.n_fine_depth > 0:
+                new_samps.append(
+                    sample_fine(
+                        rays_flat, weights_c, cfg.n_fine - cfg.n_fine_depth,
+                        cfg.lindisp, perturb=cfg.perturb, generator=generator,
+                    )
                 )
-            )
-        if cfg.n_fine_depth > 0:
-            new_samps.append(
-                sample_fine_depth(
-                    rays_flat, depth_c.detach(), cfg.n_fine_depth,
-                    cfg.depth_std, perturb=cfg.perturb, generator=generator,
+            if cfg.n_fine_depth > 0:
+                new_samps.append(
+                    sample_fine_depth(
+                        rays_flat, depth_c.detach(), cfg.n_fine_depth,
+                        cfg.depth_std, perturb=cfg.perturb, generator=generator,
+                    )
                 )
-            )
-        z_combine = torch.cat([z_coarse] + new_samps, dim=-1)
+            z_combine = torch.cat([z_coarse] + new_samps, dim=-1)
         if want_cache and new_samps:
             z_new = torch.cat(new_samps, dim=-1)
             points_new, viewdirs_new = _sample_points(
@@ -190,16 +200,19 @@ def render_rays(
             )
             out = query_fn(points_new, viewdirs_new, False, 0, res[3])
             out = out.reshape(z_combine.shape[0], z_combine.shape[1], -1)
-            z_sorted, idx = torch.sort(z_combine, dim=-1, stable=True)
-            out = torch.gather(out, 1, idx[..., None].expand(-1, -1, out.shape[-1]))
-            weights_f, rgb_f, depth_f = alpha_composite(
-                out[..., :3], out[..., 3], z_sorted, rays_flat,
-                white_bkgd=cfg.white_bkgd,
-                noise_std=cfg.noise_std if train else 0.0,
-                generator=generator,
-            )
+            with span("pnt.sample"):
+                z_sorted, idx = torch.sort(z_combine, dim=-1, stable=True)
+            with span("pnt.composite"):
+                out = torch.gather(out, 1, idx[..., None].expand(-1, -1, out.shape[-1]))
+                weights_f, rgb_f, depth_f = alpha_composite(
+                    out[..., :3], out[..., 3], z_sorted, rays_flat,
+                    white_bkgd=cfg.white_bkgd,
+                    noise_std=cfg.noise_std if train else 0.0,
+                    generator=generator,
+                )
         else:
-            z_sorted = torch.sort(z_combine, dim=-1).values
+            with span("pnt.sample"):
+                z_sorted = torch.sort(z_combine, dim=-1).values
             weights_f, rgb_f, depth_f = _composite(
                 query_fn, rays_flat, z_sorted, cfg, superbatch, False,
                 use_viewdirs, generator, train,

@@ -7,8 +7,9 @@ object), the model of `-c` with its seeded random weights, warm-up steps
 and then `--steps` profiled ones of the real train step (`make_train_step`,
 `--remat` forcing rematerialization, else the JAX rule `auto`), or of a
 forward render of the coarse and fine passes (`--forward-only`), through
-the port's kernels on the card. Each step is a `record_function` range
-("train" or "render"). It writes a Chrome trace to `<out>/trace.json`
+the port's kernels on the card. A train step is the program's own
+`pnt.step` range (`utils/spans.py`), a render a `record_function` range
+("render {i}"). It writes a Chrome trace to `<out>/trace.json`
 (chrome://tracing or Perfetto) and prints the operations that took the
 most device time (the CPU's on the CPU), and returns the profiler.
 
@@ -92,7 +93,7 @@ def main(argv=None, device=None):
             out = render_rays(qf, rays, rcfg, generator=gen, use_viewdirs=model.use_viewdirs)
             return out["fine" if rcfg.using_fine else "coarse"]["rgb"]
 
-        label, warmup = "render", 1
+        warmup = 1
     else:
         step = make_train_step(model, rcfg, make_optimizer(model, 1e-4), nrays, 0.8, 1.8,
                                remat=True if args.remat else "auto", nviews=ns)
@@ -100,7 +101,7 @@ def main(argv=None, device=None):
         def run():
             return step(batch, gen)["t"]
 
-        label, warmup = "train", 2
+        warmup = 2
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -110,8 +111,11 @@ def main(argv=None, device=None):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         for i in range(args.steps):
-            with record_function(f"{label} {i}"):
-                out = run()
+            if args.forward_only:
+                with record_function(f"render {i}"):
+                    out = run()
+            else:
+                out = run()  # the step's own pnt.step range
         float(out.float().sum())
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "trace.json")

@@ -58,6 +58,7 @@ from pixelnerf_tpu_torch.models.pixelnerf import QueryCache
 from pixelnerf_tpu_torch.models.resnet import BatchNorm
 from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 from pixelnerf_tpu_torch.render.renderer import RendererConfig, render_rays
+from pixelnerf_tpu_torch.utils.spans import span
 
 __all__ = ["MultiSteps", "make_optimizer", "make_train_step", "make_eval_step", "sample_rays"]
 
@@ -352,35 +353,43 @@ def make_train_step(
                 for b in (m.running_mean, m.running_var)]
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
-        batch = _prepare_batch(batch)
+        with span("pnt.step", updater.count):
+            return _step(batch, generator)
+
+    def _step(batch, generator):
         model.train()
         if mesh is not None:
             generator = mesh.fold(generator, model.device)
-        rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox)
+        with span("pnt.batch"):
+            batch = _prepare_batch(batch)
+            rays, rgb_gt = _rays_for(batch, generator, z_near, z_far, num_rays, use_bbox)
         out = _render(model, batch, rays, rcfg, generator, True, alpha_loss_fn is not None,
                       remat)
-        loss_c = rgb_loss_fn(out["coarse"]["rgb"], rgb_gt)
-        loss = lambda_coarse * loss_c
-        aux = {"rc": lambda_coarse * loss_c}
-        if "fine" in out:
-            loss_f = rgb_fine_loss_fn(out["fine"]["rgb"], rgb_gt)
-            loss = loss + lambda_fine * loss_f
-            aux["rf"] = lambda_fine * loss_f
-        if alpha_loss_fn is not None:
-            head = out.get("fine", out["coarse"])
-            loss_a = alpha_loss_fn(head["weights"].sum(dim=-1))
-            loss = loss + loss_a
-            aux["ra"] = loss_a
-        aux["t"] = loss
-        updater.zero_grad()
-        loss.backward()
-        aux = {k: v.detach() for k, v in aux.items()}
-        if mesh is not None:
-            # JAX's pmean of grads, batch_stats and aux: the global loss is
-            # the mean of equal-sized shard means
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            mesh.all_reduce_mean_(grads + bn_stats + list(aux.values()))
-        updater.update()
+        with span("pnt.loss"):
+            loss_c = rgb_loss_fn(out["coarse"]["rgb"], rgb_gt)
+            loss = lambda_coarse * loss_c
+            aux = {"rc": lambda_coarse * loss_c}
+            if "fine" in out:
+                loss_f = rgb_fine_loss_fn(out["fine"]["rgb"], rgb_gt)
+                loss = loss + lambda_fine * loss_f
+                aux["rf"] = lambda_fine * loss_f
+            if alpha_loss_fn is not None:
+                head = out.get("fine", out["coarse"])
+                loss_a = alpha_loss_fn(head["weights"].sum(dim=-1))
+                loss = loss + loss_a
+                aux["ra"] = loss_a
+            aux["t"] = loss
+        with span("pnt.backward"):
+            updater.zero_grad()
+            loss.backward()
+            aux = {k: v.detach() for k, v in aux.items()}
+            if mesh is not None:
+                # JAX's pmean of grads, batch_stats and aux: the global loss
+                # is the mean of equal-sized shard means
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                mesh.all_reduce_mean_(grads + bn_stats + list(aux.values()))
+        with span("pnt.adam"):
+            updater.update()
         return aux
 
     return train_step

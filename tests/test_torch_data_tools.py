@@ -178,10 +178,15 @@ def test_trace_summary_buckets_the_ports_kernels(tmp_path, capsys):
         _event("void resnetfc_fwd_kernel<512>(ChainParams, ChainMaps, __nv_bfloat16 const*)",
                "kernel", 200),
         _event("layer_fwd_kernel(LayerParams)", "kernel", 120),
+        _event("void layer_kernel<128, 1>(LayerParams)", "kernel", 40),
+        _event("layer_colsum(float const*, float*, int, int)", "kernel", 6),
+        _event("view_pool_colsum(float const*, float*, int, int)", "kernel", 4),
         _event("view_pool_bwd_kernel(float const*, float*, __nv_bfloat16*, float*, int, int, int, "
                "int, int)", "kernel", 30),
         _event("wgrad_products(WgradParams)", "kernel", 100),
         _event("void pyramid_gather_kernel<3, 8>(GatherParams)", "kernel", 50),
+        _event("void at::native::(anonymous namespace)::grid_sampler_2d_kernel<float, int>(...)",
+               "kernel", 25),
         _event("void posenc_kernel<__nv_bfloat16>(float const*, float const*, ...)", "kernel", 20),
         _event("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "kernel", 80),
         _event("void at::native::vectorized_elementwise_kernel<4, ...>", "kernel", 10),
@@ -190,20 +195,68 @@ def test_trace_summary_buckets_the_ports_kernels(tmp_path, capsys):
     ]
     (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": events}))
     where, total, buckets, per_op = trace_summary.main(["--logdir", str(tmp_path), "--steps", "2"])
-    assert where == "cuda" and total == pytest.approx(1.565)
+    assert where == "cuda" and total == pytest.approx(1.64)
     assert buckets == pytest.approx({
-        "fused field kernels": 0.7, "block chains": 0.45, "layered path": 0.15,
-        "weight-gradient products": 0.1, "lookup kernels": 0.05, "posenc kernel": 0.02,
+        "fused field kernels": 0.7, "block chains": 0.45, "layered path": 0.2,
+        "weight-gradient products": 0.1, "lookup kernels": 0.075, "posenc kernel": 0.02,
         "cuDNN convolutions": 0.08, "elementwise (sampling, compositing, Adam)": 0.01,
         "host/device transfers": 0.005,
     })
     out = capsys.readouterr().out
-    assert "per step (2): 0.782 ms" in out and "fused field kernels" in out
+    assert "per step (2): 0.820 ms" in out and "fused field kernels" in out
     cpu = [_event("aten::mm", "cpu_op", 700), _event("aten::add", "cpu_op", 300)]
     (tmp_path / "cpu.json").write_text(json.dumps({"traceEvents": cpu}))
     where, total, _, per_op = trace_summary.main(["--logdir", str(tmp_path / "cpu.json")])
     assert where == "cpu" and total == pytest.approx(1.0) and per_op["aten::mm"] == pytest.approx(0.7)
 
+
+
+def _at(name, cat, ts, dur, tid, **args):
+    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur, "pid": 0, "tid": tid,
+            "args": args}
+
+
+def _flow(cat, fid, ph, ts, tid):
+    return {"ph": ph, "cat": cat, "name": cat, "id": fid, "ts": ts, "pid": 0, "tid": tid}
+
+
+def test_trace_summary_puts_device_time_down_to_the_programs_spans(tmp_path, capsys):
+    """Launch-to-kernel flows give each kernel's launch; a launch inside
+    an autograd node outside any span follows the node's forward flow to
+    the forward operation's span; an unlinked launch on autograd's thread
+    takes the span the step's thread holds; a kernel without a flow, none."""
+    from pixelnerf_tpu_torch.tools import trace_summary
+
+    main, grad = 1, 2
+    events = [
+        _at("pnt.step", "user_annotation", 0, 100, main),
+        _at("pnt.encode", "user_annotation", 1, 9, main),
+        _at("aten::convolution", "cpu_op", 2, 3, main), _flow("fwdbwd", 7, "s", 2, main),
+        _at("cudaLaunchKernel", "cuda_runtime", 3, 1, main, correlation=99),
+        _flow("ac2g", 99, "s", 3, main),
+        _at("pnt.backward", "user_annotation", 50, 40, main),
+        _at("ConvolutionBackward0", "cpu_op", 60, 5, grad), _flow("fwdbwd", 7, "f", 60, grad),
+        _at("cudaLaunchKernel", "cuda_runtime", 61, 1, grad, correlation=100),
+        _flow("ac2g", 100, "s", 61, grad),
+        _at("pnt.mlp.bwd", "user_annotation", 70, 10, grad),
+        _at("cuLaunchKernelEx", "cuda_driver", 71, 1, grad, correlation=101),
+        _flow("ac2g", 101, "s", 71, grad),
+        _at("torch::autograd::AccumulateGrad", "cpu_op", 84, 3, grad),
+        _at("cudaLaunchKernel", "cuda_runtime", 85, 1, grad, correlation=102),
+        _flow("ac2g", 102, "s", 85, grad),
+        _at("cudnn_fprop_kernel", "kernel", 4, 10, 7, correlation=99),
+        _at("cudnn_dgrad_kernel", "kernel", 62, 3, 7, correlation=100),
+        _at("resnetfc_bwd_chain_kernel<512, false>", "kernel", 72, 2, 7, correlation=101),
+        _at("vectorized_elementwise_kernel", "kernel", 86, 4, 7, correlation=102),
+        _at("Memset (Device)", "gpu_memset", 95, 1, 7, correlation=103),
+    ]
+    spans = trace_summary.by_span({"traceEvents": events})
+    assert spans == pytest.approx({"pnt.encode": 0.013, "pnt.mlp.bwd": 0.002,
+                                   "pnt.backward": 0.004, None: 0.001})
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": events}))
+    trace_summary.main(["--logdir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "by innermost pnt.* span" in out and "pnt.encode" in out and "(none)" in out
 
 BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys

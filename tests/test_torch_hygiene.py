@@ -42,7 +42,7 @@ def test_port_files_found():
         "preproc.py", "profile_step.py", "export_checkpoint.py", "port_encoder_weights.py",
         "layer_chain.py", "resnetfc_common.py", "camera_gen.py", "make_synthetic_dataset.py", "eval_view_list_gen.py",
         "dtu_resize.py", "flatten_alpha.py", "make_pollen_meshes.py", "stl_render_dataset.py",
-        "pose_sanity_check.py", "port_lpips_weights.py", "trace_summary.py",
+        "pose_sanity_check.py", "port_lpips_weights.py", "trace_summary.py", "spans.py",
     } <= names
 
 

@@ -238,7 +238,7 @@ def test_profile_step_on_the_cpu(tmp_path):
         "renderer.n_coarse = 4\nrenderer.n_fine = 2\nrenderer.n_fine_depth = 1\n"
     )
     small = ["-c", str(conf), "--steps", "1", "--sb", "1", "--size", "16", "--rays", "8"]
-    for extra, label in (([], "train 0"), (["--forward-only", "--remat"], "render 0")):
+    for extra, label in (([], "pnt.step"), (["--forward-only", "--remat"], "render 0")):
         out = tmp_path / label.split()[0]
         prof = profile_step.main(small + ["--out", str(out)] + extra, device="cpu")
         trace = json.load(open(out / "trace.json"))
