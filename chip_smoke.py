@@ -263,6 +263,14 @@ LOOKUPS = {"coarse": N_COARSE, "fine new": N_NEW}
 FIELD_CALLS = {"coarse": N_COARSE, "fine": N_COARSE + N_NEW}
 LEVELS = [(64, 64, 128), (16, 16, 128), (8, 8, 256)]  # srn.conf at 128x128
 COMPOSED = (64, 64, 512)  # the nearest-upsampled pyramid, one map a view
+# dtu.conf's composed map at 300x400, past the lookup kernels' 8,192 pixels
+# (float32 tap weights, `wide_launches`); the bilerp lookups of a served
+# view chunk (3 sources; 16,384 rays x 64 coarse and 96 fine samples) and
+# of a training step (12 maps; 1,024 rays x 64 coarse and 32 new fine
+# samples): (maps, rays, samples a ray)
+DTU_MAP = (150, 200, 512)
+DTU_LOOKUPS = {"view coarse": (3, 16384, 64), "view fine": (3, 16384, 96),
+               "train coarse": (12, 1024, 64), "train fine new": (12, 1024, 32)}
 D_IN, HIDDEN, D_OUT, N_BLOCKS, COMBINE = 42, 512, 4, 5, 3
 D_IN_PAD = -(-D_IN // 16) * 16
 KERNELS = (
@@ -1152,8 +1160,9 @@ def _baseline_kernels(torch, builds):
     atomic a channel and tap (no plan) or units planned by the port's
     ops/scatter_plan.py; for the gathers, one warp a point (no plan) or
     units planned by the port's ops/gather_plan.py. Which one, each
-    source's includes say. And its backward's library (`resnetfc_bwd`),
-    bound as the port binds its own."""
+    source's includes say; a tree whose bilerp launchers take `wide` (the
+    float32 taps past 8,192 pixels) is given it. And its backward's library
+    (`resnetfc_bwd`), bound as the port binds its own."""
     import ctypes
 
     from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
@@ -1171,22 +1180,22 @@ def _baseline_kernels(torch, builds):
         if proc.returncode != 0:
             raise RuntimeError(f"baseline nvcc failed for {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
-        planned[name] = ("scatter_accum.cuh" in text, "gather_tile.cuh" in text)
+        planned[name] = ("scatter_accum.cuh" in text, "gather_tile.cuh" in text, "int wide" in text)
     vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
     sms = lambda t: device_sms(t.device)
     stream = lambda t: torch.cuda.current_stream(t.device).cuda_stream
-    pyr_sc, pyr_ga = planned["pyramid"]
-    bil_sc, bil_ga = planned["bilerp"]
+    pyr_sc, pyr_ga, _ = planned["pyramid"]
+    bil_sc, bil_ga, bil_wide = planned["bilerp"]
     fps, fbs = libs["pyramid"].pnt_pyramid_scatter, libs["bilerp"].pnt_bilerp_scatter
     fpg, fbg = libs["pyramid"].pnt_pyramid_gather, libs["bilerp"].pnt_bilerp_gather
     for f in (fps, fbs, fpg, fbg):
         f.restype = i
     head = [ctypes.POINTER(vp), ip, i]
     fps.argtypes = head + ([ip] if pyr_sc else []) + [vp] * 3 + [i] * (3 if pyr_sc else 4) + [vp]
-    fbs.argtypes = ([ip] if bil_sc else []) + [vp] * 3 + [i] * 5 + [vp]
+    fbs.argtypes = ([ip] if bil_sc else []) + [vp] * 3 + [i] * (6 if bil_wide else 5) + [vp]
     fpg.argtypes = head + ([ip] if pyr_ga else []) + [vp] * 2 + [i] * 2 + [vp]
-    fbg.argtypes = ([ip] if bil_ga else []) + [vp] * 3 + [i] * 5 + [vp]
+    fbg.argtypes = ([ip] if bil_ga else []) + [vp] * 3 + [i] * (6 if bil_wide else 5) + [vp]
 
     def check(err, what):
         if err:
@@ -1211,7 +1220,8 @@ def _baseline_kernels(torch, builds):
     def bilerp_scatter(uv, dz, hl, wl):
         b, n, c = dz.shape
         grad = torch.zeros((b, hl, wl, c), device=uv.device)
-        args = (uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, hl, wl, c, stream(uv))
+        wide = (int(not bil.fused_supported(hl, wl)),) if bil_wide else ()
+        args = (uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n, hl, wl, c, *wide, stream(uv))
         plan = plan_scatter([(hl, wl, c)], b, n, [True], sms(uv), 2).as_ints()
         check(fbs(ints(plan), *args) if bil_sc else fbs(*args), "bilerp scatter")
         return grad
@@ -1233,7 +1243,8 @@ def _baseline_kernels(torch, builds):
         b, hl, wl, c = feat.shape
         n = uv.shape[1]
         out = torch.empty((b, n, c), dtype=torch.bfloat16, device=uv.device)
-        args = (feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, hl, wl, c, stream(uv))
+        wide = (int(not bil.fused_supported(hl, wl)),) if bil_wide else ()
+        args = (feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, hl, wl, c, *wide, stream(uv))
         plan = plan_gather([(hl, wl, c)], b, n, sms(uv), bil.LANES, bil.ROWS, True).as_ints()
         check(fbg(ints(plan), *args) if bil_ga else fbg(*args), "bilerp gather")
         return out
@@ -1420,6 +1431,7 @@ def _gather_lead_off(torch, name, args, lead):
     mod = pyr if name == "pyramid_gather" else bil
     feats, uv = (args[0], args[1]) if mod is pyr else ((args[0],), args[1])
     maps = [tuple(f.shape[1:]) for f in feats]
+    wide = int(not bil.fused_supported(*maps[0][:2]))
     b, n, _ = uv.shape
     plan = plan_gather(maps, b, n, device_sms(uv.device), mod.LANES, mod.ROWS, True)
     if lead == "register cache" and plan.cached:
@@ -1438,7 +1450,7 @@ def _gather_lead_off(torch, name, args, lead):
             ptrs, dims, nlev, arr, uv.data_ptr(), out.data_ptr(), b, n, stream)
     else:
         call = lambda: mod._library().pnt_bilerp_gather(
-            arr, feats[0].data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, *maps[0], stream)
+            arr, feats[0].data_ptr(), uv.data_ptr(), out.data_ptr(), b, n, *maps[0], wide, stream)
 
     def run():
         err = call()
@@ -1747,6 +1759,118 @@ def check_bilerp(torch, np, dev, step_calls=None, view_calls=(), baseline=None):
     ]
 
 
+def _dtu_uv(torch, g, dev, b, rays, samples, hw):
+    """(b, rays x samples, 2) normalized points on an (h, w) map: each ray's
+    samples one map pixel apart along a random direction from a start in
+    [-1.1, 1.1]^2 (some leave the map: border clipping)."""
+    h, w = hw
+    start = torch.rand((b, rays, 1, 2), generator=g, device=dev) * 2.2 - 1.1
+    d = torch.randn((b, rays, 1, 2), generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True) * torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+    k = torch.arange(samples, device=dev, dtype=torch.float32)[None, None, :, None]
+    return (start + d * k).reshape(b, rays * samples, 2).contiguous()
+
+
+def check_bilerp_dtu(torch, np, dev):
+    """Rows 9a-9b at dtu's shapes (DTU_MAP, DTU_LOOKUPS): the bilerp gather
+    of a served view chunk's two lookups and of a training step's two, and
+    the scatter of the step's two, on ray-coherent uv. Each call launches
+    once past the 8,192-pixel limit (`wide_launches`), is held against its
+    plain version (float32 taps; the gather within one bf16 ulp, the
+    scatter within the float32 sum's bound of the float64 one), and is
+    timed beside its plain version, PyTorch's float32 sampler
+    (`F.grid_sample` / `grid_sampler_2d_backward`, what `grid_sample_2d`
+    runs, as `library_ms`) and the route the map took before
+    (`grid_sample_2d` with its casts and the MLP's row-major copy; autograd's
+    backward of it), with the bytes bound. Returns {kernel: {"dtu": {call:
+    row}}} for the kernels line."""
+    import torch.nn.functional as F
+
+    from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
+    from pixelnerf_tpu_torch.ops.scatter import (
+        _taps, bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, bilerp_scatter_add_plain,
+    )
+    from pixelnerf_tpu_torch.ops.scatter_plan import count_reductions
+
+    def wide_once(fn, counter, label):
+        w0 = counter.wide_launches
+        out = fn()
+        torch.cuda.synchronize()
+        if counter.wide_launches != w0 + 1:
+            raise AssertionError(f"{label}: {counter.wide_launches - w0} wide launches, expected 1")
+        return out
+
+    h, w, c = DTU_MAP
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = {"bilerp_gather": {}, "bilerp_scatter_add": {}}
+    for label, (b, rays, samples) in DTU_LOOKUPS.items():
+        n = rays * samples
+        feat = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        uv = _dtu_uv(torch, g, dev, b, rays, samples, (h, w))
+        taps = _taps(uv, h, w)
+        nz = int((taps[1] != 0).sum()) * c
+        got = wide_once(lambda: bilerp_gather(feat, uv), bilerp_gather, "bilerp_gather " + label)
+        err = _ulp_check(torch, "bilerp_gather " + label, got, bilerp_gather_plain(feat, uv))
+        del got
+        nchw = feat.permute(0, 3, 1, 2).float().contiguous()
+        grid = uv[:, None]
+        r = rows["bilerp_gather"][label] = dict(
+            points=b * n, max_abs_err=err,
+            ms=_time_ms(torch, lambda: bilerp_gather(feat, uv), 3, 20),
+            bound_ms=_bound(2.0 * nz, PEAK_F32_FLOPS, 2 * b * n * c + 4 * uv.numel() + 2 * feat.numel())[0],
+            plain_ms=_time_ms(torch, lambda: bilerp_gather_plain(feat, uv), 1, 3),
+            library_ms=_time_ms(torch, lambda: F.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), 2, 5),
+            before_ms=_time_ms(torch, lambda: grid_sample_2d(feat, uv).reshape(-1, c), 2, 5),
+        )
+        print(f"bilerp_gather dtu {label}: B={b} N={n} {h}x{w}x{c}, max_abs_err={err:.3e} (one bf16 ulp + "
+              f"1e-6), kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms (bytes), plain "
+              f"{r['plain_ms']:.3f} ms, F.grid_sample float32 {r['library_ms']:.3f} ms, grid_sample_2d "
+              f"with its casts and the row-major copy {r['before_ms']:.3f} ms")
+        if label.startswith("train"):
+            dz = (torch.randn((b, n, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+            got = wide_once(lambda: bilerp_scatter_add(uv, dz, h, w), bilerp_scatter_add,
+                            "bilerp_scatter_add " + label)
+            ratio = _sum_bound_check(torch, "bilerp_scatter_add " + label, [got], uv, dz, [taps])
+            err = _scatter_check(torch, "bilerp_scatter_add " + label, [got],
+                                 [bilerp_scatter_add_plain(uv, dz, h, w)])
+            del got
+            red = count_reductions(bilerp_scatter_add.plan, [DTU_MAP], [taps])
+            gout = dz.float().permute(0, 2, 1)[:, :, None].contiguous()
+            fb = feat.detach().requires_grad_(True)
+            rows_out = grid_sample_2d(fb, uv).reshape(-1, c)
+            before = lambda: torch.autograd.grad(rows_out, fb, dz.reshape(-1, c), retain_graph=True)
+            r = rows["bilerp_scatter_add"][label] = dict(
+                points=b * n, max_abs_err=err, bound_ratio=ratio, vector_reductions=red["vector"],
+                scalar_reductions=red["scalar"],
+                ms=_time_ms(torch, lambda: bilerp_scatter_add(uv, dz, h, w), 3, 20),
+                bound_ms=_bound(2.0 * nz, PEAK_F32_FLOPS,
+                                2 * b * n * c + 4 * uv.numel() + 4 * feat.numel())[0],
+                plain_ms=_time_ms(torch, lambda: bilerp_scatter_add_plain(uv, dz, h, w), 1, 3),
+                library_ms=_time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    gout, nchw, grid, 0, 1, True, [True, False]), 2, 5),
+                before_ms=_time_ms(torch, before, 2, 5),
+            )
+            print(f"bilerp_scatter_add dtu {label}: B={b} N={n}, max_abs_err={err:.3e}, worst error "
+                  f"{ratio:.3f} of the float32 sum's bound, kernel {r['ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms (bytes), plain {r['plain_ms']:.3f} ms, "
+                  f"grid_sampler_2d_backward float32 {r['library_ms']:.3f} ms, autograd's backward of "
+                  f"grid_sample_2d with its casts and the row-major copy {r['before_ms']:.3f} ms; vector reductions {red['vector']} "
+                  f"(one a channel and tap: {red['scalar']})")
+            del dz, gout, fb, rows_out
+        del feat, uv, taps, nchw, grid
+        torch.cuda.empty_cache()
+    for name, calls in rows.items():
+        for where in ("view", "train"):
+            mine = [r for k, r in calls.items() if k.startswith(where)]
+            if mine:
+                print(f"{name} dtu {where}: kernel {sum(r['ms'] for r in mine):.3f} ms, bound "
+                      f"{sum(r['bound_ms'] for r in mine):.3f} ms, before "
+                      f"{sum(r['before_ms'] for r in mine):.3f} ms, per "
+                      f"{'view chunk' if where == 'view' else 'train step'}")
+    return {name: {"dtu": calls} for name, calls in rows.items()}
+
+
 def check_resnetfc(torch, np, dev):
     """The ResnetFC forward (no stash), forward with stash and backward at
     the train step's three MLP calls, against the plain versions: outputs,
@@ -1919,6 +2043,46 @@ def _chain_sass_same(baseline_lib):
 
     old, new = functions(baseline_lib), functions(_lib_path("resnetfc_bwd"))
     return {key: new.get(key) == body for key, body in sorted(old.items())}
+
+
+def _lookup_sass_same(libs):
+    """{(source, kernel): whether the lookup kernel's SASS in this tree's
+    `pyramid` and `bilerp` libraries is the earlier tree's (`libs`: each
+    source's library built from that tree) instruction for instruction
+    (`cuobjdump -sass`, white space collapsed)}: every pyramid kernel, and
+    the bilerp kernels' instantiations for maps of at most 8,192 pixels
+    (template argument `false`, which the earlier tree's names lack; the
+    float32-tap ones, `true`, are new). Kernels by mangled name. None where
+    the toolkit has no cuobjdump."""
+    import re
+
+    from pixelnerf_tpu_torch.ops.cuda_build import _lib_path, _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    name = re.compile(r"Function : (\S+)")
+
+    def functions(lib):
+        text = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                              text=True).stdout
+        out, cur = {}, None
+        for line in text.splitlines():
+            m = name.search(line)
+            if m:
+                f = m.group(1)
+                cur = None if "Lb1E" in f else f.replace("ILb0EEv", "").replace("ELb0EE", "EE")
+                if cur:
+                    out[cur] = []
+            elif cur:
+                out[cur].append(" ".join(line.split()))
+        return out
+
+    same = {}
+    for src, lib in libs.items():
+        old, new = functions(lib), functions(_lib_path(src))
+        same.update({(src, key): new.get(key) == body for key, body in sorted(old.items())})
+    return same
 
 
 def check_resnetfc_f32(torch, np, dev, baseline=None):
@@ -2799,6 +2963,9 @@ def _eval_cli(torch, dev, label, main, argv, card, patches=()):
             first.append((a, k, out))
         return out
 
+    # render_full counts its rays on the function its module names, which
+    # is `timed` while patched: share its attributes
+    timed.__dict__ = real.__dict__
     patches = [(render_utils, "render_full", timed), *patches]
     reals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     torch.cuda.synchronize()
@@ -3151,8 +3318,10 @@ renderer {{
 # the d_latent 640 model's view: the field path is off for a global
 # latent, so the pyramid gather (single output) and the ResnetFC primal
 GLOBAL_VIEW_LAUNCHES = _launch_table(posenc_concat=2, pyramid_gather=2, resnetfc_fwd=2)
-DTU_CLI_KERNELS = ("posenc_concat", "resnetfc_fwd_stash", "resnetfc_bwd", "resnetfc_fwd")
-DTU_SERVE_KERNELS = ("posenc_concat", "resnetfc_fwd")
+# dtu.conf's 150x200 composed map takes the bilerp kernels on the card
+DTU_CLI_KERNELS = ("posenc_concat", "resnetfc_fwd_stash", "resnetfc_bwd", "resnetfc_fwd",
+                   "bilerp_gather", "bilerp_scatter_add")
+DTU_SERVE_KERNELS = ("posenc_concat", "resnetfc_fwd", "bilerp_gather")
 WIDE_LATENTS = (640, 1024)
 PLAIN_VERSIONS = {
     "field": ("field_plain", "field_bwd_plain"),
@@ -4607,6 +4776,10 @@ def main() -> int:
     if base_builds is not None:
         baseline = _baseline_kernels(torch, base_builds)
         baseline["posenc_concat"] = _baseline_posenc(torch, args.baseline, base_builds)
+        same = _lookup_sass_same({k: base_builds[k][1] for k in ("pyramid", "bilerp")})
+        for (src, kernel), eq in sorted((same or {}).items()):
+            print(f"lookup SASS: {src} {kernel} {'the same as' if eq else 'differs from'} the "
+                  f"earlier tree's")
 
     kernels = [check_field(torch, np, dev)] + check_resnetfc(torch, np, dev)
     torch.cuda.empty_cache()
@@ -4652,6 +4825,10 @@ def main() -> int:
                       keep=[(scatter, name, kept[name])
                             for name in ("bilerp_gather", "bilerp_scatter_add")])
     kernels += check_bilerp(torch, np, dev, kept, view_calls, baseline)
+    torch.cuda.empty_cache()
+    dtu = check_bilerp_dtu(torch, np, dev)
+    for k in kernels:
+        k.update(dtu.get(k["name"], {}))
     torch.cuda.empty_cache()
     run_cli(torch, np, dev, root, card, times["train"])
     torch.cuda.empty_cache()

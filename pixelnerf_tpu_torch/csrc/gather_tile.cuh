@@ -120,7 +120,9 @@ __device__ __forceinline__ void gt_for(F&& f) {
 // A point's taps, as the walk passes them between lanes: for each map l its
 // tap base (the flat pixel of tap (0, 0)) and its K_l x K_l weights, K_0 = 2
 // (the fine grid's window) and K_l = 3 for the composed levels. The weights
-// are bf16 values (the plain versions round them so), two to a word.
+// are bf16 values (the plain versions round them so), two to a word; or, for
+// one map with float32 weights (F32: bilerp.cu's maps past 8,192 pixels),
+// one float a word.
 __host__ __device__ constexpr int gt_k(int l) { return l == 0 ? 2 : 3; }
 __host__ __device__ constexpr int gt_off(int l) { return l == 0 ? 0 : 3 + 6 * (l - 1); }
 
@@ -174,10 +176,17 @@ struct GtBatch {
 };
 
 // weight i of the map whose record starts at word O
-template <int O, int W>
+template <int O, bool F32, int W>
 __device__ __forceinline__ float gt_w(const GtWords<W>& t, int i) {
+  if constexpr (F32) return __uint_as_float(t.v[O + 1 + i]);
   const unsigned int u = t.v[O + 1 + i / 2];
   return __uint_as_float(i % 2 ? u & 0xffff0000u : u << 16);
+}
+
+// words of a map's record: its tap base and its K x K weights
+template <int K, bool F32>
+__host__ __device__ constexpr int gt_rec_words() {
+  return 1 + (F32 ? K * K : (K * K + 1) / 2);
 }
 
 // Map l's sums for one point from `map` (device or shared memory), no cache:
@@ -185,7 +194,7 @@ __device__ __forceinline__ float gt_w(const GtWords<W>& t, int i) {
 // registers of 3 x 3 taps' 16-byte loads would spill). A tap with a zero
 // weight (past the map's edge, or a zero axis weight) is neither loaded nor
 // added.
-template <int K, int V, int LANES, bool SMEM, int W>
+template <int K, int V, int LANES, bool SMEM, bool F32, int W>
 __device__ __forceinline__ void gt_level(const bf16* map, int wn, int C, const GtWords<W>& t,
                                          bf16* out, int j) {
   constexpr int O = 0;
@@ -199,11 +208,12 @@ __device__ __forceinline__ void gt_level(const bf16* map, int wn, int C, const G
       typename gt_vec<V>::T r[K];
 #pragma unroll
       for (int tx = 0; tx < K; tx++)
-        if (gt_w<O>(t, ty * K + tx) != 0.f)
+        if (gt_w<O, F32>(t, ty * K + tx) != 0.f)
           r[tx] = gt_load<V, SMEM>(map + (size_t)(off + ty * wn + tx) * C + c);
 #pragma unroll
       for (int tx = 0; tx < K; tx++)
-        if (gt_w<O>(t, ty * K + tx) != 0.f) gt_fma<V>(acc, gt_w<O>(t, ty * K + tx), r[tx]);
+        if (gt_w<O, F32>(t, ty * K + tx) != 0.f)
+          gt_fma<V>(acc, gt_w<O, F32>(t, ty * K + tx), r[tx]);
     }
     gt_store<V>(out + c, acc);
   }
@@ -219,7 +229,7 @@ struct GtRows {
 };
 
 // load the point's nonzero level-0 rows that the cache does not hold
-template <int SL, int V, int LANES, int W>
+template <int SL, int V, int LANES, bool F32, int W>
 __device__ __forceinline__ void gt_fine_load(GtRows<SL, V>& rows, const bf16* map, int wn, int C,
                                              const GtWords<W>& t, int j) {
   const int off = (int)t.v[0];
@@ -229,7 +239,7 @@ __device__ __forceinline__ void gt_fine_load(GtRows<SL, V>& rows, const bf16* ma
   }
   unsigned need = 0;
 #pragma unroll
-  for (int i = 0; i < 4; i++) need |= (unsigned)(gt_w<0>(t, i) != 0.f) << i;
+  for (int i = 0; i < 4; i++) need |= (unsigned)(gt_w<0, F32>(t, i) != 0.f) << i;
   const unsigned load = need & ~rows.have;
   rows.have |= need;
 #pragma unroll
@@ -244,7 +254,7 @@ __device__ __forceinline__ void gt_fine_load(GtRows<SL, V>& rows, const bf16* ma
   }
 }
 
-template <int SL, int V, int LANES, int W>
+template <int SL, int V, int LANES, bool F32, int W>
 __device__ __forceinline__ void gt_fine_sum(const GtRows<SL, V>& rows, int C, const GtWords<W>& t,
                                             bf16* out, int j) {
 #pragma unroll
@@ -256,7 +266,7 @@ __device__ __forceinline__ void gt_fine_sum(const GtRows<SL, V>& rows, int C, co
       for (int i = 0; i < V; i++) acc[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; i++)
-        if (gt_w<0>(t, i) != 0.f) gt_fma<V>(acc, gt_w<0>(t, i), rows.r[s][i]);
+        if (gt_w<0, F32>(t, i) != 0.f) gt_fma<V>(acc, gt_w<0, F32>(t, i), rows.r[s][i]);
       gt_store<V>(out + c, acc);
     }
   }
@@ -284,9 +294,11 @@ __device__ __forceinline__ void gt_stage(char* dst, const bf16* src, int nbytes)
 // The unit of this block: map b, points [p0, p1), in WARPS * 32 / LANES
 // streams of consecutive points, one a group of LANES lanes. `taps(m, u, v,
 // &bx, &by, w)` gives a point's tap base and weights on map m (w[3][3], the
-// first K x K used). SL: level 0's channel groups a lane caches.
-template <int NLEV, int V, int LANES, int SL, class Taps>
+// first K x K used). SL: level 0's channel groups a lane caches. F32: the
+// weights pass between lanes as float32 (one map only), else as bf16.
+template <int NLEV, int V, int LANES, int SL, bool F32 = false, class Taps>
 __device__ __forceinline__ void gather_block(const GatherParams& p, Taps taps) {
+  static_assert(!F32 || NLEV == 1, "float32 weights: one map");
   extern __shared__ uint4 gt_smem[];
   constexpr int GROUPS = 32 / LANES;
   const int b = blockIdx.x / p.nchunks;
@@ -313,7 +325,7 @@ __device__ __forceinline__ void gather_block(const GatherParams& p, Taps taps) {
   const int q1 = min(p1, q0 + len);
   const float2* uv = reinterpret_cast<const float2*>(p.uv) + (size_t)b * p.n;
   const bool cached = p.cached;
-  GtBatch<gt_off(NLEV), (gt_table_words(NLEV) > 0)> rec;
+  GtBatch<F32 ? gt_rec_words<2, true>() : gt_off(NLEV), (gt_table_words(NLEV) > 0)> rec;
   rec.table = reinterpret_cast<unsigned int*>(smem);  // the table first, the staged maps after it
   GtRows<SL, V> rows;
   rows.key = -1;
@@ -331,10 +343,15 @@ __device__ __forceinline__ void gather_block(const GatherParams& p, Taps taps) {
         float w[3][3];
         taps(p.map[l], pt.x, pt.y, &bx, &by, w);
         rec.put(O, (unsigned)(by * p.map[l].w + bx));
+        if constexpr (F32) {
 #pragma unroll
-        for (int i = 0; i < K * K; i += 2) {
-          const unsigned hi = i + 1 < K * K ? __float_as_uint(w[(i + 1) / K][(i + 1) % K]) : 0u;
-          rec.put(O + 1 + i / 2, __float_as_uint(w[i / K][i % K]) >> 16 | (hi & 0xffff0000u));
+          for (int i = 0; i < K * K; i++) rec.put(O + 1 + i, __float_as_uint(w[i / K][i % K]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < K * K; i += 2) {
+            const unsigned hi = i + 1 < K * K ? __float_as_uint(w[(i + 1) / K][(i + 1) % K]) : 0u;
+            rec.put(O + 1 + i / 2, __float_as_uint(w[i / K][i % K]) >> 16 | (hi & 0xffff0000u));
+          }
         }
       });
     }
@@ -349,23 +366,24 @@ __device__ __forceinline__ void gather_block(const GatherParams& p, Taps taps) {
       bf16* out = p.out + ((size_t)b * p.n + q) * p.csum;
       const GatherMap& m0 = p.map[0];
       const bf16* f0 = m0.feat + (size_t)b * m0.h * m0.w * m0.c;
-      const GtWords<3> t0 = rec.template get<0, 3>(src);
-      if (on && cached) gt_fine_load<SL, V, LANES>(rows, f0, m0.w, m0.c, t0, j);
+      constexpr int N0 = gt_rec_words<2, F32>();
+      const GtWords<N0> t0 = rec.template get<0, N0>(src);
+      if (on && cached) gt_fine_load<SL, V, LANES, F32>(rows, f0, m0.w, m0.c, t0, j);
       gt_for<0, NLEV>([&](auto L) {
-        constexpr int l = decltype(L)::value, K = gt_k(l), N = 1 + (K * K + 1) / 2;
+        constexpr int l = decltype(L)::value, K = gt_k(l), N = gt_rec_words<K, F32>();
         const GatherMap& ml = p.map[l];
         if (l == 0 && cached) return;
         const GtWords<N> t = rec.template get<gt_off(l), N>(src);
         if (!on) return;
         if (ml.soff >= 0) {
-          gt_level<K, V, LANES, true>(reinterpret_cast<const bf16*>(smem + ml.soff), ml.w, ml.c,
-                                      t, out + ml.c0, j);
+          gt_level<K, V, LANES, true, F32>(reinterpret_cast<const bf16*>(smem + ml.soff), ml.w,
+                                           ml.c, t, out + ml.c0, j);
         } else {
-          gt_level<K, V, LANES, false>(ml.feat + (size_t)b * ml.h * ml.w * ml.c, ml.w, ml.c, t,
-                                       out + ml.c0, j);
+          gt_level<K, V, LANES, false, F32>(ml.feat + (size_t)b * ml.h * ml.w * ml.c, ml.w, ml.c,
+                                            t, out + ml.c0, j);
         }
       });
-      if (on && cached) gt_fine_sum<SL, V, LANES>(rows, m0.c, t0, out + m0.c0, j);
+      if (on && cached) gt_fine_sum<SL, V, LANES, F32>(rows, m0.c, t0, out + m0.c0, j);
     }
     rec.sync();  // the next batch's records overwrite this one's
   }

@@ -20,9 +20,10 @@
 //   (bx, by) stays the same, as it does for consecutive samples of a ray,
 //   and adds them with one vector reduction a lane and tap when it changes
 //   (atomicAdd on a float4 or float2, sm_90: one RED of 16 or 8 bytes).
-// Each product w * g of two bf16 values is exact in f32, the dual
-// cotangent is rounded to bf16 once, as before: only the order of the f32
-// sums differs from one atomic a channel and tap.
+// Each product w * g of two bf16 values is exact in f32 (bilerp.cu's maps
+// past 8,192 pixels take float32 weights: the FMA that adds a product
+// rounds it once), the dual cotangent is rounded to bf16 once, as before:
+// only the order of the f32 sums differs from one atomic a channel and tap.
 
 #pragma once
 
@@ -172,7 +173,7 @@ __device__ __forceinline__ void global_unit(const ScatterPlan& p, const ScatterS
           const float wt = __shfl_sync(0xffffffffu, my_w[t], u + v);
           touched |= (unsigned)(wt != 0.f) << t;
 #pragma unroll
-          for (int i = 0; i < V; i++) acc[t][i] = fmaf(wt, g[v][i], acc[t][i]);  // w * g exact
+          for (int i = 0; i < V; i++) acc[t][i] = fmaf(wt, g[v][i], acc[t][i]);
         }
       }
     }

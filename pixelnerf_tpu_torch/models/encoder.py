@@ -5,8 +5,9 @@ ResNet trunk, or the experimental `ConvEncoder` for `backbone = custom`),
 the global `ImageEncoder`, `latent_scaling_for`, `pack_pyramid_levels`,
 `compose_pyramid` and `index_features`, which looks native levels up with
 the pyramid kernels (ops/pyramid.py) and a single bf16 map with the bilerp
-kernels (ops/scatter.py) under the JAX package's predicates, and composes
-the upsampled map for every other lookup. Layout is NHWC.
+kernels (ops/scatter.py) under the JAX package's predicates, or on the card
+at any size, and composes the upsampled map for every other lookup. Layout
+is NHWC.
 """
 
 from __future__ import annotations
@@ -136,10 +137,12 @@ def index_features(
 
     Native levels that `pyramid_fused_ok` accepts go through the pyramid
     kernels (gradient for the levels, none for uv); other levels are
-    composed first. A bf16 map of at most 8192 pixels under a bilinear,
-    border lookup goes through the bilerp kernels (`grid_sample_border_train`:
-    gradient for the map, none for uv); any other map through
-    `grid_sample_2d`.
+    composed first. A bf16 map under a bilinear, border lookup goes through
+    the bilerp kernels (`grid_sample_border_train`: gradient for the map,
+    none for uv) if it has at most 8192 pixels (`fused_supported`, the JAX
+    package's route) or is on the card, where a larger map takes the
+    kernels with `grid_sample_2d`'s float32 tap weights; any other map goes
+    through `grid_sample_2d`.
 
     :param allow_fused False: no kernel (the composed pyramid and
         `grid_sample_2d`), as make_model(use_pallas=False) asks
@@ -162,7 +165,7 @@ def index_features(
         and index_interp == "bilinear"
         and index_padding == "border"
         and latent.dtype == torch.bfloat16
-        and fused_supported(latent.shape[1], latent.shape[2])
+        and (latent.is_cuda or fused_supported(latent.shape[1], latent.shape[2]))
     ):
         out = grid_sample_border_train(latent, grid)
         return (out, out) if dual else out

@@ -8,13 +8,21 @@ the H100 (bytes: the gathered (N, C) bf16 latent and its cotangent
 dominate) and the design.
 
 The lookup is bilinear, border padding, align_corners, on a (B, hl, wl, C)
-map at normalized [-1, 1] points. The cast points are the TPU kernel's
-(`_onehot_w`, `scatter_pallas.py:55-96`): the axis weights stay float32,
-their 2x2 products round to bf16 once, a tap at the map's far edge is
-dropped, the features are bf16, the products sum in float32 and the
-gather casts to the map's dtype; the scatter rounds the cotangent to bf16
-and accumulates `w * g` in float32. This is not the pyramid's rounding
-(ops/pyramid.py rounds each axis weight first).
+map at normalized [-1, 1] points. The arithmetic follows the JAX route the
+map's size stands in for, with no knob (`_taps`):
+
+- a map of at most 8,192 pixels (`fused_supported`, the JAX package's
+  limit for the TPU kernels) takes the TPU kernel's cast points
+  (`_onehot_w`, `scatter_pallas.py:55-96`): the axis weights stay
+  float32, their 2x2 products round to bf16 once, a tap at the map's far
+  edge is dropped, the features are bf16, the products sum in float32 and
+  the gather casts to the map's dtype; the scatter rounds the cotangent
+  to bf16 and accumulates `w * g` in float32. This is not the pyramid's
+  rounding (ops/pyramid.py rounds each axis weight first);
+- a larger map, which the JAX package samples with `grid_sample_2d`,
+  takes `grid_sample_2d`'s float32 tap weights, unrounded: the bf16
+  features made exact in float32, a float32 sum in its tap order, one cast
+  of the output to bf16; the scatter adds `w * g` with the same weights.
 
 `grid_sample_border_train` is the entry point: a `torch.autograd.Function`
 whose forward is the gather for a bf16 map and `grid_sample_2d` for a
@@ -22,9 +30,10 @@ float32 one (`_fwd_gather`, `scatter_pallas.py:219-227`), and whose
 backward is the scatter, cast to the map's dtype, with a zero gradient for
 the points (`scatter_pallas.py:250-254`). `bilerp_gather` and
 `bilerp_scatter_add` launch their kernels on CUDA tensors and count each
-launch (`.launches`); CPU tensors take the plain versions. Both kernels'
-units are planned on the host (`ops/gather_plan.py`, `ops/scatter_plan.py`,
-shared with the pyramid's); `.plan` holds each one's last launch's plan.
+launch (`.launches`, and `.wide_launches` for the maps past 8,192
+pixels); CPU tensors take the plain versions. Both kernels' units are
+planned on the host (`ops/gather_plan.py`, `ops/scatter_plan.py`, shared
+with the pyramid's); `.plan` holds each one's last launch's plan.
 """
 
 from __future__ import annotations
@@ -54,21 +63,25 @@ LANES, ROWS = 32, 2  # csrc/bilerp.cu: BIL_LANES, BIL_ROWS
 
 
 def fused_supported(hl: int, wl: int) -> bool:
-    """Maps the JAX package sends through this path."""
+    """Maps the JAX package sends through this path: those whose taps keep
+    `_onehot_w`'s bf16 rounding (on the CPU, the only maps routed here)."""
     return hl * wl <= _MAX_PIXELS
 
 
 def _taps(uv: torch.Tensor, hl: int, wl: int):
     """The 2x2 taps of each point: flat pixel indices (B, N, 4) clipped
-    into the map, and float32 weights (B, N, 4) rounded as `_onehot_w`,
-    zero for a dropped tap."""
+    into the map, and float32 weights (B, N, 4), zero for a dropped tap:
+    rounded as `_onehot_w` on a map of at most 8,192 pixels, else
+    `grid_sample_2d`'s unrounded products."""
     x = ((uv[..., 0] + 1.0) * 0.5 * (wl - 1)).clamp(0.0, wl - 1.0)
     y = ((uv[..., 1] + 1.0) * 0.5 * (hl - 1)).clamp(0.0, hl - 1.0)
     x0, y0 = torch.floor(x), torch.floor(y)
     fx, fy = x - x0, y - y0
     ax = torch.stack([1.0 - fx, fx], dim=-1)  # (B, N, 2)
     ay = torch.stack([1.0 - fy, fy], dim=-1)
-    w = (ay[..., :, None] * ax[..., None, :]).to(torch.bfloat16).float()  # (B, N, 2y, 2x)
+    w = ay[..., :, None] * ax[..., None, :]  # (B, N, 2y, 2x)
+    if fused_supported(hl, wl):
+        w = w.to(torch.bfloat16).float()
     off = torch.arange(2, device=uv.device)
     ix = x0.long()[..., None] + off
     iy = y0.long()[..., None] + off
@@ -108,7 +121,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("bilerp")
     lib.pnt_error_string.restype = ctypes.c_char_p
     lib.pnt_error_string.argtypes = [ctypes.c_int]
-    tail = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    tail = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.pnt_bilerp_gather.restype = lib.pnt_bilerp_scatter.restype = ctypes.c_int
     lib.pnt_bilerp_gather.argtypes = lib.pnt_bilerp_scatter.argtypes = [
         ctypes.POINTER(ctypes.c_int)
@@ -154,16 +167,19 @@ def bilerp_gather(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     if plan.units == 0:
         return out
     ints = plan.as_ints()
+    wide = not fused_supported(hl, wl)
     err = _library().pnt_bilerp_gather(
         (ctypes.c_int * len(ints))(*ints), feat.data_ptr(), uv.data_ptr(), out.data_ptr(), b, n,
-        hl, wl, c, torch.cuda.current_stream(uv.device).cuda_stream,
+        hl, wl, c, int(wide), torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "bilerp_gather")
     bilerp_gather.launches += 1
+    bilerp_gather.wide_launches += wide
     return out
 
 
 bilerp_gather.launches = 0
+bilerp_gather.wide_launches = 0
 bilerp_gather.plan = None
 
 
@@ -186,16 +202,19 @@ def bilerp_scatter_add(uv: torch.Tensor, dz: torch.Tensor, hl: int, wl: int) -> 
     if plan.units == 0:
         return grad
     ints = plan.as_ints()
+    wide = not fused_supported(hl, wl)
     err = _library().pnt_bilerp_scatter(
         (ctypes.c_int * len(ints))(*ints), uv.data_ptr(), dz.data_ptr(), grad.data_ptr(), b, n,
-        int(hl), int(wl), c, torch.cuda.current_stream(uv.device).cuda_stream,
+        int(hl), int(wl), c, int(wide), torch.cuda.current_stream(uv.device).cuda_stream,
     )
     _raise_on(err, "bilerp_scatter_add")
     bilerp_scatter_add.launches += 1
+    bilerp_scatter_add.wide_launches += wide
     return grad
 
 
 bilerp_scatter_add.launches = 0
+bilerp_scatter_add.wide_launches = 0
 bilerp_scatter_add.plan = None
 
 

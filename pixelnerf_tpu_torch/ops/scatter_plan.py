@@ -210,9 +210,12 @@ def scatter_reference(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor, pixel
     two bf16 values, is exact in float32, and each of the n - 1 additions
     rounds once, in whatever order (registers, shared memory, reductions
     into device memory), so a kernel's float32 sums are within the bound
-    and a term dropped or added twice is not. Returns (sum, bound)."""
+    and a term dropped or added twice is not. Where a weight is not a bf16
+    value (the float32 taps of a map past 8,192 pixels), each term's product
+    may round once more: 2n * 2^-24 * sum |w * g|. Returns (sum, bound)."""
     b, n, t = idx.shape
     c = g.shape[-1]
+    roundings = 1.0 if bool((w.to(torch.bfloat16).float() == w).all()) else 2.0
     g = g.double()
     nonzero = (g != 0).double()
     out = torch.zeros((b * pixels, c), dtype=torch.float64, device=g.device)
@@ -225,4 +228,4 @@ def scatter_reference(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor, pixel
         out.index_add_(0, at, term.reshape(-1, c))
         mag.index_add_(0, at, term.abs().reshape(-1, c))
         cnt.index_add_(0, at, ((wk != 0).double() * nonzero).reshape(-1, c))
-    return out.reshape(b, pixels, c), (cnt * 2.0 ** -24 * mag).reshape(b, pixels, c)
+    return out.reshape(b, pixels, c), (roundings * cnt * 2.0 ** -24 * mag).reshape(b, pixels, c)

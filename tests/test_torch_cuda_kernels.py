@@ -20,7 +20,13 @@ nonzero terms (ops/scatter_plan.py:scatter_reference): every product of
 two bf16 values is exact in float32 and each addition rounds once, in
 shared memory, in registers along a run of points, or in vector
 reductions in any order; a term dropped or added twice breaks it. The
-bilerp gather and scatter as the pyramid's. posenc at tail sizes as
+bilerp gather and scatter as the pyramid's. Past 8,192 pixels the bilerp
+kernels take float32 tap weights (a product w * g then rounds once more,
+which `scatter_reference` counts) and are held against `grid_sample_2d`
+and its autograd backward: the gather within one bf16 ulp plus 1e-6 (the
+same float32 products and sums, cast once); the map's bf16 gradient and
+grid_sample's each round a float32 sum within the bound of the float64
+one, so they lie within 2^-7 of the larger plus twice the bound. posenc at tail sizes as
 elsewhere. The field's stash forward: its output as the
 field's, its z-stash one bf16 ulp of the plain gather; its backward, from
 the kernel's own stash, every gradient as the ResnetFC backward's, the
@@ -66,7 +72,11 @@ from pixelnerf_tpu_torch.ops.resnetfc import (
     resnetfc_fwd_plain, resnetfc_fwd_stash, resnetfc_wgrad_plain,
 )
 from pixelnerf_tpu_torch.ops.scatter import _taps as bilerp_taps
-from pixelnerf_tpu_torch.ops.scatter import bilerp_gather, bilerp_gather_plain, bilerp_scatter_add
+from pixelnerf_tpu_torch.models.encoder import index_features
+from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
+from pixelnerf_tpu_torch.ops.scatter import (
+    bilerp_gather, bilerp_gather_plain, bilerp_scatter_add, grid_sample_border_train,
+)
 from pixelnerf_tpu_torch.ops.scatter_plan import scatter_reference
 from pixelnerf_tpu_torch.utils.hocon import loads
 from pixelnerf_tpu_torch.ops.posenc import posenc_concat, posenc_concat_plain
@@ -550,6 +560,66 @@ def test_bilerp_kernels_match_plain(cuda, b, hl, wl, c, n, kind):
     torch.cuda.synchronize()
     assert bilerp_scatter_add.launches == before + 1
     _within_sum_bound(got, bilerp_taps(uv, hl, wl), dz)
+
+
+# the route past 8,192 pixels: dtu's 3 x 150x200x512 composed map with a
+# ragged N, a map of exactly 8,192 pixels (64x128: `_onehot_w`'s rounding,
+# no wide launch) and one just past it (91x91)
+LIMIT_CASES = [(3, 150, 200, 512, 100003, "rays"), (2, 64, 128, 64, 3001, "rays"),
+               (2, 91, 91, 64, 5003, "random")]
+
+
+@pytest.mark.parametrize("b,hl,wl,c,n,kind", LIMIT_CASES)
+def test_bilerp_lookup_past_the_limit_matches_grid_sample(cuda, b, hl, wl, c, n, kind):
+    """grid_sample_border_train on the card, forward and the map's gradient:
+    the gather within one bf16 ulp of the plain version (and past the limit
+    of grid_sample_2d), the scatter within the float32 sum's bound, the bf16
+    map gradient against grid_sample_2d's autograd backward past the limit;
+    `wide_launches` moves only past 8,192 pixels."""
+    rng = np.random.default_rng(n)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
+    feat = t(rng.normal(size=(b, hl, wl, c)), torch.bfloat16)
+    uv = t(_scatter_uv(rng, kind, b, n, (hl, wl)))
+    dz = t(rng.normal(size=(b, n, c)), torch.bfloat16)
+    wide = hl * wl > 8192
+    g0, s0 = bilerp_gather.wide_launches, bilerp_scatter_add.wide_launches
+    f = feat.clone().requires_grad_(True)
+    out = grid_sample_border_train(f, uv)
+    out.backward(dz)
+    torch.cuda.synchronize()
+    assert (bilerp_gather.wide_launches - g0, bilerp_scatter_add.wide_launches - s0) == (wide, wide)
+    close = lambda a, w: ((a.float() - w.float()).abs() <= 2.0 ** -7 * w.float().abs() + 1e-6).all()
+    assert out.dtype == torch.bfloat16 and close(out, bilerp_gather_plain(feat, uv))
+    taps = bilerp_taps(uv, hl, wl)
+    _within_sum_bound(bilerp_scatter_add(uv, dz, hl, wl), taps, dz)
+    assert f.grad.dtype == torch.bfloat16
+    ref_sum, bound = scatter_reference(*taps, dz, hl * wl)
+    a = f.grad.double().reshape(ref_sum.shape)
+    assert ((a - ref_sum).abs() <= 2.0 ** -8 * a.abs() + bound).all()
+    if wide:
+        r = feat.clone().requires_grad_(True)
+        want = grid_sample_2d(r, uv)
+        want.backward(dz)
+        assert close(out, want)
+        bg = r.grad.double().reshape(ref_sum.shape)
+        assert ((a - bg).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), bg.abs()) + 2 * bound).all()
+
+
+def test_index_features_takes_the_kernels_past_the_limit_on_the_card(cuda):
+    """On the card a bf16 map past 8,192 pixels takes the bilerp kernels
+    (one wide launch); a float32 map keeps grid_sample_2d (none)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    uv = (torch.rand((2, 777, 2), generator=g) * 180).to(cuda)
+    size, scale = torch.tensor([182.0, 182.0], device=cuda), torch.tensor([2.0, 2.0], device=cuda)
+    for dtype, taken in ((torch.bfloat16, 1), (torch.float32, 0)):
+        latent = torch.randn((2, 91, 91, 64), generator=g).to(cuda, dtype)
+        l0, w0 = bilerp_gather.launches, bilerp_gather.wide_launches
+        out = index_features(latent, scale, uv, size)
+        torch.cuda.synchronize()
+        assert (bilerp_gather.launches - l0, bilerp_gather.wide_launches - w0) == (taken, taken)
+        want = grid_sample_2d(latent, uv * (scale / size) - 1.0)
+        assert out.dtype == dtype and (out.is_contiguous() or not taken)
+        assert ((out.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-6).all()
 
 
 def _on_centres(rng, b, n, hw):

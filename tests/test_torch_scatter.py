@@ -10,7 +10,12 @@ that are not a multiple of the TPU kernel's 512-point tile.
 `grid_sample_border_train`'s gradients are held against the JAX custom
 VJP, for one consumer and for two (the dual lookup, whose two bf16
 cotangents autograd adds, as JAX does). `resize_nearest` is held against
-JAX's forward and gradient in float32 and bf16.
+JAX's forward and gradient in float32 and bf16. Past 8,192 pixels (dtu's
+150x200 map, 91x91), where the JAX package samples with `grid_sample_2d`,
+the plain versions take its float32 tap weights and are held against it
+and its backward; at 8,192 pixels or fewer (64x128 too) the weights keep
+`_onehot_w`'s bf16 rounding; and `index_features` on a CPU map past the
+limit still calls `grid_sample_2d`.
 
 Tolerances. Both sides round the same 2x2 weights to bf16 once and form
 exact bf16 x bf16 products, so only the order of the float32 sums
@@ -20,7 +25,14 @@ before summing (tests/test_torch_pyramid.py), so the scatter is held to
 2^-7 times the sum of |w * g| over each element's contributions, plus
 1e-6, and one more bf16 ulp of the result for a bf16 map's gradient. The
 nearest resize selects: its forward is exact, its gradient sums a few
-cotangents per input pixel (float32: 1e-6 relative; bf16: one ulp).
+cotangents per input pixel (float32: 1e-6 relative; bf16: one ulp). Past
+the limit, the plain gather and `grid_sample_2d` sum the same four float32
+products, the plain version rounding each product and grid_sample's CPU
+kernel fusing it into the sum (FMA): each within 4 * 2^-24 * sum |w * f|
+of the exact sum, so 8 * 2^-24 * sum |w * f| apart in float32 and one
+bf16 ulp once cast; the plain scatter and grid_sample's backward each
+within `scatter_reference`'s bound of the float64 sum (float32 sums of
+the same terms in other orders).
 """
 
 import jax
@@ -43,6 +55,7 @@ from pixelnerf_tpu_torch.ops.scatter import (
 )
 from pixelnerf_tpu_torch.ops.cuda_build import SMEM_LIMIT
 from pixelnerf_tpu_torch.ops.field import level_scatter_plan
+from pixelnerf_tpu_torch.ops.grid_sample import grid_sample_2d
 from pixelnerf_tpu_torch.ops.gather_plan import (
     BLOCKS_PER_SM, STAGE_BYTES, count_tap_bytes, plan_gather, table_bytes,
 )
@@ -81,6 +94,7 @@ def _bound(uv, g, hl, wl):
     pytest.param(2, 5, 7, 8, 33, False, id="2-5-7-8-33"),
     pytest.param(3, 8, 8, 16, 515, False, id="3-8-8-16-515"),
     pytest.param(2, 8, 8, 16, 515, True, id="2-8-8-16-515-rays"),
+    pytest.param(1, 64, 128, 8, 300, True, id="1-64-128-8-300-rays"),
 ])
 def test_gather_matches_pallas(b, hl, wl, c, n, rays):
     rng = np.random.default_rng(b * 100 + n + rays)
@@ -103,6 +117,7 @@ def test_gather_matches_pallas(b, hl, wl, c, n, rays):
     pytest.param(2, 5, 7, 8, 33, False, id="2-5-7-8-33"),
     pytest.param(3, 8, 8, 16, 515, False, id="3-8-8-16-515"),
     pytest.param(2, 8, 8, 16, 515, True, id="2-8-8-16-515-rays"),
+    pytest.param(1, 64, 128, 8, 300, True, id="1-64-128-8-300-rays"),
 ])
 def test_scatter_matches_pallas(b, hl, wl, c, n, rays):
     rng = np.random.default_rng(b * 10 + n + rays)
@@ -204,6 +219,74 @@ def test_index_features_routes_single_maps(monkeypatch):
         assert out.shape == (2, 9, 4) and bool(calls) == taken
     pair = tenc.index_features(torch.randn(2, 8, 8, 4).to(torch.bfloat16), scale, uv, size, dual=True)
     assert pair[0] is pair[1]
+
+
+@pytest.mark.parametrize("hl,wl,rounded", [(8, 8, True), (64, 128, True), (91, 91, False),
+                                            (150, 200, False)])
+def test_taps_round_by_the_maps_size(hl, wl, rounded):
+    """The weights round to bf16 (`_onehot_w`) on a map of at most 8,192
+    pixels and are grid_sample's float32 products past it; the indices and
+    the dropped taps are the same either way."""
+    rng = np.random.default_rng(hl * wl)
+    uv = torch.from_numpy(_uv(rng, 2, 300))
+    idx, w = _taps(uv, hl, wl)
+    assert fused_supported(hl, wl) == rounded
+    assert torch.equal(w, w.to(torch.bfloat16).float()) == rounded
+    x = ((uv[..., 0] + 1.0) * 0.5 * (wl - 1)).clamp(0.0, wl - 1.0)
+    y = ((uv[..., 1] + 1.0) * 0.5 * (hl - 1)).clamp(0.0, hl - 1.0)
+    fx, fy = x - x.floor(), y - y.floor()
+    prod = torch.stack([(1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx), fy * fx], -1)
+    prod = torch.where(w == 0, torch.zeros_like(prod), prod)  # dropped taps
+    assert torch.equal(w, prod.to(torch.bfloat16).float() if rounded else prod)
+    assert torch.equal(idx[..., 0], y.floor().long() * wl + x.floor().long())
+
+
+# past the limit: a random 91x91 map with the corners and far edges, and
+# ray-coherent points on dtu's composed 150x200 map
+@pytest.mark.parametrize("b,hl,wl,c,n,rays", [
+    pytest.param(2, 91, 91, 16, 5003, False, id="91x91"),
+    pytest.param(3, 150, 200, 8, 10007, True, id="150x200-rays"),
+])
+def test_plain_lookup_past_the_limit_matches_grid_sample(b, hl, wl, c, n, rays):
+    """The plain gather and scatter on a map past 8,192 pixels against
+    grid_sample_2d and its autograd backward on the CPU, in float32 (a
+    float32 map of bf16 values) and with the bf16 map."""
+    rng = np.random.default_rng(hl + n)
+    uv = torch.from_numpy(ray_uv(rng, b, n, 1.0 / wl) if rays else _uv(rng, b, n))
+    feat = _bf16(rng.normal(size=(b, hl, wl, c)))
+    assert not fused_supported(hl, wl)
+    f32 = feat.float()
+    got, want = bilerp_gather(f32, uv), grid_sample_2d(f32, uv)
+    mag = bilerp_gather(f32.abs(), uv)
+    assert ((got - want).abs() <= 8 * 2.0 ** -24 * mag).all()
+    got, want = bilerp_gather(feat, uv), grid_sample_2d(feat, uv)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert ((got.float() - want.float()).abs() <= BF16_ULP * want.float().abs() + 1e-6).all()
+    g = _bf16(rng.normal(size=(b, n, c)))
+    f = f32.clone().requires_grad_(True)
+    grid_sample_2d(f, uv).backward(g.float())
+    ref, bound = scatter_reference(*_taps(uv, hl, wl), g, hl * wl)
+    for grad in (bilerp_scatter_add(uv, g, hl, wl), f.grad):
+        assert ((grad.double().reshape(ref.shape) - ref).abs() <= bound).all()
+    # the map's gradient through grid_sample_border_train: the scatter, cast
+    fb = feat.clone().requires_grad_(True)
+    grid_sample_border_train(fb, uv).backward(g)
+    assert torch.equal(fb.grad, bilerp_scatter_add(uv, g, hl, wl).to(torch.bfloat16))
+
+
+def test_index_features_keeps_grid_sample_past_the_limit_on_the_cpu(monkeypatch):
+    """On the CPU a bf16 map past 8,192 pixels still takes grid_sample_2d,
+    as the JAX package's route: the parity tests see what they saw."""
+    calls = []
+    orig = tenc.grid_sample_2d
+    monkeypatch.setattr(tenc, "grid_sample_2d", lambda *a, **k: calls.append(1) or orig(*a, **k))
+    monkeypatch.setattr(tenc, "grid_sample_border_train", lambda *a: pytest.fail("took the kernels"))
+    uv = torch.rand(2, 9, 2) * 180
+    size, scale = torch.tensor([182.0, 182.0]), torch.tensor([2.0, 2.0])
+    latent = torch.randn(2, 91, 91, 4).to(torch.bfloat16)
+    out = tenc.index_features(latent, scale, uv, size)
+    assert calls == [1] and out.dtype == torch.bfloat16
+    assert torch.equal(out, orig(latent, uv * (scale / size) - 1.0))
 
 
 def _interval(k, size, total):
