@@ -9,7 +9,10 @@ and compared with the float32 reference as a run compares the program:
 
 - control: the reference computed in float8 as float8 training does (e4m3
   operands, e5m2 cotangents into the backward's products), one precision
-  below the configurations' bfloat16;
+  below a bfloat16 configuration;
+- train cells of a float32 configuration, `control_bf16`: the program
+  itself at `dtype = bfloat16`, its own path one precision below, on the
+  same seed and weights;
 - train cells, `half_batch`: the reference's step with the second half of
   the batch's objects left out of the loss, the mean taken over the rest (a
   state left unchanged reads 1 by the gap of the parameters' change and
@@ -22,6 +25,7 @@ of the control and of the faults that read ten times the sound one.
 """
 
 import argparse
+import copy
 import json
 import sys
 import time
@@ -69,14 +73,26 @@ def step_states(cell, seed: int, device):
 
 
 def train_readings(cell, seed: int, device="cuda") -> dict:
-    """The control and the half-batch fault, each in the program's place."""
+    """The control and the half-batch fault, each in the program's place;
+    for a float32 configuration also the program at bfloat16."""
     states = step_states(cell, seed, device)
     truth, p0 = train_cell.reference_truth(cell, seed, states, device)
     out = {}
     for name, precision, fault in (("control", "fp8", None), ("half_batch", "float32", "half_batch")):
         stand_in, _ = train_cell.reference_truth(cell, seed, states, device, precision, fault)
         out[name] = check.train_numbers(stand_in, truth, p0)
+    if cell.config["conf"]["model"].get("dtype", "float32") == "float32":
+        out["control_bf16"] = sound(at_dtype(cell, "bfloat16"), seed, device)
     return out
+
+
+def at_dtype(cell, dtype: str):
+    """The cell with the program's compute dtype set to `dtype`; the
+    reference, which reads no dtype, stays float32."""
+    other = copy.copy(cell)
+    other.config = copy.deepcopy(cell.config)
+    other.config["conf"]["model"]["dtype"] = dtype
+    return other
 
 
 def view_readings(cell, seed: int, device="cuda") -> dict:
@@ -156,8 +172,8 @@ def main(argv=None):
 
 def readings_table(readings: dict, kind: str) -> dict:
     """For each number: the lower reading (the largest sound one), the
-    least reading of the control and of each fault, and the upper reading
-    by the rules: the control where it reads three times the lower or
+    least reading of each control and of each fault, and the upper reading
+    by the rules: a control where it reads three times the lower or
     more; in a training cell also each fault that reads ten times the
     lower or more. A state left unchanged reads 1 on every gap of norms and
     on the median leaf's difference (the optimizer holds no gradient and
@@ -166,12 +182,13 @@ def readings_table(readings: dict, kind: str) -> dict:
     sound = list(readings["sound"].values())
     faults = list(readings["faults"].values())
     table = {}
+    control = lambda f: f.startswith("control")
     for name in sound[0]:
         lower = max(r[name] for r in sound)
         least = {f: min(r[f][name] for r in faults) for f in faults[0]}
         candidates = [v for f, v in least.items()
-                      if v >= (3 if f == "control" else 10) * lower
-                      and (f == "control" or kind == "train")]
+                      if v >= (3 if control(f) else 10) * lower
+                      and (control(f) or kind == "train")]
         if kind == "train" and not name.startswith("loss") and 1 >= 3 * lower:
             candidates.append(1.0)
         table[name] = {"lower": lower, **least, "upper": min(candidates) if candidates else None}

@@ -60,7 +60,8 @@ def train_numbers(prog: dict, ref: dict, p0: Dict[str, torch.Tensor]) -> Dict[st
     first gradient's difference. Unbiased rounding moves it at first
     order, where it moves a gap of norms at second; the trunk's leaves are
     not in it, since their bfloat16 gradients read tens of percent off the
-    reference's (PERF.md)."""
+    reference's (PERF.md). trunk_grad_err_median: the same over the
+    trunk's leaves, which a float32 configuration computes in float32."""
     names = sorted(ref["grad1"])
     if len(prog["losses"]) != len(ref["losses"]) or not all(map(math.isfinite, prog["losses"])):
         loss_gap = math.inf
@@ -77,6 +78,8 @@ def train_numbers(prog: dict, ref: dict, p0: Dict[str, torch.Tensor]) -> Dict[st
         "grad_gap_median": statistics.median(grad),
         "mlp_grad_err_median": statistics.median(
             e for n, e in zip(names, grad_err) if n.startswith("mlp_")),
+        "trunk_grad_err_median": statistics.median(
+            e for n, e in zip(names, grad_err) if n.startswith("encoder.")),
         "update_gap": max(update),
         "update_gap_median": statistics.median(update),
     }

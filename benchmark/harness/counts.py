@@ -104,13 +104,15 @@ def pyramid_scatter(rows: int, levels, maps: int, d_latent: int) -> Tuple[float,
 
 def trunk_convs(encoder: dict, h: int, w: int) -> List[Tuple[int, int, int, int, int, int]]:
     """(cin, cout, k, stride, h_out, w_out) of every convolution of the
-    trunk on an h x w image."""
+    trunk on an h x w image; the stem's max-pool halves the size before
+    the first stage unless `use_first_pool` is false."""
     from reference.pixelnerf import STAGE_BLOCKS, STAGE_CHANNELS
 
     out_hw = lambda n, k, s, p: (n + 2 * p - k) // s + 1
     h, w = out_hw(h, 7, 2, 3), out_hw(w, 7, 2, 3)
     convs = [(3, 64, 7, 2, h, w)]
-    h, w = out_hw(h, 3, 2, 1), out_hw(w, 3, 2, 1)
+    if encoder.get("use_first_pool", True):
+        h, w = out_hw(h, 3, 2, 1), out_hw(w, 3, 2, 1)
     cin = 64
     for stage in range(int(encoder["num_layers"]) - 1):
         cout = STAGE_CHANNELS[stage]
@@ -137,12 +139,13 @@ def encoder_flops(encoder: dict, images: int, h: int, w: int, train: bool) -> fl
 # ----------------------------------------------------------------- a cell
 
 
-def latent_levels(h: int, w: int) -> List[Tuple[int, int, int]]:
+def latent_levels(h: int, w: int, use_first_pool: bool = True) -> List[Tuple[int, int, int]]:
     """The native levels the program packs for an h x w image (stem and
-    layer1 at the stem's size, then layer2 and layer3)."""
+    layer1 at the stem's size, then layer2 and layer3); layer1 runs at
+    half the stem's size after the max-pool, at the stem's without it."""
     s = lambda n, k: (n + 2 * (k // 2) - k) // 2 + 1
     h1, w1 = s(h, 7), s(w, 7)
-    h2, w2 = s(h1, 3), s(w1, 3)
+    h2, w2 = (s(h1, 3), s(w1, 3)) if use_first_pool else (h1, w1)
     h3, w3 = s(h2, 3), s(w2, 3)
     return [(h1, w1, 128), (h3, w3, 128), (s(h3, 3), s(w3, 3), 256)]
 
@@ -177,7 +180,7 @@ def cell_work(config: dict, traffic: dict) -> Dict[str, float]:
     rays = h * w
     chunk = int(traffic["chunk_rays"])
     padded = -(-rays // chunk) * chunk
-    levels = latent_levels(h, w)
+    levels = latent_levels(h, w, model["encoder"].get("use_first_pool", True))
     # the field's calls see the padded chunks; the model needs the view's rays
     field = [field_primal(m, *args, padded * k * ns, ns, levels, ns)
              for m, k in ((mc, kc), (mf, kall))]

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from harness import check, scene
+from harness import check, precision, scene
 from harness.trace import read_profile
 from harness.train_cell import load_weights
 from reference import train as ref_train
@@ -99,6 +99,7 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dic
     rays_per_view = int(np.prod(data["image_hw"]))
 
     phases = {"start": time.perf_counter() - t0}
+    precision.as_stated(cell.config["conf"]["model"])
     prog = Program(cell, seed, device)
     phases["program"] = time.perf_counter() - t0
     pool = scene.Pool(data, int(traffic["pool_objects"]), seed, device)

@@ -15,8 +15,9 @@ It imports nothing of the program. Every product runs in float32 with TF32
 off. With `precision="fp8"` the products compute as float8 training does:
 every operand of a convolution and of a linear layer is first rounded to
 float8 e4m3, and the cotangent that enters each product's backward to
-float8 e5m2, each with a per-tensor scale: the control, one precision
-below the bfloat16 the configurations state.
+float8 e5m2, each with a per-tensor scale: the control of a bfloat16
+configuration, one precision below it (a float32 configuration's is the
+program at bfloat16, `calibrate.py`).
 
 Random draws are taken from a `torch.Generator` in the order the program's
 renderer documents (pixels, then per ray block: coarse jitter, importance
@@ -26,6 +27,7 @@ sides the same numbers.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Tuple
 
 import torch
@@ -38,10 +40,18 @@ FP8_MAX = 448.0  # largest finite float8 e4m3
 FP8_GRAD_MAX = 57344.0  # largest finite float8 e5m2
 
 
-def set_exact_float32() -> None:
-    """Float32 products stay float32 on the card (no TF32)."""
+@contextlib.contextmanager
+def exact_float32():
+    """Float32 products stay float32 on the card (no TF32) inside; the
+    settings are given back on the way out, so a program that runs after
+    the reference in the same process runs as it would alone."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
 def _to_fp8(t: torch.Tensor, dtype, largest: float) -> torch.Tensor:
@@ -170,14 +180,17 @@ def _bn(x, P, name, train):
 
 def encode(P, images: torch.Tensor, model_conf: dict, train: bool, prec: str) -> torch.Tensor:
     """(N, H, W, 3) images in [-1, 1] -> (N, d_latent, Hl, Wl): the stem and
-    every stage after it, upsampled to the stem's size and stacked."""
+    every stage after it, upsampled to the stem's size and stacked. The
+    stem is max-pooled before the first stage unless the encoder sets
+    `use_first_pool` false (the NMR configuration's 64x64 images)."""
     enc = model_conf["encoder"]
     blocks = STAGE_BLOCKS[enc["backbone"]]
     x = images.permute(0, 3, 1, 2)
     x = torch.relu(_bn(_conv(x, P["encoder.model.conv1.weight"], 2, 3, prec), P,
                        "encoder.model.bn1", train))
     latents = [x]
-    x = F.max_pool2d(x, 3, stride=2, padding=1)
+    if enc.get("use_first_pool", True):
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
     for stage in range(int(enc["num_layers"]) - 1):
         for blk in range(blocks[stage]):
             stride = 2 if (stage > 0 and blk == 0) else 1

@@ -102,6 +102,7 @@ def step_loss_and_grads(P, model_conf, rend, loss_conf, batch, gen_state, num_ra
     return total, {n: p.grad for n, p in P.items() if p.requires_grad}
 
 
+@ref.exact_float32()
 def run_steps(P0: Dict[str, torch.Tensor], specs, model_conf, rend, loss_conf, batches: List[dict],
               gen_states: List[torch.Tensor], num_rays: int, lr: float, prec: str = "float32",
               fault=None) -> dict:
@@ -110,7 +111,6 @@ def run_steps(P0: Dict[str, torch.Tensor], specs, model_conf, rend, loss_conf, b
     :return losses (list of floats), grad1 {name: the first step's gradient},
         params {name: the parameters after the last step}
     """
-    ref.set_exact_float32()
     stats = {n for n, _, k in specs if ref.is_statistic(k)}
     params = {n: t.detach().clone() for n, t in P0.items() if n not in stats}
     adam = Adam(params, lr)
@@ -131,12 +131,12 @@ def run_steps(P0: Dict[str, torch.Tensor], specs, model_conf, rend, loss_conf, b
     return {"losses": losses, "grad1": grad1, "params": params}
 
 
+@ref.exact_float32()
 @torch.no_grad()
 def render_view(P, model_conf, rend, src_u8, src_c2w, focal, c, rays, seed: int, chunk: int,
                 prec: str = "float32") -> Dict[str, Dict[str, torch.Tensor]]:
     """One view of (B, 8) rays from (NS, H, W, 3) uint8 sources:
     {'coarse'|'fine': {'rgb' (B, 3), 'depth' (B,), 'alpha' (B,)}}."""
-    ref.set_exact_float32()
     dev = rays.device
     ns, h, w, _ = src_u8.shape
     latent = ref.encode(P, src_u8.float() / 127.5 - 1.0, model_conf, False, prec)

@@ -1,8 +1,9 @@
 """A cell at a size the CPU runs in seconds: the srn configuration's
-model (every width as published) on 32x32 images, 8 + 4 samples a ray,
-a few rays. For the CPU tests only."""
+model (every width as published), or another configuration's, on 32x32
+images, 8 + 4 samples a ray, a few rays. For the CPU tests only."""
 
 import copy
+import json
 import sys
 from pathlib import Path
 
@@ -14,10 +15,14 @@ for p in (str(BENCH_DIR.parent), str(BENCH_DIR)):
 from harness import manifest  # noqa: E402
 
 
-def tiny_cell(kind: str, limits=None) -> manifest.Cell:
+def tiny_cell(kind: str, limits=None, config=None) -> manifest.Cell:
+    """srn's cell of `kind`, or with `config` the configuration of that
+    name from `benchmark/configs/` under srn's traffic, cut to this size."""
     m = manifest.load_manifest()
-    name = {"train": "srn.train", "view": "srn.view"}[kind]
-    cell = manifest.Cell(m, name)
+    cell = manifest.Cell(m, {"train": "srn.train", "view": "srn.view"}[kind])
+    if config is not None:
+        with open(manifest.config_path(config)) as f:
+            cell.config = json.load(f)
     cfg = copy.deepcopy(cell.config)
     cfg["data"].update(image_hw=[32, 32], views_per_object=4, focal=[32.8, 32.8], c=[16.0, 16.0])
     cfg["conf"]["renderer"].update(n_coarse=8, n_fine=4, n_fine_depth=2)

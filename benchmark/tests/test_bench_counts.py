@@ -1,5 +1,7 @@
 """The operation and byte counts against counts made by hand."""
 
+import json
+
 import pytest
 
 import bench_tiny  # noqa: F401  (puts the benchmark on sys.path)
@@ -47,6 +49,30 @@ def test_trunk_convolutions_by_hand():
     assert counts.encoder_flops(enc, 1, 32, 32, train=True) == train
 
 
+def test_trunk_without_first_pool_by_hand():
+    # sn64.conf: no max-pool after the 7x7/2 stem, so layer1 runs at the
+    # stem's 32x32 and each later stage halves it
+    enc = {"backbone": "resnet34", "num_layers": 4, "use_first_pool": False}
+    convs = counts.trunk_convs(enc, 64, 64)
+    assert convs[0] == (3, 64, 7, 2, 32, 32)
+    assert convs[1:7] == [(64, 64, 3, 1, 32, 32)] * 6
+    assert convs[7:10] == [(64, 128, 3, 2, 16, 16), (128, 128, 3, 1, 16, 16),
+                           (64, 128, 1, 2, 16, 16)]
+    assert convs[10:16] == [(128, 128, 3, 1, 16, 16)] * 6
+    assert convs[16:19] == [(128, 256, 3, 2, 8, 8), (256, 256, 3, 1, 8, 8),
+                            (128, 256, 1, 2, 8, 8)]
+    assert convs[19:] == [(256, 256, 3, 1, 8, 8)] * 10
+    fwd = 32 * 32 * 64 * 3 * 49 + 6 * 32 * 32 * 64 * 64 * 9
+    fwd += 16 * 16 * (128 * 64 * 9 + 7 * 128 * 128 * 9 + 128 * 64)
+    fwd += 8 * 8 * (256 * 128 * 9 + 11 * 256 * 256 * 9 + 256 * 128)
+    assert counts.encoder_flops(enc, 1, 64, 64, train=False) == 2 * fwd
+    # the levels: stem and layer1 at 32x32, layer2 at 16x16, layer3 at 8x8
+    assert counts.latent_levels(64, 64, use_first_pool=False) == [
+        (32, 32, 128), (16, 16, 128), (8, 8, 256)]
+    assert counts.latent_levels(64, 64) == [(32, 32, 128), (8, 8, 128), (4, 4, 256)]
+    assert counts.trunk_convs({**enc, "use_first_pool": True}, 64, 64)[1][4:] == (16, 16)
+
+
 def test_resnet34_levels_and_downsamples():
     enc = {"backbone": "resnet34", "num_layers": 4}
     convs = counts.trunk_convs(enc, 128, 128)
@@ -68,3 +94,19 @@ def test_cell_work_is_positive_and_below_peak_share(workload):
         assert 3.5e9 < work["mlp_flops"] / rays < 15e9
     else:
         assert work["field_least_s"] > 0
+
+
+def test_sn64_step_by_hand():
+    # sn64.conf's step under train_steps: 4 objects x 1,024 rays, one view,
+    # so the rows before the pooling are the rows after it
+    with open(manifest.config_path("sn64")) as f:
+        config = json.load(f)
+    with open(manifest.traffic_path("train_steps")) as f:
+        traffic = json.load(f)
+    work = counts.cell_work(config, traffic)
+    rows = 4096 * (64 + 96)
+    d_in, d_lat, h = 3 + 6 * 2 * 3 + 3, 512, 512
+    fwd = 2 * rows * (d_in * h + 3 * d_lat * h + 5 * 2 * h * h + h * 4)
+    assert work["mlp_flops"] == 3 * fwd == pytest.approx(13.4929e12, rel=1e-5)
+    trunk = counts.encoder_flops(config["conf"]["model"]["encoder"], 4, 64, 64, train=True)
+    assert work["encoder_flops"] == trunk

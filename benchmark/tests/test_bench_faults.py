@@ -30,8 +30,12 @@ def _threads():
     torch.set_num_threads(n)
 
 
-def _train():
-    return run.run_cell(tiny_cell("train", TRAIN_LIMITS), SEED, 0.1, False, "cpu")
+# srn's bfloat16 step, and sn64's float32 step without the stem's max-pool
+TRAIN_CONFIGS = ["srn", "sn64"]
+
+
+def _train(config="srn"):
+    return run.run_cell(tiny_cell("train", TRAIN_LIMITS, config), SEED, 0.1, False, "cpu")
 
 
 def _view():
@@ -42,15 +46,21 @@ def test_sound_runs_are_correct():
     assert _train()["correct"] and _view()["correct"]
 
 
-def test_state_left_unchanged(monkeypatch):
+def test_sound_float32_run_without_first_pool_is_correct():
+    assert _train("sn64")["correct"]
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS)
+def test_state_left_unchanged(monkeypatch, config):
     from pixelnerf_tpu_torch.train.step import MultiSteps
 
     monkeypatch.setattr(MultiSteps, "update", lambda self: False)
-    res = _train()
+    res = _train(config)
     assert not res["correct"] and res["check"]["update_gap"]["value"] >= 0.99
 
 
-def test_half_batch_left_out(monkeypatch):
+@pytest.mark.parametrize("config", TRAIN_CONFIGS)
+def test_half_batch_left_out(monkeypatch, config):
     from pixelnerf_tpu_torch.models import losses
 
     def half_mse(pred, target):
@@ -58,7 +68,7 @@ def test_half_batch_left_out(monkeypatch):
         return torch.mean((pred[:sb] - target[:sb]) ** 2)
 
     monkeypatch.setattr(losses, "mse_loss", half_mse)
-    assert not _train()["correct"]
+    assert not _train(config)["correct"]
 
 
 def _patch_render(monkeypatch, change):

@@ -28,22 +28,29 @@ TRAIN_NUMBERS = ("loss_gap", "grad_gap", "grad_gap_median", "mlp_grad_err_median
 VIEW_NUMBERS = ("rgb_mae", "depth_mae", "alpha_mae")
 
 
-def _cell(kind, dtype, steps=1):
+def _cell(kind, dtype, steps=1, first_pool=None):
     names = TRAIN_NUMBERS if kind == "train" else VIEW_NUMBERS
     # every number printed; the limits are not what these tests judge
     cell = tiny_cell(kind, {"numbers": {n: {"limit": 1.0} for n in names}})
     cell.config["conf"]["model"]["dtype"] = dtype
+    if first_pool is not None:
+        cell.config["conf"]["model"]["encoder"]["use_first_pool"] = first_pool
     cell.traffic["truth_steps"] = steps
     return cell
 
 
-def test_float32_view_agrees():
-    got = run.run_cell(_cell("view", "float32"), 5, 0.1, False, "cpu")["check"]
+# use_first_pool false: the stem's max-pool skipped, as sn64.conf has it
+@pytest.mark.parametrize("first_pool", [True, False])
+def test_float32_view_agrees(first_pool):
+    got = run.run_cell(_cell("view", "float32", first_pool=first_pool), 5, 0.1, False,
+                       "cpu")["check"]
     assert max(v["value"] for v in got.values()) < 1e-6
 
 
-def test_float32_first_step_agrees():
-    got = run.run_cell(_cell("train", "float32"), 5, 0.1, False, "cpu")["check"]
+@pytest.mark.parametrize("first_pool", [True, False])
+def test_float32_first_step_agrees(first_pool):
+    got = run.run_cell(_cell("train", "float32", first_pool=first_pool), 5, 0.1, False,
+                       "cpu")["check"]
     assert got["loss_gap"]["value"] < 1e-5
     assert got["grad_gap"]["value"] < 5e-3
     assert got["update_gap"]["value"] < 5e-3
@@ -90,3 +97,37 @@ def test_fp8_control_moves_a_view_more_than_bfloat16():
     f32, fp8 = rt.render_view(*args, "float32"), rt.render_view(*args, "fp8")
     gap = (f32["fine"]["rgb"] - fp8["fine"]["rgb"]).abs().mean()
     assert gap > 1e-3
+
+
+def test_tf32_follows_the_configuration_and_the_reference_gives_it_back():
+    from harness import precision
+
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    before = flags()
+    try:
+        precision.as_stated({"dtype": "float32"})
+        assert flags() == (False, False)
+        precision.as_stated({"dtype": "bfloat16"})
+        assert flags() == precision._DEFAULTS
+        torch.backends.cudnn.allow_tf32 = True
+        with ref.exact_float32():
+            assert flags() == (False, False)
+        assert flags() == (before[0], True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def test_bfloat16_program_is_the_float32_configurations_control():
+    import calibrate
+
+    cell = tiny_cell("train", config="sn64")
+    cell.traffic["truth_steps"] = 1
+    sound = calibrate.sound(cell, 7, "cpu")
+    got = calibrate.train_readings(cell, 7, "cpu")
+    assert set(got) == {"control", "half_batch", "control_bf16"}
+    # here the float32 program rounds as the reference does, to 1e-3 of a
+    # trunk leaf; at bfloat16 its trunk reads tens of percent off
+    assert got["control_bf16"]["trunk_grad_err_median"] > 30 * sound["trunk_grad_err_median"]
+    srn = tiny_cell("train")
+    srn.traffic["truth_steps"] = 1
+    assert set(calibrate.train_readings(srn, 7, "cpu")) == {"control", "half_batch"}
