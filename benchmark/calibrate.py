@@ -38,9 +38,7 @@ for p in (str(BENCH_DIR.parent), str(BENCH_DIR)):
 
 import torch  # noqa: E402
 
-from harness import check, manifest, scene, train_cell, view_cell  # noqa: E402
-from reference import pixelnerf as ref  # noqa: E402
-from reference import train as ref_train  # noqa: E402
+from harness import check, family, manifest, scene, train_cell, view_cell  # noqa: E402
 
 def sound(cell, seed: int, device="cuda") -> dict:
     """The numbers of one run of the program (`--trace 0`): a training
@@ -68,7 +66,7 @@ def step_states(cell, seed: int, device):
     for _ in range(int(traffic["truth_steps"])):
         states.append(gen.get_state())
         torch.randint(0, pixels, (sb, rays), generator=gen, device=device)
-        ref.draw_render(gen, sb * rays, rend, device)
+        family.load(cell.family).draw_render(gen, sb * rays, rend, device)
     return states
 
 
@@ -78,9 +76,10 @@ def train_readings(cell, seed: int, device="cuda") -> dict:
     states = step_states(cell, seed, device)
     truth, p0 = train_cell.reference_truth(cell, seed, states, device)
     out = {}
+    groups = family.load(cell.family).LEAF_GROUPS
     for name, precision, fault in (("control", "fp8", None), ("half_batch", "float32", "half_batch")):
         stand_in, _ = train_cell.reference_truth(cell, seed, states, device, precision, fault)
-        out[name] = check.train_numbers(stand_in, truth, p0)
+        out[name] = check.train_numbers(stand_in, truth, p0, groups)
     if cell.config["conf"]["model"].get("dtype", "float32") == "float32":
         out["control_bf16"] = sound(at_dtype(cell, "bfloat16"), seed, device)
     return out
@@ -99,7 +98,8 @@ def view_readings(cell, seed: int, device="cuda") -> dict:
     """The control and the faults on the requests a run would check."""
     data, traffic = cell.config["data"], cell.traffic
     conf = cell.config["conf"]
-    p0 = scene.make_weights(conf["model"], seed, device)
+    fam = family.load(cell.family)
+    p0 = fam.make_weights(conf["model"], seed, device)
     pool = scene.Pool(data, int(traffic["pool_objects"]), seed, device)
     reqs = view_cell.Requests(pool, int(data["source_views"]), seed, device)
     k = -(-int(traffic["check_rays"]) // _rays_per_view(cell))
@@ -112,8 +112,8 @@ def view_readings(cell, seed: int, device="cuda") -> dict:
         args = (p0, conf["model"], conf["renderer"], src_u8, src_c2w,
                 torch.from_numpy(pool.focal).to(device), torch.from_numpy(pool.c).to(device),
                 scene.view_rays(pool, reqs.target(i)), reqs.seed(i), chunk)
-        good = ref_train.render_view(*args, "float32")
-        stand_ins = {"control": ref_train.render_view(*args, "fp8"),
+        good = fam.render_view(*args, "float32")
+        stand_ins = {"control": fam.render_view(*args, "fp8"),
                      "half_rays": half_rays(good, chunk), "altered": altered(good)}
         for name, view in stand_ins.items():
             readings[name].append(check.view_numbers(view, good, depth_range))

@@ -49,19 +49,22 @@ def moving_leaves(grad_ref: Dict[str, torch.Tensor]) -> List[str]:
     return [n for n, v in norms.items() if v >= ZERO_GRAD_SHARE * med]
 
 
-def train_numbers(prog: dict, ref: dict, p0: Dict[str, torch.Tensor]) -> Dict[str, float]:
+def train_numbers(prog: dict, ref: dict, p0: Dict[str, torch.Tensor],
+                  groups: Dict[str, str]) -> Dict[str, float]:
     """prog and ref: losses (list), grad1 and params ({name: tensor} on one
-    device); p0 the weights both started from.
+    device); p0 the weights both started from; groups the family's
+    `LEAF_GROUPS` ({group: prefix of its leaves' names}).
 
     loss_gap: the worst step's relative loss gap. grad_gap / update_gap:
     the worst leaf's gap of norms of the first gradient / of the change;
     grad_gap_median / update_gap_median: the median leaf's.
-    mlp_grad_err_median: the median leaf of the MLP heads' norm of the
+    <group>_grad_err_median: the median leaf of a group's norm of the
     first gradient's difference. Unbiased rounding moves it at first
-    order, where it moves a gap of norms at second; the trunk's leaves are
-    not in it, since their bfloat16 gradients read tens of percent off the
-    reference's (PERF.md). trunk_grad_err_median: the same over the
-    trunk's leaves, which a float32 configuration computes in float32."""
+    order, where it moves a gap of norms at second. pixelNeRF's `mlp`
+    (the heads) leaves the trunk out, since its bfloat16 gradients read
+    tens of percent off the reference's (PERF.md); its `trunk` is the
+    same over the trunk's leaves, which a float32 configuration computes
+    in float32."""
     names = sorted(ref["grad1"])
     if len(prog["losses"]) != len(ref["losses"]) or not all(map(math.isfinite, prog["losses"])):
         loss_gap = math.inf
@@ -76,10 +79,9 @@ def train_numbers(prog: dict, ref: dict, p0: Dict[str, torch.Tensor]) -> Dict[st
         "loss_gap": loss_gap,
         "grad_gap": max(grad),
         "grad_gap_median": statistics.median(grad),
-        "mlp_grad_err_median": statistics.median(
-            e for n, e in zip(names, grad_err) if n.startswith("mlp_")),
-        "trunk_grad_err_median": statistics.median(
-            e for n, e in zip(names, grad_err) if n.startswith("encoder.")),
+        **{f"{group}_grad_err_median": statistics.median(
+            e for n, e in zip(names, grad_err) if n.startswith(prefix))
+           for group, prefix in groups.items()},
         "update_gap": max(update),
         "update_gap_median": statistics.median(update),
     }

@@ -102,12 +102,12 @@ def pyramid_scatter(rows: int, levels, maps: int, d_latent: int) -> Tuple[float,
 # ----------------------------------------------------------------- encoder
 
 
-def trunk_convs(encoder: dict, h: int, w: int) -> List[Tuple[int, int, int, int, int, int]]:
+def trunk_convs(encoder: dict, h: int, w: int, arch) -> List[Tuple[int, int, int, int, int, int]]:
     """(cin, cout, k, stride, h_out, w_out) of every convolution of the
-    trunk on an h x w image; the stem's max-pool halves the size before
-    the first stage unless `use_first_pool` is false."""
-    from reference.pixelnerf import STAGE_BLOCKS, STAGE_CHANNELS
-
+    trunk on an h x w image, with the stages of `arch` (`STAGE_BLOCKS`,
+    `STAGE_CHANNELS`: `reference/pixelnerf.py`, as
+    `families/pixelnerf.py` hands it); the stem's max-pool halves the size
+    before the first stage unless `use_first_pool` is false."""
     out_hw = lambda n, k, s, p: (n + 2 * p - k) // s + 1
     h, w = out_hw(h, 7, 2, 3), out_hw(w, 7, 2, 3)
     convs = [(3, 64, 7, 2, h, w)]
@@ -115,8 +115,8 @@ def trunk_convs(encoder: dict, h: int, w: int) -> List[Tuple[int, int, int, int,
         h, w = out_hw(h, 3, 2, 1), out_hw(w, 3, 2, 1)
     cin = 64
     for stage in range(int(encoder["num_layers"]) - 1):
-        cout = STAGE_CHANNELS[stage]
-        for blk in range(STAGE_BLOCKS[encoder["backbone"]][stage]):
+        cout = arch.STAGE_CHANNELS[stage]
+        for blk in range(arch.STAGE_BLOCKS[encoder["backbone"]][stage]):
             stride = 2 if (stage > 0 and blk == 0) else 1
             ho, wo = out_hw(h, 3, stride, 1), out_hw(w, 3, stride, 1)
             convs += [(cin, cout, 3, stride, ho, wo), (cout, cout, 3, 1, ho, wo)]
@@ -126,11 +126,11 @@ def trunk_convs(encoder: dict, h: int, w: int) -> List[Tuple[int, int, int, int,
     return convs
 
 
-def encoder_flops(encoder: dict, images: int, h: int, w: int, train: bool) -> float:
+def encoder_flops(encoder: dict, images: int, h: int, w: int, train: bool, arch) -> float:
     """The trunk's convolutions: forward; in training also the weight
     gradient of each and the input gradient of all but the stem's."""
     total = 0.0
-    for i, (cin, cout, k, _, ho, wo) in enumerate(trunk_convs(encoder, h, w)):
+    for i, (cin, cout, k, _, ho, wo) in enumerate(trunk_convs(encoder, h, w, arch)):
         fwd = 2.0 * images * ho * wo * cout * cin * k * k
         total += fwd * ((2 if i == 0 else 3) if train else 1)
     return total
@@ -150,13 +150,12 @@ def latent_levels(h: int, w: int, use_first_pool: bool = True) -> List[Tuple[int
     return [(h1, w1, 128), (h3, w3, 128), (s(h3, 3), s(w3, 3), 256)]
 
 
-def cell_work(config: dict, traffic: dict) -> Dict[str, float]:
-    """Operations and bytes of one step (train) or one view, by function."""
-    from reference.pixelnerf import dims
-
+def cell_work(config: dict, traffic: dict, arch) -> Dict[str, float]:
+    """Operations and bytes of one step (train) or one view, by function;
+    `arch` gives the sizes (`dims`) and the trunk's stages."""
     conf, data = config["conf"], config["data"]
     model, rend = conf["model"], conf["renderer"]
-    d = dims(model)
+    d = arch.dims(model)
     ns = int(data["source_views"])
     h, w = data["image_hw"]
     kc = int(rend["n_coarse"])
@@ -169,7 +168,7 @@ def cell_work(config: dict, traffic: dict) -> Dict[str, float]:
         calls = [(mc, rays * kc), (mf, rays * kall)]
         fwd = [mlp_stash_forward(m, *args, r * ns, ns) for m, r in calls]
         bwd = [mlp_backward(m, *args, r * ns, ns) for m, r in calls]
-        enc = encoder_flops(model["encoder"], images, h, w, train=True)
+        enc = encoder_flops(model["encoder"], images, h, w, train=True, arch=arch)
         return {
             "mlp_flops": sum(f for f, _ in fwd + bwd),
             "mlp_least_s": sum(least_seconds(f, b) for f, b in fwd + bwd),
@@ -184,7 +183,7 @@ def cell_work(config: dict, traffic: dict) -> Dict[str, float]:
     # the field's calls see the padded chunks; the model needs the view's rays
     field = [field_primal(m, *args, padded * k * ns, ns, levels, ns)
              for m, k in ((mc, kc), (mf, kall))]
-    enc = encoder_flops(model["encoder"], ns, h, w, train=False)
+    enc = encoder_flops(model["encoder"], ns, h, w, train=False, arch=arch)
     mlp = sum(mlp_forward_flops(m, *args, rays * k * ns, ns) for m, k in ((mc, kc), (mf, kall)))
     return {
         "field_least_s": sum(least_seconds(f, b) for f, b in field),

@@ -31,15 +31,13 @@ def mlp_wgrad(mlp, d_in, d_latent, rows, views, d_out=4) -> Tuple[float, float]:
     return flops, nbytes
 
 
-def train_parts(config: dict, traffic: dict) -> Dict[str, float]:
+def train_parts(config: dict, traffic: dict, arch) -> Dict[str, float]:
     """Least seconds of one training step's stash forwards, backward
     chains and weight-gradient products, at the rows `counts.cell_work`
-    counts."""
-    from reference.pixelnerf import dims
-
+    counts with the same `arch`."""
     conf, data = config["conf"], config["data"]
     model, rend = conf["model"], conf["renderer"]
-    d = dims(model)
+    d = arch.dims(model)
     ns = int(data["source_views"])
     rays = int(traffic["objects_per_step"]) * int(traffic["rays_per_object"])
     kc = int(rend["n_coarse"])

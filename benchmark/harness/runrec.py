@@ -13,7 +13,7 @@ class Run:
     """A run's traced window.
 
     :param kind "train" or "view"
-    :param work operations and bytes of one step or view (`counts.cell_work`)
+    :param work operations and bytes of one step or view (the family's `cell_work`)
     :param units steps or views completed in the traced window
     :param trace the traced window's device operations, or None
     :param timed_s host seconds of the untraced window before the traced

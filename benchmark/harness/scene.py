@@ -6,6 +6,8 @@ and every seed the same sizes: only the contents and the order move with
 it. Weights and images are made on the device from a `torch.Generator`
 in a few large calls; the cameras and the traffic's order on the host from
 numpy. The reference is handed the same things, made again from the seed.
+A family's weights come from its family file (`harness/family.py`);
+pixelNeRF's draw is `make_weights` here.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from harness import family, manifest
 from reference import pixelnerf as ref
 
 SALTS = {"weights": 1, "images": 2, "rig": 3, "order": 4, "step": 5, "check": 6}
@@ -42,7 +45,8 @@ def generator(seed: int, what: str, device) -> torch.Generator:
 
 
 def make_weights(model_conf: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every parameter and BatchNorm statistic, float32, from one draw.
+    """pixelNeRF's weights (`families/pixelnerf.py` binds this): every
+    parameter and BatchNorm statistic, float32, from one draw.
 
     Convolutions kaiming-normal over fan_out, linear layers over fan_in,
     BatchNorm as initialized. The heads are shaped so that a view is
@@ -103,9 +107,16 @@ def make_rig(data: dict, objects: int, seed: int) -> np.ndarray:
     `sphere`: each object's views at random directions on a sphere of
     `radius` between the two elevations. `grid`: the same rows x cols
     arc of azimuths and elevations for every object, turned by a random
-    azimuth per object."""
+    azimuth per object. Any other kind: `poses(data, objects, rng)` of
+    `benchmark/rigs/<kind>.py`, drawing from the same generator."""
     rig, views = data["rig"], int(data["views_per_object"])
     r = rng(seed, "rig")
+    if rig["kind"] not in manifest.BUILT_IN_RIGS:
+        poses = np.asarray(family.rig(rig["kind"]).poses(data, objects, r), dtype=np.float32)
+        if poses.shape != (objects, views, 4, 4):
+            raise ValueError(f"rig {rig['kind']!r} gave poses of shape {poses.shape}, "
+                             f"not {(objects, views, 4, 4)}")
+        return poses
     el_lo, el_hi = np.radians(rig["elevation_deg"])
     poses = np.empty((objects, views, 4, 4))
     for o in range(objects):
@@ -117,8 +128,6 @@ def make_rig(data: dict, objects: int, seed: int) -> np.ndarray:
             a, e = np.meshgrid(np.linspace(az_lo, az_hi, rig["cols"]),
                                np.linspace(el_lo, el_hi, rig["rows"]))
             az, el = a.reshape(-1) + r.uniform(-np.pi, np.pi), e.reshape(-1)
-        else:
-            raise ValueError(f"unknown rig {rig['kind']!r}")
         for v in range(views):
             poses[o, v] = _look_at(_eye(rig["radius"], az[v], el[v]))
     return poses.astype(np.float32)

@@ -20,10 +20,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from harness import check, precision, scene
+from harness import check, family, precision, scene
 from harness.trace import read_profile
-from reference import pixelnerf as ref
-from reference import train as ref_train
 
 MAX_STEPS = 4096  # the order of batches repeats after this many steps
 
@@ -42,7 +40,8 @@ class Program:
         conf = ConfigTree(cell.config["conf"])
         data, traffic = cell.config["data"], cell.traffic
         self.model = make_model(conf["model"], device=device, train=True)
-        load_weights(self.model, scene.make_weights(cell.config["conf"]["model"], seed, device))
+        load_weights(self.model,
+                     family.load(cell.family).make_weights(cell.config["conf"]["model"], seed, device))
         rcfg = RendererConfig.from_conf(conf["renderer"], lindisp=bool(data.get("lindisp", False)))
         loss = conf.get_config("loss")
         self.optimizer = MultiSteps(make_optimizer(self.model, float(traffic["lr"])))
@@ -185,11 +184,12 @@ def reference_truth(cell, seed, states, device, precision: str = "float32", faul
     the host; the weights both started from, on the host)."""
     data, traffic = cell.config["data"], cell.traffic
     model_conf = cell.config["conf"]["model"]
-    p0 = scene.make_weights(model_conf, seed, device)
+    fam = family.load(cell.family)
+    p0 = fam.make_weights(model_conf, seed, device)
     pool = scene.Pool(data, int(traffic["pool_objects"]), seed, device)
     batches = Batches(pool, traffic, int(data["source_views"]), seed, device)
-    got = ref_train.run_steps(
-        p0, ref.param_specs(model_conf), model_conf, cell.config["conf"]["renderer"],
+    got = fam.run_steps(
+        p0, fam.param_specs(model_conf), model_conf, cell.config["conf"]["renderer"],
         cell.config["conf"]["loss"], [batches.for_reference(k) for k in range(len(states))],
         states, int(traffic["rays_per_object"]), float(traffic["lr"]), precision, fault=fault)
     cpu = lambda d: {n: t.detach().cpu() for n, t in d.items()}
@@ -201,4 +201,4 @@ def reference_numbers(cell, seed, prog_truth, states, device):
     """The program's first steps (`prog_truth`: losses, grad1 and params
     on the host) against the reference's."""
     truth, p0 = reference_truth(cell, seed, states, device)
-    return check.train_numbers(prog_truth, truth, p0)
+    return check.train_numbers(prog_truth, truth, p0, family.load(cell.family).LEAF_GROUPS)

@@ -23,10 +23,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from harness import check, precision, scene
+from harness import check, family, precision, scene
 from harness.trace import read_profile
 from harness.train_cell import load_weights
-from reference import train as ref_train
 
 MAX_REQUESTS = 8192
 
@@ -43,7 +42,8 @@ class Program:
 
         conf = ConfigTree(cell.config["conf"])
         self.model = make_model(conf["model"], device=device)
-        load_weights(self.model, scene.make_weights(cell.config["conf"]["model"], seed, device))
+        load_weights(self.model,
+                     family.load(cell.family).make_weights(cell.config["conf"]["model"], seed, device))
         self.rcfg = RendererConfig.from_conf(
             conf["renderer"], lindisp=bool(cell.config["data"].get("lindisp", False)))
         self.renderer = make_chunk_renderer(self.model, self.rcfg)
@@ -173,14 +173,15 @@ def reference_numbers(cell, seed, views: dict, device):
     program's view on the host}), over the sample (`check.over_views`)."""
     data, traffic = cell.config["data"], cell.traffic
     conf = cell.config["conf"]
-    p0 = scene.make_weights(conf["model"], seed, device)
+    fam = family.load(cell.family)
+    p0 = fam.make_weights(conf["model"], seed, device)
     pool = scene.Pool(data, int(traffic["pool_objects"]), seed, device)
     reqs = Requests(pool, int(data["source_views"]), seed, device)
     depth_range = float(data["z_far"]) - float(data["z_near"])
     readings = []
     for i in check_sample(cell, seed, sorted(views)):
         src_u8, src_c2w = reqs.sources(i)
-        want = ref_train.render_view(
+        want = fam.render_view(
             p0, conf["model"], conf["renderer"], src_u8, src_c2w,
             torch.from_numpy(pool.focal).to(device), torch.from_numpy(pool.c).to(device),
             scene.view_rays(pool, reqs.target(i)), reqs.seed(i), int(traffic["chunk_rays"]))

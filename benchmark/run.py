@@ -83,7 +83,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device) -> dict:
     """Run a cell and assemble the result line's object."""
     import torch
 
-    from harness import counts, train_cell, view_cell
+    from harness import family, train_cell, view_cell
     from harness.check import judge
     from harness.manifest import load_reader
     from harness.runrec import Run
@@ -100,9 +100,10 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device) -> dict:
     }
     metrics, breakdown = {}, None
     if traced:
-        run = Run(kind=cell.kind, work=counts.cell_work(cell.config, cell.traffic),
-                  units=got["units"], trace=got["trace"], timed_s=got["timed_s"],
-                  timed_units=got["timed_units"], encode_ms=got.get("encode_ms", []))
+        work = family.load(cell.family).cell_work(cell.config, cell.traffic)
+        run = Run(kind=cell.kind, work=work, units=got["units"], trace=got["trace"],
+                  timed_s=got["timed_s"], timed_units=got["timed_units"],
+                  encode_ms=got.get("encode_ms", []))
         for m in cell.per_layer:
             value = load_reader(m["name"])(run)
             if value is not None:

@@ -23,8 +23,7 @@ import sys
 from collections import defaultdict
 
 import run
-from harness import manifest, spans, train_cell, view_cell
-from harness.mlp_parts import train_parts
+from harness import family, manifest, spans, train_cell, view_cell
 from harness.trace import MLP_BUCKETS, read_profile
 
 
@@ -72,7 +71,7 @@ def measure(cell, seed: int, seconds: float, device) -> dict:
     data, traffic = cell.config["data"], cell.traffic
     if cell.kind == "train":
         units, benches = int(traffic["trace_steps"]), ("bench.step",)
-        parts = train_parts(cell.config, traffic)
+        parts = family.load(cell.family).train_parts(cell.config, traffic)
     else:
         h, w = data["image_hw"]
         units, benches, parts = -(-int(traffic["trace_rays"]) // (h * w)), ("bench.encode",

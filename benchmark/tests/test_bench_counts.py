@@ -5,7 +5,8 @@ import json
 import pytest
 
 import bench_tiny  # noqa: F401  (puts the benchmark on sys.path)
-from harness import counts, manifest
+from harness import counts, family, manifest
+from reference import pixelnerf as ref
 
 MLP = {"d_hidden": 4, "n_blocks": 3, "combine_layer": 2}
 
@@ -39,21 +40,21 @@ def test_field_and_lookup_bytes():
 
 def test_trunk_convolutions_by_hand():
     enc = {"backbone": "resnet18", "num_layers": 2}
-    convs = counts.trunk_convs(enc, 32, 32)
+    convs = counts.trunk_convs(enc, 32, 32, ref)
     # stem 7x7/2 -> 16x16, pool -> 8x8, layer1: two blocks of two 3x3 convs
     assert convs[0] == (3, 64, 7, 2, 16, 16)
     assert convs[1:] == [(64, 64, 3, 1, 8, 8)] * 4
     fwd = 2 * (16 * 16 * 64 * 3 * 49 + 4 * 8 * 8 * 64 * 64 * 9)
-    assert counts.encoder_flops(enc, 1, 32, 32, train=False) == fwd
+    assert counts.encoder_flops(enc, 1, 32, 32, train=False, arch=ref) == fwd
     train = 2 * 2 * 16 * 16 * 64 * 3 * 49 + 3 * 2 * 4 * 8 * 8 * 64 * 64 * 9
-    assert counts.encoder_flops(enc, 1, 32, 32, train=True) == train
+    assert counts.encoder_flops(enc, 1, 32, 32, train=True, arch=ref) == train
 
 
 def test_trunk_without_first_pool_by_hand():
     # sn64.conf: no max-pool after the 7x7/2 stem, so layer1 runs at the
     # stem's 32x32 and each later stage halves it
     enc = {"backbone": "resnet34", "num_layers": 4, "use_first_pool": False}
-    convs = counts.trunk_convs(enc, 64, 64)
+    convs = counts.trunk_convs(enc, 64, 64, ref)
     assert convs[0] == (3, 64, 7, 2, 32, 32)
     assert convs[1:7] == [(64, 64, 3, 1, 32, 32)] * 6
     assert convs[7:10] == [(64, 128, 3, 2, 16, 16), (128, 128, 3, 1, 16, 16),
@@ -65,17 +66,17 @@ def test_trunk_without_first_pool_by_hand():
     fwd = 32 * 32 * 64 * 3 * 49 + 6 * 32 * 32 * 64 * 64 * 9
     fwd += 16 * 16 * (128 * 64 * 9 + 7 * 128 * 128 * 9 + 128 * 64)
     fwd += 8 * 8 * (256 * 128 * 9 + 11 * 256 * 256 * 9 + 256 * 128)
-    assert counts.encoder_flops(enc, 1, 64, 64, train=False) == 2 * fwd
+    assert counts.encoder_flops(enc, 1, 64, 64, train=False, arch=ref) == 2 * fwd
     # the levels: stem and layer1 at 32x32, layer2 at 16x16, layer3 at 8x8
     assert counts.latent_levels(64, 64, use_first_pool=False) == [
         (32, 32, 128), (16, 16, 128), (8, 8, 256)]
     assert counts.latent_levels(64, 64) == [(32, 32, 128), (8, 8, 128), (4, 4, 256)]
-    assert counts.trunk_convs({**enc, "use_first_pool": True}, 64, 64)[1][4:] == (16, 16)
+    assert counts.trunk_convs({**enc, "use_first_pool": True}, 64, 64, ref)[1][4:] == (16, 16)
 
 
 def test_resnet34_levels_and_downsamples():
     enc = {"backbone": "resnet34", "num_layers": 4}
-    convs = counts.trunk_convs(enc, 128, 128)
+    convs = counts.trunk_convs(enc, 128, 128, ref)
     assert len(convs) == 1 + 2 * (3 + 4 + 6) + 2
     assert convs[-1][4:] == (8, 8)
     assert counts.latent_levels(128, 128) == [(64, 64, 128), (16, 16, 128), (8, 8, 256)]
@@ -85,7 +86,7 @@ def test_resnet34_levels_and_downsamples():
 @pytest.mark.parametrize("workload", [w["name"] for w in manifest.load_manifest()["workloads"]])
 def test_cell_work_is_positive_and_below_peak_share(workload):
     cell = manifest.Cell(manifest.load_manifest(), workload)
-    work = counts.cell_work(cell.config, cell.traffic)
+    work = family.load(cell.family).cell_work(cell.config, cell.traffic)
     assert work["model_flops"] > work["mlp_flops"] > 0
     if cell.kind == "train":
         # srn's step of 4,096 rays: 22.85 TFLOP of MLP (PERF.md), forward +
@@ -103,10 +104,11 @@ def test_sn64_step_by_hand():
         config = json.load(f)
     with open(manifest.traffic_path("train_steps")) as f:
         traffic = json.load(f)
-    work = counts.cell_work(config, traffic)
+    work = family.load("pixelnerf").cell_work(config, traffic)
     rows = 4096 * (64 + 96)
     d_in, d_lat, h = 3 + 6 * 2 * 3 + 3, 512, 512
     fwd = 2 * rows * (d_in * h + 3 * d_lat * h + 5 * 2 * h * h + h * 4)
     assert work["mlp_flops"] == 3 * fwd == pytest.approx(13.4929e12, rel=1e-5)
-    trunk = counts.encoder_flops(config["conf"]["model"]["encoder"], 4, 64, 64, train=True)
+    trunk = counts.encoder_flops(config["conf"]["model"]["encoder"], 4, 64, 64, train=True,
+                                 arch=ref)
     assert work["encoder_flops"] == trunk

@@ -100,3 +100,12 @@ def test_config_entry(config):
     assert len(config["reduced"]) <= 16 and LINE.match(config["source"])
     files = [c["file"] for c in M["configs"]]
     assert len(files) == len(set(files))
+
+
+@pytest.mark.parametrize("path", sorted((manifest.BENCH_DIR / "configs").glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_config_family_and_rig_resolve_to_files(path):
+    config = json.loads(path.read_text())
+    files = manifest.config_files(config)
+    assert files and all(p.is_file() for p in files.values()), files
+    assert manifest.family_path(manifest.family_of(config)) in files.values()

@@ -20,8 +20,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from bench_tiny import tiny_cell
 import run
 import span_readings
-from harness import counts, manifest, spans, train_cell
-from harness.mlp_parts import mlp_backward_chain, mlp_wgrad, train_parts
+from harness import counts, family, manifest, spans, train_cell
+from harness.mlp_parts import mlp_backward_chain, mlp_wgrad
 from harness.runrec import Run
 from harness.scene import generator
 
@@ -75,10 +75,11 @@ def test_chain_and_wgrad_split_the_backwards_operations():
         assert b_wgrad == rows * 8 * 2 + counts.mlp_params(MLP, 3, 5) * 4
     for name in ("srn.train", "dtu.train"):
         cell = manifest.Cell(manifest.load_manifest(), name)
-        parts = train_parts(cell.config, cell.traffic)
+        fam = family.load(cell.family)
+        parts = fam.train_parts(cell.config, cell.traffic)
         # every part bound by its operations at these sizes: each a third
         # of the forward-and-backward's least time
-        work = counts.cell_work(cell.config, cell.traffic)
+        work = fam.cell_work(cell.config, cell.traffic)
         assert sum(parts.values()) == pytest.approx(work["mlp_least_s"])
         assert parts["mlp_chain_least_s"] == pytest.approx(parts["mlp_wgrad_least_s"])
 
