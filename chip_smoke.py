@@ -208,7 +208,13 @@ as bf16 torch.matmul at the same shapes, a yardstick timed only (it is in
 their `kernels` records; `library_ms` stays null, since no single call
 computes the chain). It also times the field primal once at NS=3 on the
 fine chunk's shape, and a wave of ResnetFC tiles (primal and stash) with
-a quarter of the SMs busy, all of them, and ten waves.
+a quarter of the SMs busy, all of them, and ten waves. After them it
+prints each chain shape's ring stages and drains a tile (`fwd schedule`
+lines, `pnt_resnetfc_fwd_schedule`); with `--baseline`, the earlier tree's
+forward kernels beside this tree's on one set of seeded inputs (`fwd
+chain` lines: rows 2, 3a, 4 and 5 of PERF.md's table and row 4 at a `dtu`
+view chunk, NS 3, in turns, every output and stash slot equal bit for bit)
+and both trees' waves.
 """
 
 from __future__ import annotations
@@ -823,17 +829,30 @@ def _sum_bound_check(torch, name, got, uv, dz, taps):
     return worst
 
 
-def _on_library(lib, fn):
-    """fn() with ops/resnetfc.py's built `resnetfc_bwd` replaced by `lib`
-    (an earlier tree's, `--baseline`)."""
+def _on_library(lib, fn, which="resnetfc_bwd"):
+    """fn() with ops/resnetfc.py's built `which` ("resnetfc_bwd" or
+    "resnetfc_fwd") replaced by `lib` (an earlier tree's, `--baseline`)."""
     from pixelnerf_tpu_torch.ops import resnetfc
 
     real = resnetfc._library
-    resnetfc._library = lambda name: lib if name == "resnetfc_bwd" else real(name)
+    resnetfc._library = lambda name: lib if name == which else real(name)
     try:
         return fn()
     finally:
         resnetfc._library = real
+
+
+def _on_fwd_libraries(baseline, fn):
+    """fn() with the earlier tree's forward-chain kernels (`resnetfc_fwd`
+    and `field_fwd`) in place of this tree's."""
+    from pixelnerf_tpu_torch.ops import field
+
+    real = field._library
+    field._library = lambda: baseline["field_fwd"]
+    try:
+        return _on_library(baseline["resnetfc_fwd"], fn, "resnetfc_fwd")
+    finally:
+        field._library = real
 
 
 def check_field_vjp(torch, np, dev, step_calls=(), baseline=None):
@@ -1095,13 +1114,15 @@ def _kept_calls(keep):
     return patched()
 
 
-BASELINE_SOURCES = ("pyramid", "bilerp", "resnetfc_bwd", "posenc", "layer_chain")
+BASELINE_SOURCES = ("pyramid", "bilerp", "resnetfc_bwd", "resnetfc_fwd", "field_fwd", "posenc",
+                    "layer_chain")
 
 
 def _baseline_build(path):
     """Start building an earlier tree's kernels (`--baseline`): its
-    `csrc/pyramid.cu`, `csrc/bilerp.cu`, `csrc/resnetfc_bwd.cu` and, where
-    it has them, `csrc/posenc.cu` and `csrc/layer_chain.cu`, under `path`,
+    `csrc/pyramid.cu`, `csrc/bilerp.cu`, `csrc/resnetfc_bwd.cu`,
+    `csrc/resnetfc_fwd.cu`, `csrc/field_fwd.cu` and, where it has them,
+    `csrc/posenc.cu` and `csrc/layer_chain.cu`, under `path`,
     one nvcc each, into build/baseline; returns the running builds and each
     source's text."""
     from pixelnerf_tpu_torch.ops.cuda_build import nvcc_command
@@ -1161,8 +1182,9 @@ def _baseline_kernels(torch, builds):
     ops/scatter_plan.py; for the gathers, one warp a point (no plan) or
     units planned by the port's ops/gather_plan.py. Which one, each
     source's includes say; a tree whose bilerp launchers take `wide` (the
-    float32 taps past 8,192 pixels) is given it. And its backward's library
-    (`resnetfc_bwd`), bound as the port binds its own."""
+    float32 taps past 8,192 pixels) is given it. And its backward's and
+    forward kernels' libraries (`resnetfc_bwd`, `resnetfc_fwd`,
+    `field_fwd`), bound as the port binds its own."""
     import ctypes
 
     from pixelnerf_tpu_torch.ops import pyramid as pyr, scatter as bil
@@ -1170,6 +1192,7 @@ def _baseline_kernels(torch, builds):
     from pixelnerf_tpu_torch.ops.pyramid import _level_args
     from pixelnerf_tpu_torch.ops.scatter_plan import device_sms, plan_scatter
 
+    from pixelnerf_tpu_torch.ops.field import bind_library as bind_field
     from pixelnerf_tpu_torch.ops.resnetfc import bind_library
 
     libs, planned = {}, {}
@@ -1252,7 +1275,9 @@ def _baseline_kernels(torch, builds):
     out = {"pyramid_scatter_add": pyramid_scatter, "bilerp_scatter_add": bilerp_scatter,
            "pyramid_gather": pyramid_gather, "bilerp_gather": bilerp_gather,
            "resnetfc_bwd": bind_library(libs["resnetfc_bwd"], "resnetfc_bwd"),
-           "resnetfc_bwd_path": builds["resnetfc_bwd"][1]}
+           "resnetfc_bwd_path": builds["resnetfc_bwd"][1],
+           "resnetfc_fwd": bind_library(libs["resnetfc_fwd"], "resnetfc_fwd"),
+           "field_fwd": bind_field(libs["field_fwd"])}
     if "layer_chain" in libs:
         out.update(_baseline_layers(torch, libs["layer_chain"]))
     return out
@@ -1978,21 +2003,7 @@ def check_resnetfc(torch, np, dev):
     mats = sum(t.numel() * 2 for t in (w.w_in, w.wz, w.w0, w.w1))
     for name, r in (("resnetfc_fwd", fwd), ("resnetfc_fwd_stash", stash)):
         _chain_line(name, total_flops, r["ms"], r["products_ms"], ns, mats, "a train step")
-    # A tile is one CTA and an SM holds one: a wave that takes as long with
-    # a quarter of the SMs busy as with all of them is bound by nothing the
-    # CTAs share (L2, device memory).
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for ctas in (sms // 4, sms, 10 * sms):
-        b = (64 // ns) * ctas
-        z = rnd(1, ns, b, dl).to(torch.bfloat16)
-        xin = rnd(1, ns, b, D_IN).to(torch.bfloat16)
-        waves = -(-ctas // sms)
-        us = [
-            _device_ms(torch, lambda f=f: f(z, xin, w, *args), 20) / waves * 1e3
-            for f in (resnetfc_fwd, resnetfc_fwd_stash)
-        ]
-        print(f"resnetfc_fwd waves: {ctas} CTAs on {sms} SMs, primal {us[0]:.1f} us a wave, stash {us[1]:.1f}")
-        del z, xin
+    _fwd_waves(torch, dev, g, w, dl, ns)
     for name, r in (("resnetfc_fwd", fwd), ("resnetfc_fwd_stash", stash), ("resnetfc_bwd", bwd)):
         print(
             f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -2006,6 +2017,140 @@ def check_resnetfc(torch, np, dev):
         _record("resnetfc_fwd_stash", "cuda", "pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu", f"{rep}:551", stash, "operations", None),
         _record("resnetfc_bwd", "cuda", "pixelnerf_tpu_torch/csrc/resnetfc_bwd.cu", f"{rep}:607", bwd, "operations", None),
     ]
+
+
+def _fwd_waves(torch, dev, g, w, dl, ns, label=""):
+    """The ResnetFC primal and stash forward a wave of tiles (us) with a
+    quarter of the SMs busy, all of them, and ten waves, printed as
+    `resnetfc_fwd waves` lines. A tile is one CTA and an SM holds one: a
+    wave that takes as long with a quarter of the SMs busy as with all of
+    them is bound by nothing the CTAs share (L2, device memory)."""
+    from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_fwd, resnetfc_fwd_stash
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = (N_BLOCKS, COMBINE, ns)
+    for ctas in (sms // 4, sms, 10 * sms):
+        b = (64 // ns) * ctas
+        z = torch.randn((1, ns, b, dl), generator=g, device=dev).to(torch.bfloat16)
+        xin = torch.randn((1, ns, b, D_IN), generator=g, device=dev).to(torch.bfloat16)
+        waves = -(-ctas // sms)
+        us = [
+            _device_ms(torch, lambda f=f: f(z, xin, w, *args), 20) / waves * 1e3
+            for f in (resnetfc_fwd, resnetfc_fwd_stash)
+        ]
+        print(f"resnetfc_fwd waves{label}: {ctas} CTAs on {sms} SMs, primal {us[0]:.1f} us a wave, "
+              f"stash {us[1]:.1f}")
+        del z, xin
+
+
+# chain shapes whose schedule check_fwd_chains prints: (hidden, d_latent,
+# NS); the flagship's d_in, blocks and pooling
+SCHEDULE_SHAPES = {
+    "flagship": (512, 512, 2), "dtu view": (512, 512, 3), "hidden 256": (256, 512, 2),
+    "hidden 128": (128, 512, 2), "hidden 64": (64, 128, 2), "d_latent 1024": (512, 1024, 2),
+}
+
+
+def check_fwd_chains(torch, dev, baseline=None):
+    """The forward chain's schedule (`fwd schedule` lines: the ring stages a
+    tile walks and the drains of the tensor pipe its consumers make, as
+    `pnt_resnetfc_fwd_schedule` counts them; an earlier tree without it
+    drained after every stage). With `baseline`, the earlier tree's forward
+    kernels beside this tree's on the same seeded inputs (`fwd chain`
+    lines), each timed in turns (baseline, kernel, kernel, baseline): PERF.md
+    rows 2 (the field primal at the view's two chunks), 3a (its stash
+    forward at the fused step's two calls), 4 and 5 (the ResnetFC primal and
+    stash forward at the train step's three calls), and row 4 at a `dtu`
+    view chunk's two calls (NS 3, 21 points a tile); every output and stash
+    slot must equal the baseline's bit for bit. Then both trees' waves."""
+    import ctypes
+
+    from pixelnerf_tpu_torch.ops.cuda_build import load_library
+    from pixelnerf_tpu_torch.ops.field import (
+        field_flops, pack_field_weights, pyramid_field_fused, pyramid_field_fused_fwd_stash,
+    )
+    from pixelnerf_tpu_torch.ops.resnetfc import resnetfc_fwd, resnetfc_fwd_stash
+
+    libs = {"this tree": load_library("resnetfc_fwd")}
+    if baseline is not None:
+        libs["baseline"] = baseline["resnetfc_fwd"]
+    for name, (hidden, dl, ns) in SCHEDULE_SHAPES.items():
+        counts = []
+        for lib in libs.values():
+            fn = getattr(lib, "pnt_resnetfc_fwd_schedule", None)
+            c = (ctypes.c_int * 2)(0, 0)
+            if fn is not None:
+                fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+                fn(hidden, dl, D_IN_PAD, ns, N_BLOCKS, COMBINE, c)
+            counts.append((c[0], c[1]) if fn is not None else None)
+        stages, drains = counts[0]
+        base = "" if baseline is None else "; baseline " + (
+            "drains every stage" if counts[1] is None else f"{counts[1][0]} stages, {counts[1][1]} drains")
+        print(f"fwd schedule {name}: hidden {hidden}, d_latent {dl}, NS {ns}: {stages} ring stages "
+              f"and {drains} drains a tile{base}")
+    if baseline is None:
+        return
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    dl = sum(c for _, _, c in LEVELS)
+    w = pack_field_weights(_random_weights(torch, g, dev, dl))
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+
+    def field_inputs(sb, ns, b):
+        feats = [rnd(sb * ns, h, wd, c).to(torch.bfloat16) for h, wd, c in LEVELS]
+        grid = torch.rand((sb, ns, b, 2), generator=g, device=dev) * 2.2 - 1.1
+        return feats, grid, rnd(sb, ns, b, D_IN).to(torch.bfloat16)
+
+    def mlp_inputs(sb, ns, b):
+        return rnd(sb, ns, b, dl).to(torch.bfloat16), rnd(sb, ns, b, D_IN).to(torch.bfloat16)
+
+    rows = {
+        "2 (pyramid_field_fused, a view)": (
+            field_inputs, pyramid_field_fused, 1, NS, [CHUNK_RAYS * k for k in CHUNK_SAMPLES.values()]),
+        "3a (pyramid_field_fused_fwd_stash, a fused step)": (
+            field_inputs, pyramid_field_fused_fwd_stash, SB, TRAIN_NS,
+            [TRAIN_RAYS * k for k in FIELD_CALLS.values()]),
+        "4 (resnetfc_fwd, a train step)": (
+            mlp_inputs, resnetfc_fwd, SB, TRAIN_NS, [TRAIN_RAYS * k for k in MLP_CALLS.values()]),
+        "5 (resnetfc_fwd_stash, a train step)": (
+            mlp_inputs, resnetfc_fwd_stash, SB, TRAIN_NS, [TRAIN_RAYS * k for k in MLP_CALLS.values()]),
+        "4 dtu (resnetfc_fwd, a dtu view chunk)": (
+            mlp_inputs, resnetfc_fwd, 1, 3, [CHUNK_RAYS * k for k in CHUNK_SAMPLES.values()]),
+    }
+    on_base = lambda fn: _on_fwd_libraries(baseline, fn)
+    for label, (inputs, kernel, sb, ns, calls) in rows.items():
+        ms = {"this tree": 0.0, "baseline": 0.0}
+        flops = 0.0
+        for b in calls:
+            ins = inputs(sb, ns, b)
+            run = lambda: kernel(*ins, w, N_BLOCKS, COMBINE, ns)
+            got, want = run(), on_base(run)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            same = len(got) == len(want) and all(
+                (a is None and b_ is None) or (a is not None and b_ is not None and torch.equal(a, b_))
+                for a, b_ in zip(got, want))
+            if not same:
+                raise AssertionError(f"fwd chain row {label}: B={b} differs from the baseline's")
+            del got, want
+            turns = (("baseline", lambda: on_base(run)), ("this tree", run), ("this tree", run),
+                     ("baseline", lambda: on_base(run)))
+            for who, fn in turns:
+                ms[who] += _time_ms(torch, fn, 1, 3) / 2
+            flops += field_flops(ns, D_IN, dl, HIDDEN, D_OUT, N_BLOCKS, COMBINE) * sb * b
+            del ins
+            torch.cuda.empty_cache()
+        print(f"fwd chain row {label}: NS={ns}, B={calls}: kernel {ms['this tree']:.3f} ms "
+              f"({flops / ms['this tree'] / 1e9:.1f} TFLOP/s), baseline {ms['baseline']:.3f} ms "
+              f"({flops / ms['baseline'] / 1e9:.1f} TFLOP/s), in turns; outputs and every stash slot "
+              f"equal to the baseline's")
+    mw = _random_weights(torch, g, dev, dl)
+    for who in ("baseline", "this tree", "this tree", "baseline"):
+        waves = lambda: _fwd_waves(torch, dev, g, mw, dl, TRAIN_NS, f" ({who})")
+        if who == "baseline":
+            on_base(waves)
+        else:
+            waves()
 
 
 def _unrounded(torch, t) -> float:
@@ -4782,6 +4927,8 @@ def main() -> int:
                   f"earlier tree's")
 
     kernels = [check_field(torch, np, dev)] + check_resnetfc(torch, np, dev)
+    torch.cuda.empty_cache()
+    check_fwd_chains(torch, dev, baseline)
     torch.cuda.empty_cache()
     kernels.append(check_resnetfc_f32(torch, np, dev, baseline))
     torch.cuda.empty_cache()

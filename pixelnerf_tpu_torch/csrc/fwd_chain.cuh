@@ -25,12 +25,14 @@
 // d_latent 512, d_in 42 padded to 48, 5 blocks, 3 injections, NS=2) a point
 // costs ~11.6 MFLOP of bf16 products against ~2 KB of inputs and outputs,
 // or ~17 KB with the stash, far above the ~295 FLOP/byte ridge: the least
-// time is FLOP / 989 TFLOP/s. Every CTA reads a head's ~6.9 MB of bf16
-// weights from L2 (64 rows a CTA: 64 FLOP per L2 byte), yet a tile takes
-// as long with 33 CTAs on the card as with 132: neither L2 nor the TMA
-// ring binds, but the consumer warpgroups' own work between and around
-// the products (bias adds, relu stores, barriers, drains), ~2-3x the
-// products' time as bf16 torch.matmul (PERF.md).
+// time is FLOP / 989 TFLOP/s. What binds in practice is each SM's own
+// weight stream: every CTA reads a head's ~6.9 MB of bf16 weights from L2
+// (64 rows a CTA: 64 FLOP per L2 byte) through its 64 KB ring, ~70 GB/s an
+// SM, whether 33 CTAs run or 132. A tile at NS=2 takes ~110 us, ~105 of
+// them with the products taken out and the stream left in, against ~59 us
+// of tensor work at the bf16 peak (PERF.md §6). The epilogues, the pooling
+// and the output layer, which once took ~45% of a tile, now hide under
+// the stream.
 //
 // Design. 384 threads: two consumer warpgroups and one producer warpgroup
 // (setmaxnreg gives the consumers 232 registers, the producer 40).
@@ -51,7 +53,17 @@
 //   into one buffer: each warpgroup computes half a chunk,
 //   h = relu(relu(x) @ W0[:, chunk] + b0) (wgmma n128, or n64 / n32 at
 //   hidden 128 / 64), writes it, and
-//   both then add chunk @ W1[chunk, :] to their x columns.
+//   both then add chunk @ W1[chunk, :] to their x columns. Relu'd tiles
+//   are written with stmatrix (the accumulator fragment is its layout).
+// - Schedule: a ring stage's products are one wgmma group, left in flight
+//   while the next stage's are issued, the stage freed one behind. The
+//   tensor pipe is drained only where an epilogue reads an accumulator:
+//   after the input layer, each injection band, each W0 chunk and each
+//   block's last W1 chunk; a block's other W1 chunks run on into the next
+//   W0 chunk, which reads only relu(x) (fwd_schedule counts 19 drains of a
+//   tile's 419 stages at the flagship). Each accumulator takes its
+//   products in the same k-order, so the output is bit for bit what a
+//   drain after every stage gives.
 // - Stash rows are copied from the same shared-memory operand tiles (16
 //   bytes a thread, rows past B skipped) by three copier warps of the
 //   producer warpgroup, handed each tile through mbarriers, while the
@@ -60,8 +72,9 @@
 //   12 rows break.)
 // Shared memory at H = d_latent = 512: ring 64 KB, relu(x) 64 KB, z 64 KB,
 // h 32 KB (225 KB). The view pooling goes through the relu(x) and z tiles
-// as f32 scratch, and the output layer keeps W_out in the z tile (z is dead
-// after the last injection).
+// as f32 scratch (pool_offset: swizzled to the fewest wavefronts),
+// and the output layer keeps W_out in the z tile (z is dead after the last
+// injection).
 // - A latent wider than the z tile fits (d_latent 640 or 1024 at H = 512:
 //   a global latent, or five encoder levels) runs each injection's z @ Wz_i
 //   in column bands of the tile's width (`zw`, fwd_z_cols), summed into the
@@ -149,6 +162,12 @@ static inline int chain_points(int ns) { return ns < FWD_ROWS ? FWD_ROWS / ns : 
 
 __host__ __device__ inline int chain_chunk(int hidden) { return hidden >= 256 ? 256 : hidden; }
 
+// W0 rows a ring stage holds (ChainShape::KS3)
+static inline int chain_w0_rows(int hidden) {
+  const int rows = FWD_STAGE_BYTES / (chain_chunk(hidden) * 2);
+  return rows < hidden ? rows : hidden;
+}
+
 // The dynamic shared memory one Hopper block may use: ops/cuda_build.py's
 // SMEM_LIMIT, which every build defines as PNT_SMEM_LIMIT.
 #ifndef PNT_SMEM_LIMIT
@@ -179,6 +198,19 @@ static inline int fwd_z_cols(int hidden, int d_latent, int ns) {
 
 static inline size_t fwd_smem_bytes(int hidden, int d_latent, int ns) {
   return fwd_tile_bytes(hidden, fwd_z_cols(hidden, d_latent, ns), ns);
+}
+
+// The ring stages one tile walks and the drains (wgmma_wait<0>) its
+// consumers make, as chain_consume schedules them: every product ends
+// drained but a block's W1 chunks before its last, which run on into the
+// next chunk's W0 product. So a drain a tile for the input layer, one an
+// injection band, and one for each W0 chunk and each block's last W1 chunk.
+static inline void fwd_schedule(int hidden, int d_latent, int d_in_pad, int ns, int n_blocks,
+                                int n_inj, int* stages, int* drains) {
+  const int chunks = hidden / chain_chunk(hidden), zw = fwd_z_cols(hidden, d_latent, ns);
+  *stages = d_in_pad / 16 + n_inj * (d_latent / 16) +
+            n_blocks * (chunks * (hidden / chain_w0_rows(hidden)) + hidden / 16);
+  *drains = 1 + n_inj * ((d_latent + zw - 1) / zw) + n_blocks * (chunks + 1);
 }
 
 // The launch's checks and its tensor maps; 0 or a cudaError_t.
@@ -220,8 +252,8 @@ static inline int chain_setup(ChainParams* p, ChainMaps* m, const void* xin, con
   int err = weight_map(&m->w_in, w_in, d_in_pad, hidden, swe, 16, nblk);
   if (!err) err = weight_map(&m->wz, wz, p->n_inj * d_latent, hidden, swe, 16, nblk);
   const int hc = chain_chunk(hidden);
-  const int ks3 = FWD_STAGE_BYTES / (hc * 2) < hidden ? FWD_STAGE_BYTES / (hc * 2) : hidden;
-  if (!err) err = weight_map(&m->w0, w0, n_blocks * hidden, hidden, swe, ks3, hc / swe);
+  if (!err)
+    err = weight_map(&m->w0, w0, n_blocks * hidden, hidden, swe, chain_w0_rows(hidden), hc / swe);
   if (!err) err = weight_map(&m->w1, w1, n_blocks * hidden, hidden, swe, 16, nblk);
   return err;
 }
@@ -291,12 +323,17 @@ struct Ring {
 // acc (64 x N, this warpgroup's columns) += A[:, :K] @ the next K / KS ring
 // stages of KS rows each; this warpgroup's B starts `boff` bytes into a
 // stage, rows `swb` bytes apart, MN blocks of swb / 2 columns `lbo` apart.
-// Each warp frees a stage as soon as its products on it have completed;
-// the other warpgroup's products fill the wait.
-template <int N, int R>
+// A stage's products are one wgmma group, left in flight while the next
+// stage's are issued; a warp frees a stage once its group has completed.
+// `held` is the stage whose group may still run (-1: none). DRAIN ends the
+// product with every group complete, for an epilogue that reads acc (or a
+// rewrite of A); without it the last group runs on into the caller's next
+// product, whose first stage frees it, and acc is not touched until a
+// later product drains.
+template <int N, bool DRAIN, int R>
 __device__ __forceinline__ void ring_product(float (&acc)[R], const unsigned char* A, int K,
-                                             int KS, Ring& rg, uint32_t boff, uint32_t lbo,
-                                             uint32_t swb) {
+                                             int KS, Ring& rg, int& held, uint32_t boff,
+                                             uint32_t lbo, uint32_t swb) {
   const uint32_t layout = swb == 128 ? 1 : 2;
   const bool lead = threadIdx.x % 32 == 0;
   fence_regs(acc);
@@ -307,14 +344,26 @@ __device__ __forceinline__ void ring_product(float (&acc)[R], const unsigned cha
     for (int kk = 0; kk < KS; kk += 16)
       wgmma_n<N>(acc, a_desc(A, k0 + kk), smem_desc(B + kk * swb, lbo, 8 * swb, layout));
     wgmma_commit();
-    wgmma_wait<0>();
-    if (lead) mbar_arrive(&rg.empty[rg.stage]);
+    wgmma_wait<1>();
+    if (held >= 0 && lead) mbar_arrive(&rg.empty[held]);
+    held = rg.stage;
     if (++rg.stage == FWD_STAGES) {
       rg.stage = 0;
       rg.phase ^= 1;
     }
   }
-  fence_regs(acc);
+  if constexpr (DRAIN) {
+    wgmma_wait<0>();
+    if (lead) mbar_arrive(&rg.empty[held]);
+    held = -1;
+    fence_regs(acc);
+  }
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Accumulator fragment of m64nN: register 4j + {0,1} holds row r0, columns
@@ -322,9 +371,10 @@ __device__ __forceinline__ void ring_product(float (&acc)[R], const unsigned cha
 // lane % 4, within the warpgroup).
 template <int R>
 __device__ __forceinline__ void add_bias(float (&x)[R], const float* b, int col0, int q) {
+  const float* bq = b + col0 + 2 * q;
 #pragma unroll
   for (int j = 0; j < R / 4; j++) {
-    const float2 bb = *reinterpret_cast<const float2*>(b + col0 + 8 * j + 2 * q);
+    const float2 bb = *reinterpret_cast<const float2*>(bq + 8 * j);
     x[4 * j] += bb.x;
     x[4 * j + 1] += bb.y;
     x[4 * j + 2] += bb.x;
@@ -332,19 +382,35 @@ __device__ __forceinline__ void add_bias(float (&x)[R], const float* b, int col0
   }
 }
 
-// bf16(relu(acc (+ b))) into a K-major swizzled tile at columns col0 + ...
+// bf16(relu(acc (+ b))) into a K-major swizzled tile at columns col0 + ...,
+// a pair of 8-column blocks a stmatrix x4: its four 8 x 8 matrices are rows
+// 0-7 and 8-15 of the warp's 16 in each block, lane l addressing row
+// l % 8 + (l & 8) of block l / 16 (the accumulator fragment is stmatrix's)
 template <int R>
 __device__ __forceinline__ void store_relu(unsigned char* tile, const float (&x)[R],
                                            const float* b, int col0, int r0, int q) {
+  static_assert(R % 8 == 0, "pairs of 8-column blocks");
+  // read here, not hoisted: addresses kept live across the chain would spill
+  uint32_t lane;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(lane));
+  const int row = (r0 & ~15) + (lane & 8) + (lane & 7);
+  const uint32_t base = smem_u32(tile);
+  const float* bq = b == nullptr ? nullptr : b + col0 + 2 * q;
 #pragma unroll
-  for (int j = 0; j < R / 4; j++) {
-    const int c = col0 + 8 * j + 2 * q;
-    float2 bb = make_float2(0.f, 0.f);
-    if (b != nullptr) bb = *reinterpret_cast<const float2*>(b + c);
-    *reinterpret_cast<__nv_bfloat162*>(tile + sw128_offset(r0, c)) = __floats2bfloat162_rn(
-        fmaxf(x[4 * j] + bb.x, 0.f), fmaxf(x[4 * j + 1] + bb.y, 0.f));
-    *reinterpret_cast<__nv_bfloat162*>(tile + sw128_offset(r0 + 8, c)) = __floats2bfloat162_rn(
-        fmaxf(x[4 * j + 2] + bb.x, 0.f), fmaxf(x[4 * j + 3] + bb.y, 0.f));
+  for (int j = 0; j < R / 4; j += 2) {
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 2; i++) {
+      float2 bb = make_float2(0.f, 0.f);
+      if (bq != nullptr) bb = *reinterpret_cast<const float2*>(bq + 8 * (j + i));
+      const int e = 4 * (j + i);
+      v[2 * i] = bf16x2_bits(fmaxf(x[e] + bb.x, 0.f), fmaxf(x[e + 1] + bb.y, 0.f));
+      v[2 * i + 1] = bf16x2_bits(fmaxf(x[e + 2] + bb.x, 0.f), fmaxf(x[e + 3] + bb.y, 0.f));
+    }
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     base + sw128_offset(row, col0 + 8 * (j + (lane >> 4)))),
+                 "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                 : "memory");
   }
 }
 
@@ -396,6 +462,23 @@ __device__ void load_xin(const ChainParams& p, unsigned char* A, int s, int p0) 
         *reinterpret_cast<uint32_t*>(A + sw128_offset(e / pairs, 2 * (e % pairs))) = v[i];
     }
   }
+}
+
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// byte offset of the column pair (r, c) in the pooling's f32 scratch (64 x
+// H): its 8-byte units XOR-swizzled by r % 8, so the eight rows of a warp's
+// access fall on distinct banks in pairs, the fewest wavefronts
+__device__ __forceinline__ uint32_t pool_offset(int r, int c, int H) {
+  return (uint32_t)(r * H * 4 + (((c >> 1) ^ ((r & 7) << 2)) << 3));
 }
 
 // Shared-memory carve-up of a 64-row tile.
@@ -458,6 +541,7 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
   const uint32_t band_off = wg * 16 * NX * 2, band_lbo = 16 * S::SWE * 2;
   const uint32_t chunk_off = wg * (NH / S::SWE) * S::KS3 * SWB, chunk_lbo = S::KS3 * SWB;
   Ring rg{m.ring, m.full, m.empty, 0, 0};
+  int held = -1;  // the ring stage whose wgmma group may still run
   uint32_t nz = 1, na = 0, nh = 0;
   // before rewriting A (or using it as scratch): the last relu(x) copied
   auto a_freed = [&]() {
@@ -478,39 +562,50 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
   float x[NX / 2];
 #pragma unroll
   for (int i = 0; i < NX / 2; i++) x[i] = 0.f;
-  ring_product<NX>(x, m.A, p.d_in_pad, 16, rg, band_off, band_lbo, SWB);
+  ring_product<NX, true>(x, m.A, p.d_in_pad, 16, rg, held, band_off, band_lbo, SWB);
   add_bias(x, p.b_in, xc0, q);
 
   for (int blk = 0; blk < p.n_blocks; blk++) {
     if (blk == p.combine_layer && ns > 1) {
       // mean over the views through f32 scratch over the A and Z tiles
+      // (pool_offset), the views added in order into the rows of the P
+      // points; the other rows keep their values
       a_freed();
       z_freed();
-      float* scr = reinterpret_cast<float*>(m.A);
+      const uint32_t scr = smem_u32(m.A);
 #pragma unroll
-      for (int j = 0; j < NX / 8; j++) {
-        const int c = xc0 + 8 * j + 2 * q;
-        *reinterpret_cast<float2*>(scr + r0 * H + c) = make_float2(x[4 * j], x[4 * j + 1]);
-        *reinterpret_cast<float2*>(scr + (r0 + 8) * H + c) = make_float2(x[4 * j + 2], x[4 * j + 3]);
-      }
+      for (int j = 0; j < NX / 8; j++)
+#pragma unroll
+        for (int h = 0; h < 2; h++)
+          st_shared_f2(scr + pool_offset(r0 + 8 * h, xc0 + 8 * j + 2 * q, H), x[4 * j + 2 * h],
+                       x[4 * j + 2 * h + 1]);
       bar_sync(1, FWD_CONSUMERS);
+      const bool live[2] = {r0 < P, r0 + 8 < P};
 #pragma unroll
-      for (int j = 0; j < NX / 8; j++) {
-        const int c = xc0 + 8 * j + 2 * q;
+      for (int j = 0; j < NX / 8; j++)
 #pragma unroll
-        for (int h = 0; h < 2; h++) {
-          const int r = r0 + 8 * h;
-          if (r >= P) continue;
-          float s0 = 0.f, s1 = 0.f;
-          for (int v = 0; v < ns; v++) {
-            const float2 t = *reinterpret_cast<const float2*>(scr + (v * P + r) * H + c);
-            s0 += t.x;
-            s1 += t.y;
+        for (int h = 0; h < 2; h++)
+          if (live[h]) x[4 * j + 2 * h] = x[4 * j + 2 * h + 1] = 0.f;
+      for (int v = 0; v < ns; v++) {
+#pragma unroll
+        for (int j = 0; j < NX / 8; j++)
+#pragma unroll
+          for (int h = 0; h < 2; h++) {
+            if (!live[h]) continue;
+            const float2 t =
+                ld_shared_f2(scr + pool_offset(v * P + r0 + 8 * h, xc0 + 8 * j + 2 * q, H));
+            x[4 * j + 2 * h] += t.x;
+            x[4 * j + 2 * h + 1] += t.y;
           }
-          x[4 * j + 2 * h] = s0 / (float)ns;
-          x[4 * j + 2 * h + 1] = s1 / (float)ns;
-        }
       }
+#pragma unroll
+      for (int j = 0; j < NX / 8; j++)
+#pragma unroll
+        for (int h = 0; h < 2; h++)
+          if (live[h]) {
+            x[4 * j + 2 * h] = x[4 * j + 2 * h] / (float)ns;
+            x[4 * j + 2 * h + 1] = x[4 * j + 2 * h + 1] / (float)ns;
+          }
       bar_sync(1, FWD_CONSUMERS);
     }
     if (blk < p.n_inj) {
@@ -529,7 +624,8 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
             nz++;
           }
         }
-        ring_product<NX>(x, m.Z, nc, 16, rg, band_off, band_lbo, SWB);
+        // drained: add_bias reads x next, or the next band overwrites Z
+        ring_product<NX, true>(x, m.Z, nc, 16, rg, held, band_off, band_lbo, SWB);
       }
       add_bias(x, p.bz + (size_t)blk * H, xc0, q);
     }
@@ -540,11 +636,14 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
     if (stash) hand_over(m.a_ready);
     na++;
     const float* b0 = p.b0 + (size_t)blk * H;
+#pragma unroll
     for (int c = 0; c < H; c += HC) {
       float h[NH / 2];
 #pragma unroll
       for (int i = 0; i < NH / 2; i++) h[i] = 0.f;
-      ring_product<NH>(h, m.A, H, S::KS3, rg, chunk_off, chunk_lbo, SWB);
+      // issued right behind the previous chunk's W1 product (still in
+      // flight onto x); this drain completes both
+      ring_product<NH, true>(h, m.A, H, S::KS3, rg, held, chunk_off, chunk_lbo, SWB);
       // both warpgroups are done with the previous chunk (for a block's
       // first, the barrier after relu(x) saw to it) and it is copied
       if (c > 0) bar_sync(1, FWD_CONSUMERS);
@@ -554,39 +653,39 @@ __device__ __forceinline__ void chain_consume(const ChainParams& p, const ChainS
       bar_sync(1, FWD_CONSUMERS);
       if (stash) hand_over(m.h_ready);
       nh++;
-      ring_product<NX>(x, m.Hb, HC, 16, rg, band_off, band_lbo, SWB);
+      // the block's last chunk drains for add_bias; another runs on into
+      // the next chunk's W0 product, which reads only A
+      if (c + HC < H)
+        ring_product<NX, false>(x, m.Hb, HC, 16, rg, held, band_off, band_lbo, SWB);
+      else
+        ring_product<NX, true>(x, m.Hb, HC, 16, rg, held, band_off, band_lbo, SWB);
     }
     add_bias(x, p.b1 + (size_t)blk * H, xc0, q);
   }
 
   // out = relu(x) @ W_out + b_out for the tile's P points: W_out goes to
   // the z tile (dead since the last injection) as f32 [o][k]; one warp a
-  // row, lanes over columns, d_out <= 16 sums a lane
+  // row, lane l summing k = l, l + 32, ... in order, then a butterfly over
+  // the lanes
   a_freed();
   z_freed();
   store_relu(m.A, x, nullptr, xc0, r0, q);
   const int d_out = p.d_out;
   float* wo = reinterpret_cast<float*>(m.Z);
-  for (int e = tid; e < H * d_out; e += FWD_CONSUMERS)
-    wo[(e % d_out) * H + e / d_out] = __bfloat162float(p.w_out[e]);
+  for (int k = tid; k < H; k += FWD_CONSUMERS)
+    for (int o = 0; o < d_out; o++) wo[o * H + k] = __bfloat162float(p.w_out[k * d_out + o]);
   bar_sync(1, FWD_CONSUMERS);
   if (stash) hand_over(m.a_ready);
   for (int r = warp; r < P; r += FWD_CONSUMERS / 32) {
     if (p0 + r >= p.b) break;
-    float acc[16];
+    float a[H / 32];
 #pragma unroll
-    for (int o = 0; o < 16; o++) acc[o] = 0.f;
-#pragma unroll 4
-    for (int k = lane; k < H; k += 32) {
-      const float a = __bfloat162float(*reinterpret_cast<const bf16*>(m.A + sw128_offset(r, k)));
+    for (int i = 0; i < H / 32; i++)
+      a[i] = __bfloat162float(*reinterpret_cast<const bf16*>(m.A + sw128_offset(r, lane + 32 * i)));
+    for (int o = 0; o < d_out; o++) {
+      float v = 0.f;
 #pragma unroll
-      for (int o = 0; o < 16; o++)
-        if (o < d_out) acc[o] += a * wo[o * H + k];
-    }
-#pragma unroll
-    for (int o = 0; o < 16; o++) {
-      if (o >= d_out) break;
-      float v = acc[o];
+      for (int i = 0; i < H / 32; i++) v += a[i] * wo[o * H + lane + 32 * i];
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       if (lane == 0) p.out[((size_t)s * p.b + p0 + r) * d_out + o] = v + p.b_out[o];
     }

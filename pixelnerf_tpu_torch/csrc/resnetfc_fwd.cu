@@ -68,6 +68,14 @@ size_t pnt_resnetfc_fwd_smem_bytes(int hidden, int d_latent, int d_in_pad, int n
   return fwd_smem_bytes(hidden, d_latent, ns);
 }
 
+// counts[0]: the ring stages one tile walks, counts[1]: the drains of the
+// tensor pipe its consumers make (fwd_chain.cuh:fwd_schedule)
+void pnt_resnetfc_fwd_schedule(int hidden, int d_latent, int d_in_pad, int ns, int n_blocks,
+                               int combine_layer, int* counts) {
+  fwd_schedule(hidden, d_latent, d_in_pad, ns, n_blocks,
+               combine_layer < n_blocks ? combine_layer : n_blocks, &counts[0], &counts[1]);
+}
+
 // Launches the kernel on `stream` (stash written when spost is not null);
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a width the
 // chain is not built for.

@@ -188,7 +188,11 @@ def _check(feats, grid, xin, w, n_blocks, combine_layer, ns):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built `csrc/field_fwd.cu`, its C signatures bound once."""
-    lib = load_library("field_fwd")
+    return bind_library(load_library("field_fwd"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind the C signatures of `csrc/field_fwd.cu` on a loaded library."""
     lib.pnt_field_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.pnt_field_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.pnt_error_string.restype = ctypes.c_char_p

@@ -1124,29 +1124,50 @@ def test_backward_chain_latent_passes(cuda, ns, sb, b):
         _grad_within(got, ref)
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
-@pytest.mark.parametrize("ns,sb,b", WIDE_CASES)
-def test_forward_chains_at_hidden_128_and_256(cuda, hidden, ns, sb, b):
-    """The ResnetFC and field forwards (primal and stash) at the widths the
-    chain now takes besides 64 and 512."""
-    rng = np.random.default_rng(6000 + hidden + ns * 100 + b)
-    args, w, z, xin, _ = _chain_case(rng, cuda, hidden, ns, sb, b, WIDE_LEVELS)
-    before = (resnetfc_fwd.launches, pyramid_field_fused.launches)
+# The forward chain's schedule (csrc/fwd_chain.cuh: a block's W1 chunks
+# before its last run on into the next W0 chunk, the tensor pipe drained
+# only where an epilogue reads an accumulator) at every boundary it has:
+# hidden 64, 128 and 256 (one h chunk) and 512 (two), NS 1, 2, 3 (21
+# points a tile) and 5 with B off a whole tile, NS 64 (one point a tile),
+# and a banded latent (d_latent 1024 at hidden 512: the z tile reloaded
+# mid-chain); 4 outputs throughout.
+FWD_CHAIN_CASES = [
+    (hidden, None, *case) for hidden in CHAIN_WIDTHS for case in WIDE_CASES + [(64, 1, 3)]
+] + [(512, 1024, *case) for case in WIDE_LATENT_CASES]
+
+
+@pytest.mark.parametrize("hidden,d_latent,ns,sb,b", FWD_CHAIN_CASES)
+def test_forward_chains_match_plain(cuda, hidden, d_latent, ns, sb, b):
+    """The ResnetFC and field forwards, primal and stash, one launch each:
+    outputs against the plain versions, every stash slot against the
+    plain stash, the field's z-stash equal to the plain gather, and each
+    primal's output equal to its stash forward's bit for bit."""
+    rng = np.random.default_rng(6000 + hidden + (d_latent or 0) + ns * 100 + b)
+    levels = WIDE_LATENT_LEVELS[d_latent] if d_latent else _levels_for(hidden)
+    args, w, z, xin, _ = _chain_case(rng, cuda, hidden, ns, sb, b, levels)
+    before = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, pyramid_field_fused.launches,
+              pyramid_field_fused_fwd_stash.launches)
     out = resnetfc_fwd(z, xin, w, *args)
     out_s, spre, spost = resnetfc_fwd_stash(z, xin, w, *args)
-    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
-    assert torch.equal(out, out_s)
-    _out_close(out, want)
-    assert (spre is None) == (wpre is None) and spost.shape == wpost.shape
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dt)
-    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in WIDE_LEVELS]
+    feats = [t(rng.normal(size=(sb * ns, h, ww, c)), torch.bfloat16) for (h, ww, c) in levels]
     grid = t(rng.uniform(-1.1, 1.1, size=(sb, ns, b, 2)))
     fout = pyramid_field_fused(feats, grid, xin, w, *args)
-    fout_s = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)[0]
+    fout_s, zs, fpre, fpost = pyramid_field_fused_fwd_stash(feats, grid, xin, w, *args)
     torch.cuda.synchronize()
-    assert (resnetfc_fwd.launches, pyramid_field_fused.launches) == tuple(x + 1 for x in before)
-    assert torch.equal(fout, fout_s)
-    _out_close(fout, field_plain(feats, grid, xin, w, *args))
+    after = (resnetfc_fwd.launches, resnetfc_fwd_stash.launches, pyramid_field_fused.launches,
+             pyramid_field_fused_fwd_stash.launches)
+    assert after == tuple(x + 1 for x in before)
+    assert torch.equal(out, out_s) and torch.equal(fout, fout_s)
+    want, wpre, wpost = resnetfc_fwd_plain(z, xin, w, *args, stash=True)
+    fwant, wzs, fwpre, fwpost = field_plain(feats, grid, xin, w, *args, stash=True)
+    _out_close(out, want)
+    _out_close(fout, fwant)
+    assert torch.equal(zs, pyramid_gather_plain(feats, grid.reshape(sb * ns, b, 2)).reshape(zs.shape))
+    for got, ref in zip((spre, spost, fpre, fpost), (wpre, wpost, fwpre, fwpost)):
+        assert (got is None) == (ref is None)
+        if got is not None:
+            _grad_within(got, ref)
 
 
 def test_resnetfc_backward_takes_the_layered_path_past_the_chain_widths(cuda):
